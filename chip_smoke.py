@@ -1,0 +1,577 @@
+#!/usr/bin/env python3
+"""On-card smoke run of kasa_tpu_torch: the port's identify on one
+NVIDIA GPU, through its four CUDA kernels, checked against references.
+
+    python3 chip_smoke.py          # from the root of a checkout
+
+Phases (any failure ends the run with a non-zero exit; none is caught):
+
+  build    compile the CUDA kernels (one nvcc per source, in parallel)
+           and the host C++ library;
+  golden   identify fixtures/reads.fastq on tests/golden/exampleIndex on
+           the card; agree with the reference outputs
+           (tests/golden/reads_identify.json, reads_profile.csv) under
+           the contract: same hit taxa, k-mer scores within rtol 2e-5 /
+           atol 1e-4, identical unique counts; every kernel launched;
+  full     the 2047-species synthetic corpus (kasa_tpu_torch/synth.py,
+           ~32.7 M entries, cached in .synth_corpus/): tables, one
+           8,192-read warm-up run, then 65,536 reads (8 batches) through
+           identify with the launch counts reset just before and read
+           just after; reads/s, host stage times, host-recompute share,
+           peak device memory; 512 sampled reads of a real batch held
+           against the exact host recompute (host_classify_read);
+  kernels  on that batch, each kernel against its plain PyTorch version
+           on the card (same contract), with its time, the plain
+           version's time, its memory bound and, for the search, one
+           torch.searchsorted call as a yardstick the port never uses.
+
+Prints the card's name and power limit, a JSON line of the kernels, and
+last the line {"ok": true, "device": {...}}.  Longer logs and the
+full-size outputs go to .synth_corpus/out/.  Without a CUDA device, or outside a checkout, it exits
+non-zero and prints no result.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+OUT = os.path.join(HERE, ".synth_corpus", "out")
+RTOL, ATOL = 2e-5, 1e-4
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM peak device-memory rate
+DEVICE = "cuda"
+
+
+def fail(msg):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def smi_line():
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    if r.returncode != 0:
+        fail(f"nvidia-smi: {r.stderr.strip()}")
+    return r.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# the contract
+
+def assert_identify_agrees(ref_json, got_json, ref_prof, got_prof, num_k):
+    import numpy as np
+    if len(ref_json) != len(got_json):
+        fail(f"{len(got_json)} reads written, reference {len(ref_json)}")
+    for er, tr in zip(ref_json, got_json):
+        for field in ("Read number", "Specifier from input file", "Length"):
+            if er[field] != tr[field]:
+                fail(f"read {er['Read number']}: {field} differs")
+        eh = {h["tax ID"]: h for h in er["Top hits"] + er["Further hits"]}
+        th = {h["tax ID"]: h for h in tr["Top hits"] + tr["Further hits"]}
+        if set(eh) != set(th):
+            fail(f"read {er['Read number']}: hit taxa differ")
+        for tid, h in eh.items():
+            np.testing.assert_allclose(float(th[tid]["k-mer Score"]),
+                                       float(h["k-mer Score"]),
+                                       rtol=RTOL, atol=ATOL)
+    el, tl = ref_prof.splitlines(), got_prof.splitlines()
+    if len(el) != len(tl) or el[0] != tl[0]:
+        fail("profile rows differ")
+    for e, t in zip(el[1:], tl[1:]):
+        ec, tc = e.split(","), t.split(",")
+        if ec[:2 + num_k] != tc[:2 + num_k]:
+            fail(f"profile unique counts differ: {ec[:2 + num_k]} vs "
+                 f"{tc[:2 + num_k]}")
+        np.testing.assert_allclose(np.array(tc[2 + num_k:], float),
+                                   np.array(ec[2 + num_k:], float),
+                                   rtol=RTOL, atol=ATOL)
+
+
+def same(name, a, b):
+    import torch
+    a, b = a.cpu(), b.cpu()
+    if a.shape != b.shape or not torch.equal(a, b):
+        bad = int((a != b).sum()) if a.shape == b.shape else -1
+        fail(f"{name}: kernel and plain version differ ({bad} elements)")
+    return 0.0
+
+
+def close(name, a, b):
+    import torch
+    a, b = a.cpu().double(), b.cpu().double()
+    if a.shape != b.shape:
+        fail(f"{name}: shapes {tuple(a.shape)} vs {tuple(b.shape)}")
+    if not torch.allclose(a, b, rtol=RTOL, atol=ATOL):
+        fail(f"{name}: kernel and plain version disagree, max abs "
+             f"{float((a - b).abs().max())}")
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+# ---------------------------------------------------------------------------
+# phases
+
+def phase_build():
+    from kasa_tpu_torch import kernels, native
+    t0 = time.perf_counter()
+    host = threading.Thread(target=native.get_lib)
+    host.start()
+    reports = kernels.build_all(force=True)
+    host.join()
+    if native.get_lib() is None:
+        fail("the host C++ library did not build")
+    with open(os.path.join(OUT, "ptxas.txt"), "w") as fh:
+        for name, rep in reports.items():
+            fh.write(f"--- {name}.cu\n{rep}\n")
+    used = [ln.split("info    :")[-1].strip()
+            for rep in reports.values() for ln in rep.splitlines()
+            if "Used" in ln]
+    log(f"build: {len(reports)} CUDA sources + host library in "
+        f"{time.perf_counter() - t0:.2f} s; ptxas: {'; '.join(used)}")
+
+
+def phase_golden():
+    import torch
+    from kasa_tpu_torch import kernels
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.match.pipeline import identify
+    gold = os.path.join(HERE, "tests", "golden")
+    cfg = Config()
+    cfg.content_file = os.path.join(gold, "exampleIndex_content.txt")
+    out_j = os.path.join(OUT, "golden.json")
+    out_p = os.path.join(OUT, "golden_profile.csv")
+    kernels.reset_counts()
+    identify(cfg, index_path=os.path.join(gold, "exampleIndex"),
+             input_path=os.path.join(HERE, "fixtures", "reads.fastq"),
+             out_file=out_j, profile_file=out_p, device=DEVICE)
+    torch.cuda.synchronize()
+    counts = dict(kernels.COUNTS)
+    if min(counts.values()) <= 0:
+        fail(f"golden run missed a kernel: {counts}")
+    assert_identify_agrees(
+        json.load(open(os.path.join(gold, "reads_identify.json"))),
+        json.load(open(out_j)),
+        open(os.path.join(gold, "reads_profile.csv")).read(),
+        open(out_p).read(), 6)
+    log(f"golden: agrees with tests/golden/reads_identify.json and "
+        f"reads_profile.csv under the contract; launches {counts}")
+
+
+def phase_corpus():
+    from kasa_tpu_torch import synth
+    t0 = time.perf_counter()
+    corpus = synth.generate(log=log)
+    log(f"corpus: n_entries={corpus['n_entries']} "
+        f"S={corpus['num_species'] + 1} ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return corpus
+
+
+def phase_full(corpus):
+    import numpy as np
+    import torch
+    from kasa_tpu_torch import kernels, synth
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.match import fast
+    from kasa_tpu_torch.match.pipeline import identify
+    from kasa_tpu_torch.utils import timers
+
+    def run(inp, out_j, out_p):
+        cfg = Config()
+        return identify(cfg, index_path=corpus["index"], input_path=inp,
+                        out_file=out_j, profile_file=out_p, device=DEVICE)
+
+    timers.reset()
+    t0 = time.perf_counter()
+    run(corpus["warm"], os.path.join(OUT, "warm.json"), None)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    tstages = {k: round(v, 3) for k, v in timers.report(lambda *_: None)
+               .items() if k.startswith(("turbo/", "ttbuild/"))}
+    log(f"full: tables + {synth.WARM_READS}-read warm-up run "
+        f"{t_warm:.1f} s; table stages {tstages}")
+
+    timers.reset()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    ca, cu, nreads, nk = run(corpus["smoke"],
+                             os.path.join(OUT, "smoke.json"),
+                             os.path.join(OUT, "smoke_profile.csv"))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.COUNTS)
+    if min(launches.values()) <= 0:
+        fail(f"the main path missed a kernel: {launches}")
+    if nreads != synth.SMOKE_READS:
+        fail(f"{nreads} reads identified, expected {synth.SMOKE_READS}")
+    if not (np.isfinite(ca).all() and cu.sum() > 0 and ca.shape == cu.shape):
+        fail("count matrices are not finite / empty")
+    fb, tot = fast.LAST_FALLBACK
+    stages = {k: round(v, 4) for k, v in
+              timers.report(lambda *_: None).items()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"full: {nreads} reads in {dt:.3f} s = {nreads / dt:.1f} reads/s; "
+        f"host recompute {fb}/{tot} = {100.0 * fb / tot:.4f} %; peak "
+        f"device memory {peak / 2**30:.3f} GiB; launches {launches}")
+    log(f"full: host stage seconds {json.dumps(stages)}")
+    with open(os.path.join(OUT, "smoke.json")) as fh:
+        n_out = sum(1 for ln in fh if '"Read number"' in ln)
+    if n_out != nreads:
+        fail(f"{n_out} reads in the output file, expected {nreads}")
+    return fast.LAST_DISPATCH, launches, dict(
+        reads=nreads, seconds=dt, reads_per_s=nreads / dt,
+        fallback_pct=100.0 * fb / tot, peak_bytes=peak, stages=stages)
+
+
+def real_batch(corpus, disp):
+    """The first 8,192 reads of the smoke set as the main path lays
+    them out."""
+    import numpy as np
+    from kasa_tpu_torch.match.fast import BatchAssembler, READS_PER_BATCH
+    from kasa_tpu_torch.native import load_fastx, sanitize_inplace
+    seq, so, _, _, _ = load_fastx(corpus["smoke"], True)
+    sanitize_inplace(seq, False)
+    R = READS_PER_BATCH
+    asm = BatchAssembler(12, 7)
+    lens = np.diff(so[:R + 1])
+    maxlen = (int(lens.max()) + asm.marker_len + 15) // 16 * 16
+    mat = asm.assemble(seq[:so[R]], so[:R + 1].astype(np.int64), maxlen, R)
+    return mat, R, asm.window_target(maxlen)
+
+
+def phase_sample(disp, mat, R, w):
+    """512 sampled unflagged reads of a real batch: the device hit lists
+    against the exact host recompute."""
+    import numpy as np
+    import torch
+    from kasa_tpu_torch.core.alphabet import build_codon_code_lut
+    from kasa_tpu_torch.match import turbo as T
+    tt = disp.tt
+    lut_np = build_codon_code_lut().astype(np.int32)
+    lut = torch.from_numpy(lut_np).to(DEVICE)
+    acc_ca, acc_cu = disp.new_acc()
+    cap = disp.csr_cap(R)
+    packed, ht_d, hk_d = T.fused_turbo_acc(
+        tt, torch.from_numpy(mat).to(DEVICE), lut, acc_ca, acc_cu, R, w, cap)
+    packed = packed.cpu().numpy()
+    hc, ofc, ofl, _, ht, hk = disp.decode(packed, R, R, cap, True, ht_d,
+                                          hk_d)
+    rng = np.random.default_rng(512)
+    n_sample = min(512, R)
+    sample = rng.choice(R, size=n_sample, replace=False)
+    checked = 0
+    for r in sample:
+        if ofl[r]:
+            continue            # the host recomputes these reads anyway
+        q = T.read_windows_np(mat[r:r + 1], lut_np, 12, w)
+        exact, _, _ = T.host_classify_read(tt, q)
+        want = sorted((t, v) for t, v in exact.items() if v > 0)
+        got = [(int(ht[r, i]), float(hk[r, i])) for i in range(hc[r])]
+        if [t for t, _ in want] != [t for t, _ in got]:
+            fail(f"read {r}: device hit taxa differ from the host recompute")
+        np.testing.assert_allclose([v for _, v in got],
+                                   [float(v) for _, v in want],
+                                   rtol=RTOL, atol=ATOL)
+        checked += 1
+    if checked < 0.75 * n_sample:
+        fail(f"only {checked} of {n_sample} sampled reads were unflagged")
+    log(f"sample: {checked} of {n_sample} sampled reads agree with "
+        f"host_classify_read ({n_sample - checked} flagged, recomputed on "
+        "the host by design)")
+
+
+def time_ms(fn, reps):
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def sector_bytes(idx, row_bytes):
+    """Bytes of the distinct 32-byte sectors that reads of rows `idx` of
+    a table with `row_bytes`-byte rows touch: a gather that lands on a
+    sector already read moves nothing new."""
+    import torch
+    if idx.numel() == 0:
+        return 0
+    a = idx.long().reshape(-1) * row_bytes
+    return 32 * int(torch.unique(torch.cat([a // 32,
+                                            (a + row_bytes - 1) // 32]))
+                    .numel())
+
+
+def match_bytes(q, tt, R, SW):
+    """Least bytes K2 moves on these windows: q once, the outputs once,
+    and the distinct sectors of router, sub-router, keys2 (every bisect
+    midpoint, repeated ones included) and rowdat (pos and pos-1) that
+    the search touches."""
+    import torch
+    from kasa_tpu_torch.match import turbo as T
+    n = tt.n
+    q0, q1 = q[:, 0], q[:, 1]
+    bucket = (q0 >> (T.LIMB_BITS - T.ROUTER_BITS)).long()
+    rr = tt.router[bucket]
+    lo, meta = rr[:, 0], rr[:, 1]
+    is_sub = meta < 0
+    code = torch.where(is_sub, -meta, torch.full_like(meta, 32))
+    s = torch.where(is_sub, code & 31, torch.full_like(code, T.SUB_BITS))
+    subkey = ((q0 & 0x3F) << (T.SUB_BITS - 6)) \
+        | (q1 >> (T.LIMB_BITS - (T.SUB_BITS - 6)))
+    sidx = (code >> 5) + (subkey >> (T.SUB_BITS - s))
+    srow = tt.sub2[torch.where(is_sub, sidx, torch.zeros_like(sidx)).long()]
+    lo = torch.where(is_sub, srow[:, 0], lo)
+    hi = torch.where(is_sub, srow[:, 1], meta)
+    mids = []
+    for _ in range(tt.num_steps):
+        mid = (lo + hi) >> 1
+        mids.append(mid.clamp(max=n - 1))
+        kk = tt.keys2[mids[-1].long()]
+        less = (kk[:, 0] < q0) | ((kk[:, 0] == q0) & (kk[:, 1] < q1))
+        lo = torch.where(less, mid + 1, lo)
+        hi = torch.where(less, hi, mid)
+    rows = torch.cat([lo.clamp(max=n - 1), (lo - 1).clamp(0, n - 1)])
+    return (q.numel() * 4 + 2 * R * SW * 4
+            + sector_bytes(bucket, 8) + sector_bytes(sidx[is_sub], 8)
+            + sector_bytes(torch.cat(mids), 8) + sector_bytes(rows, 16))
+
+
+def multi_bytes(cp, mcnt, ofc, tt, R, S, H, B):
+    """Least bytes K4 moves: the read counts, the multi payloads, the
+    distinct sectors of grp2, t_hot and d_tax4 (headers of the cold
+    slots, taxa rows of the admitted ones) and of the count cells the
+    expansion adds to (read and written), and its outputs once."""
+    import torch
+    nk, n = tt.num_k, tt.n
+    valid = cp >= 0
+    pos = torch.nonzero(valid.reshape(-1)).reshape(-1)[:B]
+    mp = cp.reshape(-1)[pos]
+    rid = pos // cp.shape[1]
+    ki = (mp & 7).long()
+    g = (ki * n + (mp >> 3).long()).clamp(max=nk * n - 1)
+    row0 = tt.grp2[g].long()
+    cold, hot = row0 > 0, row0 < 0
+    T_ = tt.d_tax4[row0[cold], 0].long()
+    ok = ~ofc[rid[cold]].bool()
+    nrow = (T_[ok] + 3) >> 2
+    first = row0[cold][ok] + 1
+    sl = torch.repeat_interleave(torch.arange(len(nrow), device=cp.device),
+                                 nrow)
+    j = torch.arange(len(sl), device=cp.device) \
+        - (torch.cumsum(nrow, 0) - nrow)[sl]
+    taxa_rows = (first[sl] + j).clamp(max=tt.d_tax4.shape[0] - 1)
+    taxa = tt.d_tax4[taxa_rows]
+    cells = (ki[cold][ok][sl][:, None] * S + taxa)[taxa >= 0]
+    return (2 * R * 4 + sector_bytes(pos, 4) + sector_bytes(g, 4)
+            + sector_bytes(-row0[hot] - 1, 4)
+            + sector_bytes(torch.cat([row0[cold], taxa_rows]), 16)
+            + 2 * sector_bytes(cells, 4)
+            + R + R * S * 4 + R * H * 4 + nk * H * 4 + 8)
+
+
+def phase_kernels(disp, mat, R, w, launches):
+    import numpy as np
+    import torch
+    from kasa_tpu_torch.core import encode as E
+    from kasa_tpu_torch.core.alphabet import build_codon_code_lut
+    from kasa_tpu_torch.match import turbo as T
+    tt = disp.tt
+    dev = torch.device(DEVICE)
+    nk, S, H = tt.num_k, tt.num_species, tt.hotmask.shape[0]
+    mb, eb = disp.multi_budget, disp.exp_budget
+    cap = disp.csr_cap(R)
+    mat_d = torch.from_numpy(mat).to(dev)
+    lut = torch.from_numpy(build_codon_code_lut().astype(np.int32)).to(dev)
+
+    def acc():
+        return (torch.zeros((nk, S), dtype=torch.float32, device=dev),
+                torch.zeros((nk, S), dtype=torch.int32, device=dev))
+
+    # K1
+    q = E.encode_windows(mat_d, lut, w)
+    err1 = same("encode", q, E.encode_windows_plain(mat_d, lut, w))
+    M = q.shape[0]
+    SW = w * nk
+    # K2
+    skey, mpay = T.turbo_match(q, tt, R, w)
+    sk2, mp2 = T.turbo_match_plain(q, tt, R, w)
+    same("turbo_match.skey", skey, sk2)
+    err2 = same("turbo_match.mpay", mpay, mp2)
+    # K3 pre
+    pre_k = T.turbo_reads_pre(skey, mpay)
+    pre_p = T.turbo_reads_pre_plain(skey, mpay)
+    for nm, a, b in zip(("ck", "cc", "runs", "mcnt", "cp"), pre_k, pre_p):
+        same(f"turbo_reads.{nm}", a, b)
+    ck, cc, runs, mcnt, cp = pre_p
+    # K4
+    ca_k, _ = acc()
+    ca_p, _ = acc()
+    mk = T.turbo_multi(cp, mcnt, runs, tt, ca_k, mb, eb)
+    mp_ = T.turbo_multi_plain(cp, mcnt, runs, tt, ca_p, mb, eb)
+    same("turbo_multi.ofc", mk[0], mp_[0])
+    same("turbo_multi.diag", mk[4], mp_[4])
+    err4 = max(close("turbo_multi.dm", mk[1], mp_[1]),
+               close("turbo_multi.a3w", mk[2], mp_[2]),
+               close("turbo_multi.a3c", mk[3], mp_[3]),
+               close("turbo_multi.acc_ca", ca_k, ca_p))
+    ofc, dm, a3w, a3c, diag = mp_
+    dm = dm.clone()
+    dm.addmm_(a3w, tt.hotmask)
+    # K3 post
+    ca_k, cu_k = acc()
+    ca_p, cu_p = acc()
+    po_k = T.turbo_reads_post(ck, cc, ofc, dm, tt.weights, ca_k, cu_k, diag,
+                              cap)
+    po_p = T.turbo_reads_post_plain(ck, cc, ofc, dm, tt.weights, ca_p, cu_p,
+                                    diag, cap)
+    pk, pp = po_k[0].cpu(), po_p[0].cpu()
+    ints = torch.ones(len(pk), dtype=torch.bool)
+    ints[2 * R + 1:2 * R + 2 * cap:2] = False
+    same("turbo_reads.packed", pk[ints], pp[ints])
+    same("turbo_reads.ht", po_k[1], po_p[1])
+    same("turbo_reads.acc_cu", cu_k, cu_p)
+    err3 = max(close("turbo_reads.ksum", pk[2 * R + 1:2 * R + 2 * cap:2]
+                     .view(torch.float32),
+                     pp[2 * R + 1:2 * R + 2 * cap:2].view(torch.float32)),
+               close("turbo_reads.hk", po_k[2], po_p[2]),
+               close("turbo_reads.acc_ca", ca_k, ca_p))
+    torch.cuda.synchronize()
+    mtot, eused = (int(x) for x in diag.tolist())
+    hits = int(pp[-2])
+    log(f"kernels: all four agree with their plain versions on a "
+        f"{R}-read batch (M={M} windows, SW={SW}, multi slots {mtot}, "
+        f"expansion rows {eused}, hits {hits})")
+
+    # times: kernel reps, then plain reps, on the same inputs
+    ca_t, cu_t = acc()
+    kms = {
+        "encode": time_ms(lambda: E.encode_windows(mat_d, lut, w), 20),
+        "turbo_match": time_ms(lambda: T.turbo_match(q, tt, R, w), 20),
+        "turbo_reads": time_ms(lambda: T.turbo_reads_pre(skey, mpay), 10)
+        + time_ms(lambda: T.turbo_reads_post(ck, cc, ofc, dm, tt.weights,
+                                             ca_t, cu_t, diag, cap), 10),
+        "turbo_multi": time_ms(lambda: T.turbo_multi(cp, mcnt, runs, tt,
+                                                     ca_t, mb, eb), 10),
+    }
+    pms = {
+        "encode": time_ms(lambda: E.encode_windows_plain(mat_d, lut, w), 5),
+        "turbo_match": time_ms(lambda: T.turbo_match_plain(q, tt, R, w), 5),
+        "turbo_reads": time_ms(lambda: T.turbo_reads_pre_plain(skey, mpay),
+                               3)
+        + time_ms(lambda: T.turbo_reads_post_plain(
+            ck, cc, ofc, dm, tt.weights, ca_t, cu_t, diag, cap), 3),
+        "turbo_multi": time_ms(lambda: T.turbo_multi_plain(
+            cp, mcnt, runs, tt, ca_t, mb, eb), 3),
+    }
+    # the whole batch step as the main path queues it (K1-K4, the zeroed
+    # score rows, the two hot-set products), on the device's clock
+    step_ms = time_ms(lambda: T.fused_turbo_acc(tt, mat_d, lut, ca_t, cu_t,
+                                                R, w, cap, mb, eb), 10)
+    keys64 = (tt.keys2[:, 0].long() << 30) | tt.keys2[:, 1].long()
+    q64 = (q[:, 0].long() << 30) | q[:, 1].long()
+    lib_ms = time_ms(lambda: torch.searchsorted(keys64, q64), 20)
+
+    # least bytes each function must move on this batch: each input read
+    # once and each output written once; a gathered table counts the
+    # distinct 32-byte sectors its gathers touch, an accumulator the
+    # sectors of the cells added to (read and written)
+    t1 = ck[(ck != T.SENT) & ~ofc.bool()[:, None]]
+    t1_cells = (t1 & 7).long() * S + (t1 >> 3).long()
+    bytes_ = {
+        "encode": R * mat.shape[1] + M * 8,
+        "turbo_match": match_bytes(q, tt, R, SW),
+        "turbo_reads": (2 * R * SW * 4 + R * SW * 4 + 2 * R * T.CW * 4
+                        + 2 * R * 4) + (2 * R * T.CW * 4 + R + R * S * 4
+                                        + 2 * R * T.WOUT * 4
+                                        + (2 * R + 2 * cap + 4) * 4
+                                        + 2 * 2 * sector_bytes(t1_cells, 4)),
+        "turbo_multi": multi_bytes(cp, mcnt, ofc, tt, R, S, H, mb),
+    }
+    sources = {"encode": ("kasa_tpu_torch/csrc/encode.cu",
+                          "kasa_tpu/core/encode.py:52"),
+               "turbo_match": ("kasa_tpu_torch/csrc/turbo_match.cu",
+                               "kasa_tpu/match/turbo.py:569"),
+               "turbo_reads": ("kasa_tpu_torch/csrc/turbo_reads.cu",
+                               "kasa_tpu/match/turbo.py:717"),
+               "turbo_multi": ("kasa_tpu_torch/csrc/turbo_multi.cu",
+                               "kasa_tpu/match/turbo.py:740")}
+    errs = {"encode": err1, "turbo_match": err2, "turbo_reads": err3,
+            "turbo_multi": err4}
+    out = []
+    for name in ("encode", "turbo_match", "turbo_reads", "turbo_multi"):
+        src, rep = sources[name]
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": rep, "launches": launches[name],
+                    "max_abs_err": errs[name], "ms": kms[name],
+                    "plain_ms": pms[name],
+                    "bound_ms": bytes_[name] / HBM_BYTES_PER_S * 1e3,
+                    "bound_by": "bytes",
+                    "library_ms": lib_ms if name == "turbo_match" else None})
+        log(f"kernel {name}: {kms[name]:.4f} ms (plain {pms[name]:.4f} ms, "
+            f"bound {out[-1]['bound_ms']:.4f} ms from "
+            f"{bytes_[name] / 1e6:.2f} MB), {launches[name]} launches in "
+            "the main run")
+    log(f"library: torch.searchsorted over packed 60-bit keys {lib_ms:.4f} "
+        "ms (yardstick for turbo_match's search; the port never calls it)")
+    log(f"step: fused_turbo_acc {step_ms:.4f} ms per {R}-read batch on the "
+        "device (all four kernels, the zeroed score rows and the two "
+        "hot-set products)")
+    return out, step_ms
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script runs the port on the card")
+    if not os.path.isdir(os.path.join(HERE, "kasa_tpu_torch")) or \
+            not os.path.isdir(os.path.join(HERE, "tests", "golden")):
+        fail("run chip_smoke.py from the root of a kasa-tpu checkout")
+    sys.path.insert(0, HERE)
+    os.makedirs(OUT, exist_ok=True)
+    t_all = time.perf_counter()
+    smi = smi_line()
+    log(smi)
+    phase_build()
+    phase_golden()
+    corpus = phase_corpus()
+    disp, launches, info = phase_full(corpus)
+    mat, R, w = real_batch(corpus, disp)
+    phase_sample(disp, mat, R, w)
+    kern, step_ms = phase_kernels(disp, mat, R, w, launches)
+    info["busy_pct"] = 100.0 * step_ms * 1e-3 * info["reads"] / R \
+        / info["seconds"]
+    log(f"full: the device is busy about {info['busy_pct']:.2f} % of the "
+        f"identify run ({info['reads'] // R} batch steps of {step_ms:.4f} ms "
+        f"in {info['seconds']:.3f} s; copies not counted)")
+    with open(os.path.join(OUT, "chip_smoke.json"), "w") as fh:
+        json.dump({"card": smi, "full": info, "kernels": kern,
+                   "step_ms": step_ms}, fh, indent=1)
+    log(f"chip_smoke: all phases passed in "
+        f"{time.perf_counter() - t_all:.1f} s")
+    print(smi)
+    print(json.dumps({"kernels": kern}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

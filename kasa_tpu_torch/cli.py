@@ -1,0 +1,303 @@
+"""Command-line entry point (port of kasa_tpu/cli.py): the reference's flag
+surface, with the identify mode only.  Invoke as
+``python -m kasa_tpu_torch identify -d <index> -c <content> -i <reads>
+-q <out> -p <profile> [--device cpu]``.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+from .config import Config, load_yaml_config
+
+USAGE = """kasa_tpu_torch -- kASA-compatible metagenomic classifier on CUDA
+Modes: identify (the other kasa_tpu modes are later slices of the port)
+Flags mirror the reference kASA binary (see README); --device cpu runs
+the plain PyTorch versions of the kernels."""
+
+
+def parse_args(argv: list[str]) -> Config:
+    cfg = Config()
+    if len(argv) < 2:
+        print(USAGE)
+        sys.exit(1)
+    if argv[1] in ("-h", "--help"):
+        print(USAGE)
+        sys.exit(0)
+    if argv[1] == "--parameters":
+        params = load_yaml_config(argv[2])
+        return config_from_yaml(params)
+    cfg.mode = argv[1]
+    i = 2
+    mem_mb = None
+
+    def nxt():
+        nonlocal i
+        i += 1
+        return argv[i]
+
+    while i < len(argv):
+        p = argv[i]
+        if p in ("-h", "--help"):
+            print(USAGE); sys.exit(0)
+        elif p in ("-o", "--outgoing"):
+            cfg.db_out = nxt()
+        elif p in ("-t", "--temp"):
+            cfg.temp_path = nxt()
+        elif p in ("-u", "--level"):
+            cfg.tax_level = nxt()
+            if cfg.tax_level == "sequence":
+                cfg.tax_level = "lowest"
+        elif p in ("-e", "--unique"):
+            cfg.unique = True
+        elif p == "--continue":
+            cfg.continue_build = True
+        elif p in ("-f", "--acc2tax"):
+            cfg.acc_to_tax_files = nxt()
+        elif p in ("-y", "--taxonomy"):
+            cfg.taxonomy_path = nxt()
+        elif p in ("-v", "--verbose"):
+            cfg.verbose = True
+        elif p in ("-z", "--translated"):
+            cfg.translated = True
+        elif p in ("-j", "--sloppy"):
+            cfg.sloppy = True
+        elif p in ("-d", "--database"):
+            cfg.index_file = cfg.db_out = nxt()
+        elif p == "--firstIndex":
+            cfg.first_old_index = nxt()
+        elif p == "--secondIndex":
+            cfg.second_old_index = nxt()
+        elif p in ("-a", "--alphabet"):
+            cfg.codon_table = nxt()
+            cfg.codon_id = nxt()
+        elif p in ("-b", "--beasts"):
+            cfg.num_of_beasts = max(int(nxt()), 1)
+        elif p in ("-r", "--ram"):
+            cfg.ram = True
+        elif p in ("-g", "--percentage"):
+            cfg.shrink_percentage = float(nxt())
+        elif p in ("-x", "--callidx"):
+            cfg.call_idx = int(nxt())
+        elif p in ("-n", "--threads"):
+            cfg.threads = int(nxt())
+        elif p == "-k":
+            cfg.higher_k = int(nxt())
+            cfg.lower_k = int(nxt())
+            cfg.higher_k = min(cfg.higher_k, 25)
+            cfg.lower_k = max(cfg.lower_k, 1)
+            if cfg.lower_k > cfg.higher_k:
+                cfg.lower_k, cfg.higher_k = cfg.higher_k, cfg.lower_k
+        elif p == "--kH":
+            cfg.higher_k = min(int(nxt()), 25)
+        elif p == "--kL":
+            cfg.lower_k = max(int(nxt()), 1)
+        elif p in ("-i", "--input"):
+            cfg.input = nxt()
+        elif p in ("-q", "--rtt"):
+            cfg.read_to_taxa_file = nxt()
+        elif p in ("-p", "--profile"):
+            cfg.table_file = nxt()
+        elif p in ("-m", "--memory"):
+            v = nxt()
+            mem_mb = ((1 << 64) - 1) // (1024 * 1024) if v == "inf" else 1024 * int(v)
+        elif p in ("-s", "--strategy"):
+            c = int(nxt())
+            cfg.shrink_strategy = c if c in (1, 2, 3, 4) else 2
+        elif p in ("-c", "--content"):
+            cfg.content_file = nxt()
+        elif p == "-c1":
+            cfg.content_file1 = nxt()
+        elif p == "-c2":
+            cfg.content_file2 = nxt()
+        elif p == "-co":
+            cfg.content_file_after_update = nxt()
+        elif p == "-1":
+            cfg.paired_end_1 = nxt()
+        elif p == "-2":
+            cfg.paired_end_2 = nxt()
+        elif p in ("-l", "--deleted"):
+            cfg.delnodes_file = nxt()
+        elif p == "--json":
+            cfg.output_format = "json"
+        elif p == "--jsonl":
+            cfg.output_format = "jsonl"
+        elif p == "--tsv":
+            cfg.output_format = "tsv"
+        elif p == "--kraken":
+            cfg.output_format = "kraken"
+        elif p == "--stxxl":
+            nxt()  # accepted for compatibility; no stxxl here
+        elif p == "--six":
+            cfg.six_frames = True
+        elif p == "--three":
+            cfg.three_frames = True
+        elif p == "--one":
+            cfg.one_frame = True
+        elif p == "--threshold":
+            cfg.threshold = float(nxt())
+        elif p == "--taxidasstr":
+            cfg.taxids_as_strings = True
+        elif p == "--coverage":
+            cfg.coverage = True
+        elif p == "--filter":
+            cfg.filter = True
+            cfg.filtered_clean_out = nxt()
+            cfg.filtered_contaminants_out = nxt()
+        elif p == "--errorThreshold":
+            cfg.error_threshold = float(nxt())
+        elif p == "--gzip":
+            cfg.gzip_out = True
+        elif p == "--igotspace":
+            cfg.i_got_space = True
+        elif p == "--coherence":
+            cfg.post_process = True
+        elif p == "--coherenceThreshold":
+            cfg.coherence_threshold = float(nxt())
+        elif p == "--visualize":
+            cfg.visualize = True
+        elif p == "--engine":
+            # kasa_tpu's engine choice: the port runs the turbo engine
+            # ("tpu"); the exact and join engines are later slices
+            cfg.engine = nxt()
+            cfg.engine_explicit = True
+            if cfg.engine != "tpu":
+                raise NotImplementedError(
+                    f"--engine {cfg.engine} is a later slice of the port")
+        elif p == "--device":
+            # port extension: cuda (default) or cpu (plain versions)
+            cfg.device = nxt()
+        elif p in ("--sidecar", "--no-sidecar"):
+            pass  # build-time flags of kasa_tpu, accepted
+        elif p in ("--debug", "--spaced"):
+            pass  # dev flags accepted, no-op
+        elif p == "--mask":
+            nxt()
+        else:
+            raise RuntimeError(
+                "Some unknown parameter has been inserted, please check your command line.")
+        i += 1
+
+    if mem_mb is None:
+        mem_mb = 5120  # main.cpp:590
+    cfg.memory_avail = mem_mb * 1024 * 1024
+    return cfg
+
+
+_YAML_STR_KEYS = {
+    # parameters.yaml key -> Config field (readParametersFromYaml,
+    # Utilities.hpp:1114-1420; schema parameters.yaml:11-94)
+    "Mode": "mode",
+    "ContentFile": "content_file",
+    "FilePathForTemporaryFiles": "temp_path",
+    "AlphabetFile": "codon_table",
+    "AlphabetIndex": "codon_id",
+    "InputFileOrFolder": "input",
+    "PairedEnd-First": "paired_end_1",
+    "PairedEnd-Second": "paired_end_2",
+    "TaxonomicLevel": "tax_level",
+    "AccessionToTaxIDFileOrFolder": "acc_to_tax_files",
+    "TaxonomyFolder": "taxonomy_path",
+    "ProfileOutputfile": "table_file",
+    "ReadIDtoTaxIDOutputfile": "read_to_taxa_file",
+    "ReadIDtoTaxIDOutputFormat": "output_format",
+    "FileWithDeletedTaxa": "delnodes_file",
+    "ContentFile-First": "content_file1",
+    "ContentFile-Second": "content_file2",
+    "ContentFile-Out": "content_file_after_update",
+    "FirstOldIndex": "first_old_index",
+    "SecondOldIndex": "second_old_index",
+}
+
+_YAML_BOOL_KEYS = {
+    "Verbose": "verbose",
+    "AlreadyTranslated": "translated",
+    "TaxIDsAreStrings": "taxids_as_strings",
+    "IGotSpace": "i_got_space",
+    "One": "one_frame",
+    "Three": "three_frames",
+    "Six": "six_frames",
+    "UseRAMOnly": "ram",
+    "UniqueKmersOnly": "unique",
+    "Coherence": "post_process",
+    "PrintCoverage": "coverage",
+    "Gzip": "gzip_out",
+}
+
+
+def config_from_yaml(params: dict) -> Config:
+    """--parameters <yaml>: the reference's parameters.yaml schema
+    (main.cpp:264-302; reader Utilities.hpp:1114)."""
+    cfg = Config()
+    for key, val in params.items():
+        if key in _YAML_STR_KEYS:
+            if val:
+                setattr(cfg, _YAML_STR_KEYS[key], val)
+        elif key in _YAML_BOOL_KEYS:
+            setattr(cfg, _YAML_BOOL_KEYS[key], val.lower() == "true")
+        elif not val:
+            continue
+        elif key == "Index":
+            cfg.index_file = cfg.db_out = val
+        elif key == "NewIndex":
+            cfg.db_out = val
+        elif key == "kHigh":
+            cfg.higher_k = min(int(val), 25)
+        elif key == "kLow":
+            cfg.lower_k = max(int(val), 1)
+        elif key == "NumberOfThreads":
+            cfg.threads = int(val)
+        elif key == "AvailableRAMinGB":
+            cfg.memory_avail = int(val) * 1024 * 1024 * 1024
+        elif key == "CallIndex":
+            cfg.call_idx = int(val)
+        elif key == "NumberOfTaxaPerRead":
+            cfg.num_of_beasts = max(int(val), 1)
+        elif key == "ThresholdForScore":
+            cfg.threshold = float(val)
+        elif key == "ErrorThreshold":
+            cfg.error_threshold = float(val)
+        elif key == "CoherenceThreshold":
+            cfg.coherence_threshold = float(val)
+        elif key == "ShrinkingStrategy":
+            c = int(val)
+            cfg.shrink_strategy = c if c in (1, 2, 3, 4) else 2
+        elif key == "ShrinkPercentage":
+            cfg.shrink_percentage = float(val)
+        elif key == "Filter":
+            parts = val.split()
+            if len(parts) == 2 and parts != ["_", "_"]:
+                cfg.filter = True
+                cfg.filtered_clean_out = parts[0]
+                cfg.filtered_contaminants_out = parts[1]
+        # DeveloperOnly keys (Debug/Visualize/Spaced/SpacedMaskIdx) are
+        # accepted no-ops, matching the CLI flags.
+    if cfg.lower_k > cfg.higher_k:
+        cfg.lower_k, cfg.higher_k = cfg.higher_k, cfg.lower_k
+    return cfg
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = argv if argv is not None else sys.argv
+    try:
+        cfg = parse_args(argv)
+        t0 = time.time()
+        run_mode(cfg)
+        print(f"OUT: Time: {time.time() - t0} s")
+        return 0
+    except SystemExit as e:
+        return int(e.code or 0)
+    except Exception as e:  # reference prints ERROR: to stderr (main.cpp:1718)
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 1
+
+
+def run_mode(cfg: Config):
+    if cfg.mode == "identify":
+        from .match.pipeline import identify
+        identify(cfg, device=getattr(cfg, "device", None))
+    else:
+        raise NotImplementedError(
+            f"mode {cfg.mode!r} is a later slice of kasa_tpu_torch; this "
+            "slice ports identify")

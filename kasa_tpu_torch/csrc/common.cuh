@@ -1,0 +1,58 @@
+// Shared helpers of the turbo kernels (kasa_tpu_torch/csrc/*.cu).
+//
+// Every kernel file exports plain C launchers: device pointers, sizes
+// and the CUDA stream come in as arguments, the launcher queues the
+// kernel(s) on that stream and returns cudaGetLastError(), which the
+// Python wrapper (kasa_tpu_torch/kernels.py) turns into an exception.
+// No launcher allocates or synchronises.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#define KASA_I32_MAX 2147483647
+
+// Rank of this thread's flag among the flags of the block in thread
+// order, plus the block's total, for a block of NWARPS full warps.
+// Every thread of the block must call it (it synchronises twice).
+template <int NWARPS>
+__device__ __forceinline__ int block_rank(bool flag, int* warp_sums,
+                                          int* total) {
+    const unsigned lane = threadIdx.x & 31u;
+    const unsigned warp = threadIdx.x >> 5;
+    const unsigned ballot = __ballot_sync(0xffffffffu, flag);
+    const int within = __popc(ballot & ((1u << lane) - 1u));
+    if (lane == 0) warp_sums[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0, tot = 0;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) {
+        const int s = warp_sums[w];
+        before += (w < (int)warp) ? s : 0;
+        tot += s;
+    }
+    __syncthreads();
+    *total = tot;
+    return before + within;
+}
+
+// Exclusive prefix sum of one int64 value per thread over a block of
+// NTHREADS threads (Hillis-Steele in shared memory); returns the
+// block total in *total.  Every thread must call it.
+template <int NTHREADS>
+__device__ __forceinline__ long long block_exclusive_scan(
+        long long v, long long* buf, long long* total) {
+    const int t = threadIdx.x;
+    buf[t] = v;
+    __syncthreads();
+    for (int off = 1; off < NTHREADS; off <<= 1) {
+        const long long add = (t >= off) ? buf[t - off] : 0;
+        __syncthreads();
+        buf[t] += add;
+        __syncthreads();
+    }
+    const long long incl = buf[t];
+    *total = buf[NTHREADS - 1];
+    __syncthreads();
+    return incl - v;
+}

@@ -1,0 +1,326 @@
+// K3 turbo_reads: the per-read stages of the turbo classify step.
+//
+// Replaces, from kasa_tpu/match/turbo.py:518 _turbo_core, the per-read
+// half of "wsort1" (672-686: compaction of a read's multi slots),
+// "t1sort" (717-738: per-read sort of the T == 1 keys, run ends and run
+// counts), "fold" (922-948: the first CW runs, zeroed for flagged
+// reads, added to counts_all and counts_unique) and "lists" (950-996:
+// the T1 taxa sums, the read's first WM multi taxa, their merge into
+// the top WOUT hit list and oflow_lists), plus the packed tail of
+// fused_turbo_acc (1226-1241: exclusive scan of the hit counts, the
+// CSR of (tax, ksum bits) pairs, flags and the 4-int tail).
+//
+// Two entry points, around K4 (turbo_multi.cu):
+//   pre:  one block per read sorts the read's SW slot keys in shared
+//         memory (bitonic, padded to a power of two P), writes the
+//         first CW runs (key, count), the run count, and compacts the
+//         multi payloads to the front of the read's row;
+//   post: one block per read adds its runs to the count accumulators
+//         (integer atomics for counts_unique), scans its (R, S) score
+//         row in taxon order for the first WM taxa with a positive
+//         score, merges them with the T1 taxa and writes the hit list,
+//         hit count and flags; then one block scans the hit counts and
+//         one block per read scatters its CSR pairs.
+//
+// Bound on the H100: memory for "post" (each read's S-float score row
+// is read once: R*S*4 bytes, 64 MB at R = 8192, S = 2048); "pre" is
+// bound by the shared-memory sort, O(P log^2 P) compare-exchanges per
+// read, which at P = 1024 sits below the card's memory time only when
+// many blocks are resident.
+//
+// Design: shared memory holds at most P = SW_CAP = 4096 int32 keys
+// (16 KB), so a read line with more than 4096 slots is refused by the
+// Python wrapper; CW, WM and WOUT must be <= 256.  The serial parts
+// (T1 taxon sums and the two-list merge, <= 320 steps) run on one
+// thread of the block: simple, and short next to the sort.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kListMax = 256;
+
+__global__ void reads_pre_kernel(const int32_t* __restrict__ skey,
+                                 const int32_t* __restrict__ mpay,
+                                 int SW, int P, int sent, int cw,
+                                 int32_t* __restrict__ ck,
+                                 int32_t* __restrict__ cc,
+                                 int32_t* __restrict__ runs,
+                                 int32_t* __restrict__ mcnt,
+                                 int32_t* __restrict__ cp) {
+    extern __shared__ int32_t smem[];
+    int32_t* keys = smem;            // P
+    int32_t* endpos = smem + P;      // cw
+    __shared__ int warp_sums[kWarps];
+    const int tid = threadIdx.x;
+    const long long r = blockIdx.x;
+    const int32_t* srow = skey + r * SW;
+    for (int i = tid; i < P; i += kThreads)
+        keys[i] = i < SW ? srow[i] : sent;
+    __syncthreads();
+
+    // bitonic sort, ascending
+    for (int k = 2; k <= P; k <<= 1) {
+        for (int j = k >> 1; j > 0; j >>= 1) {
+            for (int i = tid; i < P; i += kThreads) {
+                const int ixj = i ^ j;
+                if (ixj > i) {
+                    const int32_t a = keys[i], b = keys[ixj];
+                    const bool asc = (i & k) == 0;
+                    if ((a > b) == asc) {
+                        keys[i] = b;
+                        keys[ixj] = a;
+                    }
+                }
+            }
+            __syncthreads();
+        }
+    }
+
+    // run ends in position order = ascending key order
+    int off = 0;
+    for (int t0 = 0; t0 < P; t0 += kThreads) {
+        const int i = t0 + tid;
+        bool e = false;
+        int32_t key = sent;
+        if (i < P) {
+            key = keys[i];
+            e = key != sent && (i == P - 1 || keys[i + 1] != key);
+        }
+        int tot;
+        const int rank = block_rank<kWarps>(e, warp_sums, &tot);
+        if (e && off + rank < cw) {
+            endpos[off + rank] = i;
+            ck[r * cw + off + rank] = key;
+        }
+        off += tot;
+    }
+    __syncthreads();
+    if (tid == 0) runs[r] = off;
+    for (int rho = tid; rho < cw; rho += kThreads) {
+        if (rho < off) {
+            cc[r * cw + rho] = endpos[rho] - (rho > 0 ? endpos[rho - 1] : -1);
+        } else {
+            ck[r * cw + rho] = sent;
+            cc[r * cw + rho] = 0;
+        }
+    }
+
+    // multi payloads to the row's front, in slot order
+    const int32_t* mrow = mpay + r * SW;
+    int32_t* crow = cp + r * SW;
+    int moff = 0;
+    for (int t0 = 0; t0 < SW; t0 += kThreads) {
+        const int i = t0 + tid;
+        const int32_t v = i < SW ? mrow[i] : -1;
+        int tot;
+        const int rank = block_rank<kWarps>(v >= 0, warp_sums, &tot);
+        if (v >= 0) crow[moff + rank] = v;
+        moff += tot;
+    }
+    if (tid == 0) mcnt[r] = moff;
+    for (int i = moff + tid; i < SW; i += kThreads) crow[i] = -1;
+}
+
+__global__ void reads_post_kernel(const int32_t* __restrict__ ck,
+                                  const int32_t* __restrict__ cc,
+                                  const uint8_t* __restrict__ ofc,
+                                  const float* __restrict__ dm,
+                                  const float* __restrict__ weights,
+                                  float* __restrict__ acc_ca,
+                                  int32_t* __restrict__ acc_cu,
+                                  int S, int cw, int sent, int wout, int wm,
+                                  int32_t* __restrict__ ht,
+                                  float* __restrict__ hk,
+                                  int32_t* __restrict__ hc,
+                                  int32_t* __restrict__ flags) {
+    __shared__ int32_t s_key[kListMax];
+    __shared__ int32_t s_cnt[kListMax];
+    __shared__ int32_t t1tax[kListMax];
+    __shared__ float t1val[kListMax];
+    __shared__ int32_t mk[kListMax];
+    __shared__ float mv[kListMax];
+    __shared__ int warp_sums[kWarps];
+    __shared__ int s_nout;
+    const int tid = threadIdx.x;
+    const long long r = blockIdx.x;
+    const bool keep = ofc[r] == 0;
+
+    // T1 fold (flagged reads are recomputed whole on the host)
+    for (int rho = tid; rho < cw; rho += kThreads) {
+        const int32_t key = ck[r * cw + rho];
+        const int32_t cnt = cc[r * cw + rho];
+        s_key[rho] = key;
+        s_cnt[rho] = cnt;
+        if (key != sent && keep) {
+            const long long cell = (long long)(key & 7) * S + (key >> 3);
+            atomicAdd(&acc_cu[cell], cnt);
+            atomicAdd(&acc_ca[cell], (float)cnt);
+        }
+    }
+
+    // the read's multi taxa: first wm with a positive score, in order
+    const float* drow = dm + r * S;
+    int moff = 0;
+    for (int t0 = 0; t0 < S; t0 += kThreads) {
+        const int s = t0 + tid;
+        const float v = s < S ? drow[s] : 0.0f;
+        int tot;
+        const int rank = block_rank<kWarps>(v > 0.0f, warp_sums, &tot);
+        if (v > 0.0f && moff + rank < wm) {
+            mk[moff + rank] = s;
+            mv[moff + rank] = v;
+        }
+        moff += tot;
+    }
+    __syncthreads();
+
+    if (tid == 0) {
+        int ntax1 = 0;
+        for (int rho = 0; rho < cw; ++rho) {
+            const int32_t key = s_key[rho];
+            if (key == sent) break;
+            const int32_t tax = key >> 3;
+            const float v = weights[key & 7] * (keep ? (float)s_cnt[rho] : 0.0f);
+            if (ntax1 > 0 && t1tax[ntax1 - 1] == tax) {
+                t1val[ntax1 - 1] += v;
+            } else {
+                t1tax[ntax1] = tax;
+                t1val[ntax1] = v;
+                ++ntax1;
+            }
+        }
+        const int n1 = min(ntax1, wout), n2 = min(moff, wm);
+        int i = 0, j = 0, ntax = 0;
+        while (i < n1 || j < n2) {
+            const int32_t ta = i < n1 ? t1tax[i] : KASA_I32_MAX;
+            const int32_t tb = j < n2 ? mk[j] : KASA_I32_MAX;
+            int32_t t;
+            float v;
+            if (ta < tb) {
+                t = ta; v = t1val[i++];
+            } else if (tb < ta) {
+                t = tb; v = mv[j++];
+            } else {
+                t = ta; v = t1val[i++] + mv[j++];
+            }
+            if (ntax < wout) {
+                ht[r * wout + ntax] = t;
+                hk[r * wout + ntax] = v;
+            }
+            ++ntax;
+        }
+        const int nout = min(ntax, wout);
+        s_nout = nout;
+        hc[r] = nout;
+        const bool ofl = !keep || ntax1 > wout || moff > wm || ntax > wout;
+        flags[r] = (keep ? 0 : 1) | (ofl ? 2 : 0);
+    }
+    __syncthreads();
+    for (int i = s_nout + tid; i < wout; i += kThreads) {
+        ht[r * wout + i] = KASA_I32_MAX;
+        hk[r * wout + i] = 0.0f;
+    }
+}
+
+constexpr int kScanThreads = 1024;
+
+__global__ void pack_scan_kernel(const int32_t* __restrict__ hc,
+                                 const int32_t* __restrict__ flags,
+                                 const int32_t* __restrict__ diag, int R,
+                                 int32_t* __restrict__ cum,
+                                 int32_t* __restrict__ tail) {
+    __shared__ long long buf[kScanThreads];
+    const int tid = threadIdx.x;
+    const int chunk = (R + kScanThreads - 1) / kScanThreads;
+    const int r0 = min(tid * chunk, R), r1 = min(r0 + chunk, R);
+    long long local = 0, nfl = 0;
+    for (int r = r0; r < r1; ++r) {
+        local += hc[r];
+        nfl += flags[r] != 0;
+    }
+    long long total, nflag;
+    long long run = block_exclusive_scan<kScanThreads>(local, buf, &total);
+    block_exclusive_scan<kScanThreads>(nfl, buf, &nflag);
+    for (int r = r0; r < r1; ++r) {
+        cum[r] = (int32_t)run;
+        run += hc[r];
+    }
+    if (tid == 0) {
+        tail[0] = diag[0];
+        tail[1] = diag[1];
+        tail[2] = (int32_t)total;
+        tail[3] = (int32_t)nflag;
+    }
+}
+
+__global__ void pack_scatter_kernel(const int32_t* __restrict__ hc,
+                                    const int32_t* __restrict__ flags,
+                                    const int32_t* __restrict__ cum,
+                                    const int32_t* __restrict__ ht,
+                                    const float* __restrict__ hk, int R,
+                                    int wout, long long cap,
+                                    int32_t* __restrict__ packed) {
+    const long long r = blockIdx.x;
+    const int n = hc[r];
+    if (threadIdx.x == 0) {
+        packed[r] = n;
+        packed[R + r] = flags[r];
+    }
+    int32_t* csr = packed + 2LL * R;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const long long d = (long long)cum[r] + i;
+        if (d < cap) {
+            csr[2 * d] = ht[r * wout + i];
+            csr[2 * d + 1] = __float_as_int(hk[r * wout + i]);
+        }
+    }
+}
+
+}  // namespace
+
+extern "C" int kasa_turbo_reads_pre(const void* skey, const void* mpay,
+                                    int R, int SW, int P, int sent, int cw,
+                                    void* ck, void* cc, void* runs,
+                                    void* mcnt, void* cp, void* stream) {
+    if (cw > kListMax || P < SW || (P & (P - 1)) != 0)
+        return (int)cudaErrorInvalidValue;
+    if (R > 0) {
+        const size_t smem = (size_t)(P + cw) * sizeof(int32_t);
+        reads_pre_kernel<<<R, kThreads, smem, (cudaStream_t)stream>>>(
+            (const int32_t*)skey, (const int32_t*)mpay, SW, P, sent, cw,
+            (int32_t*)ck, (int32_t*)cc, (int32_t*)runs, (int32_t*)mcnt,
+            (int32_t*)cp);
+    }
+    return (int)cudaGetLastError();
+}
+
+extern "C" int kasa_turbo_reads_post(const void* ck, const void* cc,
+                                     const void* ofc, const void* dm,
+                                     const void* weights, void* acc_ca,
+                                     void* acc_cu, const void* diag, int R,
+                                     int S, int cw, int sent, int wout,
+                                     int wm, long long cap, void* ht,
+                                     void* hk, void* hc, void* flags,
+                                     void* cum, void* packed, void* stream) {
+    if (cw > kListMax || wout > kListMax || wm > kListMax)
+        return (int)cudaErrorInvalidValue;
+    if (R > 0) {
+        cudaStream_t st = (cudaStream_t)stream;
+        reads_post_kernel<<<R, kThreads, 0, st>>>(
+            (const int32_t*)ck, (const int32_t*)cc, (const uint8_t*)ofc,
+            (const float*)dm, (const float*)weights, (float*)acc_ca,
+            (int32_t*)acc_cu, S, cw, sent, wout, wm, (int32_t*)ht,
+            (float*)hk, (int32_t*)hc, (int32_t*)flags);
+        int32_t* tail = (int32_t*)packed + 2LL * R + 2LL * cap;
+        pack_scan_kernel<<<1, kScanThreads, 0, st>>>(
+            (const int32_t*)hc, (const int32_t*)flags, (const int32_t*)diag,
+            R, (int32_t*)cum, tail);
+        pack_scatter_kernel<<<R, 128, 0, st>>>(
+            (const int32_t*)hc, (const int32_t*)flags, (const int32_t*)cum,
+            (const int32_t*)ht, (const float*)hk, R, wout, cap,
+            (int32_t*)packed);
+    }
+    return (int)cudaGetLastError();
+}

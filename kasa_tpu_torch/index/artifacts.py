@@ -1,0 +1,136 @@
+"""On-disk index artifact family, byte-compatible with the reference
+(port of kasa_tpu/index/artifacts.py: the 64-bit readers and the writers
+the synthetic corpus uses).
+
+An index named ``<idx>`` consists of (SURVEY §5; reference README 462-479):
+
+  <idx>            sorted (k-mer, taxid) records, dedup'd; 64-bit: 12 B
+                   packed (u64 LE kmer, u32 LE taxid), file padded with
+                   zeros to 2101248-byte stxxl blocks (MetaHeader.h:137)
+  <idx>_info.txt   entry count [+ "\\n128" or "\\n3" type tag]
+  <idx>_trie       RLE of the 6-letter prefixes: 12 B packed
+                   (u64 LE count, u32 LE prefix) (Trie.hpp:366-394)
+  <idx>_trie.txt   number of trie records
+  <idx>_f.txt      per-taxon k-mer validity counts, k = highestK..lowestK
+                   (kASA.hpp:449-575)
+  <idx>_content.txt  taxa metadata (index/content.py)
+
+In memory the k-mers live as int32 limb arrays (core/kmer.py).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from ..core import kmer
+
+BLOCK_64 = 2101248
+
+REC_64 = np.dtype([("kmer", "<u8"), ("taxid", "<u4")])
+REC_TRIE = np.dtype([("count", "<u8"), ("prefix", "<u4")])
+
+INDEX_TYPE_64 = 0
+INDEX_TYPE_128 = 128
+INDEX_TYPE_HALF = 3
+
+
+def _pad_to_blocks(raw: bytes, block: int) -> bytes:
+    n = len(raw)
+    total = -(-max(n, 1) // block) * block
+    return raw + b"\x00" * (total - n)
+
+
+def read_info(path: str) -> tuple[int, int]:
+    """<idx>_info.txt -> (num_entries, index_type)."""
+    with open(path + "_info.txt") as fh:
+        tokens = fh.read().split()
+    n = int(tokens[0])
+    itype = int(tokens[1]) if len(tokens) > 1 else INDEX_TYPE_64
+    return n, itype
+
+
+def write_info(path: str, n: int):
+    with open(path + "_info.txt", "w") as fh:
+        fh.write(str(n))
+
+
+def write_index(path: str, limbs: np.ndarray, taxids: np.ndarray):
+    """Sorted (N, 2) limbs + taxids (N,) -> packed 64-bit index + info."""
+    rec = np.empty(len(taxids), dtype=REC_64)
+    rec["kmer"] = kmer.limbs_to_u64(limbs)
+    rec["taxid"] = taxids.astype(np.uint32)
+    with open(path, "wb") as fh:
+        fh.write(_pad_to_blocks(rec.tobytes(), BLOCK_64))
+    write_info(path, len(taxids))
+
+
+_READ_INDEX_CACHE: dict = {}
+
+
+def read_index(path: str) -> tuple[np.ndarray, np.ndarray, int, int]:
+    """64-bit index -> (limbs (N, 2) int32, taxids (N,) uint32, highest_k
+    = 12, index_type).  Other index types raise (later slices).
+
+    One-entry RAM cache keyed by (path, mtime, size): repeated identify
+    calls over the same index skip the artifact load."""
+    n, itype = read_info(path)
+    if itype != INDEX_TYPE_64:
+        raise NotImplementedError(f"index type {itype} (128-bit or halved) "
+                                  "is a later slice of the port")
+    try:
+        st = os.stat(path)
+        key = (os.path.abspath(path), st.st_mtime_ns, st.st_size)
+    except OSError:
+        key = None
+    if key is not None and key in _READ_INDEX_CACHE:
+        return _READ_INDEX_CACHE[key]
+    rec = np.fromfile(path, dtype=REC_64, count=n)
+    out = (kmer.u64_to_limbs(rec["kmer"]), rec["taxid"].copy(), 12, itype)
+    if key is not None:
+        _READ_INDEX_CACHE.clear()
+        _READ_INDEX_CACHE[key] = out
+    return out
+
+
+def write_trie(path: str, prefixes: np.ndarray, counts: np.ndarray):
+    """RLE prefix table -> <idx>_trie + <idx>_trie.txt (Trie.hpp:366-394)."""
+    rec = np.empty(len(prefixes), dtype=REC_TRIE)
+    rec["count"] = counts.astype(np.uint64)
+    rec["prefix"] = prefixes.astype(np.uint32)
+    nbytes = rec.nbytes
+    total = -(-max(nbytes, 1) // BLOCK_64) * BLOCK_64
+    with open(path + "_trie", "wb") as fh:
+        rec.tofile(fh)
+        if total > nbytes:
+            fh.write(b"\x00" * (total - nbytes))
+    with open(path + "_trie.txt", "w") as fh:
+        fh.write(str(len(prefixes)))
+
+
+def trie_from_sorted_prefixes(prefix_limb: np.ndarray
+                              ) -> tuple[np.ndarray, np.ndarray]:
+    """limb0 column (sorted) -> (unique prefixes, run lengths)."""
+    n = len(prefix_limb)
+    if n == 0:
+        return np.zeros(0, np.uint32), np.zeros(0, np.uint64)
+    starts = np.r_[0, np.nonzero(prefix_limb[1:] != prefix_limb[:-1])[0] + 1]
+    counts = np.diff(np.r_[starts, n])
+    return prefix_limb[starts].astype(np.uint32), counts.astype(np.uint64)
+
+
+def write_frequency_file(path: str, content_entries, freq: np.ndarray):
+    """freq: (num_taxa+1, maxNumK) uint64, row 0 = "non_unique".
+
+    Columns are written k = highestK .. lowestK (kASA.hpp:547-570)."""
+    with open(path + "_f.txt", "w") as fh:
+        fh.write("non_unique")
+        for v in freq[0]:
+            fh.write(f"\t{int(v)}")
+        fh.write("\n")
+        for row, entry in zip(freq[1:], content_entries):
+            fh.write(entry.name.replace(",", ""))
+            for v in row:
+                fh.write(f"\t{int(v)}")
+            fh.write("\n")

@@ -1,0 +1,313 @@
+"""Build, bind and launch the hand-written CUDA kernels (csrc/*.cu).
+
+Each source compiles with nvcc for sm_90a into its own shared library
+with a plain C interface (no PyTorch headers: seconds per file), all
+sources at once in parallel, on first use, into ``kasa_tpu_torch/_build``
+(listed in .gitignore).  ctypes binds the launchers; pointers come from
+``tensor.data_ptr()`` and the stream from PyTorch's current stream.
+
+Every wrapper checks dtype, shape, contiguity and device, allocates its
+outputs and scratch with torch.empty/torch.zeros, launches, adds one to
+its launch count, and raises if the launcher reports a CUDA error.
+Nothing here synchronises.  Nothing here runs on the CPU: the callers
+(core/encode.py, match/turbo.py) take the plain PyTorch versions for
+CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+
+import torch
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_DIR, "csrc")
+BUILD = os.path.join(_DIR, "_build", "cuda")
+SOURCES = ("encode", "turbo_match", "turbo_reads", "turbo_multi")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# launches per kernel since the last reset_counts(): one per wrapper
+# call that launched (turbo_reads counts its pre and post entry points)
+COUNTS = {"encode": 0, "turbo_match": 0, "turbo_reads": 0,
+          "turbo_multi": 0}
+
+_libs: dict = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_ARGTYPES = {
+    "kasa_encode_windows": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "kasa_turbo_match": [_P] * 6 + [_L] + [_I] * 6 + [_P, _P, _P],
+    "kasa_turbo_reads_pre": [_P, _P] + [_I] * 5 + [_P] * 6,
+    "kasa_turbo_reads_post": [_P] * 8 + [_I] * 6 + [_L] + [_P] * 7,
+    "kasa_turbo_multi": [_P] * 7 + [_I] * 8 + [_L, _I, _I] + [_P] * 14
+                        + [_I, _P],
+}
+_LIB_OF = {"kasa_encode_windows": "encode",
+           "kasa_turbo_match": "turbo_match",
+           "kasa_turbo_reads_pre": "turbo_reads",
+           "kasa_turbo_reads_post": "turbo_reads",
+           "kasa_turbo_multi": "turbo_multi"}
+
+
+def reset_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
+
+
+def nvcc_path() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+                       "are built from kasa_tpu_torch/csrc at first use")
+
+
+def _so(name: str) -> str:
+    return os.path.join(BUILD, f"lib{name}.so")
+
+
+def _stale(name: str) -> bool:
+    so = _so(name)
+    if not os.path.exists(so):
+        return True
+    srcs = [os.path.join(CSRC, f"{name}.cu"), os.path.join(CSRC, "common.cuh")]
+    return os.path.getmtime(so) < max(os.path.getmtime(s) for s in srcs)
+
+
+def build_all(force: bool = False) -> dict:
+    """Compile every stale kernel source, one nvcc per source, all
+    started together.  Returns {name: ptxas report} of the sources
+    built in this call; raises with nvcc's output if one fails."""
+    todo = [s for s in SOURCES if force or _stale(s)]
+    if not todo:
+        return {}
+    os.makedirs(BUILD, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name in todo:
+        tmp = f"{_so(name)}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
+               os.path.join(CSRC, f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp)
+    reports, failed = {}, []
+    for name, (proc, tmp) in procs.items():
+        out, _ = proc.communicate()
+        reports[name] = out
+        if proc.returncode != 0:
+            failed.append(f"--- {name}.cu ---\n{out}")
+            continue
+        os.replace(tmp, _so(name))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return reports
+
+
+def _fn(sym: str):
+    name = _LIB_OF[sym]
+    lib = _libs.get(name)
+    if lib is None:
+        if _stale(name):
+            build_all()
+        lib = ctypes.CDLL(_so(name))
+        for s, lname in _LIB_OF.items():
+            if lname == name:
+                f = getattr(lib, s)
+                f.restype = ctypes.c_int
+                f.argtypes = _ARGTYPES[s]
+        _libs[name] = lib
+    return getattr(lib, sym)
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def _launch(sym: str, counter: str, *args) -> None:
+    rc = _fn(sym)(*args)
+    COUNTS[counter] += 1
+    if rc != 0:
+        raise RuntimeError(f"{sym}: CUDA error {rc}")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# K1 encode (csrc/encode.cu)
+
+def encode_windows(byte_mat: torch.Tensor, lut: torch.Tensor,
+                   w: int) -> torch.Tensor:
+    dev = byte_mat.device
+    if dev.type != "cuda":
+        raise ValueError("encode_windows: the kernel takes CUDA tensors")
+    rows, maxlen = byte_mat.shape
+    _check(byte_mat, "byte_mat", torch.uint8, (rows, maxlen), dev)
+    _check(lut, "lut", torch.int32, (lut.numel(),), dev)
+    out = torch.empty((rows * w, 2), dtype=torch.int32, device=dev)
+    _launch("kasa_encode_windows", "encode", _ptr(byte_mat), _ptr(lut),
+            lut.numel(), rows, maxlen, w, _ptr(out), _stream(dev))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2 turbo_match (csrc/turbo_match.cu)
+
+def _check_tables(tt, dev) -> None:
+    n, nk = tt.n, tt.num_k
+    _check(tt.keys2, "keys2", torch.int32, (n, 2), dev)
+    _check(tt.rowdat, "rowdat", torch.int32, (n, 4), dev)
+    _check(tt.router, "router", torch.int32, (1 << 24, 2), dev)
+    _check(tt.sub2, "sub2", torch.int32, (tt.sub2.shape[0], 2), dev)
+    _check(tt.grp2, "grp2", torch.int32, (nk * n,), dev)
+    _check(tt.d_tax4, "d_tax4", torch.int32, (tt.d_tax4.shape[0], 4), dev)
+    _check(tt.weights, "weights", torch.float32, (nk,), dev)
+    _check(tt.masks2, "masks2", torch.int32, (nk, 2), dev)
+    _check(tt.t_hot, "t_hot", torch.int32, (tt.hotmask.shape[0],), dev)
+
+
+def turbo_match(q: torch.Tensor, tt, num_reads: int, kmers_per_read: int,
+                sent: int):
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError("turbo_match: the kernel takes CUDA tensors")
+    R, kpr, nk = num_reads, kmers_per_read, tt.num_k
+    M = R * kpr
+    _check(q, "q", torch.int32, (M, 2), dev)
+    _check_tables(tt, dev)
+    skey = torch.empty((R, kpr * nk), dtype=torch.int32, device=dev)
+    mpay = torch.empty((R, kpr * nk), dtype=torch.int32, device=dev)
+    _launch("kasa_turbo_match", "turbo_match", _ptr(q), _ptr(tt.router),
+            _ptr(tt.sub2), _ptr(tt.keys2), _ptr(tt.rowdat), _ptr(tt.masks2),
+            M, tt.n, nk, tt.min_k, tt.max_k, tt.num_steps, sent,
+            _ptr(skey), _ptr(mpay), _stream(dev))
+    return skey, mpay
+
+
+# ---------------------------------------------------------------------------
+# K3 turbo_reads (csrc/turbo_reads.cu)
+
+def _pow2(n: int) -> int:
+    p = 32
+    while p < n:
+        p <<= 1
+    return p
+
+
+def turbo_reads_pre(skey: torch.Tensor, mpay: torch.Tensor, sent: int,
+                    cw: int):
+    from .match.turbo import SW_CAP
+    dev = skey.device
+    if dev.type != "cuda":
+        raise ValueError("turbo_reads_pre: the kernel takes CUDA tensors")
+    R, SW = skey.shape
+    if SW > SW_CAP:
+        raise NotImplementedError(f"{SW} slots per read exceed the "
+                                  f"per-read kernel's cap of {SW_CAP}")
+    _check(skey, "skey", torch.int32, (R, SW), dev)
+    _check(mpay, "mpay", torch.int32, (R, SW), dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    ck = torch.empty((R, cw), **i32)
+    cc = torch.empty((R, cw), **i32)
+    runs = torch.empty((R,), **i32)
+    mcnt = torch.empty((R,), **i32)
+    cp = torch.empty((R, SW), **i32)
+    _launch("kasa_turbo_reads_pre", "turbo_reads", _ptr(skey), _ptr(mpay),
+            R, SW, _pow2(SW), sent, cw, _ptr(ck), _ptr(cc), _ptr(runs),
+            _ptr(mcnt), _ptr(cp), _stream(dev))
+    return ck, cc, runs, mcnt, cp
+
+
+def turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
+                     csr_cap: int, sent: int, wout: int, wm: int):
+    dev = ck.device
+    if dev.type != "cuda":
+        raise ValueError("turbo_reads_post: the kernel takes CUDA tensors")
+    R, cw = ck.shape
+    S = dm.shape[1]
+    nk = weights.shape[0]
+    _check(ck, "ck", torch.int32, (R, cw), dev)
+    _check(cc, "cc", torch.int32, (R, cw), dev)
+    _check(ofc, "ofc", torch.bool, (R,), dev)
+    _check(dm, "dm", torch.float32, (R, S), dev)
+    _check(weights, "weights", torch.float32, (nk,), dev)
+    _check(acc_ca, "acc_ca", torch.float32, (nk, S), dev)
+    _check(acc_cu, "acc_cu", torch.int32, (nk, S), dev)
+    _check(diag, "diag", torch.int32, (2,), dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    ht = torch.empty((R, wout), **i32)
+    hk = torch.empty((R, wout), dtype=torch.float32, device=dev)
+    hc = torch.empty((R,), **i32)
+    flags = torch.empty((R,), **i32)
+    cum = torch.empty((R,), **i32)
+    packed = torch.zeros((2 * R + 2 * csr_cap + 4,), **i32)
+    _launch("kasa_turbo_reads_post", "turbo_reads", _ptr(ck), _ptr(cc),
+            _ptr(ofc), _ptr(dm), _ptr(weights), _ptr(acc_ca), _ptr(acc_cu),
+            _ptr(diag), R, S, cw, sent, wout, wm, csr_cap, _ptr(ht),
+            _ptr(hk), _ptr(hc), _ptr(flags), _ptr(cum), _ptr(packed),
+            _stream(dev))
+    return packed, ht, hk
+
+
+# ---------------------------------------------------------------------------
+# K4 turbo_multi (csrc/turbo_multi.cu)
+
+def turbo_multi(cp, mcnt, runs, tt, acc_ca, multi_budget: int,
+                exp_budget: int, cw: int, sent: int):
+    dev = cp.device
+    if dev.type != "cuda":
+        raise ValueError("turbo_multi: the kernel takes CUDA tensors")
+    R, SW = cp.shape
+    S, nk = tt.num_species, tt.num_k
+    H = tt.hotmask.shape[0]
+    _check(cp, "cp", torch.int32, (R, SW), dev)
+    _check(mcnt, "mcnt", torch.int32, (R,), dev)
+    _check(runs, "runs", torch.int32, (R,), dev)
+    _check(acc_ca, "acc_ca", torch.float32, (nk, S), dev)
+    _check_tables(tt, dev)
+    B = min(int(multi_budget), R * SW)
+    hist_n = S + 2
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    read_base = torch.empty((R,), **i32)
+    wl = torch.empty((3, max(B, 1)), **i32)
+    hist = torch.zeros((hist_n,), **i32)
+    r_cnt = torch.empty((R,), **i32)
+    r_rows = torch.empty((R,), **i32)
+    r_big = torch.empty((R,), dtype=torch.uint8, device=dev)
+    ofc = torch.empty((R,), dtype=torch.bool, device=dev)
+    diag = torch.zeros((2,), **i32)
+    dm = torch.zeros((R, S), **f32)
+    a3w = torch.zeros((R, H), **f32)
+    a3c = torch.zeros((nk, H), **f32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _launch("kasa_turbo_multi", "turbo_multi", _ptr(cp), _ptr(mcnt),
+            _ptr(runs), _ptr(tt.grp2), _ptr(tt.d_tax4), _ptr(tt.t_hot),
+            _ptr(tt.weights), R, SW, tt.n, nk, S, H, tt.d_tax4.shape[0], B,
+            int(exp_budget), cw, hist_n, _ptr(read_base), _ptr(wl[0]),
+            _ptr(wl[1]), _ptr(wl[2]), _ptr(hist), _ptr(r_cnt),
+            _ptr(r_rows), _ptr(r_big), _ptr(ofc), _ptr(diag),
+            _ptr(acc_ca), _ptr(dm), _ptr(a3w), _ptr(a3c), sms * 8,
+            _stream(dev))
+    return ofc, dm, a3w, a3c, diag

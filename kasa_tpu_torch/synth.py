@@ -1,0 +1,189 @@
+"""Synthetic benchmark corpus (the port's copy of bench_corpus.py's
+generator: same constants, same seed, same files).
+
+Generates, once, under ``.synth_corpus/`` at the repo root (listed in
+.gitignore):
+
+  * a reference-format index family (index + _info.txt + _trie +
+    _trie.txt + _f.txt + _content.txt) built from NUM_SPECIES synthetic
+    genomes -- random DNA translated through the real codon table, with
+    a pool of conserved "core genes" shared across genomes (multi-taxa
+    groups up to T~16, a few T~60, one ultra-conserved T~150 that
+    exercises the host recompute), ~32.7 M entries at full size;
+  * 150 bp read sets sampled from those genomes with 0.5 % substitution
+    errors, as fastq (reads, a small set and a warm-up set), plus the
+    first SMOKE_READS reads as their own file.
+
+``python -m kasa_tpu_torch.synth`` builds it.  ``generate`` takes the
+sizes as arguments so tests can build a tiny corpus.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DIR = os.path.join(REPO, ".synth_corpus")
+NUM_SPECIES = 2047
+GENOME_LEN = 16_000
+CORE_GENES = 256        # 300 bp each, ~16 genomes share one gene
+CORE_PER_GENOME = 2
+ULTRA_GENOMES = 150     # genomes embedding the one ultra-conserved gene
+READS = 200_000
+WARM_READS = 8_192
+SMALL_READS = 12_288
+SMOKE_READS = 65_536    # 8 full batches of 8192 reads
+READ_LEN = 150
+ERR_RATE = 0.005
+SEED = 20260820
+
+_DNA = np.frombuffer(b"ACGT", np.uint8)
+
+
+def _gen_genomes(rng, num_species, genome_len, core_genes):
+    core = rng.integers(0, 4, size=(core_genes, 300))
+    ultra = rng.integers(0, 4, size=300)
+    genomes = []
+    for g in range(num_species):
+        dna = rng.integers(0, 4, size=genome_len)
+        for pick in rng.integers(0, core_genes, size=CORE_PER_GENOME):
+            off = int(rng.integers(0, genome_len - 300))
+            dna[off:off + 300] = core[pick]
+        if g < ULTRA_GENOMES:
+            off = int(rng.integers(0, genome_len - 300))
+            dna[off:off + 300] = ultra
+        genomes.append(_DNA[dna])
+    return genomes
+
+
+def _index_from_genomes(genomes):
+    """All windows of every genome -> sorted, deduplicated (limbs,
+    taxids), ordered by (limb0, limb1, taxid)."""
+    from .core import kmer
+    from .core.encode import (build_codon_code_lut, dna_to_aa_codes_np,
+                              encode_windows_np)
+    from .native import sort_kmer_tax
+    lut = build_codon_code_lut()
+    all_limbs, all_tax = [], []
+    for g, dna in enumerate(genomes):
+        aa = dna_to_aa_codes_np(dna, lut)
+        w = len(dna) - 36 + 1          # windows fully inside the genome
+        all_limbs.append(encode_windows_np(aa, 12, 3)[:w])
+        all_tax.append(np.full(w, g + 1, np.uint32))
+    limbs = np.concatenate(all_limbs)
+    taxids = np.concatenate(all_tax)
+    keys = kmer.limbs_to_u64(limbs)
+    if sort_kmer_tax(keys, taxids, 60, os.cpu_count() or 1):
+        limbs = kmer.u64_to_limbs(keys)
+    else:
+        order = np.lexsort((taxids, limbs[:, 1], limbs[:, 0]))
+        limbs, taxids = limbs[order], taxids[order]
+    keep = np.ones(len(taxids), bool)
+    keep[1:] = np.any(limbs[1:] != limbs[:-1], axis=1) \
+        | (taxids[1:] != taxids[:-1])
+    return np.ascontiguousarray(limbs[keep]), taxids[keep]
+
+
+def compute_frequencies(limbs: np.ndarray, taxids: np.ndarray, entries,
+                        highest_k: int, lowest_k: int = 1) -> np.ndarray:
+    """Per-taxon k-mer validity counts (GetFrequencyK, kASA.hpp:449-575;
+    kasa_tpu/index/build.py:544).  Column j counts entries whose j-th
+    letter from the right is not '^'; j = 0 is k = highestK."""
+    from .core import kmer
+    from .match.join import map_tax_rows
+    max_num_k = highest_k - lowest_k + 1
+    tax_to_row = {0: 0}
+    for i, e in enumerate(entries, start=1):
+        tax_to_row[int(e.taxid)] = i
+    rows = map_tax_rows(taxids, tax_to_row).astype(np.int64) \
+        if len(taxids) else np.zeros(0, dtype=np.int64)
+    S = len(entries) + 1
+    freq = np.zeros((S, max_num_k), dtype=np.uint64)
+    for j in range(max_num_k):
+        letters = kmer.letter_at(limbs, highest_k - 1 - j, highest_k)
+        if len(rows):
+            freq[:, j] = np.bincount(rows[letters != 30], minlength=S)[:S]
+    return freq
+
+
+def _write_artifacts(index, limbs, taxids, num_species):
+    from .index import artifacts
+    from .index.content import ContentEntry, write_content_file
+    entries = [ContentEntry(name=f"Synthetic species {i}", taxid=str(i),
+                            lowest_taxids=[str(i)], accessions=[f"SYN{i}"])
+               for i in range(1, num_species + 1)]
+    write_content_file(index + "_content.txt", entries)
+    artifacts.write_index(index, limbs, taxids)
+    prefixes, counts = artifacts.trie_from_sorted_prefixes(limbs[:, 0])
+    artifacts.write_trie(index, prefixes, counts)
+    freq = compute_frequencies(limbs, taxids, entries, 12, 1)
+    artifacts.write_frequency_file(index, entries, freq)
+
+
+def _emit(fh, rng, genomes, n, tag):
+    qual = b"I" * READ_LEN
+    gsel = rng.integers(0, len(genomes), size=n)
+    for i in range(n):
+        g = genomes[gsel[i]]
+        off = int(rng.integers(0, len(g) - READ_LEN))
+        r = g[off:off + READ_LEN].copy()
+        err = np.nonzero(rng.random(READ_LEN) < ERR_RATE)[0]
+        if len(err):
+            r[err] = _DNA[rng.integers(0, 4, size=len(err))]
+        fh.write(b"@%s_%d src%d\n" % (tag, i, gsel[i] + 1))
+        fh.write(r.tobytes())
+        fh.write(b"\n+\n")
+        fh.write(qual)
+        fh.write(b"\n")
+
+
+def paths(directory: str = DIR) -> dict:
+    return dict(index=os.path.join(directory, "benchIndex"),
+                reads=os.path.join(directory, "reads.fastq"),
+                reads_small=os.path.join(directory, "reads_small.fastq"),
+                warm=os.path.join(directory, "warm.fastq"),
+                smoke=os.path.join(directory, "reads_smoke.fastq"))
+
+
+def generate(directory: str = DIR, num_species: int = NUM_SPECIES,
+             genome_len: int = GENOME_LEN, core_genes: int = CORE_GENES,
+             reads: int = READS, small_reads: int = SMALL_READS,
+             warm_reads: int = WARM_READS, smoke_reads: int = SMOKE_READS,
+             seed: int = SEED, log=print) -> dict:
+    """Generate (once per directory) and return the corpus paths plus
+    the entry count."""
+    p = paths(directory)
+    stamp = os.path.join(directory, "DONE")
+    if not os.path.exists(stamp):
+        os.makedirs(directory, exist_ok=True)
+        rng = np.random.default_rng(seed)
+        t0 = time.time()
+        genomes = _gen_genomes(rng, num_species, genome_len, core_genes)
+        log(f"# corpus: genomes generated ({time.time() - t0:.1f}s)")
+        limbs, taxids = _index_from_genomes(genomes)
+        log(f"# corpus: index built n={len(taxids):,} "
+            f"({time.time() - t0:.1f}s)")
+        _write_artifacts(p["index"], limbs, taxids, num_species)
+        log(f"# corpus: artifacts written ({time.time() - t0:.1f}s)")
+        for key, n, tag in (("reads", reads, b"r"),
+                            ("reads_small", small_reads, b"s"),
+                            ("warm", warm_reads, b"w")):
+            with open(p[key], "wb") as fh:
+                _emit(fh, rng, genomes, n, tag)
+        with open(p["reads"], "rb") as src, open(p["smoke"], "wb") as dst:
+            for _ in range(4 * min(smoke_reads, reads)):
+                dst.write(src.readline())
+        log(f"# corpus: reads written ({time.time() - t0:.1f}s)")
+        with open(stamp, "w") as fh:
+            fh.write(f"{len(taxids)}\n")
+    with open(stamp) as fh:
+        p["n_entries"] = int(fh.read().split()[0])
+    p["num_species"] = num_species
+    return p
+
+
+if __name__ == "__main__":
+    print(generate())

@@ -1,0 +1,312 @@
+"""kasa_tpu_torch identify end to end against kasa_tpu's turbo engine,
+the flags outside this slice, and the port's isolation from JAX.
+
+End to end: the port's identify(device="cpu") (plain versions of the
+kernels) and kasa_tpu's identify(engine="tpu") on the golden index must
+agree: the same hit taxa per read, k-mer scores within rtol 2e-5 /
+atol 1e-4, and identical unique-count columns in the profile."""
+
+import ast
+import json
+import os
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+GOLDEN = REPO / "tests" / "golden"
+FIXTURES = REPO / "fixtures"
+INDEX_FILES = ("exampleIndex", "exampleIndex_info.txt", "exampleIndex_f.txt",
+               "exampleIndex_content.txt", "exampleIndex_trie",
+               "exampleIndex_trie.txt")
+
+
+@pytest.fixture(scope="module")
+def index_dir(tmp_path_factory):
+    """A private copy of the golden index family: both packages write
+    their table sidecar next to the index."""
+    d = tmp_path_factory.mktemp("torch_index")
+    for f in INDEX_FILES:
+        shutil.copy(GOLDEN / f, d / f)
+    return d
+
+
+def _run_jax(d, inp, overrides, out, prof):
+    from kasa_tpu.config import Config
+    from kasa_tpu.match.pipeline import identify
+    cfg = Config()
+    cfg.content_file = str(d / "exampleIndex_content.txt")
+    for k, v in overrides.items():
+        setattr(cfg, k, v)
+    cfg.engine = "tpu"
+    identify(cfg, index_path=str(d / "exampleIndex"), input_path=inp,
+             out_file=str(out), profile_file=str(prof))
+
+
+def _run_port(d, inp, overrides, out, prof):
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.match.pipeline import identify
+    cfg = Config()
+    cfg.content_file = str(d / "exampleIndex_content.txt")
+    for k, v in overrides.items():
+        setattr(cfg, k, v)
+    return identify(cfg, index_path=str(d / "exampleIndex"),
+                    input_path=inp, out_file=str(out),
+                    profile_file=str(prof), device="cpu")
+
+
+def assert_identify_agrees(ref_json, got_json, ref_prof, got_prof,
+                           num_k):
+    """The port's contract on identify outputs (json + profile CSV)."""
+    assert len(ref_json) == len(got_json)
+    for er, tr in zip(ref_json, got_json):
+        for field in ("Read number", "Specifier from input file", "Length"):
+            assert er[field] == tr[field]
+        eh = {h["tax ID"]: h for h in er["Top hits"] + er["Further hits"]}
+        th = {h["tax ID"]: h for h in tr["Top hits"] + tr["Further hits"]}
+        assert set(eh) == set(th), f"read {er['Read number']}: hit taxa"
+        for tid, h in eh.items():
+            np.testing.assert_allclose(float(h["k-mer Score"]),
+                                       float(th[tid]["k-mer Score"]),
+                                       rtol=2e-5, atol=1e-4)
+    el, tl = ref_prof.splitlines(), got_prof.splitlines()
+    assert len(el) == len(tl) and el[0] == tl[0]
+    for e, t in zip(el[1:], tl[1:]):
+        ec, tc = e.split(","), t.split(",")
+        assert ec[:2 + num_k] == tc[:2 + num_k]     # taxon + unique counts
+        np.testing.assert_allclose(np.array(tc[2 + num_k:], float),
+                                   np.array(ec[2 + num_k:], float),
+                                   rtol=2e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("tag,inp,overrides", [
+    ("default", "reads.fastq", {}),
+    ("edge", "edge.fasta", {}),
+    ("fasta", "reads.fasta", {}),
+    ("gz", "reads.fastq.gz", {}),
+    ("k910", "reads.fastq", {"lower_k": 9, "higher_k": 10}),
+], ids=["default", "edge", "fasta", "gz", "k910"])
+def test_identify_agrees_with_jax_turbo(tmp_path, monkeypatch, index_dir,
+                                        tag, inp, overrides):
+    # kasa_tpu's single-device turbo strategy is the port's counterpart
+    # (the 8 host devices of tests/conftest.py would select its mesh)
+    monkeypatch.setenv("KASA_MESH_DP", "1")
+    src = str(FIXTURES / inp)
+    _run_jax(index_dir, src, overrides, tmp_path / "j.json",
+             tmp_path / "j.csv")
+    ca, cu, nreads, nk = _run_port(index_dir, src, overrides,
+                                   tmp_path / "t.json", tmp_path / "t.csv")
+    assert nreads > 0 and nk > 0 and cu.sum() > 0
+    num_k = overrides.get("higher_k", 12) - overrides.get("lower_k", 7) + 1
+    assert_identify_agrees(json.load(open(tmp_path / "j.json")),
+                           json.load(open(tmp_path / "t.json")),
+                           (tmp_path / "j.csv").read_text(),
+                           (tmp_path / "t.csv").read_text(), num_k)
+
+
+def _tokens(line):
+    return [t for t in re.split(rb'[\t;, :{}"\[\]]+', line) if t]
+
+
+@pytest.mark.parametrize("fmt", ["jsonl", "tsv", "kraken"])
+def test_output_formats_match_jax_turbo(tmp_path, monkeypatch, index_dir,
+                                        fmt):
+    """The native writer formats the same hit lists: line by line, the
+    kraken/tsv/jsonl text has the same tokens, numbers within the
+    contract's tolerance."""
+    monkeypatch.setenv("KASA_MESH_DP", "1")
+    src = str(FIXTURES / "reads.fastq")
+    ov = {"output_format": fmt}
+    _run_jax(index_dir, src, ov, tmp_path / "j.out", tmp_path / "j.csv")
+    _run_port(index_dir, src, ov, tmp_path / "t.out", tmp_path / "t.csv")
+    jl = (tmp_path / "j.out").read_bytes().splitlines()
+    tl = (tmp_path / "t.out").read_bytes().splitlines()
+    assert len(jl) == len(tl) > 100
+    for a, b in zip(jl, tl):
+        ta, tb = _tokens(a), _tokens(b)
+        assert len(ta) == len(tb), (a, b)
+        for x, y in zip(ta, tb):
+            try:
+                fx, fy = float(x), float(y)
+            except ValueError:
+                assert x == y, (a, b)
+                continue
+            np.testing.assert_allclose(fy, fx, rtol=2e-5, atol=1e-4)
+
+
+UNSUPPORTED = [
+    ("six_frames", True), ("one_frame", True), ("unique", True),
+    ("translated", True), ("paired_end_1", "x_1.fastq"),
+    ("codon_table", "gc.prt"), ("filter", True), ("coverage", True),
+    ("post_process", True), ("visualize", True), ("sloppy", True),
+]
+
+
+@pytest.mark.parametrize("attr,value", UNSUPPORTED,
+                         ids=[a for a, _ in UNSUPPORTED])
+def test_unsupported_flags_raise(tmp_path, index_dir, attr, value):
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.match.pipeline import identify
+    cfg = Config()
+    setattr(cfg, attr, value)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        identify(cfg, index_path=str(index_dir / "exampleIndex"),
+                 input_path=str(FIXTURES / "reads.fastq"),
+                 out_file=str(tmp_path / "o.json"), device="cpu")
+
+
+def test_unsupported_inputs_raise(tmp_path):
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.match.pipeline import identify
+    for index, inp in (("exampleIndex128", "reads.fastq"),
+                       ("exampleIndex", "multi")):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            identify(Config(), index_path=str(GOLDEN / index),
+                     input_path=str(FIXTURES / inp),
+                     out_file=str(tmp_path / "o.json"), device="cpu")
+
+
+@pytest.mark.parametrize("case", ["tiered", "classic"])
+def test_other_strategies_raise(tmp_path, monkeypatch, index_dir, case):
+    """An index over the device budget needs the tiered path; a k range
+    the turbo tables cannot take (min_k * 5 < 24) needs the classic
+    engine: both are later slices."""
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.match.pipeline import identify
+    cfg = Config()
+    if case == "tiered":
+        monkeypatch.setenv("KASA_DEVICE_BUDGET", "1")
+    else:
+        cfg.lower_k = 4
+    with pytest.raises(NotImplementedError, match="later slice"):
+        identify(cfg, index_path=str(index_dir / "exampleIndex"),
+                 input_path=str(FIXTURES / "reads.fastq"),
+                 out_file=str(tmp_path / "o.json"), device="cpu")
+
+
+def test_sparse_fold_raises(monkeypatch):
+    """S above SPARSE_FOLD_S without a hot tier takes kasa_tpu's sparse
+    fold, a later slice."""
+    from kasa_tpu.match.turbo import TurboTables
+    from kasa_tpu_torch.match import turbo as PT
+    from test_torch_tables import _golden_inputs, jax_arrays
+    limbs, tax_rows, S = _golden_inputs()
+    arrays, meta = jax_arrays(
+        TurboTables.build_from_arrays(limbs, tax_rows, 12, 7, 12, S))
+    arrays.update(hotmask=np.zeros((1, S), np.float32),
+                  t_hot=np.zeros(1, np.int32))
+    tt = PT.tables_from_numpy(arrays, meta, "cpu")
+    monkeypatch.setattr(PT, "SPARSE_FOLD_S", S - 1)
+    q = torch.zeros((4 * 30, 2), dtype=torch.int32)
+    acc = torch.zeros((6, S)), torch.zeros((6, S), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="sparse"):
+        PT.turbo_core(tt, q, 4, 30, *acc, 64)
+
+
+def test_many_line_lengths_stay_under_the_slot_cap(tmp_path, monkeypatch,
+                                                   index_dir):
+    """Ten batches of one read each, ten distinct padded lengths, the
+    last read 600 bp (624 padded, 589 windows x 6 = 3534 slots, under
+    the 4096 cap): every batch keeps its own 16-multiple length, and the
+    output equals that of one batch over the same reads."""
+    from kasa_tpu_torch.match import fast
+    from kasa_tpu_torch.match.turbo import SW_CAP
+    rng = np.random.default_rng(7)
+    lens = [40 * i for i in range(1, 10)] + [600]
+    src = tmp_path / "lens.fasta"
+    src.write_text("".join(
+        f">r{i}\n{''.join(rng.choice(list('ACGT'), size=n))}\n"
+        for i, n in enumerate(lens)))
+    assert all(fast._len_bucket(n + 15, 36) % 16 == 0 for n in lens)
+    assert (fast._len_bucket(615, 36) - 35) * 6 <= SW_CAP
+    one = _run_port(index_dir, str(src), {}, tmp_path / "a.json",
+                    tmp_path / "a.csv")
+    monkeypatch.setattr(fast, "READS_PER_BATCH", 1)
+    each = _run_port(index_dir, str(src), {}, tmp_path / "b.json",
+                     tmp_path / "b.csv")
+    assert one[2] == each[2] == len(lens) and one[3] == each[3]
+    assert_identify_agrees(json.load(open(tmp_path / "a.json")),
+                           json.load(open(tmp_path / "b.json")),
+                           (tmp_path / "a.csv").read_text(),
+                           (tmp_path / "b.csv").read_text(), 6)
+
+
+def test_cli_identify_and_other_modes(tmp_path, index_dir):
+    from kasa_tpu_torch.cli import main
+    d = index_dir
+    rc = main(["kasa_tpu_torch", "identify", "-d", str(d / "exampleIndex"),
+               "-c", str(d / "exampleIndex_content.txt"),
+               "-i", str(FIXTURES / "reads.fastq"),
+               "-q", str(tmp_path / "o.json"), "-p", str(tmp_path / "p.csv"),
+               "--device", "cpu"])
+    assert rc == 0 and len(json.load(open(tmp_path / "o.json"))) > 0
+    assert main(["kasa_tpu_torch", "build", "-i", "x", "-d", "y"]) == 1
+
+
+def test_default_device_without_cuda_raises():
+    from kasa_tpu_torch import resolve_device
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.match.pipeline import identify
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        identify(Config(), index_path=str(GOLDEN / "exampleIndex"),
+                 input_path=str(FIXTURES / "reads.fastq"))
+    assert resolve_device("cpu").type == "cpu"
+
+
+def _imports(path):
+    tree = ast.parse(pathlib.Path(path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_neither_jax_nor_kasa_tpu():
+    files = sorted((REPO / "kasa_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 10
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "kasa_tpu"), (f, mod)
+
+
+def test_port_runs_with_jax_blocked(tmp_path, index_dir):
+    """A fresh interpreter in which importing jax or kasa_tpu fails runs
+    the golden identify on the CPU."""
+    code = f"""
+import sys
+sys.modules['jax'] = None
+sys.modules['kasa_tpu'] = None
+import torch
+torch.set_num_threads(2)
+from kasa_tpu_torch.config import Config
+from kasa_tpu_torch.match.pipeline import identify
+cfg = Config()
+cfg.content_file = {str(index_dir / 'exampleIndex_content.txt')!r}
+out = identify(cfg, index_path={str(index_dir / 'exampleIndex')!r},
+               input_path={str(FIXTURES / 'reads.fastq')!r},
+               out_file={str(tmp_path / 'o.json')!r}, device='cpu')
+assert out[2] > 0
+assert not any(m.startswith('jax') and sys.modules[m] is not None
+               for m in sys.modules)
+print('PORT-OK')
+"""
+    env = dict(os.environ)
+    env.pop("JAX_PLATFORMS", None)
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                       capture_output=True, text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "PORT-OK" in r.stdout

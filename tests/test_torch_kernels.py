@@ -1,0 +1,119 @@
+"""The four CUDA kernels of kasa_tpu_torch against their plain PyTorch
+versions, on the card.  CUDA kernels have no CPU mode: without a GPU
+these tests skip.  On a machine with one (and without JAX):
+
+    python3 -m pytest --noconftest -q -m cuda tests/test_torch_kernels.py
+"""
+
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+GOLDEN = REPO / "tests" / "golden"
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _close(a, b):
+    torch.testing.assert_close(a.cpu(), b.cpu(), rtol=2e-5, atol=1e-4)
+
+
+def _tiers(budget_drop):
+    from kasa_tpu_torch.match import turbo as PT
+    from test_turbo import _index_with_tiers, S
+    if budget_drop:
+        limbs, taxids, hot = _index_with_tiers(
+            n=20_000, heavy_ts=(4, 8, 16, 16, 16, 16))
+        R, kpr, seed = 32, 24, 31
+    else:
+        limbs, taxids, hot = _index_with_tiers()
+        R, kpr, seed = 64, 32, 23
+    saved = PT.HOT_SETS
+    PT.HOT_SETS = 1 if budget_drop else saved
+    try:
+        arrays, meta = PT.build_tables_np(limbs, taxids.astype(np.int32),
+                                          12, 7, 12, S)
+    finally:
+        PT.HOT_SETS = saved
+    rng = np.random.default_rng(seed)
+    q = limbs[rng.integers(0, len(taxids), size=R * kpr)].copy()
+    for i, kl in enumerate(hot):
+        for j in range(4):
+            q[(i * 4 + j) * kpr + 5] = kl
+    return arrays, meta, q, R, kpr, (64 if budget_drop else None)
+
+
+def test_encode_kernel(cuda):
+    from kasa_tpu_torch.core import encode as E
+    rng = np.random.default_rng(1)
+    mat = torch.from_numpy(rng.choice(np.frombuffer(b"ACGTXZacgt", np.uint8),
+                                      size=(300, 176))).to(cuda)
+    lut = torch.from_numpy(E.build_codon_code_lut().astype(np.int32)).to(cuda)
+    assert torch.equal(E.encode_windows(mat, lut, 141).cpu(),
+                       E.encode_windows_plain(mat, lut, 141).cpu())
+
+
+@pytest.mark.parametrize("budget_drop", [False, True])
+def test_turbo_kernels(cuda, budget_drop):
+    from kasa_tpu_torch.match import turbo as PT
+    arrays, meta, q_np, R, kpr, eb = _tiers(budget_drop)
+    tt = PT.tables_from_numpy(arrays, meta, cuda)
+    q = torch.from_numpy(q_np).to(cuda)
+    S, nk = meta["num_species"], 6
+    skey, mpay = PT.turbo_match(q, tt, R, kpr)
+    sk2, mp2 = PT.turbo_match_plain(q, tt, R, kpr)
+    assert torch.equal(skey.cpu(), sk2.cpu())
+    assert torch.equal(mpay.cpu(), mp2.cpu())
+    pre = PT.turbo_reads_pre(skey, mpay)
+    pre2 = PT.turbo_reads_pre_plain(skey, mpay)
+    for a, b in zip(pre, pre2):
+        assert torch.equal(a.cpu(), b.cpu())
+    ck, cc, runs, mcnt, cp = pre2
+    ca1 = torch.zeros((nk, S), device=cuda)
+    ca2 = torch.zeros((nk, S), device=cuda)
+    m1 = PT.turbo_multi(cp, mcnt, runs, tt, ca1, PT.MULTI_BUDGET,
+                        eb or PT.EXP_BUDGET)
+    m2 = PT.turbo_multi_plain(cp, mcnt, runs, tt, ca2, PT.MULTI_BUDGET,
+                              eb or PT.EXP_BUDGET)
+    assert torch.equal(m1[0].cpu(), m2[0].cpu())
+    assert torch.equal(m1[4].cpu(), m2[4].cpu())
+    for a, b in zip(m1[1:4], m2[1:4]):
+        _close(a, b)
+    _close(ca1, ca2)
+    if budget_drop:
+        assert m2[0].any() and 0 < int(m2[4][1]) <= 64
+    cu1 = torch.zeros((nk, S), dtype=torch.int32, device=cuda)
+    cu2 = torch.zeros((nk, S), dtype=torch.int32, device=cuda)
+    cap = 4 * R
+    p1 = PT.turbo_reads_post(ck, cc, m2[0], m2[1], tt.weights, ca1, cu1,
+                             m2[4], cap)
+    p2 = PT.turbo_reads_post_plain(ck, cc, m2[0], m2[1], tt.weights, ca2,
+                                   cu2, m2[4], cap)
+    ints = torch.ones(p1[0].numel(), dtype=torch.bool)
+    ints[2 * R + 1:2 * R + 2 * cap:2] = False
+    assert torch.equal(p1[0].cpu()[ints], p2[0].cpu()[ints])
+    assert torch.equal(p1[1].cpu(), p2[1].cpu())
+    _close(p1[2], p2[2])
+    assert torch.equal(cu1.cpu(), cu2.cpu())
+    _close(ca1, ca2)
+
+
+def test_wrappers_refuse_bad_tensors(cuda):
+    from kasa_tpu_torch import kernels
+    lut = torch.zeros(512, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.encode_windows(torch.zeros((4, 40), dtype=torch.int32,
+                                           device=cuda), lut, 5)
+    with pytest.raises(ValueError):
+        kernels.encode_windows(torch.zeros((4, 40), dtype=torch.uint8),
+                               lut, 5)

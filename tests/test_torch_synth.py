@@ -1,0 +1,65 @@
+"""kasa_tpu_torch.synth reproduces bench_corpus.py's generator: at a
+tiny size (same seed, same code path) both write byte-identical index
+families and read files, and the port identifies the corpus."""
+
+import filecmp
+
+import numpy as np
+import torch
+
+torch.set_num_threads(2)
+
+TINY = dict(num_species=40, genome_len=2_000, core_genes=8, reads=300,
+            small_reads=60, warm_reads=50)
+
+
+def test_synth_matches_bench_corpus(tmp_path, monkeypatch):
+    import bench_corpus as bc
+    from kasa_tpu_torch import synth
+    ref = tmp_path / "ref"
+    ref.mkdir()
+    for name, val in (("NUM_SPECIES", TINY["num_species"]),
+                      ("GENOME_LEN", TINY["genome_len"]),
+                      ("CORE_GENES", TINY["core_genes"]),
+                      ("READS", TINY["reads"]),
+                      ("SMALL_READS", TINY["small_reads"]),
+                      ("WARM_READS", TINY["warm_reads"]),
+                      ("DIR", str(ref)),
+                      ("INDEX", str(ref / "benchIndex")),
+                      ("READS_FQ", str(ref / "reads.fastq")),
+                      ("READS_SMALL_FQ", str(ref / "reads_small.fastq")),
+                      ("WARM_FQ", str(ref / "warm.fastq"))):
+        monkeypatch.setattr(bc, name, val)
+    bc.ensure_corpus(log=lambda *a: None)
+    got = synth.generate(str(tmp_path / "port"), smoke_reads=100,
+                         log=lambda *a: None, **TINY)
+    assert got["n_entries"] > 10_000
+    for suffix in ("", "_info.txt", "_trie", "_trie.txt", "_f.txt",
+                   "_content.txt"):
+        assert filecmp.cmp(str(ref / "benchIndex") + suffix,
+                           got["index"] + suffix, shallow=False), suffix
+    for name in ("reads.fastq", "reads_small.fastq", "warm.fastq"):
+        assert filecmp.cmp(ref / name, tmp_path / "port" / name,
+                           shallow=False), name
+    head = open(got["smoke"], "rb").read().splitlines()
+    assert len(head) == 400
+    assert head == open(got["reads"], "rb").read().splitlines()[:400]
+
+
+def test_synth_corpus_identifies(tmp_path):
+    from kasa_tpu_torch import synth
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.match import fast
+    from kasa_tpu_torch.match.pipeline import identify
+    p = synth.generate(str(tmp_path), smoke_reads=100, log=lambda *a: None,
+                       **TINY)
+    cfg = Config()
+    ca, cu, nreads, nk = identify(cfg, index_path=p["index"],
+                                  input_path=p["smoke"],
+                                  out_file=str(tmp_path / "o.json"),
+                                  profile_file=str(tmp_path / "p.csv"),
+                                  device="cpu")
+    assert nreads == 100
+    # reads are sampled from the genomes: nearly every read hits
+    assert cu.sum() > 0 and np.isfinite(ca).all()
+    assert fast.LAST_FALLBACK[1] == 100

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """On-card smoke run of kasa_tpu_torch: the port's identify on one
-NVIDIA GPU, through its four CUDA kernels, checked against references.
+NVIDIA GPU, through its five CUDA kernels, checked against references.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -13,6 +13,12 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
            (tests/golden/reads_identify.json, reads_profile.csv) under
            the contract: same hit taxa, k-mer scores within rtol 2e-5 /
            atol 1e-4, identical unique counts; every kernel launched;
+  golden-flags  the same for --six, --one, -e, paired-end, -z (protIndex),
+           a halved index, --filter (split files byte-identical) and
+           identify_multiple on fixtures/multi, each with its kernels'
+           launch counts reset before and checked after; and seeded
+           protein reads that hit protIndex (synth.protein_reads), held
+           against the port's own run on the CPU, with hits required;
   full     the 2047-species synthetic corpus (kasa_tpu_torch/synth.py,
            ~32.7 M entries, cached in .synth_corpus/): tables, one
            8,192-read warm-up run, then 65,536 reads (8 batches) through
@@ -20,10 +26,24 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
            just after; reads/s, host stage times, host-recompute share,
            peak device memory; 512 sampled reads of a real batch held
            against the exact host recompute (host_classify_read);
-  kernels  on that batch, each kernel against its plain PyTorch version
+  full-flags  the same 65,536 reads under --six -e (K5 on every batch;
+           512 sampled reads against host_classify_read of the deduped
+           windows), 32,768 read pairs of the corpus (both mates from one
+           fragment, mate 2 reverse-complemented) with and without
+           --six, and the 65,536 reads
+           as 4 files of 16,384 through identify_multiple with profiles
+           (summed per-file unique counts identical to the single-file
+           run's, all-counts within rtol 2e-5 / atol 2e-3);
+  budgets  multi slots and flagged reads of a --six, a paired and a
+           paired --six batch at kasa_tpu's fixed budgets and at twice
+           them, beside the worklist the drive loop gives each;
+  kernels  on real batches, each kernel against its plain PyTorch version
            on the card (same contract), with its time, the plain
-           version's time, its memory bound and, for the search, one
-           torch.searchsorted call as a yardstick the port never uses.
+           version's time, its memory bound and, where one PyTorch call
+           computes the same function, that call's time as a yardstick
+           the port never uses; the new arms (K1 one-frame and protein,
+           the per-file counts of K3 and K4) against their plain
+           versions too, and the whole batch step timed per mode.
 
 Prints the card's name and power limit, a JSON line of the kernels, and
 last the line {"ok": true, "device": {...}}.  Longer logs and the
@@ -66,7 +86,7 @@ def smi_line():
 # ---------------------------------------------------------------------------
 # the contract
 
-def assert_identify_agrees(ref_json, got_json, ref_prof, got_prof, num_k):
+def json_agrees(ref_json, got_json):
     import numpy as np
     if len(ref_json) != len(got_json):
         fail(f"{len(got_json)} reads written, reference {len(ref_json)}")
@@ -82,6 +102,11 @@ def assert_identify_agrees(ref_json, got_json, ref_prof, got_prof, num_k):
             np.testing.assert_allclose(float(th[tid]["k-mer Score"]),
                                        float(h["k-mer Score"]),
                                        rtol=RTOL, atol=ATOL)
+
+
+def assert_identify_agrees(ref_json, got_json, ref_prof, got_prof, num_k):
+    import numpy as np
+    json_agrees(ref_json, got_json)
     el, tl = ref_prof.splitlines(), got_prof.splitlines()
     if len(el) != len(tl) or el[0] != tl[0]:
         fail("profile rows differ")
@@ -153,8 +178,7 @@ def phase_golden():
              out_file=out_j, profile_file=out_p, device=DEVICE)
     torch.cuda.synchronize()
     counts = dict(kernels.COUNTS)
-    if min(counts.values()) <= 0:
-        fail(f"golden run missed a kernel: {counts}")
+    expect_launched("golden", counts, PATH_KERNELS)
     assert_identify_agrees(
         json.load(open(os.path.join(gold, "reads_identify.json"))),
         json.load(open(out_j)),
@@ -162,6 +186,144 @@ def phase_golden():
         open(out_p).read(), 6)
     log(f"golden: agrees with tests/golden/reads_identify.json and "
         f"reads_profile.csv under the contract; launches {counts}")
+
+
+PATH_KERNELS = ("encode", "turbo_match", "turbo_reads", "turbo_multi")
+
+# tag, index, input, Config overrides, golden per-read output, golden
+# profile (fixtures/ and tests/golden/ paths)
+GOLDEN_FLAGS = (
+    ("six", "exampleIndex", "reads.fastq", {"six_frames": True},
+     "reads_six.json", "reads_six_profile.csv"),
+    ("one", "exampleIndex", "reads.fastq", {"one_frame": True},
+     "reads_one.json", "reads_one_profile.csv"),
+    ("unique", "exampleIndex", "reads.fastq", {"unique": True},
+     "reads_unique.json", "reads_unique_profile.csv"),
+    ("paired", "exampleIndex", "", {"paired_end_1": "reads_1.fastq",
+                                    "paired_end_2": "reads_2.fastq"},
+     "reads_paired.json", "reads_paired_profile.csv"),
+    ("protein", "protIndex", "protein_reads.fasta", {"translated": True},
+     "prot_reads.json", "prot_reads_profile.csv"),
+    ("halved", "exampleIndex_s", "reads.fastq", {},
+     "reads_half.json", "reads_half_profile.csv"),
+)
+
+
+def expect_launched(tag, counts, names):
+    missed = [n for n in names if counts[n] <= 0]
+    if missed:
+        fail(f"{tag}: the run launched no {missed}: {counts}")
+
+
+def phase_golden_flags():
+    """The flag variants on the golden fixtures, each against the
+    reference binary's outputs under the contract."""
+    import filecmp
+    import torch
+    from kasa_tpu_torch import kernels
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.match.pipeline import identify, identify_multiple
+    gold = os.path.join(HERE, "tests", "golden")
+    fix = os.path.join(HERE, "fixtures")
+    launched = {}
+    for tag, index, inp, over, gj, gp in GOLDEN_FLAGS:
+        cfg = Config()
+        cfg.content_file = os.path.join(
+            gold, ("protIndex" if index == "protIndex" else "exampleIndex")
+            + "_content.txt")
+        for k, v in over.items():
+            setattr(cfg, k, os.path.join(fix, v) if isinstance(v, str)
+                    else v)
+        out_j = os.path.join(OUT, f"golden_{tag}.json")
+        out_p = os.path.join(OUT, f"golden_{tag}.csv")
+        kernels.reset_counts()
+        identify(cfg, index_path=os.path.join(gold, index),
+                 input_path=os.path.join(fix, inp) if inp else "",
+                 out_file=out_j, profile_file=out_p, device=DEVICE)
+        torch.cuda.synchronize()
+        counts = dict(kernels.COUNTS)
+        expect_launched(tag, counts, PATH_KERNELS
+                        + (("dedup",) if over.get("unique") else ()))
+        assert_identify_agrees(json.load(open(os.path.join(gold, gj))),
+                               json.load(open(out_j)),
+                               open(os.path.join(gold, gp)).read(),
+                               open(out_p).read(), 6)
+        launched[tag] = counts
+
+    # --filter: split files byte-identical to the reference's
+    cfg = Config()
+    cfg.content_file = os.path.join(gold, "exampleIndex_content.txt")
+    cfg.filter = True
+    cfg.filtered_clean_out = os.path.join(OUT, "filt_clean")
+    cfg.filtered_contaminants_out = os.path.join(OUT, "filt_cont")
+    kernels.reset_counts()
+    identify(cfg, index_path=os.path.join(gold, "exampleIndex"),
+             input_path=os.path.join(fix, "reads.fastq"),
+             out_file=os.path.join(OUT, "golden_filter.json"), device=DEVICE)
+    torch.cuda.synchronize()
+    launched["filter"] = dict(kernels.COUNTS)
+    expect_launched("filter", launched["filter"], PATH_KERNELS)
+    json_agrees(json.load(open(os.path.join(gold, "reads_filt.json"))),
+                json.load(open(os.path.join(OUT, "golden_filter.json"))))
+    for f in ("filt_clean.fastq", "filt_cont.fastq"):
+        if not filecmp.cmp(os.path.join(OUT, f), os.path.join(gold, f),
+                           shallow=False):
+            fail(f"filter: {f} differs from tests/golden/{f}")
+
+    # identify_multiple: per-file outputs and profiles
+    cfg = Config()
+    cfg.content_file = os.path.join(gold, "exampleIndex_content.txt")
+    cfg.index_file = os.path.join(gold, "exampleIndex")
+    cfg.input = os.path.join(fix, "multi")
+    cfg.read_to_taxa_file = os.path.join(OUT, "multi_q_")
+    cfg.table_file = os.path.join(OUT, "multi_p_")
+    kernels.reset_counts()
+    identify_multiple(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    launched["multi"] = dict(kernels.COUNTS)
+    expect_launched("multi", launched["multi"], PATH_KERNELS)
+    for n in ("a", "b"):
+        assert_identify_agrees(
+            json.load(open(os.path.join(gold, f"multi_q_{n}.json"))),
+            json.load(open(os.path.join(OUT, f"multi_q_{n}.json"))),
+            open(os.path.join(gold, f"multi_p_{n}.csv")).read(),
+            open(os.path.join(OUT, f"multi_p_{n}.csv")).read(), 6)
+    log("golden-flags: six, one, unique, paired, protein, halved, filter "
+        "and multi agree with tests/golden under the contract (filter "
+        "split files byte-identical); launches "
+        + json.dumps({t: {k: v for k, v in c.items() if v}
+                      for t, c in launched.items()}))
+
+    # tests/golden's protein reads hit nothing: seeded protein reads that
+    # hit protIndex, the card's run against the port's CPU run
+    from kasa_tpu_torch import synth
+    prot = synth.protein_reads(os.path.join(fix, "protein.fasta"),
+                               os.path.join(OUT, "protein_hits.fasta"))
+    outs = {}
+    for dev in (DEVICE, "cpu"):
+        cfg = Config()
+        cfg.content_file = os.path.join(gold, "protIndex_content.txt")
+        cfg.translated = True
+        outs[dev] = (os.path.join(OUT, f"protein_hits_{dev}.json"),
+                     os.path.join(OUT, f"protein_hits_{dev}.csv"))
+        kernels.reset_counts()
+        identify(cfg, index_path=os.path.join(gold, "protIndex"),
+                 input_path=prot, out_file=outs[dev][0],
+                 profile_file=outs[dev][1], device=dev)
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+            counts = dict(kernels.COUNTS)
+            expect_launched("protein hits", counts, PATH_KERNELS)
+    got = json.load(open(outs[DEVICE][0]))
+    assert_identify_agrees(json.load(open(outs["cpu"][0])), got,
+                           open(outs["cpu"][1]).read(),
+                           open(outs[DEVICE][1]).read(), 6)
+    hits = sum(len(r["Top hits"]) + len(r["Further hits"]) for r in got)
+    if hits == 0:
+        fail("protein hits: the seeded protein reads matched nothing")
+    log(f"golden-flags protein hits: {len(got)} seeded protein reads, "
+        f"{hits} hits, agree with the port's CPU run under the contract; "
+        f"launches {counts}")
 
 
 def phase_corpus():
@@ -174,23 +336,63 @@ def phase_corpus():
     return corpus
 
 
+def drive(tag, inp, out_j, out_p, expect, over=(), corpus=None,
+          multi=False, unit="reads"):
+    """One identify run with the launch counts set to 0 just before it
+    and read just after; prints reads/s, the host-recompute share and
+    peak device memory.  -> (identify's result, launches, info)."""
+    import torch
+    from kasa_tpu_torch import kernels
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.match import fast
+    from kasa_tpu_torch.match.pipeline import identify, identify_multiple
+    from kasa_tpu_torch.utils import timers
+    cfg = Config()
+    for k, v in dict(over).items():
+        setattr(cfg, k, v)
+    timers.reset()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    if multi:
+        cfg.index_file, cfg.input = corpus["index"], inp
+        cfg.read_to_taxa_file, cfg.table_file = out_j, out_p
+        res = identify_multiple(cfg, device=DEVICE)
+    else:
+        res = identify(cfg, index_path=corpus["index"], input_path=inp,
+                       out_file=out_j, profile_file=out_p, device=DEVICE)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.COUNTS)
+    expect_launched(tag, launches, expect)
+    fb, tot = fast.LAST_FALLBACK
+    stages = {k: round(v, 4) for k, v in
+              timers.report(lambda *_: None).items()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{tag}: {tot} {unit} in {dt:.3f} s = {tot / dt:.1f} {unit}/s; "
+        f"host recompute {fb}/{tot} = {100.0 * fb / tot:.4f} %; peak "
+        f"device memory {peak / 2**30:.3f} GiB; launches {launches}")
+    log(f"{tag}: host stage seconds {json.dumps(stages)}")
+    return res, launches, dict(reads=tot, seconds=dt, reads_per_s=tot / dt,
+                               fallback_pct=100.0 * fb / tot,
+                               peak_bytes=peak, stages=stages)
+
+
 def phase_full(corpus):
     import numpy as np
     import torch
-    from kasa_tpu_torch import kernels, synth
+    from kasa_tpu_torch import synth
     from kasa_tpu_torch.config import Config
     from kasa_tpu_torch.match import fast
     from kasa_tpu_torch.match.pipeline import identify
     from kasa_tpu_torch.utils import timers
 
-    def run(inp, out_j, out_p):
-        cfg = Config()
-        return identify(cfg, index_path=corpus["index"], input_path=inp,
-                        out_file=out_j, profile_file=out_p, device=DEVICE)
-
     timers.reset()
     t0 = time.perf_counter()
-    run(corpus["warm"], os.path.join(OUT, "warm.json"), None)
+    identify(Config(), index_path=corpus["index"], input_path=corpus["warm"],
+             out_file=os.path.join(OUT, "warm.json"), profile_file=None,
+             device=DEVICE)
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
     tstages = {k: round(v, 3) for k, v in timers.report(lambda *_: None)
@@ -198,59 +400,109 @@ def phase_full(corpus):
     log(f"full: tables + {synth.WARM_READS}-read warm-up run "
         f"{t_warm:.1f} s; table stages {tstages}")
 
-    timers.reset()
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    kernels.reset_counts()
-    t0 = time.perf_counter()
-    ca, cu, nreads, nk = run(corpus["smoke"],
-                             os.path.join(OUT, "smoke.json"),
-                             os.path.join(OUT, "smoke_profile.csv"))
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(kernels.COUNTS)
-    if min(launches.values()) <= 0:
-        fail(f"the main path missed a kernel: {launches}")
+    (ca, cu, nreads, nk), launches, info = drive(
+        "full", corpus["smoke"], os.path.join(OUT, "smoke.json"),
+        os.path.join(OUT, "smoke_profile.csv"), PATH_KERNELS, corpus=corpus)
     if nreads != synth.SMOKE_READS:
         fail(f"{nreads} reads identified, expected {synth.SMOKE_READS}")
     if not (np.isfinite(ca).all() and cu.sum() > 0 and ca.shape == cu.shape):
         fail("count matrices are not finite / empty")
-    fb, tot = fast.LAST_FALLBACK
-    stages = {k: round(v, 4) for k, v in
-              timers.report(lambda *_: None).items()}
-    peak = torch.cuda.max_memory_allocated()
-    log(f"full: {nreads} reads in {dt:.3f} s = {nreads / dt:.1f} reads/s; "
-        f"host recompute {fb}/{tot} = {100.0 * fb / tot:.4f} %; peak "
-        f"device memory {peak / 2**30:.3f} GiB; launches {launches}")
-    log(f"full: host stage seconds {json.dumps(stages)}")
     with open(os.path.join(OUT, "smoke.json")) as fh:
         n_out = sum(1 for ln in fh if '"Read number"' in ln)
     if n_out != nreads:
         fail(f"{n_out} reads in the output file, expected {nreads}")
-    return fast.LAST_DISPATCH, launches, dict(
-        reads=nreads, seconds=dt, reads_per_s=nreads / dt,
-        fallback_pct=100.0 * fb / tot, peak_bytes=peak, stages=stages)
+    return fast.LAST_DISPATCH, launches, info, (ca, cu)
 
 
-def real_batch(corpus, disp):
+def split_fastq(src, parts, directory):
+    """The reads of `src` in `parts` equal consecutive files."""
+    os.makedirs(directory, exist_ok=True)
+    with open(src, "rb") as fh:
+        lines = fh.readlines()
+    n = len(lines) // 4 // parts
+    names = []
+    for i in range(parts):
+        names.append(os.path.join(directory, f"part{i}.fastq"))
+        with open(names[-1], "wb") as fh:
+            fh.writelines(lines[4 * n * i:4 * n * (i + 1)])
+    return names
+
+
+def phase_full_flags(corpus, single_counts):
+    """--six -e, paired-end and identify_multiple on the smoke set."""
+    import numpy as np
+    from kasa_tpu_torch import synth
+    N = synth.SMOKE_READS
+    infos, launches = {}, {}
+    (ca, cu, nreads, _), launches["six_e"], infos["six_e"] = drive(
+        "full-flags six -e", corpus["smoke"],
+        os.path.join(OUT, "smoke_six_e.json"),
+        os.path.join(OUT, "smoke_six_e.csv"), PATH_KERNELS + ("dedup",),
+        over={"six_frames": True, "unique": True}, corpus=corpus)
+    if nreads != N or not np.isfinite(ca).all() or cu.sum() <= 0:
+        fail("six -e: wrong read count or empty / non-finite counts")
+    if launches["six_e"]["dedup"] != N // 8192:
+        fail(f"six -e: dedup launched {launches['six_e']['dedup']} times, "
+             f"expected {N // 8192}")
+
+    mates = corpus["pairs"]
+    (ca, cu, nreads, _), launches["paired"], infos["paired"] = drive(
+        "full-flags paired", "", os.path.join(OUT, "smoke_paired.json"),
+        os.path.join(OUT, "smoke_paired.csv"), PATH_KERNELS,
+        over={"paired_end_1": mates[0], "paired_end_2": mates[1]},
+        corpus=corpus, unit="pairs")
+    if nreads != N // 2 or not np.isfinite(ca).all() or cu.sum() <= 0:
+        fail("paired: wrong pair count or empty / non-finite counts")
+    (ca, cu, nreads, _), launches["paired_six"], infos["paired_six"] = \
+        drive("full-flags paired --six", "",
+              os.path.join(OUT, "smoke_paired_six.json"),
+              os.path.join(OUT, "smoke_paired_six.csv"), PATH_KERNELS,
+              over={"paired_end_1": mates[0], "paired_end_2": mates[1],
+                    "six_frames": True}, corpus=corpus, unit="pairs")
+    if nreads != N // 2 or not np.isfinite(ca).all() or cu.sum() <= 0:
+        fail("paired --six: wrong pair count or empty / non-finite counts")
+
+    folder = os.path.join(HERE, ".synth_corpus", "multi4")
+    split_fastq(corpus["smoke"], 4, folder)
+    res, launches["multi"], infos["multi"] = drive(
+        "full-flags multi", folder, os.path.join(OUT, "multi4_q_"),
+        os.path.join(OUT, "multi4_p_"), PATH_KERNELS, corpus=corpus,
+        multi=True)
+    if [r[2] for r in res] != [N // 4] * 4:
+        fail(f"multi: per-file reads {[r[2] for r in res]}")
+    ca_sum = sum(r[0] for r in res)
+    cu_sum = sum(r[1].astype(np.int64) for r in res)
+    if not np.array_equal(cu_sum, single_counts[1].astype(np.int64)):
+        fail("multi: summed per-file unique counts differ from the "
+             "single-file run's")
+    np.testing.assert_allclose(ca_sum, single_counts[0], rtol=2e-5,
+                               atol=2e-3)
+    log("full-flags multi: summed per-file unique counts identical to the "
+        "single-file run's, all-counts within rtol 2e-5 / atol 2e-3 (max "
+        f"abs diff {float(np.abs(ca_sum - single_counts[0]).max()):.3g})")
+    return launches, infos
+
+
+def real_batch(corpus, six=False):
     """The first 8,192 reads of the smoke set as the main path lays
-    them out."""
+    them out (two rows per read under --six).  -> (mat, R, w, lpr)."""
     import numpy as np
     from kasa_tpu_torch.match.fast import BatchAssembler, READS_PER_BATCH
     from kasa_tpu_torch.native import load_fastx, sanitize_inplace
     seq, so, _, _, _ = load_fastx(corpus["smoke"], True)
     sanitize_inplace(seq, False)
     R = READS_PER_BATCH
-    asm = BatchAssembler(12, 7)
+    asm = BatchAssembler(12, 7, six=six)
     lens = np.diff(so[:R + 1])
     maxlen = (int(lens.max()) + asm.marker_len + 15) // 16 * 16
     mat = asm.assemble(seq[:so[R]], so[:R + 1].astype(np.int64), maxlen, R)
-    return mat, R, asm.window_target(maxlen)
+    return mat, R, asm.window_target(maxlen), 2 if six else 1
 
 
-def phase_sample(disp, mat, R, w):
+def phase_sample(disp, mat, R, w, lpr=1, unique=False):
     """512 sampled unflagged reads of a real batch: the device hit lists
-    against the exact host recompute."""
+    against the exact host recompute (of the deduped windows under
+    -e)."""
     import numpy as np
     import torch
     from kasa_tpu_torch.core.alphabet import build_codon_code_lut
@@ -261,7 +513,9 @@ def phase_sample(disp, mat, R, w):
     acc_ca, acc_cu = disp.new_acc()
     cap = disp.csr_cap(R)
     packed, ht_d, hk_d = T.fused_turbo_acc(
-        tt, torch.from_numpy(mat).to(DEVICE), lut, acc_ca, acc_cu, R, w, cap)
+        tt, torch.from_numpy(mat).to(DEVICE), lut, acc_ca, acc_cu, R, w, cap,
+        disp.multi_budget, disp.exp_budget, lines_per_read=lpr,
+        unique=unique)
     packed = packed.cpu().numpy()
     hc, ofc, ofl, _, ht, hk = disp.decode(packed, R, R, cap, True, ht_d,
                                           hk_d)
@@ -272,7 +526,10 @@ def phase_sample(disp, mat, R, w):
     for r in sample:
         if ofl[r]:
             continue            # the host recomputes these reads anyway
-        q = T.read_windows_np(mat[r:r + 1], lut_np, 12, w)
+        q = T.read_windows_np(mat[r * lpr:(r + 1) * lpr], lut_np, 12, False,
+                              False, w)
+        if unique:
+            q = T.dedup_windows_np(q)
         exact, _, _ = T.host_classify_read(tt, q)
         want = sorted((t, v) for t, v in exact.items() if v > 0)
         got = [(int(ht[r, i]), float(hk[r, i])) for i in range(hc[r])]
@@ -284,9 +541,9 @@ def phase_sample(disp, mat, R, w):
         checked += 1
     if checked < 0.75 * n_sample:
         fail(f"only {checked} of {n_sample} sampled reads were unflagged")
-    log(f"sample: {checked} of {n_sample} sampled reads agree with "
-        f"host_classify_read ({n_sample - checked} flagged, recomputed on "
-        "the host by design)")
+    log(f"sample{' (--six -e)' if unique else ''}: {checked} of {n_sample} "
+        "sampled reads agree with host_classify_read "
+        f"({n_sample - checked} flagged, recomputed on the host by design)")
 
 
 def time_ms(fn, reps):
@@ -534,6 +791,213 @@ def phase_kernels(disp, mat, R, w, launches):
     return out, step_ms
 
 
+def paired_batch(corpus, R, six=False):
+    """The corpus's first R read pairs as the paired-end path lays them
+    out (two rows per pair, four under --six).  -> (mat, w, lpr)."""
+    import numpy as np
+    from kasa_tpu_torch.match.fast import BatchAssembler
+    from kasa_tpu_torch.native import load_fastx, sanitize_inplace
+    asm = BatchAssembler(12, 7, six=six)
+    blobs, offs = [], []
+    for path in corpus["pairs"]:
+        seq, so, _, _, _ = load_fastx(path, True)
+        sanitize_inplace(seq, False)
+        blobs.append(seq[:so[R]])
+        offs.append(so[:R + 1].astype(np.int64))
+    lens = np.concatenate([np.diff(o) for o in offs])
+    maxlen = (int(lens.max()) + asm.marker_len + 15) // 16 * 16
+    return (asm.assemble_multi(blobs, offs, maxlen, R),
+            asm.window_target(maxlen), 2 * (2 if six else 1))
+
+
+def phase_kernels_flags(disp, corpus, mat, R, w, launches_e):
+    """The new arms against their plain versions on real batches: K5 on
+    a --six -e batch, K1 one-frame and protein on the default batch's
+    bytes, the per-file counts of K4 and K3 (post) with a 4-file map;
+    K5's time beside torch.sort of the same keys; the whole batch step
+    per mode on the device's clock."""
+    import numpy as np
+    import torch
+    from kasa_tpu_torch.core import encode as E
+    from kasa_tpu_torch.core.alphabet import build_codon_code_lut
+    from kasa_tpu_torch.match import turbo as T
+    tt = disp.tt
+    dev = torch.device(DEVICE)
+    nk, S = tt.num_k, tt.num_species
+    mb, eb = disp.multi_budget, disp.exp_budget
+    cap = disp.csr_cap(R)
+    lut = torch.from_numpy(build_codon_code_lut().astype(np.int32)).to(dev)
+    mat_d = torch.from_numpy(mat).to(dev)
+
+    # K5 on the --six -e batch
+    mat6, _, w6, lpr = real_batch(corpus, six=True)
+    mat6_d = torch.from_numpy(mat6).to(dev)
+    kpr = w6 * lpr
+    q6 = E.encode_windows(mat6_d, lut, w6)
+    same("dedup", T.dedup_windows(q6, R, kpr),
+         T.dedup_windows_plain(q6, R, kpr))
+    # K1's new arms
+    w1 = mat.shape[1] // 3 - 11
+    same("encode.one_frame", E.encode_windows(mat_d, lut, w1, one_frame=True),
+         E.encode_windows_plain(mat_d, lut, w1, one_frame=True))
+    wp = mat.shape[1] - 11
+    same("encode.protein", E.encode_windows(mat_d, lut, wp, protein=True),
+         E.encode_windows_plain(mat_d, lut, wp, protein=True))
+    # the per-file arms of K4 and K3 (post), 4 files of R/4 reads
+    F = 4
+    fo = (torch.arange(R, device=dev) // (R // F)).to(torch.int32)
+    q = E.encode_windows(mat_d, lut, w)
+    skey, mpay = T.turbo_match(q, tt, R, w)
+    ck, cc, runs, mcnt, cp = T.turbo_reads_pre(skey, mpay)
+
+    def acc_f():
+        return (torch.zeros((F, nk, S), dtype=torch.float32, device=dev),
+                torch.zeros((F, nk, S), dtype=torch.int32, device=dev))
+    (ca_k, _), (ca_p, _) = acc_f(), acc_f()
+    mk = T.turbo_multi(cp, mcnt, runs, tt, ca_k, mb, eb, fo)
+    mp_ = T.turbo_multi_plain(cp, mcnt, runs, tt, ca_p, mb, eb, fo)
+    same("turbo_multi.files.ofc", mk[0], mp_[0])
+    errf = max(close("turbo_multi.files.dm", mk[1], mp_[1]),
+               close("turbo_multi.files.a3c", mk[3], mp_[3]),
+               close("turbo_multi.files.acc_ca", ca_k, ca_p))
+    ofc, dm, a3w, a3c, diag = mp_
+    dm = dm.clone()
+    dm.addmm_(a3w, tt.hotmask)
+    (ca_k, cu_k), (ca_p, cu_p) = acc_f(), acc_f()
+    po_k = T.turbo_reads_post(ck, cc, ofc, dm, tt.weights, ca_k, cu_k, diag,
+                              cap, fo)
+    po_p = T.turbo_reads_post_plain(ck, cc, ofc, dm, tt.weights, ca_p, cu_p,
+                                    diag, cap, fo)
+    same("turbo_reads.files.ht", po_k[1], po_p[1])
+    same("turbo_reads.files.acc_cu", cu_k, cu_p)
+    errf = max(errf, close("turbo_reads.files.acc_ca", ca_k, ca_p))
+    if int(cu_p.sum(dim=(1, 2)).min()) <= 0:
+        fail("files arm: a file of the batch counted nothing")
+    torch.cuda.synchronize()
+    log(f"kernels: dedup (R={R}, kpr={kpr}), encode one-frame (w={w1}) and "
+        f"protein (w={wp}), and the {F}-file count arms of turbo_multi and "
+        f"turbo_reads agree with their plain versions (files max abs err "
+        f"{errf:.3g})")
+
+    keys = ((q6[:, 0].long() << 30) | q6[:, 1].long()).reshape(R, kpr)
+    ms = time_ms(lambda: T.dedup_windows(q6, R, kpr), 20)
+    plain_ms = time_ms(lambda: T.dedup_windows_plain(q6, R, kpr), 5)
+    lib_ms = time_ms(lambda: torch.sort(keys, dim=1), 20)
+    nbytes = 2 * R * kpr * 8
+    entry = {"name": "dedup", "route": "cuda",
+             "source": "kasa_tpu_torch/csrc/dedup.cu",
+             "replaces": "kasa_tpu/match/turbo.py:128",
+             "launches": launches_e["dedup"], "max_abs_err": 0.0, "ms": ms,
+             "plain_ms": plain_ms,
+             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "bound_by": "bytes", "library_ms": lib_ms}
+    log(f"kernel dedup: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+        f"{entry['bound_ms']:.4f} ms from {nbytes / 1e6:.2f} MB; torch.sort "
+        f"of the (R, kpr) int64 keys {lib_ms:.4f} ms), "
+        f"{launches_e['dedup']} launches in the --six -e run")
+
+    # each kernel's time on the --six -e batch (after K5)
+    q6d = T.dedup_windows(q6, R, kpr)
+    skey6, mpay6 = T.turbo_match(q6d, tt, R, kpr)
+    ck6, cc6, runs6, mcnt6, cp6 = T.turbo_reads_pre(skey6, mpay6)
+    ca_t = torch.zeros((nk, S), dtype=torch.float32, device=dev)
+    cu_t = torch.zeros((nk, S), dtype=torch.int32, device=dev)
+    ofc6, dm6, _, _, diag6 = T.turbo_multi(cp6, mcnt6, runs6, tt, ca_t, mb,
+                                           eb)
+    six_e_ms = {
+        "encode": time_ms(lambda: E.encode_windows(mat6_d, lut, w6), 20),
+        "dedup": ms,
+        "turbo_match": time_ms(lambda: T.turbo_match(q6d, tt, R, kpr), 20),
+        "turbo_reads": time_ms(lambda: T.turbo_reads_pre(skey6, mpay6), 10)
+        + time_ms(lambda: T.turbo_reads_post(ck6, cc6, ofc6, dm6, tt.weights,
+                                             ca_t, cu_t, diag6, cap), 10),
+        "turbo_multi": time_ms(lambda: T.turbo_multi(
+            cp6, mcnt6, runs6, tt, ca_t, mb, eb), 10),
+    }
+    log(f"kernels on the --six -e batch (kpr={kpr}, SW={kpr * nk}, multi "
+        f"slots {int(diag6[0])}): ms "
+        + json.dumps({k: round(v, 4) for k, v in six_e_ms.items()}))
+
+    # the whole batch step per mode, on the device's clock
+    matp, wpair, _ = paired_batch(corpus, R)
+    matp_d = torch.from_numpy(matp).to(dev)
+    matp6, wpair6, _ = paired_batch(corpus, R, six=True)
+    matp6_d = torch.from_numpy(matp6).to(dev)
+    caf, cuf = acc_f()
+    steps = {
+        "six": time_ms(lambda: T.fused_turbo_acc(
+            tt, mat6_d, lut, ca_t, cu_t, R, w6, cap, mb, eb,
+            lines_per_read=2), 10),
+        "six_e": time_ms(lambda: T.fused_turbo_acc(
+            tt, mat6_d, lut, ca_t, cu_t, R, w6, cap, mb, eb,
+            lines_per_read=2, unique=True), 10),
+        "unique": time_ms(lambda: T.fused_turbo_acc(
+            tt, mat_d, lut, ca_t, cu_t, R, w, cap, mb, eb, unique=True), 10),
+        "paired": time_ms(lambda: T.fused_turbo_acc(
+            tt, matp_d, lut, ca_t, cu_t, R, wpair, cap, mb, eb,
+            lines_per_read=2), 10),
+        "paired_six": time_ms(lambda: T.fused_turbo_acc(
+            tt, matp6_d, lut, ca_t, cu_t, R, wpair6, cap,
+            disp.multi_budget_for(4), eb, lines_per_read=4), 10),
+        "files4": time_ms(lambda: T.fused_turbo_acc(
+            tt, mat_d, lut, caf, cuf, R, w, cap, mb, eb, file_of_read=fo),
+            10),
+        "one": time_ms(lambda: T.fused_turbo_acc(
+            tt, mat_d, lut, ca_t, cu_t, R, w1, cap, mb, eb, one_frame=True),
+            10),
+    }
+    log(f"step: fused_turbo_acc ms per {R}-read batch by mode "
+        + json.dumps({k: round(v, 4) for k, v in steps.items()}))
+    return entry, steps, six_e_ms
+
+
+def phase_budgets(disp, corpus, R):
+    """Multi slots (the K4 worklist's demand) and flagged reads of a
+    --six, a paired and a paired --six batch at kasa_tpu's fixed budgets
+    (MULTI_BUDGET, EXP_BUDGET) and at twice them: whether a read of
+    several lines overflows the fixed worklist."""
+    import numpy as np
+    import torch
+    from kasa_tpu_torch.core import encode as E
+    from kasa_tpu_torch.core.alphabet import build_codon_code_lut
+    from kasa_tpu_torch.match import turbo as T
+    tt = disp.tt
+    dev = torch.device(DEVICE)
+    nk, S = tt.num_k, tt.num_species
+    cap = disp.csr_cap(R)
+    lut = torch.from_numpy(build_codon_code_lut().astype(np.int32)).to(dev)
+    mat6, _, w6, lpr6 = real_batch(corpus, six=True)
+    batches = {"six": (mat6, w6, lpr6),
+               "paired": paired_batch(corpus, R),
+               "paired_six": paired_batch(corpus, R, six=True)}
+    out = {}
+    for tag, (mat, w, lpr) in batches.items():
+        mat_d = torch.from_numpy(mat).to(dev)
+        kpr = w * lpr
+        skey, mpay = T.turbo_match(E.encode_windows(mat_d, lut, w), tt, R,
+                                   kpr)
+        _, _, runs, mcnt, cp = T.turbo_reads_pre(skey, mpay)
+        ca = torch.zeros((nk, S), dtype=torch.float32, device=dev)
+        cu = torch.zeros((nk, S), dtype=torch.int32, device=dev)
+        diag = T.turbo_multi(cp, mcnt, runs, tt, ca, 1 << 30, 1 << 30)[4]
+        row = {"kpr": kpr, "multi_slots": int(diag[0]),
+               "expansion_rows": int(diag[1]),
+               "drive_loop_multi_budget": disp.multi_budget_for(lpr)}
+        for scale in (1, 2):
+            mb, eb = disp.multi_budget * scale, disp.exp_budget * scale
+            packed, ht, hk = T.fused_turbo_acc(
+                tt, mat_d, lut, ca, cu, R, w, cap, mb, eb,
+                lines_per_read=lpr)
+            _, ofc, ofl, _, _, _ = disp.decode(packed.cpu().numpy(), R, R,
+                                               cap, True, ht, hk)
+            row[f"x{scale}"] = {"multi_budget": mb,
+                                "count_flagged": int(ofc.sum()),
+                                "list_flagged": int(ofl.sum())}
+        out[tag] = row
+        log(f"budgets {tag}: " + json.dumps(row))
+    return out
+
+
 def main():
     try:
         import torch
@@ -551,19 +1015,39 @@ def main():
     log(smi)
     phase_build()
     phase_golden()
+    phase_golden_flags()
     corpus = phase_corpus()
-    disp, launches, info = phase_full(corpus)
-    mat, R, w = real_batch(corpus, disp)
+    disp, launches, info, single_counts = phase_full(corpus)
+    launches_f, infos_f = phase_full_flags(corpus, single_counts)
+    mat, R, w, _ = real_batch(corpus)
     phase_sample(disp, mat, R, w)
+    mat6, _, w6, lpr = real_batch(corpus, six=True)
+    phase_sample(disp, mat6, R, w6, lpr=lpr, unique=True)
     kern, step_ms = phase_kernels(disp, mat, R, w, launches)
-    info["busy_pct"] = 100.0 * step_ms * 1e-3 * info["reads"] / R \
-        / info["seconds"]
-    log(f"full: the device is busy about {info['busy_pct']:.2f} % of the "
-        f"identify run ({info['reads'] // R} batch steps of {step_ms:.4f} ms "
-        f"in {info['seconds']:.3f} s; copies not counted)")
+    k5, steps, six_e_ms = phase_kernels_flags(disp, corpus, mat, R, w,
+                                              launches_f["six_e"])
+    kern.append(k5)
+    budgets = phase_budgets(disp, corpus, R)
+    for tag, inf, ms in (("full", info, step_ms),
+                         ("full-flags six -e", infos_f["six_e"],
+                          steps["six_e"]),
+                         ("full-flags paired", infos_f["paired"],
+                          steps["paired"]),
+                         ("full-flags paired --six", infos_f["paired_six"],
+                          steps["paired_six"]),
+                         ("full-flags multi", infos_f["multi"],
+                          steps["files4"])):
+        nb = -(-inf["reads"] // R)
+        inf["busy_pct"] = 100.0 * ms * 1e-3 * nb / inf["seconds"]
+        log(f"{tag}: the device is busy about {inf['busy_pct']:.2f} % of "
+            f"the identify run ({nb} batch steps of {ms:.4f} ms in "
+            f"{inf['seconds']:.3f} s; copies not counted)")
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as fh:
-        json.dump({"card": smi, "full": info, "kernels": kern,
-                   "step_ms": step_ms}, fh, indent=1)
+        json.dump({"card": smi, "full": info, "full_flags": infos_f,
+                   "launches_flags": launches_f, "kernels": kern,
+                   "step_ms": step_ms, "step_ms_by_mode": steps,
+                   "six_e_kernel_ms": six_e_ms, "budgets": budgets}, fh,
+                  indent=1)
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_all:.1f} s")
     print(smi)

@@ -1,5 +1,5 @@
 """Command-line entry point (port of kasa_tpu/cli.py): the reference's flag
-surface, with the identify mode only.  Invoke as
+surface, with the identify and identify_multiple modes.  Invoke as
 ``python -m kasa_tpu_torch identify -d <index> -c <content> -i <reads>
 -q <out> -p <profile> [--device cpu]``.
 """
@@ -12,7 +12,8 @@ import time
 from .config import Config, load_yaml_config
 
 USAGE = """kasa_tpu_torch -- kASA-compatible metagenomic classifier on CUDA
-Modes: identify (the other kasa_tpu modes are later slices of the port)
+Modes: identify, identify_multiple (the other kasa_tpu modes are later
+slices of the port)
 Flags mirror the reference kASA binary (see README); --device cpu runs
 the plain PyTorch versions of the kernels."""
 
@@ -296,8 +297,11 @@ def main(argv: list[str] | None = None) -> int:
 def run_mode(cfg: Config):
     if cfg.mode == "identify":
         from .match.pipeline import identify
-        identify(cfg, device=getattr(cfg, "device", None))
+        identify(cfg, device=cfg.device)
+    elif cfg.mode == "identify_multiple":
+        from .match.pipeline import identify_multiple
+        identify_multiple(cfg, device=cfg.device)
     else:
         raise NotImplementedError(
-            f"mode {cfg.mode!r} is a later slice of kasa_tpu_torch; this "
-            "slice ports identify")
+            f"mode {cfg.mode!r} is a later slice of kasa_tpu_torch; the "
+            "port runs identify and identify_multiple")

@@ -7,10 +7,16 @@ limbs of six 5-bit letters (Read.hpp:84-220):
   1. ``aa[p] = LUT[hash(S[p], S[p+1], S[p+2])]`` for every position p,
   2. window w, letter j  ->  ``aa[w + 3*j]``.
 
+Protein input (-z) skips step 1: a letter is the byte itself (code =
+byte & 31) and window w takes ``byte[w + j]``.  One frame (--one) keeps
+every third DNA window (window c starts at byte 3c).
+
 The batch encoder works on a padded (rows, maxlen) read matrix: the
-first W = maxlen - 3*highestK + 1 windows of a row never read past the
-row's end (the last triplet of window W-1 ends at maxlen-1), so each
-row encodes on its own.  ``encode_windows`` is the wrapper of kernel K1
+first W windows of a row never read past the row's end (DNA: W =
+maxlen - 3*highestK + 1, the last triplet of window W-1 ends at
+maxlen-1; protein: W = maxlen - highestK + 1; one frame: W = maxlen//3 -
+highestK + 1, window W-1 ends at 3*(maxlen//3) - 1), so each row encodes
+on its own.  ``encode_windows`` is the wrapper of kernel K1
 (csrc/encode.cu); ``encode_windows_plain`` is its plain PyTorch version.
 The numpy twins serve the host recompute of flagged reads.
 """
@@ -27,10 +33,14 @@ BITS = kmer.BITS_PER_LETTER
 LPL = kmer.LETTERS_PER_LIMB
 
 
-def dna_to_aa_codes_np(buf: np.ndarray, lut: np.ndarray) -> np.ndarray:
+def dna_to_aa_codes_np(buf: np.ndarray, lut: np.ndarray,
+                       protein: bool = False) -> np.ndarray:
     """uint8 DNA buffer -> int32 5-bit AA codes per position (the last
-    two positions read wrapped bytes and must be masked by the caller)."""
+    two positions read wrapped bytes and must be masked by the caller);
+    protein letters are the bytes themselves."""
     b = buf.astype(np.int32)
+    if protein:
+        return b & 31
     c1 = b
     c2 = np.roll(b, -1)
     c3 = np.roll(b, -2)
@@ -69,44 +79,61 @@ def custom_code_lut(cfg) -> np.ndarray | None:
     return (lut & np.uint8(31)).astype(np.uint8)
 
 
-def _check(byte_mat: torch.Tensor, lut: torch.Tensor, w: int) -> None:
+def window_span(protein: bool, one_frame: bool) -> tuple[int, int]:
+    """(bytes one window covers, bytes between window starts)."""
+    if protein:
+        return 12, 1
+    return 36, (3 if one_frame else 1)
+
+
+def _check(byte_mat: torch.Tensor, lut: torch.Tensor, w: int,
+           protein: bool, one_frame: bool) -> None:
     if byte_mat.dtype != torch.uint8 or byte_mat.dim() != 2:
         raise ValueError("byte_mat must be a (rows, maxlen) uint8 tensor")
     if lut.dtype != torch.int32 or lut.dim() != 1:
         raise ValueError("lut must be a 1-d int32 tensor")
-    if not 1 <= w <= byte_mat.shape[1] - 36 + 1:
+    span, step = window_span(protein, one_frame)
+    if w < 1 or (w - 1) * step + span > byte_mat.shape[1]:
         raise ValueError(f"w={w} windows do not fit rows of "
                          f"{byte_mat.shape[1]} characters")
 
 
-def encode_windows_plain(byte_mat: torch.Tensor, lut: torch.Tensor,
-                         w: int) -> torch.Tensor:
-    """(rows, maxlen) uint8 DNA -> (rows * w, 2) int32 limbs of the first
-    w windows of every row (highestK = 12, letter stride 3).  Triplet
-    hashes past the LUT clamp to its last entry, as a gather does in
-    kasa_tpu."""
-    _check(byte_mat, lut, w)
+def encode_windows_plain(byte_mat: torch.Tensor, lut: torch.Tensor, w: int,
+                         protein: bool = False,
+                         one_frame: bool = False) -> torch.Tensor:
+    """(rows, maxlen) uint8 -> (rows * w, 2) int32 limbs of the first w
+    windows of every row (highestK = 12).  DNA: letters at stride 3
+    through the LUT, triplet hashes past the LUT clamped to its last
+    entry as a gather does in kasa_tpu; one frame keeps windows 0, 3,
+    6, ...; protein: letter = byte & 31 at stride 1 (the LUT unused)."""
+    _check(byte_mat, lut, w, protein, one_frame)
     rows = byte_mat.shape[0]
     b = byte_mat.to(torch.int32)
-    idx = ((b[:, :-2] & 14) << 5) | ((b[:, 1:-1] & 14) << 2) \
-        | ((b[:, 2:] & 14) >> 1)
-    aa = lut[idx.clamp(max=lut.numel() - 1).long()]
+    if protein:
+        aa, stride = b & 31, 1
+    else:
+        idx = ((b[:, :-2] & 14) << 5) | ((b[:, 1:-1] & 14) << 2) \
+            | ((b[:, 2:] & 14) >> 1)
+        aa, stride = lut[idx.clamp(max=lut.numel() - 1).long()], 3
+    step = 3 if one_frame and not protein else 1
+    n = (w - 1) * step + 1          # window starts 0 .. (w-1)*step
     limbs = []
     for li in range(2):
-        acc = torch.zeros((rows, w), dtype=torch.int32, device=b.device)
+        acc = torch.zeros((rows, n), dtype=torch.int32, device=b.device)
         for j in range(LPL):
-            p = 3 * (LPL * li + j)
-            acc |= aa[:, p:p + w] << (BITS * (LPL - 1 - j))
-        limbs.append(acc)
+            p = stride * (LPL * li + j)
+            acc |= aa[:, p:p + n] << (BITS * (LPL - 1 - j))
+        limbs.append(acc[:, ::step])
     return torch.stack(limbs, dim=-1).reshape(rows * w, 2)
 
 
-def encode_windows(byte_mat: torch.Tensor, lut: torch.Tensor,
-                   w: int) -> torch.Tensor:
+def encode_windows(byte_mat: torch.Tensor, lut: torch.Tensor, w: int,
+                   protein: bool = False,
+                   one_frame: bool = False) -> torch.Tensor:
     """K1 wrapper: the CUDA kernel on a CUDA tensor, else the plain
     version."""
     if byte_mat.device.type == "cpu":
-        return encode_windows_plain(byte_mat, lut, w)
-    _check(byte_mat, lut, w)
+        return encode_windows_plain(byte_mat, lut, w, protein, one_frame)
+    _check(byte_mat, lut, w, protein, one_frame)
     from .. import kernels
-    return kernels.encode_windows(byte_mat, lut, w)
+    return kernels.encode_windows(byte_mat, lut, w, protein, one_frame)

@@ -56,3 +56,27 @@ __device__ __forceinline__ long long block_exclusive_scan(
     __syncthreads();
     return incl - v;
 }
+
+// Ascending bitonic sort of P keys (P a power of two) in shared memory
+// by a block of NTHREADS threads.  Every thread must call it; it ends
+// with the keys sorted and the block synchronised.
+template <typename T, int NTHREADS>
+__device__ __forceinline__ void block_bitonic_sort(T* keys, int P) {
+    const int tid = threadIdx.x;
+    for (int k = 2; k <= P; k <<= 1) {
+        for (int j = k >> 1; j > 0; j >>= 1) {
+            for (int i = tid; i < P; i += NTHREADS) {
+                const int ixj = i ^ j;
+                if (ixj > i) {
+                    const T a = keys[i], b = keys[ixj];
+                    const bool asc = (i & k) == 0;
+                    if ((a > b) == asc) {
+                        keys[i] = b;
+                        keys[ixj] = a;
+                    }
+                }
+            }
+            __syncthreads();
+        }
+    }
+}

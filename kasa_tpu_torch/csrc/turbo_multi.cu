@@ -29,7 +29,11 @@
 //           slots add to the (R, H) and (numK, H) credit matrices that
 //           the two hot-mask products fold (in the Python wrapper).
 //           kasa_tpu's (R, numK, S) accumulator (402 MB at R = 8192,
-//           S = 2048) is never built.
+//           S = 2048) is never built.  With a file_of_read map
+//           (identify_multiple, fused_turbo_files at turbo.py:826-833
+//           and 853-861) the count cell is (file * numK + k) * S + tax
+//           of an (F, numK, S) matrix and the hot credit row is
+//           file * numK + k of an (F * numK, H) matrix.
 //
 // Bound on the H100: atomics and gathers of the expansion.  Each cold
 // slot gathers ceil(T/4) 16-byte taxa rows and issues 2T float atomics
@@ -188,6 +192,7 @@ __global__ void multi_expand_kernel(const int32_t* __restrict__ wl_row0,
                                     const int32_t* __restrict__ d_tax4,
                                     const float* __restrict__ weights,
                                     const int32_t* __restrict__ diag,
+                                    const int32_t* __restrict__ file_of_read,
                                     MultiParams p,
                                     float* __restrict__ acc_ca,
                                     float* __restrict__ dm,
@@ -205,6 +210,8 @@ __global__ void multi_expand_kernel(const int32_t* __restrict__ wl_row0,
         const int r = ridki >> 3, ki = ridki & 7;
         if (ofc[r]) continue;
         const int T = wl_T[j];
+        const long long fk = (file_of_read ? (long long)file_of_read[r]
+                                             * p.num_k : 0) + ki;
         if (row0 > 0) {
             const float inv = 1.0f / (float)T;
             const float wv = weights[ki] * inv;
@@ -214,7 +221,7 @@ __global__ void multi_expand_kernel(const int32_t* __restrict__ wl_row0,
                                           (long long)p.DR - 1);
                 const int32_t tax = d_tax4[row * 4 + (t & 3)];
                 if (tax >= 0) {
-                    atomicAdd(&acc_ca[(long long)ki * p.S + tax], inv);
+                    atomicAdd(&acc_ca[fk * p.S + tax], inv);
                     atomicAdd(&dm[(long long)r * p.S + tax], wv);
                 }
             }
@@ -222,7 +229,7 @@ __global__ void multi_expand_kernel(const int32_t* __restrict__ wl_row0,
             const int hid = -row0 - 1;
             const float inv = 1.0f / (float)max(T, 1);
             atomicAdd(&a3w[(long long)r * p.H + hid], weights[ki] * inv);
-            atomicAdd(&a3c[(long long)ki * p.H + hid], inv);
+            atomicAdd(&a3c[fk * p.H + hid], inv);
         }
     }
 }
@@ -232,7 +239,8 @@ __global__ void multi_expand_kernel(const int32_t* __restrict__ wl_row0,
 extern "C" int kasa_turbo_multi(
         const void* cp, const void* mcnt, const void* runs,
         const void* grp2, const void* d_tax4, const void* t_hot,
-        const void* weights, int R, int SW, int n, int num_k, int S, int H,
+        const void* weights, const void* file_of_read, int R, int SW, int n,
+        int num_k, int S, int H,
         int DR, int B, long long EB, int cw, int hist_n,
         void* read_base, void* wl_row0, void* wl_T, void* wl_ridki,
         void* hist, void* r_cnt, void* r_rows, void* r_big,
@@ -258,7 +266,8 @@ extern "C" int kasa_turbo_multi(
         (const int32_t*)wl_row0, (const int32_t*)wl_T,
         (const int32_t*)wl_ridki, (const uint8_t*)ofc,
         (const int32_t*)d_tax4, (const float*)weights,
-        (const int32_t*)diag, p, (float*)acc_ca, (float*)dm, (float*)a3w,
+        (const int32_t*)diag, (const int32_t*)file_of_read, p,
+        (float*)acc_ca, (float*)dm, (float*)a3w,
         (float*)a3c);
     return (int)cudaGetLastError();
 }

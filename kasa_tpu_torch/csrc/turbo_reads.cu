@@ -16,7 +16,10 @@
 //         first CW runs (key, count), the run count, and compacts the
 //         multi payloads to the front of the read's row;
 //   post: one block per read adds its runs to the count accumulators
-//         (integer atomics for counts_unique), scans its (R, S) score
+//         (integer atomics for counts_unique; with a file_of_read map,
+//         identify_multiple's fused_turbo_files at turbo.py:936-945, the
+//         cell is (file * numK + k) * S + tax of an (F, numK, S) matrix),
+//         scans its (R, S) score
 //         row in taxon order for the first WM taxa with a positive
 //         score, merges them with the T1 taxa and writes the hit list,
 //         hit count and flags; then one block scans the hit counts and
@@ -60,23 +63,7 @@ __global__ void reads_pre_kernel(const int32_t* __restrict__ skey,
         keys[i] = i < SW ? srow[i] : sent;
     __syncthreads();
 
-    // bitonic sort, ascending
-    for (int k = 2; k <= P; k <<= 1) {
-        for (int j = k >> 1; j > 0; j >>= 1) {
-            for (int i = tid; i < P; i += kThreads) {
-                const int ixj = i ^ j;
-                if (ixj > i) {
-                    const int32_t a = keys[i], b = keys[ixj];
-                    const bool asc = (i & k) == 0;
-                    if ((a > b) == asc) {
-                        keys[i] = b;
-                        keys[ixj] = a;
-                    }
-                }
-            }
-            __syncthreads();
-        }
-    }
+    block_bitonic_sort<int32_t, kThreads>(keys, P);
 
     // run ends in position order = ascending key order
     int off = 0;
@@ -128,9 +115,11 @@ __global__ void reads_post_kernel(const int32_t* __restrict__ ck,
                                   const uint8_t* __restrict__ ofc,
                                   const float* __restrict__ dm,
                                   const float* __restrict__ weights,
+                                  const int32_t* __restrict__ file_of_read,
                                   float* __restrict__ acc_ca,
                                   int32_t* __restrict__ acc_cu,
-                                  int S, int cw, int sent, int wout, int wm,
+                                  int S, int num_k, int cw, int sent,
+                                  int wout, int wm,
                                   int32_t* __restrict__ ht,
                                   float* __restrict__ hk,
                                   int32_t* __restrict__ hc,
@@ -146,6 +135,8 @@ __global__ void reads_post_kernel(const int32_t* __restrict__ ck,
     const int tid = threadIdx.x;
     const long long r = blockIdx.x;
     const bool keep = ofc[r] == 0;
+    const long long fk = file_of_read ? (long long)file_of_read[r] * num_k
+                                      : 0;
 
     // T1 fold (flagged reads are recomputed whole on the host)
     for (int rho = tid; rho < cw; rho += kThreads) {
@@ -154,7 +145,7 @@ __global__ void reads_post_kernel(const int32_t* __restrict__ ck,
         s_key[rho] = key;
         s_cnt[rho] = cnt;
         if (key != sent && keep) {
-            const long long cell = (long long)(key & 7) * S + (key >> 3);
+            const long long cell = (fk + (key & 7)) * S + (key >> 3);
             atomicAdd(&acc_cu[cell], cnt);
             atomicAdd(&acc_ca[cell], (float)cnt);
         }
@@ -298,9 +289,11 @@ extern "C" int kasa_turbo_reads_pre(const void* skey, const void* mpay,
 
 extern "C" int kasa_turbo_reads_post(const void* ck, const void* cc,
                                      const void* ofc, const void* dm,
-                                     const void* weights, void* acc_ca,
+                                     const void* weights,
+                                     const void* file_of_read, void* acc_ca,
                                      void* acc_cu, const void* diag, int R,
-                                     int S, int cw, int sent, int wout,
+                                     int S, int num_k, int cw, int sent,
+                                     int wout,
                                      int wm, long long cap, void* ht,
                                      void* hk, void* hc, void* flags,
                                      void* cum, void* packed, void* stream) {
@@ -310,8 +303,9 @@ extern "C" int kasa_turbo_reads_post(const void* ck, const void* cc,
         cudaStream_t st = (cudaStream_t)stream;
         reads_post_kernel<<<R, kThreads, 0, st>>>(
             (const int32_t*)ck, (const int32_t*)cc, (const uint8_t*)ofc,
-            (const float*)dm, (const float*)weights, (float*)acc_ca,
-            (int32_t*)acc_cu, S, cw, sent, wout, wm, (int32_t*)ht,
+            (const float*)dm, (const float*)weights,
+            (const int32_t*)file_of_read, (float*)acc_ca,
+            (int32_t*)acc_cu, S, num_k, cw, sent, wout, wm, (int32_t*)ht,
             (float*)hk, (int32_t*)hc, (int32_t*)flags);
         int32_t* tail = (int32_t*)packed + 2LL * R + 2LL * cap;
         pack_scan_kernel<<<1, kScanThreads, 0, st>>>(

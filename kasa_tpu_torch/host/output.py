@@ -9,6 +9,12 @@ import numpy as np
 from .dtoa import cpp_default
 
 
+def file_ending(fmt: str) -> str:
+    """Per-read output suffix of a format (identify on a folder)."""
+    return {"kraken": ".ktsv", "json": ".json", "jsonl": ".jsonl",
+            "tsv": ".tsv"}[fmt]
+
+
 def write_profile(
     path: str,
     organisms: list,

@@ -26,14 +26,14 @@ import torch
 _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD = os.path.join(_DIR, "_build", "cuda")
-SOURCES = ("encode", "turbo_match", "turbo_reads", "turbo_multi")
+SOURCES = ("encode", "turbo_match", "turbo_reads", "turbo_multi", "dedup")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches per kernel since the last reset_counts(): one per wrapper
 # call that launched (turbo_reads counts its pre and post entry points)
 COUNTS = {"encode": 0, "turbo_match": 0, "turbo_reads": 0,
-          "turbo_multi": 0}
+          "turbo_multi": 0, "dedup": 0}
 
 _libs: dict = {}
 
@@ -41,18 +41,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = {
-    "kasa_encode_windows": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "kasa_encode_windows": [_P, _P] + [_I] * 6 + [_P, _P],
     "kasa_turbo_match": [_P] * 6 + [_L] + [_I] * 6 + [_P, _P, _P],
     "kasa_turbo_reads_pre": [_P, _P] + [_I] * 5 + [_P] * 6,
-    "kasa_turbo_reads_post": [_P] * 8 + [_I] * 6 + [_L] + [_P] * 7,
-    "kasa_turbo_multi": [_P] * 7 + [_I] * 8 + [_L, _I, _I] + [_P] * 14
+    "kasa_turbo_reads_post": [_P] * 9 + [_I] * 7 + [_L] + [_P] * 7,
+    "kasa_turbo_multi": [_P] * 8 + [_I] * 8 + [_L, _I, _I] + [_P] * 14
                         + [_I, _P],
+    "kasa_dedup_windows": [_P] + [_I] * 4 + [_P, _P],
 }
 _LIB_OF = {"kasa_encode_windows": "encode",
            "kasa_turbo_match": "turbo_match",
            "kasa_turbo_reads_pre": "turbo_reads",
            "kasa_turbo_reads_post": "turbo_reads",
-           "kasa_turbo_multi": "turbo_multi"}
+           "kasa_turbo_multi": "turbo_multi",
+           "kasa_dedup_windows": "dedup"}
 
 
 def reset_counts() -> None:
@@ -157,8 +159,9 @@ def _ptr(t: torch.Tensor) -> int:
 # ---------------------------------------------------------------------------
 # K1 encode (csrc/encode.cu)
 
-def encode_windows(byte_mat: torch.Tensor, lut: torch.Tensor,
-                   w: int) -> torch.Tensor:
+def encode_windows(byte_mat: torch.Tensor, lut: torch.Tensor, w: int,
+                   protein: bool = False,
+                   one_frame: bool = False) -> torch.Tensor:
     dev = byte_mat.device
     if dev.type != "cuda":
         raise ValueError("encode_windows: the kernel takes CUDA tensors")
@@ -166,8 +169,12 @@ def encode_windows(byte_mat: torch.Tensor, lut: torch.Tensor,
     _check(byte_mat, "byte_mat", torch.uint8, (rows, maxlen), dev)
     _check(lut, "lut", torch.int32, (lut.numel(),), dev)
     out = torch.empty((rows * w, 2), dtype=torch.int32, device=dev)
+    if lut.numel() < 1:
+        raise ValueError("lut: empty")
+    step = 3 if one_frame and not protein else 1
     _launch("kasa_encode_windows", "encode", _ptr(byte_mat), _ptr(lut),
-            lut.numel(), rows, maxlen, w, _ptr(out), _stream(dev))
+            lut.numel(), rows, maxlen, w, int(protein), step, _ptr(out),
+            _stream(dev))
     return out
 
 
@@ -239,8 +246,18 @@ def turbo_reads_pre(skey: torch.Tensor, mpay: torch.Tensor, sent: int,
     return ck, cc, runs, mcnt, cp
 
 
+def _check_files(file_of_read, acc_ca, R, nk, S, dev):
+    """-> the (F, numK, S) or (numK, S) shape the count accumulators
+    must have: F files when a (R,) int32 file_of_read map is given."""
+    if file_of_read is None:
+        return (nk, S)
+    _check(file_of_read, "file_of_read", torch.int32, (R,), dev)
+    return (acc_ca.shape[0] if acc_ca.dim() == 3 else -1, nk, S)
+
+
 def turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
-                     csr_cap: int, sent: int, wout: int, wm: int):
+                     csr_cap: int, sent: int, wout: int, wm: int,
+                     file_of_read=None):
     dev = ck.device
     if dev.type != "cuda":
         raise ValueError("turbo_reads_post: the kernel takes CUDA tensors")
@@ -252,8 +269,9 @@ def turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
     _check(ofc, "ofc", torch.bool, (R,), dev)
     _check(dm, "dm", torch.float32, (R, S), dev)
     _check(weights, "weights", torch.float32, (nk,), dev)
-    _check(acc_ca, "acc_ca", torch.float32, (nk, S), dev)
-    _check(acc_cu, "acc_cu", torch.int32, (nk, S), dev)
+    acc_shape = _check_files(file_of_read, acc_ca, R, nk, S, dev)
+    _check(acc_ca, "acc_ca", torch.float32, acc_shape, dev)
+    _check(acc_cu, "acc_cu", torch.int32, acc_shape, dev)
     _check(diag, "diag", torch.int32, (2,), dev)
     i32 = dict(dtype=torch.int32, device=dev)
     ht = torch.empty((R, wout), **i32)
@@ -262,9 +280,11 @@ def turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
     flags = torch.empty((R,), **i32)
     cum = torch.empty((R,), **i32)
     packed = torch.zeros((2 * R + 2 * csr_cap + 4,), **i32)
+    fo = None if file_of_read is None else _ptr(file_of_read)
     _launch("kasa_turbo_reads_post", "turbo_reads", _ptr(ck), _ptr(cc),
-            _ptr(ofc), _ptr(dm), _ptr(weights), _ptr(acc_ca), _ptr(acc_cu),
-            _ptr(diag), R, S, cw, sent, wout, wm, csr_cap, _ptr(ht),
+            _ptr(ofc), _ptr(dm), _ptr(weights), fo, _ptr(acc_ca),
+            _ptr(acc_cu), _ptr(diag), R, S, nk, cw, sent, wout, wm,
+            csr_cap, _ptr(ht),
             _ptr(hk), _ptr(hc), _ptr(flags), _ptr(cum), _ptr(packed),
             _stream(dev))
     return packed, ht, hk
@@ -274,7 +294,7 @@ def turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
 # K4 turbo_multi (csrc/turbo_multi.cu)
 
 def turbo_multi(cp, mcnt, runs, tt, acc_ca, multi_budget: int,
-                exp_budget: int, cw: int, sent: int):
+                exp_budget: int, cw: int, sent: int, file_of_read=None):
     dev = cp.device
     if dev.type != "cuda":
         raise ValueError("turbo_multi: the kernel takes CUDA tensors")
@@ -284,8 +304,10 @@ def turbo_multi(cp, mcnt, runs, tt, acc_ca, multi_budget: int,
     _check(cp, "cp", torch.int32, (R, SW), dev)
     _check(mcnt, "mcnt", torch.int32, (R,), dev)
     _check(runs, "runs", torch.int32, (R,), dev)
-    _check(acc_ca, "acc_ca", torch.float32, (nk, S), dev)
+    acc_shape = _check_files(file_of_read, acc_ca, R, nk, S, dev)
+    _check(acc_ca, "acc_ca", torch.float32, acc_shape, dev)
     _check_tables(tt, dev)
+    F = acc_shape[0] if len(acc_shape) == 3 else 1
     B = min(int(multi_budget), R * SW)
     hist_n = S + 2
     i32 = dict(dtype=torch.int32, device=dev)
@@ -300,14 +322,36 @@ def turbo_multi(cp, mcnt, runs, tt, acc_ca, multi_budget: int,
     diag = torch.zeros((2,), **i32)
     dm = torch.zeros((R, S), **f32)
     a3w = torch.zeros((R, H), **f32)
-    a3c = torch.zeros((nk, H), **f32)
+    a3c = torch.zeros((F * nk, H), **f32)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     _launch("kasa_turbo_multi", "turbo_multi", _ptr(cp), _ptr(mcnt),
             _ptr(runs), _ptr(tt.grp2), _ptr(tt.d_tax4), _ptr(tt.t_hot),
-            _ptr(tt.weights), R, SW, tt.n, nk, S, H, tt.d_tax4.shape[0], B,
+            _ptr(tt.weights),
+            None if file_of_read is None else _ptr(file_of_read),
+            R, SW, tt.n, nk, S, H, tt.d_tax4.shape[0], B,
             int(exp_budget), cw, hist_n, _ptr(read_base), _ptr(wl[0]),
             _ptr(wl[1]), _ptr(wl[2]), _ptr(hist), _ptr(r_cnt),
             _ptr(r_rows), _ptr(r_big), _ptr(ofc), _ptr(diag),
             _ptr(acc_ca), _ptr(dm), _ptr(a3w), _ptr(a3c), sms * 8,
             _stream(dev))
     return ofc, dm, a3w, a3c, diag
+
+
+# ---------------------------------------------------------------------------
+# K5 dedup (csrc/dedup.cu)
+
+def dedup_windows(q: torch.Tensor, num_reads: int, kmers_per_read: int,
+                  poison: int) -> torch.Tensor:
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError("dedup_windows: the kernel takes CUDA tensors")
+    R, kpr = num_reads, kmers_per_read
+    _check(q, "q", torch.int32, (R * kpr, 2), dev)
+    P = _pow2(kpr)
+    if P > 4096:
+        raise NotImplementedError(f"{kpr} windows per read exceed the "
+                                  "dedup kernel's cap of 4096")
+    out = torch.empty_like(q)
+    _launch("kasa_dedup_windows", "dedup", _ptr(q), R, kpr, P, poison,
+            _ptr(out), _stream(dev))
+    return out

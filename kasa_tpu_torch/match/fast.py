@@ -2,18 +2,21 @@
 strategy only).
 
 native file parse -> vectorized padded read matrix -> one turbo batch
-step on the device per batch (match/turbo.py fused_turbo_acc: four
-CUDA kernels) -> packed readback decode -> exact host recompute of
+step on the device per batch (match/turbo.py fused_turbo_acc: the CUDA
+kernels K1-K5) -> packed readback decode -> exact host recompute of
 flagged reads -> native rank+format -> file.  A writer thread consumes
 finished batches in order, so host post-processing of batch i overlaps
 device work of batch i+1; the per-taxon count matrices accumulate on
-the device and are flushed every COUNT_FLUSH batches.
+the device and are flushed every COUNT_FLUSH batches (one (numK, S)
+slab per file for identify_multiple with profiles).
 
-Reads are laid out as a (rows, maxlen) uint8 matrix padded with 'X'.
-The false-k-mer marker is 'X' too (Read.hpp:1068-1078), so a row is the
-read followed by 'X' up to maxlen; the W = maxlen - 3*highestK + 1
-windows per row over-count, but every window past the read's true
-count has a '^' letter at a checked position and contributes nothing.
+Reads are laid out as a (rows, maxlen) uint8 matrix padded with 'X'
+('^' for protein), lines_per_read rows per read (two under --six, times
+two mates for paired-end).  The false-k-mer marker is 'X' too
+(Read.hpp:1068-1078), so a row is the read followed by 'X' up to maxlen;
+the uniform windows per row over-count, but every window past the
+read's true count has a '^' letter at a checked position and
+contributes nothing.
 """
 
 from __future__ import annotations
@@ -59,36 +62,91 @@ def device_table_budget(cfg, device: torch.device) -> int:
 
 
 class BatchAssembler:
-    """Vectorized ragged -> padded matrix assembly (host, numpy), for
-    single-end DNA in three frames."""
+    """Vectorized ragged -> padded matrix assembly (host, numpy)."""
 
-    def __init__(self, highest_k: int, min_k: int):
+    def __init__(self, highest_k: int, min_k: int, protein: bool = False,
+                 six: bool = False, one_frame: bool = False):
+        from ..core.alphabet import build_revcomp_lut
         self.highest_k = highest_k
-        self.padc = ord("X")
-        self.marker_len = (highest_k - min_k) * 3
+        self.protein = protein
+        self.six = six and not protein
+        self.one_frame = one_frame
+        self.revcomp = build_revcomp_lut()
+        self.padc = ord("^") if protein else ord("X")
+        self.marker_len = (highest_k - min_k) if protein \
+            else (highest_k - min_k) * 3
+
+    @property
+    def min_line(self) -> int:
+        """Shortest padded line: one window's span."""
+        return self.highest_k if self.protein else 3 * self.highest_k
 
     def window_target(self, maxlen: int) -> int:
         """Uniform windows per line for a padded line of `maxlen`."""
+        if self.protein:
+            return maxlen - self.highest_k + 1
+        if self.one_frame:
+            return maxlen // 3 - self.highest_k + 1
         return maxlen - 3 * self.highest_k + 1
 
     def true_counts(self, lens: np.ndarray) -> np.ndarray:
         """calculatekMerCount per line (line = read + marker)."""
         ll = lens + self.marker_len
-        return np.where(ll > 3 * self.highest_k + 1,
-                        ll - 3 * self.highest_k + 1, 0)
+        if self.protein:
+            c = np.where(ll > self.highest_k + 1, ll - self.highest_k + 1, 0)
+        elif self.one_frame:
+            d3 = ll // 3
+            c = np.where(d3 > self.highest_k + 1, d3 - self.highest_k + 1, 0)
+        else:
+            c = np.where(ll > 3 * self.highest_k + 1,
+                         ll - 3 * self.highest_k + 1, 0)
+        if self.six:
+            c = c * 2
+        return c
 
     def assemble(self, blob: np.ndarray, offs: np.ndarray, maxlen: int,
                  rows_pad: int) -> np.ndarray:
         """blob: sanitized bytes; offs: (R+1,) read offsets.  Returns
-        (rows_pad, maxlen) uint8, 'X'-padded."""
-        out = np.full((rows_pad, maxlen), self.padc, np.uint8)
+        (rows_pad * lpr, maxlen) uint8, 'X'/'^'-padded; under --six the
+        RC line precedes the forward line of each read (Read.hpp:612-630)."""
+        return self.assemble_multi([blob], [offs], maxlen, rows_pad)
+
+    def assemble_multi(self, blobs: list, offs_list: list, maxlen: int,
+                       rows_pad: int) -> np.ndarray:
+        """Paired-end assembly: each read owns lpr = mates * (2 if --six
+        else 1) adjacent rows, mate m's line(s) at offset m * spm
+        (readFastqa_pairedEnd emits the first mate's line(s), then the
+        second's, under one read id, Read.hpp:834-1050)."""
+        spm = 2 if self.six else 1
+        lpr = spm * len(blobs)
+        out = np.full((rows_pad * lpr, maxlen), self.padc, np.uint8)
+        for m, (blob, offs) in enumerate(zip(blobs, offs_list)):
+            self._assemble_into(out, blob, offs, maxlen, lpr, m * spm)
+        return out
+
+    def _assemble_into(self, out: np.ndarray, blob: np.ndarray,
+                       offs: np.ndarray, maxlen: int, lpr: int,
+                       row_off: int) -> None:
+        """Write one mate's line(s): read r's rows start at r * lpr +
+        row_off (RC first under --six, then forward)."""
         R = len(offs) - 1
         lens = np.diff(offs)
+        out_flat = out.reshape(-1)
         src = np.arange(len(blob), dtype=np.int64)
         rid = np.repeat(np.arange(R, dtype=np.int64), lens)
         within = src - offs[rid]
-        out.reshape(-1)[rid * maxlen + within] = blob[src]
-        return out
+        if self.six:
+            fwd_rows = lpr * rid + row_off + 1
+            out_flat[fwd_rows * maxlen + within] = blob[src]
+            # short reads are padded BEFORE the reverse complement
+            # (paddingOfSmallReads, then reverseComplement), so the RC
+            # row gets an 'X' prefix
+            need = np.maximum(0, 3 * self.highest_k - self.marker_len - lens)
+            rc_rows = lpr * rid + row_off
+            rc_within = need[rid] + (lens[rid] - 1 - within)
+            out_flat[rc_rows * maxlen + rc_within] = self.revcomp[blob[src]]
+        else:
+            out_flat[(lpr * rid + row_off) * maxlen + within] = blob[src]
 
 
 def _bucket(n: int, minimum: int) -> int:
@@ -124,11 +182,11 @@ class SingleTurboDispatch:
         self.multi_budget = MULTI_BUDGET
         self.exp_budget = EXP_BUDGET
 
-    def new_acc(self):
-        return (torch.zeros(self._acc_shape, dtype=torch.float32,
-                            device=self.device),
-                torch.zeros(self._acc_shape, dtype=torch.int32,
-                            device=self.device))
+    def new_acc(self, num_files: int | None = None):
+        shape = self._acc_shape if num_files is None \
+            else (num_files, *self._acc_shape)
+        return (torch.zeros(shape, dtype=torch.float32, device=self.device),
+                torch.zeros(shape, dtype=torch.int32, device=self.device))
 
     def reduce_acc(self, acc_ca, acc_cu):
         """-> host (f64, int64) copies; the device buffers are zeroed in
@@ -142,33 +200,53 @@ class SingleTurboDispatch:
     def csr_cap(self, rows_pad: int) -> int:
         return CSR_CAP_FACTOR * rows_pad
 
-    def dispatch(self, mat: np.ndarray, lut, acc_ca, acc_cu, rows_pad: int,
-                 w: int, cap: int):
-        """Queue one batch.  Returns (packed handle, ht, hk): on a CUDA
-        device the packed readback is copied into pinned host memory
-        behind the batch's kernels and an event marks its arrival."""
-        from .turbo import fused_turbo_acc
-        dev = self.device
-        mat_d = torch.from_numpy(mat).to(dev)
-        packed, ht, hk = fused_turbo_acc(
-            self.tt, mat_d, lut, acc_ca, acc_cu, rows_pad, w, cap,
-            self.multi_budget, self.exp_budget)
-        if dev.type != "cuda":
-            return (packed, None), ht, hk
-        host = torch.empty(packed.shape, dtype=packed.dtype,
-                           pin_memory=True)
-        host.copy_(packed, non_blocking=True)
+    def _to_host(self, tensors):
+        """Handle of device results: on a CUDA device each is copied
+        into pinned host memory behind the batch's kernels and an event
+        marks their arrival."""
+        if self.device.type != "cuda":
+            return tensors, None
+        hosts = []
+        for t in tensors:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            hosts.append(h)
         done = torch.cuda.Event()
         done.record()
-        return (host, done), ht, hk
+        return hosts, done
 
-    def fetch(self, handle) -> np.ndarray:
-        """Host view of a batch's packed readback (waits for its batch
-        only)."""
-        packed, done = handle
+    def multi_budget_for(self, lines_per_read: int) -> int:
+        """The multi worklist of a batch: kasa_tpu's MULTI_BUDGET per two
+        lines of a read.  On the synthetic corpus a batch of reads of
+        two lines (--six, or pairs) needs ~55 % of it, while pairs under
+        --six (four lines) need more than all of it, which would send
+        every read of the batch to the host recompute (chip_smoke.py's
+        budgets phase prints both)."""
+        return self.multi_budget * -(-lines_per_read // 2)
+
+    def dispatch(self, mat: np.ndarray, lut, acc_ca, acc_cu, rows_pad: int,
+                 w: int, cap: int, file_of_read: np.ndarray | None = None,
+                 **mode):
+        """Queue one batch; `mode` (protein, one_frame, lines_per_read,
+        unique) goes to fused_turbo_acc.  With file_of_read the
+        accumulators are the (F, numK, S) slabs of the batch's files.
+        Returns (handle of the packed readback, ht, hk)."""
+        from .turbo import fused_turbo_acc
+        mat_d = torch.from_numpy(mat).to(self.device)
+        fo = None if file_of_read is None \
+            else torch.from_numpy(file_of_read).to(self.device)
+        packed, ht, hk = fused_turbo_acc(
+            self.tt, mat_d, lut, acc_ca, acc_cu, rows_pad, w, cap,
+            self.multi_budget_for(mode.get("lines_per_read", 1)),
+            self.exp_budget, file_of_read=fo, **mode)
+        return self._to_host([packed]), ht, hk
+
+    def fetch(self, handle) -> list:
+        """Host views of a batch's results (waits for its batch only)."""
+        tensors, done = handle
         if done is not None:
             done.synchronize()
-        return packed.numpy()
+        return [t.numpy() for t in tensors]
 
     def decode(self, packed: np.ndarray, rows_pad: int, rb: int,
                cap: int, want_lists: bool, ht_d=None, hk_d=None):
@@ -212,100 +290,245 @@ def select_turbo_dispatch(cfg, index_path, limbs, taxids, content,
     return SingleTurboDispatch(tt, num_k, S)
 
 
+def _parse(path: str):
+    from ..native import get_lib, load_fastx
+    if get_lib() is None:
+        raise RuntimeError("the native host library (g++ and zlib) is "
+                           "unavailable")
+    fmt = fastx.sniff_format(path)
+    with timers.stage("fast/parse"):
+        parsed = load_fastx(path, fmt == "fastq")
+    if parsed is None:
+        raise RuntimeError(f"could not parse {path}")
+    return parsed
+
+
+def _check_input(seqs: list, lens: np.ndarray, asm: BatchAssembler,
+                 lpr: int, num_k: int, protein: bool) -> None:
+    """Refuse, before any output is written, input outside this slice:
+    reads above MAXLEN_CAP, a read whose lines exceed K3's slot cap, and
+    spaces or tabs inside a read; then sanitize in place."""
+    from ..native import sanitize_inplace
+    from .turbo import check_slot_cap
+    maxraw = int(lens.max())
+    if maxraw > MAXLEN_CAP:
+        raise NotImplementedError("reads above MAXLEN_CAP need the chunked "
+                                  "pipeline, a later slice of the port")
+    # no batch's bucket is longer than the longest read's
+    check_slot_cap(asm.window_target(_len_bucket(
+        maxraw + asm.marker_len, asm.min_line)) * lpr, num_k)
+    for seq in seqs:
+        if np.any((seq == ord(" ")) | (seq == ord("\t"))):
+            raise RuntimeError("Spaces or tabs inside read, "
+                               "please check your input.")
+        sanitize_inplace(seq, protein)
+
+
 def fast_identify(cfg, index_path: str, input_path: str,
                   out_file: str | None, profile_file: str | None,
                   content, freqs, limbs, taxids, highest_k: int,
                   tax_rows, device: torch.device):
-    """Drive the turbo pipeline over one single-end input file.  Returns
-    (counts_all, counts_unique, reads, k-mers in input)."""
-    from ..native import get_lib, load_fastx, sanitize_inplace
-    from .turbo import check_slot_cap
-
-    min_k, max_k = cfg.lower_k, cfg.higher_k
-    num_k = max_k - min_k + 1
-    if get_lib() is None:
-        raise RuntimeError("the native host library (g++ and zlib) is "
-                           "unavailable")
-    fmt = fastx.sniff_format(input_path)
-    with timers.stage("fast/parse"):
-        parsed = load_fastx(input_path, fmt == "fastq")
-    if parsed is None:
-        raise RuntimeError(f"could not parse {input_path}")
-    seq, seq_off, name_blob, name_off, nlines = parsed
-    R_total = len(seq_off) - 1
-    lens = np.diff(seq_off)
+    """Drive the turbo pipeline over one input file, or a paired-end
+    pair (cfg.paired_end_1/2).  Returns (counts_all, counts_unique,
+    reads, k-mers in input)."""
+    protein = cfg.translated
+    paired = bool(cfg.paired_end_1)
+    paths = [cfg.paired_end_1, cfg.paired_end_2] if paired else [input_path]
+    mates = [_parse(p) for p in paths]
+    seq, seq_off, name_blob, name_off, nlines = mates[0]
+    # the reference zips mates: unequal files end at the shorter
+    R_total = min(len(m[1]) - 1 for m in mates)
     if R_total == 0:
         raise NotImplementedError("an empty input is a later slice of the "
                                   "port (kasa_tpu runs its parity engine)")
-    maxraw = int(lens.max())
-    asm = BatchAssembler(highest_k, min_k)
-    if maxraw > MAXLEN_CAP:
-        raise NotImplementedError("reads above MAXLEN_CAP need the chunked "
-                                  "pipeline, a later slice of the port")
-    # before any output is written: no batch's bucket is longer
-    check_slot_cap(asm.window_target(
-        (max(maxraw + asm.marker_len, 3 * highest_k) + 15) // 16 * 16),
-        num_k)
-    if np.any((seq == ord(" ")) | (seq == ord("\t"))):
-        raise RuntimeError("Spaces or tabs inside read, "
-                           "please check your input.")
-    sanitize_inplace(seq, False)
+    mate_lens = [np.diff(m[1])[:R_total] for m in mates]
+    asm = BatchAssembler(highest_k, cfg.lower_k, protein, cfg.six_frames,
+                         cfg.one_frame)
+    lpr = (2 if asm.six else 1) * len(mates)
+    _check_input([m[0] for m in mates], np.concatenate(mate_lens), asm, lpr,
+                 cfg.num_k, protein)
     # report lengths follow the reference's char counter (raw chars +
-    # one newline per sequence line)
-    rep_lens = (lens + nlines[:R_total]).astype(np.uint32)
+    # one newline per sequence line); paired mates share one read id
+    # with summed lengths and names joined by a space
+    # (readFastqa_pairedEnd, Read.hpp:834-1050)
+    rep_lens = sum(ln + m[4][:R_total] for ln, m in zip(mate_lens, mates)) \
+        .astype(np.uint32)
+    if paired:
+        name_blob, name_off = _join_name_blobs(
+            name_blob, name_off, mates[1][2], mates[1][3], R_total)
 
     disp = select_turbo_dispatch(cfg, index_path, limbs, taxids, content,
                                  highest_k, tax_rows, device)
     global LAST_DISPATCH
     LAST_DISPATCH = disp
     return _fast_identify_turbo(
-        cfg, disp, asm, (seq, seq_off), name_blob, name_off, rep_lens,
-        R_total, out_file, profile_file, content, freqs, highest_k)
+        cfg, disp, asm, lpr, [(m[0], m[1]) for m in mates], name_blob,
+        name_off, rep_lens, R_total, out_file, profile_file, content, freqs,
+        input_path)
 
 
-def _fast_identify_turbo(cfg, disp, asm, mate_view, name_blob, name_off,
-                         rep_lens, R_total, out_file, profile_file, content,
-                         freqs, highest_k):
+def _join_name_blobs(blob1, off1, blob2, off2, R):
+    """Paired-end specifier: "name1 name2" per read (each mate's name
+    plus a trailing space is appended, Read.hpp:869-874; the drive loop
+    adds the final trailing space)."""
+    n1 = np.diff(off1[:R + 1])
+    n2 = np.diff(off2[:R + 1])
+    off = np.zeros(R + 1, np.int64)
+    np.cumsum(n1 + 1 + n2, out=off[1:])
+    buf = np.full(int(off[-1]), ord(" "), np.uint8)
+    src1 = np.arange(int(off1[R]), dtype=np.int64)
+    rid1 = np.repeat(np.arange(R, dtype=np.int64), n1)
+    buf[off[rid1] + (src1 - off1[rid1])] = blob1[src1]
+    src2 = np.arange(int(off2[R]), dtype=np.int64)
+    rid2 = np.repeat(np.arange(R, dtype=np.int64), n2)
+    buf[off[rid2] + n1[rid2] + 1 + (src2 - off2[rid2])] = blob2[src2]
+    return buf, off
+
+
+def fast_identify_multi(cfg, index_path: str, files: list, out_files: list,
+                        content, freqs, limbs, taxids, highest_k: int,
+                        tax_rows, device: torch.device,
+                        profile_files: list | None = None):
+    """identify_multiple packing: a folder of single-end files
+    classified as ONE read stream with shared batches and per-file
+    output demux (read numbers restart in each file).  With
+    profile_files, every batch runs the per-file count arms of K3/K4
+    (kasa_tpu's fused_turbo_files), so each file gets its own count
+    matrices even when a batch spans a file boundary.
+
+    Returns per-file (ca, cu, reads, k-mers in input) tuples (ca, cu
+    None without profiles)."""
+    protein = cfg.translated
+    parsed = [_parse(f) for f in files]
+    seq = np.concatenate([p[0] for p in parsed])
+    seq_off_parts, name_off_parts = [], []
+    soff = noff = 0
+    bounds = [0]
+    for p in parsed:
+        seq_off_parts.append(p[1][:-1] + soff)
+        soff += p[1][-1]
+        name_off_parts.append(p[3][:-1] + noff)
+        noff += p[3][-1]
+        bounds.append(bounds[-1] + len(p[1]) - 1)
+    seq_off = np.concatenate(seq_off_parts + [np.array([soff])])
+    name_blob = np.concatenate([p[2] for p in parsed])
+    name_off = np.concatenate(name_off_parts + [np.array([noff])])
+    nlines = np.concatenate([p[4] for p in parsed])
+    R_total = bounds[-1]
+    if R_total == 0:
+        raise NotImplementedError("empty inputs are a later slice of the "
+                                  "port (kasa_tpu runs its parity engine)")
+    lens = np.diff(seq_off)
+    asm = BatchAssembler(highest_k, cfg.lower_k, protein, False,
+                         cfg.one_frame)
+    _check_input([seq], lens, asm, 1, cfg.num_k, protein)
+    rep_lens = (lens + nlines[:R_total]).astype(np.uint32)
+
+    disp = select_turbo_dispatch(cfg, index_path, limbs, taxids, content,
+                                 highest_k, tax_rows, device)
+    global LAST_DISPATCH
+    LAST_DISPATCH = disp
+    segments = [dict(start=bounds[i], end=bounds[i + 1], out=out_files[i],
+                     fh=None,
+                     profile=profile_files[i] if profile_files else None)
+                for i in range(len(files))]
+    ca, cu, _, _ = _fast_identify_turbo(
+        cfg, disp, asm, 1, [(seq, seq_off)], name_blob, name_off, rep_lens,
+        R_total, "-", None, content, freqs, files[0], segments=segments)
+    from ..host import output as out_mod
+    min_k, max_k = cfg.lower_k, cfg.higher_k
+    out = []
+    for i, seg in enumerate(segments):
+        nr = bounds[i + 1] - bounds[i]
+        nk = int(asm.true_counts(lens[bounds[i]:bounds[i + 1]]).sum())
+        if seg["profile"]:
+            out_mod.write_profile(
+                seg["profile"], content.organisms, content.idx_to_tax,
+                ca[i], cu[i], None, freqs, nk, nr, min_k, max_k,
+                cfg.num_frames, coverage=False)
+            out.append((ca[i], cu[i], nr, nk))
+        else:
+            out.append((None, None, nr, nk))
+    return out
+
+
+def _fast_identify_turbo(cfg, disp, asm, lpr, mate_views, name_blob,
+                         name_off, rep_lens, R_total, out_file, profile_file,
+                         content, freqs, input_path, segments=None):
     """Turbo drive loop (kasa_tpu fast.py:953): batches go to the
     device in order; ONE writer thread fetches, decodes, recomputes
-    flagged reads on the host, ranks and writes, in FIFO order."""
+    flagged reads on the host, ranks and writes, in FIFO order.
+
+    segments (identify_multiple): per-file read ranges of the one
+    stream, each with its own output file and, with profiles, its own
+    host count totals."""
     from ..core.alphabet import build_codon_code_lut
+    from ..core.encode import custom_code_lut
     from ..host import output as out_mod
     from ..native import NativeRanker
-    from .turbo import host_classify_read, read_windows_np
+    from .turbo import dedup_windows_np, host_classify_read, read_windows_np
 
     tt = disp.tt
+    highest_k = asm.highest_k
     min_k, max_k = cfg.lower_k, cfg.higher_k
     num_k = max_k - min_k + 1
     S = content.num_species
-    lut_np = np.asarray(build_codon_code_lut(), dtype=np.int32)
+    protein = cfg.translated
+    lut_np = custom_code_lut(cfg)
+    lut_np = np.asarray(lut_np if lut_np is not None
+                        else build_codon_code_lut(), dtype=np.int32)
     lut = torch.from_numpy(lut_np).to(disp.device)
+    mode = dict(protein=protein, one_frame=cfg.one_frame,
+                lines_per_read=lpr, unique=cfg.unique)
 
     ranker = None
-    if out_file:
+    if out_file or cfg.filter:
         ranker = NativeRanker(
             content.idx_to_tax, content.organisms, freqs[:, 0],
-            min_k, max_k, highest_k, False, cfg.num_frames,
-            cfg.threshold, cfg.num_of_beasts, cfg.output_format)
+            min_k, max_k, highest_k, protein, cfg.num_frames,
+            cfg.threshold, cfg.num_of_beasts, cfg.output_format,
+            filter_on=cfg.filter, error_threshold=cfg.error_threshold,
+            coherence_threshold=cfg.coherence_threshold)
         if not ranker.ok:
             raise RuntimeError("the native ranker is unavailable")
 
-    counts_all = np.zeros((num_k, S), dtype=np.float64)
-    counts_unique = np.zeros((num_k, S), dtype=np.uint64)
+    per_file_counts = segments is not None \
+        and any(seg["profile"] for seg in segments)
+    # with per-file counts every file has its own (numK, S) slab, on the
+    # device and on the host
+    acc_lead = (len(segments),) if per_file_counts else ()
+    counts_all = np.zeros(acc_lead + (num_k, S), dtype=np.float64)
+    counts_unique = np.zeros(acc_lead + (num_k, S), dtype=np.uint64)
+    seg_ends = np.array([seg["end"] for seg in segments or ()], np.int64)
     num_kmers_in_input = 0
     fallback_reads = 0
+    filtered_ids: list = []
 
     hdr = (b"[\n" if cfg.output_format == "json" else
            b"#Read number\tSpecifier from input file\tMatched "
            b"taxa\tNames\tScores{relative,k-mer}\tError\n"
            if cfg.output_format == "tsv" else b"")
     fh = None
-    if out_file:
+    if segments is not None:
+        # each output file frames its own read range; batches may span
+        # file boundaries
+        for seg in segments:
+            seg["fh"] = open(seg["out"], "wb") if seg["out"] else None
+            if seg["fh"] is not None and hdr:
+                seg["fh"].write(hdr)
+    elif out_file:
         fh = open(out_file, "wb")
         if hdr:
             fh.write(hdr)
 
-    seq, seq_off = mate_view
+    def file_of(global_r):
+        """Index of the file (segment) that holds read `global_r`."""
+        return np.searchsorted(seg_ends, global_r, side="right")
+
+    def read_q(mat, r, w):
+        q = read_windows_np(mat[r * lpr:(r + 1) * lpr], lut_np, highest_k,
+                            protein, cfg.one_frame, w)
+        return dedup_windows_np(q) if cfg.unique else q
 
     def consume(item):
         nonlocal num_kmers_in_input, fallback_reads
@@ -313,7 +536,8 @@ def _fast_identify_turbo(cfg, disp, asm, mate_view, name_blob, name_off,
         rb = r1 - r0
         num_kmers_in_input += int(nk)
         with timers.stage("fast/fetch"):
-            packed = disp.fetch(handle)
+            fetched = disp.fetch(handle)
+        packed = fetched[0]
         hc, ofc, ofl, nflag, ht, hk = disp.decode(
             packed, rows_pad, rb, cap, ranker is not None, ht_d, hk_d)
         # without a ranker only count-overflow rows need recompute; with
@@ -326,11 +550,12 @@ def _fast_identify_turbo(cfg, disp, asm, mate_view, name_blob, name_off,
                 fixes = {}
                 wmax = ht.shape[1] if ht is not None else 0
                 for r in rows:
-                    q = read_windows_np(mat[r:r + 1], lut_np, highest_k, w)
-                    scores, ca2, cu2 = host_classify_read(tt, q)
+                    scores, ca2, cu2 = host_classify_read(
+                        tt, read_q(mat, int(r), w))
                     if ofc[r]:
-                        counts_all[:] += ca2
-                        counts_unique[:] += cu2.astype(np.uint64)
+                        f = file_of(r0 + int(r)) if per_file_counts else ()
+                        counts_all[f] += ca2
+                        counts_unique[f] += cu2.astype(np.uint64)
                     if ranker is None:
                         continue
                     items = sorted((int(t), float(v))
@@ -349,14 +574,31 @@ def _fast_identify_turbo(cfg, disp, asm, mate_view, name_blob, name_off,
                         for i, (t, v) in enumerate(items):
                             ht[r, i] = t
                             hk[r, i] = v
-        if ranker is not None:
-            with timers.stage("fast/rank+write"):
-                names = [name_blob[name_off[i]:name_off[i + 1]]
-                         .tobytes().decode("latin-1") + " "
-                         for i in range(r0, r1)]
-                text, _flags = ranker.format_sparse(
+        if ranker is None:
+            return
+        with timers.stage("fast/rank+write"):
+            names = [name_blob[name_off[i]:name_off[i + 1]]
+                     .tobytes().decode("latin-1") + " "
+                     for i in range(r0, r1)]
+            if segments is None:
+                text, flags = ranker.format_sparse(
                     ht, hk, hc, names, rep_lens[r0:r1], r0)
-                fh.write(text)
+                if fh is not None:
+                    fh.write(text)
+                if flags is not None:
+                    filtered_ids.extend((r0 + np.nonzero(flags)[0]).tolist())
+                return
+            # split the batch at file boundaries; read numbers restart
+            # in each file
+            for seg in segments:
+                a, b = max(r0, seg["start"]), min(r1, seg["end"])
+                if b <= a:
+                    continue
+                text, _ = ranker.format_sparse(
+                    ht[a - r0:b - r0], hk[a - r0:b - r0], hc[a - r0:b - r0],
+                    names[a - r0:b - r0], rep_lens[a:b], a - seg["start"])
+                if seg["fh"] is not None:
+                    seg["fh"].write(text)
 
     work_q: _queue.Queue = _queue.Queue(maxsize=4)
     writer_exc: list = []
@@ -384,7 +626,7 @@ def _fast_identify_turbo(cfg, disp, asm, mate_view, name_blob, name_off,
 
     # device count accumulators (added to in place by every batch),
     # flushed every COUNT_FLUSH batches so f32 drift stays bounded
-    acc_ca, acc_cu = disp.new_acc()
+    acc_ca, acc_cu = disp.new_acc(*acc_lead)
     sin_flush = 0
 
     def flush_counts():
@@ -410,22 +652,34 @@ def _fast_identify_turbo(cfg, disp, asm, mate_view, name_blob, name_off,
                 print(f"OUT: Progress of current file: {frac * 100.0:.2f} %"
                       f" (ETA: {el / frac - el:.0f}s)", flush=True)
             with timers.stage("fast/assemble"):
-                blens = np.diff(seq_off[r0:r1 + 1])
-                line_target = max(3 * highest_k,
-                                  int(blens.max()) + asm.marker_len)
-                maxlen = _len_bucket(line_target, 3 * highest_k)
+                blobs, offs_list, nk = [], [], 0
+                line_target = asm.min_line
+                for mseq, moff in mate_views:
+                    blens = np.diff(moff[r0:r1 + 1])
+                    line_target = max(line_target,
+                                      int(blens.max()) + asm.marker_len)
+                    blobs.append(mseq[moff[r0]:moff[r1]])
+                    offs_list.append((moff[r0:r1 + 1] - moff[r0])
+                                     .astype(np.int64))
+                    nk += int(asm.true_counts(blens).sum())
+                maxlen = _len_bucket(line_target, asm.min_line)
                 rows_pad = _bucket(r1 - r0, 512)
-                blob = seq[seq_off[r0]:seq_off[r1]]
-                offs = (seq_off[r0:r1 + 1] - seq_off[r0]).astype(np.int64)
-                mat = asm.assemble(blob, offs, maxlen, rows_pad)
-                nk = int(asm.true_counts(blens).sum())
+                mat = asm.assemble_multi(blobs, offs_list, maxlen, rows_pad)
             if sin_flush >= COUNT_FLUSH:
                 flush_counts()
             with timers.stage("fast/dispatch"):
                 w = asm.window_target(maxlen)
                 cap = disp.csr_cap(rows_pad)
-                handle, ht_d, hk_d = disp.dispatch(mat, lut, acc_ca, acc_cu,
-                                                   rows_pad, w, cap)
+                ca_b, cu_b, fo = acc_ca, acc_cu, None
+                if per_file_counts:
+                    # the batch's reads may span files: the kernels count
+                    # into the slabs of files f0..f1 (padded rows take f1)
+                    f0, f1 = int(file_of(r0)), int(file_of(r1 - 1))
+                    fo = np.full(rows_pad, f1 - f0, np.int32)
+                    fo[:r1 - r0] = file_of(np.arange(r0, r1)) - f0
+                    ca_b, cu_b = acc_ca[f0:f1 + 1], acc_cu[f0:f1 + 1]
+                handle, ht_d, hk_d = disp.dispatch(
+                    mat, lut, ca_b, cu_b, rows_pad, w, cap, fo, **mode)
                 sin_flush += 1
                 submit((handle, ht_d, hk_d, r0, r1, nk, mat, w, rows_pad,
                         cap))
@@ -433,11 +687,15 @@ def _fast_identify_turbo(cfg, disp, asm, mate_view, name_blob, name_off,
         producer_ok = True
     finally:
         # always hand the writer its sentinel and join it, so an error
-        # never leaks the thread or the open output handle
+        # never leaks the thread or an open output handle
         work_q.put(None)
         writer_thread.join()
-        if not producer_ok and fh is not None:
-            fh.close()
+        if not producer_ok:
+            handles = ([sg["fh"] for sg in segments]
+                       if segments is not None else [fh])
+            for h in handles:
+                if h is not None:
+                    h.close()
     if writer_exc:
         raise writer_exc[0]
     global LAST_FALLBACK
@@ -448,10 +706,12 @@ def _fast_identify_turbo(cfg, disp, asm, mate_view, name_blob, name_off,
               f"({100.0 * fallback_reads / max(R_total, 1):.3f} %)",
               flush=True)
 
-    if fh is not None:
-        if cfg.output_format == "json":
-            fh.write(b"\n]")
-        fh.close()
+    tail = b"\n]" if cfg.output_format == "json" else b""
+    for h in ([sg["fh"] for sg in segments] if segments is not None
+              else [fh]):
+        if h is not None:
+            h.write(tail)
+            h.close()
 
     if profile_file:
         out_mod.write_profile(
@@ -459,6 +719,10 @@ def _fast_identify_turbo(cfg, disp, asm, mate_view, name_blob, name_off,
             counts_all, counts_unique, None, freqs,
             num_kmers_in_input, R_total, min_k, max_k, cfg.num_frames,
             coverage=False)
+
+    if cfg.filter:
+        from .pipeline import write_filtered
+        write_filtered(cfg, input_path, filtered_ids)
 
     if cfg.verbose:
         timers.report()

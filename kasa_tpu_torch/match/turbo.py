@@ -1,6 +1,6 @@
 """Turbo classify path on PyTorch + CUDA (port of kasa_tpu/match/turbo.py).
 
-One batch of reads goes through four hand-written CUDA kernels
+One batch of reads goes through five hand-written CUDA kernels
 (kasa_tpu_torch/csrc/, bound in kasa_tpu_torch/kernels.py):
 
   K1 encode        (core/encode.py)   bytes -> (M, 2) int32 limb windows
@@ -17,6 +17,11 @@ One batch of reads goes through four hand-written CUDA kernels
                                       expansion folded by atomics into the
                                       (numK, S) counts and the (R, S)
                                       score rows, hot-set credits
+  K5 dedup         (this module)      -e: per read, the windows sorted and
+                                      duplicates poisoned (before K2)
+
+K3 (post) and K4 also take a file_of_read map (identify_multiple): the
+counts then go to an (F, numK, S) matrix, one slab per file.
 
 Every kernel has a plain PyTorch version of the same function here, with
 the same outputs.  A wrapper takes the plain version only for tensors on
@@ -76,6 +81,9 @@ class TurboRowOverflow(RuntimeError):
 CW = 160                    # compact (tax, k) runs kept per read (T1)
 WOUT = 160                  # distinct taxa emitted per read
 WM = 160                    # distinct multi taxa folded per read
+# a window of six '^' letters: always invalid at every k, used to
+# poison -e duplicates (kasa_tpu turbo.py:117)
+POISON_LIMB = sum(30 << (5 * j) for j in range(6))
 I32_MAX = np.int32(2**31 - 1)
 # T1 slot keys are tax*8+ki.  kasa_tpu narrows them to int16 (sentinel
 # 32767) when S <= 4095 to halve its global sorts; here the sort runs in
@@ -586,7 +594,8 @@ def turbo_reads_pre(skey: torch.Tensor, mpay: torch.Tensor):
 # K4 turbo_multi: the global multi worklist (kasa_tpu turbo.py:672-869)
 
 def turbo_multi_plain(cp, mcnt, runs, tt: TurboTables, acc_ca,
-                      multi_budget: int, exp_budget: int):
+                      multi_budget: int, exp_budget: int,
+                      file_of_read=None):
     """The batch's multi slots in read-major worklist order (at most
     B = min(multi_budget, R*SW) of them): exact T from the group header
     or the hot-set table; cold slots sorted stably by T and admitted
@@ -594,12 +603,18 @@ def turbo_multi_plain(cp, mcnt, runs, tt: TurboTables, acc_ca,
     the cold expansion folded into acc_ca (in place) and into the
     (R, S) score rows; hot-set credits per (read, set) and (k, set).
 
-    -> ofc (R,) bool, dm (R, S) f32, a3w (R, H) f32, a3c (numK, H) f32,
+    With file_of_read (R,) int32, acc_ca is (F, numK, S) and a slot of
+    read r counts in slab file_of_read[r] (kasa_tpu's fused_turbo_files).
+
+    -> ofc (R,) bool, dm (R, S) f32, a3w (R, H) f32, a3c (F*numK, H) f32,
        diag (2,) int32 [multi slots, expansion rows used]."""
     R, SW = cp.shape
     dev = cp.device
     n, num_k, S = tt.n, tt.num_k, tt.num_species
     H = tt.hotmask.shape[0]
+    F = acc_ca.shape[0] if file_of_read is not None else 1
+    fk_of = (file_of_read.long() * num_k if file_of_read is not None
+             else torch.zeros(R, dtype=torch.long, device=dev))
     B = min(int(multi_budget), R * SW)
     total = int(mcnt.sum())
     batch_of = total > B
@@ -656,32 +671,34 @@ def turbo_multi_plain(cp, mcnt, runs, tt: TurboTables, acc_ca,
         inv_e = inv[sl][:, None].expand(-1, 4)[okt]
         # in place: the batch's cold counts go straight into the
         # accumulator (no per-batch (numK, S) copy)
+        fk_ok = fk_of[rid_ok] + ki_ok
         acc_ca.view(-1).index_add_(
-            0, (ki_ok[sl][:, None] * S + taxa)[okt], inv_e)
+            0, (fk_ok[sl][:, None] * S + taxa)[okt], inv_e)
         wv = (w[ki_ok] * inv)[sl][:, None].expand(-1, 4)[okt]
         dm.view(-1).index_add_(0, (rid_ok[sl][:, None] * S + taxa)[okt], wv)
 
     a3w = torch.zeros((R, H), dtype=torch.float32, device=dev)
-    a3c = torch.zeros((num_k, H), dtype=torch.float32, device=dev)
+    a3c = torch.zeros((F * num_k, H), dtype=torch.float32, device=dev)
     ok_hot = hot & ~ofc[rid]
     if bool(ok_hot.any()):
         inv_h = 1.0 / T[ok_hot].clamp(min=1).to(torch.float32)
         a3w.view(-1).index_add_(0, rid[ok_hot] * H + hid[ok_hot],
                                 w[ki[ok_hot]] * inv_h)
-        a3c.view(-1).index_add_(0, ki[ok_hot] * H + hid[ok_hot], inv_h)
+        a3c.view(-1).index_add_(
+            0, (fk_of[rid[ok_hot]] + ki[ok_hot]) * H + hid[ok_hot], inv_h)
     diag = torch.tensor([total, eused], dtype=torch.int32, device=dev)
     return ofc, dm, a3w, a3c, diag
 
 
 def turbo_multi(cp, mcnt, runs, tt: TurboTables, acc_ca,
-                multi_budget: int, exp_budget: int):
+                multi_budget: int, exp_budget: int, file_of_read=None):
     """K4 wrapper."""
     if cp.device.type == "cpu":
         return turbo_multi_plain(cp, mcnt, runs, tt, acc_ca, multi_budget,
-                                 exp_budget)
+                                 exp_budget, file_of_read)
     from .. import kernels
     return kernels.turbo_multi(cp, mcnt, runs, tt, acc_ca, multi_budget,
-                               exp_budget, CW, SENT)
+                               exp_budget, CW, SENT, file_of_read)
 
 
 # ---------------------------------------------------------------------------
@@ -709,12 +726,14 @@ def _segment_sums(keys, vals):
 
 
 def turbo_reads_post_plain(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
-                           csr_cap: int):
+                           csr_cap: int, file_of_read=None):
     """T1 fold into the count accumulators (in place), per-read hit
     lists (T1 taxa + the first WM taxa of the read's score row, merged,
     first WOUT kept), flags, and the packed int32 readback:
     [hc (R) | flags (R) | CSR (tax, ksum bits) * csr_cap | mtot, eused,
-    sum hc, flagged reads].  -> (packed, ht (R, WOUT), hk (R, WOUT))."""
+    sum hc, flagged reads].  With file_of_read the accumulators are
+    (F, numK, S) and read r's runs go to slab file_of_read[r].
+    -> (packed, ht (R, WOUT), hk (R, WOUT))."""
     R = ck.shape[0]
     S = dm.shape[1]
     dev = ck.device
@@ -723,7 +742,11 @@ def turbo_reads_post_plain(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
     cki = torch.where(cvalid, ck & 7, torch.zeros_like(ck)).long()
     ctax = torch.where(cvalid, ck >> 3, torch.zeros_like(ck)).long()
     sel = cvalid & keep[:, None]
-    cell = (cki * S + ctax)[sel]
+    if file_of_read is not None:
+        cki_f = file_of_read.long()[:, None] * weights.shape[0] + cki
+    else:
+        cki_f = cki
+    cell = (cki_f * S + ctax)[sel]
     # in place: T1 counts feed both accumulators directly
     acc_ca.view(-1).index_add_(0, cell, cc[sel].to(torch.float32))
     acc_cu.view(-1).index_add_(0, cell, cc[sel])
@@ -771,53 +794,103 @@ def turbo_reads_post_plain(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
 
 
 def turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
-                     csr_cap: int):
+                     csr_cap: int, file_of_read=None):
     """K3 (post) wrapper."""
     if ck.device.type == "cpu":
         return turbo_reads_post_plain(ck, cc, ofc, dm, weights, acc_ca,
-                                      acc_cu, diag, csr_cap)
+                                      acc_cu, diag, csr_cap, file_of_read)
     from .. import kernels
     return kernels.turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca,
-                                    acc_cu, diag, csr_cap, SENT, WOUT, WM)
+                                    acc_cu, diag, csr_cap, SENT, WOUT, WM,
+                                    file_of_read)
+
+
+# ---------------------------------------------------------------------------
+# K5 dedup: -e (kasa_tpu turbo.py:128 dedup_read_windows)
+
+def dedup_windows_plain(q: torch.Tensor, num_reads: int,
+                        kmers_per_read: int) -> torch.Tensor:
+    """(R * kpr, 2) int32 read-major windows -> the same windows sorted
+    per read by (limb0, limb1), every window equal to its predecessor
+    replaced by POISON_LIMB in both limbs.  Limbs are non-negative
+    30-bit values, so the 60-bit key orders as kasa_tpu's two-key
+    sort."""
+    key = ((q[:, 0].long() << LIMB_BITS) | q[:, 1].long()) \
+        .reshape(num_reads, kmers_per_read)
+    ks, _ = torch.sort(key, dim=1)
+    dup = torch.zeros_like(ks, dtype=torch.bool)
+    dup[:, 1:] = ks[:, 1:] == ks[:, :-1]
+    poison = torch.full_like(ks, POISON_LIMB)
+    l0 = torch.where(dup, poison, ks >> LIMB_BITS)
+    l1 = torch.where(dup, poison, ks & ((1 << LIMB_BITS) - 1))
+    return torch.stack([l0, l1], dim=-1).reshape(-1, 2).to(torch.int32)
+
+
+def dedup_windows(q: torch.Tensor, num_reads: int,
+                  kmers_per_read: int) -> torch.Tensor:
+    """K5 wrapper."""
+    if q.device.type == "cpu":
+        return dedup_windows_plain(q, num_reads, kmers_per_read)
+    from .. import kernels
+    return kernels.dedup_windows(q, num_reads, kmers_per_read, POISON_LIMB)
+
+
+def dedup_windows_np(q: np.ndarray) -> np.ndarray:
+    """Host twin for the overflow fallback: distinct windows only."""
+    q64 = (q[:, 0].astype(np.int64) << LIMB_BITS) | q[:, 1].astype(np.int64)
+    _, first = np.unique(q64, return_index=True)
+    return q[np.sort(first)]
 
 
 # ---------------------------------------------------------------------------
 # the batch step (kasa_tpu turbo.py:1175 fused_turbo_acc)
 
-def check_slot_cap(w_per_line: int, num_k: int) -> None:
-    """Raise for a read line whose slots exceed K3's shared-memory cap."""
-    sw = w_per_line * num_k
+def check_slot_cap(kmers_per_read: int, num_k: int) -> None:
+    """Raise for a read (all its lines) whose slots exceed K3's
+    shared-memory cap."""
+    sw = kmers_per_read * num_k
     if sw > SW_CAP:
         raise NotImplementedError(
-            f"a read line of {w_per_line} windows x {num_k} k levels has "
+            f"a read of {kmers_per_read} windows x {num_k} k levels has "
             f"{sw} slots, above the per-read kernel's cap of {SW_CAP} "
-            "(long reads are a later slice of the port)")
+            "(long reads and long read pairs are a later slice of the "
+            "port)")
 
 
 def fused_turbo_acc(tt: TurboTables, byte_mat: torch.Tensor,
                     lut: torch.Tensor, acc_ca: torch.Tensor,
                     acc_cu: torch.Tensor, num_reads: int, w_per_line: int,
                     csr_cap: int, multi_budget: int | None = None,
-                    exp_budget: int | None = None):
-    """One batch: (rows, maxlen) uint8 read matrix -> packed readback.
+                    exp_budget: int | None = None, *, protein: bool = False,
+                    one_frame: bool = False, lines_per_read: int = 1,
+                    unique: bool = False, file_of_read=None):
+    """One batch: (rows, maxlen) uint8 read matrix, lines_per_read rows
+    per read -> packed readback.
 
     acc_ca (numK, S) f32 and acc_cu (numK, S) int32 accumulate this
     batch's counts IN PLACE (kasa_tpu donates and returns new buffers).
-    Returns (packed, hit_tax, hit_ksum): packed (2R + 2*csr_cap + 4,)
-    int32 as in kasa_tpu; hit_tax/hit_ksum the dense (R, WOUT) lists the
-    decode reads when the CSR overflows csr_cap."""
+    With file_of_read ((R,) int32, non-decreasing) they are (F, numK, S)
+    and each read counts in its file's slab (kasa_tpu's
+    fused_turbo_files).  unique (-e) dedups each read's windows (K5)
+    before the search.  Returns (packed, hit_tax, hit_ksum): packed
+    (2R + 2*csr_cap + 4,) int32 as in kasa_tpu; hit_tax/hit_ksum the
+    dense (R, WOUT) lists the decode reads when the CSR overflows
+    csr_cap."""
     from ..core.encode import encode_windows
-    check_slot_cap(w_per_line, tt.num_k)
-    q = encode_windows(byte_mat, lut, w_per_line)
-    return turbo_core(tt, q, num_reads, w_per_line, acc_ca, acc_cu,
-                      csr_cap, multi_budget, exp_budget)
+    kpr = w_per_line * lines_per_read
+    check_slot_cap(kpr, tt.num_k)
+    q = encode_windows(byte_mat, lut, w_per_line, protein, one_frame)
+    if unique:
+        q = dedup_windows(q, num_reads, kpr)
+    return turbo_core(tt, q, num_reads, kpr, acc_ca, acc_cu, csr_cap,
+                      multi_budget, exp_budget, file_of_read)
 
 
 def turbo_core(tt: TurboTables, q: torch.Tensor, num_reads: int,
                kmers_per_read: int, acc_ca: torch.Tensor,
                acc_cu: torch.Tensor, csr_cap: int,
                multi_budget: int | None = None,
-               exp_budget: int | None = None):
+               exp_budget: int | None = None, file_of_read=None):
     """The classify step on (R * kpr, 2) int32 windows in read-major
     layout (kasa_tpu's _turbo_core plus the packed tail): K2, K3 (pre),
     K4, the two hot-set products, K3 (post)."""
@@ -833,13 +906,14 @@ def turbo_core(tt: TurboTables, q: torch.Tensor, num_reads: int,
     eb = int(exp_budget or EXP_BUDGET)
     skey, mpay = turbo_match(q, tt, num_reads, kmers_per_read)
     ck, cc, runs, mcnt, cp = turbo_reads_pre(skey, mpay)
-    ofc, dm, a3w, a3c, diag = turbo_multi(cp, mcnt, runs, tt, acc_ca, mb, eb)
+    ofc, dm, a3w, a3c, diag = turbo_multi(cp, mcnt, runs, tt, acc_ca, mb, eb,
+                                          file_of_read)
     # hot-set products against the 0/1 membership mask (kasa_tpu leaves
     # them to an XLA dot); TF32 is off (kasa_tpu_torch/__init__.py)
     dm.addmm_(a3w, tt.hotmask)
-    acc_ca.addmm_(a3c, tt.hotmask)
+    acc_ca.view(-1, tt.num_species).addmm_(a3c, tt.hotmask)
     return turbo_reads_post(ck, cc, ofc, dm, tt.weights, acc_ca, acc_cu,
-                            diag, csr_cap)
+                            diag, csr_cap, file_of_read)
 
 
 # ---------------------------------------------------------------------------
@@ -919,16 +993,19 @@ def host_classify_read(tables: TurboTables, q_limbs: np.ndarray):
 
 
 def read_windows_np(mat_rows: np.ndarray, lut_np: np.ndarray,
-                    highest_k: int, w_per_line: int) -> np.ndarray:
+                    highest_k: int, protein: bool, one_frame: bool,
+                    w_per_line: int) -> np.ndarray:
     """Host twin of the batch windowing for ONE read's padded line(s)
-    (overflow fallback; DNA, three frames).  mat_rows: (lpr, maxlen)
-    uint8."""
+    (overflow fallback).  mat_rows: (lpr, maxlen) uint8."""
     from ..core.encode import dna_to_aa_codes_np, encode_windows_np
+    stride = 1 if protein else 3
     outs = []
     for line in mat_rows:
-        buf = np.concatenate([line, np.zeros(3 * highest_k, np.uint8)])
-        aa = dna_to_aa_codes_np(buf, lut_np)
-        win = encode_windows_np(aa, highest_k, 3)
+        buf = np.concatenate([line, np.zeros(stride * highest_k, np.uint8)])
+        aa = dna_to_aa_codes_np(buf, lut_np, protein=protein)
+        win = encode_windows_np(aa, highest_k, stride)
+        if one_frame and not protein:
+            win = win[::3]
         outs.append(win[:w_per_line])
     return np.concatenate(outs, axis=0)
 

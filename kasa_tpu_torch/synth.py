@@ -12,7 +12,14 @@ Generates, once, under ``.synth_corpus/`` at the repo root (listed in
     exercises the host recompute), ~32.7 M entries at full size;
   * 150 bp read sets sampled from those genomes with 0.5 % substitution
     errors, as fastq (reads, a small set and a warm-up set), plus the
-    first SMOKE_READS reads as their own file.
+    first SMOKE_READS reads as their own file;
+  * SMOKE_READS / 2 read pairs, as two fastq files of mates: both mates
+    of a pair come from one fragment of one genome (an insert of
+    INSERT_MIN..INSERT_MAX bp), mate 1 its first 150 bp, mate 2 the
+    reverse complement of its last 150 bp (Illumina's FR orientation).
+
+``protein_reads`` writes seeded protein reads cut from a protein fasta
+(the golden protein reads of tests/golden match nothing).
 
 ``python -m kasa_tpu_torch.synth`` builds it.  ``generate`` takes the
 sizes as arguments so tests can build a tiny corpus.
@@ -37,6 +44,7 @@ WARM_READS = 8_192
 SMALL_READS = 12_288
 SMOKE_READS = 65_536    # 8 full batches of 8192 reads
 READ_LEN = 150
+INSERT_MIN, INSERT_MAX = 300, 500
 ERR_RATE = 0.005
 SEED = 20260820
 
@@ -140,12 +148,66 @@ def _emit(fh, rng, genomes, n, tag):
         fh.write(b"\n")
 
 
+def _emit_pairs(fh1, fh2, rng, genomes, n):
+    """n read pairs, both mates from one fragment (see the module
+    docstring); the mates share a name, as paired fastq files do."""
+    from .core.alphabet import build_revcomp_lut
+    revcomp = build_revcomp_lut()
+    qual = b"I" * READ_LEN
+    gsel = rng.integers(0, len(genomes), size=n)
+    for i in range(n):
+        g = genomes[gsel[i]]
+        ins = int(rng.integers(INSERT_MIN, INSERT_MAX + 1))
+        off = int(rng.integers(0, len(g) - ins))
+        frag = g[off:off + ins]
+        for fh, mate in ((fh1, frag[:READ_LEN].copy()),
+                         (fh2, revcomp[frag[ins - READ_LEN:]][::-1].copy())):
+            err = np.nonzero(rng.random(READ_LEN) < ERR_RATE)[0]
+            if len(err):
+                mate[err] = _DNA[rng.integers(0, 4, size=len(err))]
+            fh.write(b"@p_%d src%d\n" % (i, gsel[i] + 1))
+            fh.write(mate.tobytes())
+            fh.write(b"\n+\n")
+            fh.write(qual)
+            fh.write(b"\n")
+
+
+def protein_reads(fasta: str, out_path: str, n: int = 80,
+                  seed: int = 12) -> str:
+    """n protein reads: 30-60 aa substrings of the records of `fasta`
+    with up to two substitutions each, seeded; written to `out_path`."""
+    recs, cur = [], []
+    with open(fasta) as fh:
+        for line in fh.read().splitlines():
+            if line.startswith(">"):
+                cur = []
+                recs.append(cur)
+            else:
+                cur.append(line.strip())
+    seqs = ["".join(r) for r in recs]
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        s = seqs[i % len(seqs)]
+        m = int(rng.integers(30, 61))
+        o = int(rng.integers(0, len(s) - m))
+        read = list(s[o:o + m])
+        for j in rng.integers(0, m, size=int(rng.integers(0, 3))):
+            read[j] = "ACDEFGHIKLMNPQRSTVWY"[int(rng.integers(0, 20))]
+        out.append(f">pr{i}\n{''.join(read)}\n")
+    with open(out_path, "w") as fh:
+        fh.write("".join(out))
+    return out_path
+
+
 def paths(directory: str = DIR) -> dict:
     return dict(index=os.path.join(directory, "benchIndex"),
                 reads=os.path.join(directory, "reads.fastq"),
                 reads_small=os.path.join(directory, "reads_small.fastq"),
                 warm=os.path.join(directory, "warm.fastq"),
-                smoke=os.path.join(directory, "reads_smoke.fastq"))
+                smoke=os.path.join(directory, "reads_smoke.fastq"),
+                pairs=[os.path.join(directory, f"pairs_{m}.fastq")
+                       for m in (1, 2)])
 
 
 def generate(directory: str = DIR, num_species: int = NUM_SPECIES,
@@ -176,6 +238,9 @@ def generate(directory: str = DIR, num_species: int = NUM_SPECIES,
         with open(p["reads"], "rb") as src, open(p["smoke"], "wb") as dst:
             for _ in range(4 * min(smoke_reads, reads)):
                 dst.write(src.readline())
+        with open(p["pairs"][0], "wb") as fh1, \
+                open(p["pairs"][1], "wb") as fh2:
+            _emit_pairs(fh1, fh2, rng, genomes, smoke_reads // 2)
         log(f"# corpus: reads written ({time.time() - t0:.1f}s)")
         with open(stamp, "w") as fh:
             fh.write(f"{len(taxids)}\n")

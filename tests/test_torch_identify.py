@@ -143,10 +143,8 @@ def test_output_formats_match_jax_turbo(tmp_path, monkeypatch, index_dir,
 
 
 UNSUPPORTED = [
-    ("six_frames", True), ("one_frame", True), ("unique", True),
-    ("translated", True), ("paired_end_1", "x_1.fastq"),
-    ("codon_table", "gc.prt"), ("filter", True), ("coverage", True),
-    ("post_process", True), ("visualize", True), ("sloppy", True),
+    ("coverage", True), ("post_process", True), ("visualize", True),
+    ("sloppy", True),
 ]
 
 
@@ -166,12 +164,10 @@ def test_unsupported_flags_raise(tmp_path, index_dir, attr, value):
 def test_unsupported_inputs_raise(tmp_path):
     from kasa_tpu_torch.config import Config
     from kasa_tpu_torch.match.pipeline import identify
-    for index, inp in (("exampleIndex128", "reads.fastq"),
-                       ("exampleIndex", "multi")):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            identify(Config(), index_path=str(GOLDEN / index),
-                     input_path=str(FIXTURES / inp),
-                     out_file=str(tmp_path / "o.json"), device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        identify(Config(), index_path=str(GOLDEN / "exampleIndex128"),
+                 input_path=str(FIXTURES / "reads.fastq"),
+                 out_file=str(tmp_path / "o.json"), device="cpu")
 
 
 @pytest.mark.parametrize("case", ["tiered", "classic"])
@@ -248,6 +244,12 @@ def test_cli_identify_and_other_modes(tmp_path, index_dir):
                "-q", str(tmp_path / "o.json"), "-p", str(tmp_path / "p.csv"),
                "--device", "cpu"])
     assert rc == 0 and len(json.load(open(tmp_path / "o.json"))) > 0
+    rc = main(["kasa_tpu_torch", "identify_multiple",
+               "-d", str(d / "exampleIndex"),
+               "-c", str(d / "exampleIndex_content.txt"),
+               "-i", str(FIXTURES / "multi"), "-q", str(tmp_path / "m_"),
+               "-p", str(tmp_path / "mp_"), "--one", "-e", "--device", "cpu"])
+    assert rc == 0 and len(json.load(open(tmp_path / "m_b.json"))) == 3
     assert main(["kasa_tpu_torch", "build", "-i", "x", "-d", "y"]) == 1
 
 

@@ -1,4 +1,4 @@
-"""The four CUDA kernels of kasa_tpu_torch against their plain PyTorch
+"""The CUDA kernels of kasa_tpu_torch against their plain PyTorch
 versions, on the card.  CUDA kernels have no CPU mode: without a GPU
 these tests skip.  On a machine with one (and without JAX):
 
@@ -61,6 +61,29 @@ def test_encode_kernel(cuda):
     lut = torch.from_numpy(E.build_codon_code_lut().astype(np.int32)).to(cuda)
     assert torch.equal(E.encode_windows(mat, lut, 141).cpu(),
                        E.encode_windows_plain(mat, lut, 141).cpu())
+    # one frame (window c starts at byte 3c) and protein (byte & 31)
+    assert torch.equal(E.encode_windows(mat, lut, 47, one_frame=True).cpu(),
+                       E.encode_windows_plain(mat, lut, 47,
+                                              one_frame=True).cpu())
+    assert torch.equal(E.encode_windows(mat, lut, 165, protein=True).cpu(),
+                       E.encode_windows_plain(mat, lut, 165,
+                                              protein=True).cpu())
+
+
+@pytest.mark.parametrize("kpr", [30, 282, 4096])
+def test_dedup_kernel(cuda, kpr):
+    from kasa_tpu_torch.match import turbo as PT
+    rng = np.random.default_rng(kpr)
+    R = 64
+    q = rng.integers(0, 1 << 30, size=(R * kpr, 2), dtype=np.int32)
+    q[:, 0] &= 0x3FF
+    src = rng.integers(0, R * kpr, size=R * kpr // 3)
+    q[(src // kpr) * kpr + rng.integers(0, kpr, size=len(src))] = q[src]
+    qd = torch.from_numpy(q).to(cuda)
+    got = PT.dedup_windows(qd, R, kpr)
+    want = PT.dedup_windows_plain(qd, R, kpr)
+    assert torch.equal(got.cpu(), want.cpu())
+    assert int((want[:, 0] == PT.POISON_LIMB).sum()) > 0
 
 
 @pytest.mark.parametrize("budget_drop", [False, True])
@@ -105,6 +128,44 @@ def test_turbo_kernels(cuda, budget_drop):
     assert torch.equal(p1[1].cpu(), p2[1].cpu())
     _close(p1[2], p2[2])
     assert torch.equal(cu1.cpu(), cu2.cpu())
+    _close(ca1, ca2)
+
+
+def test_files_arm_kernels(cuda):
+    """K4 and K3 (post) with a 3-file file_of_read: (F, numK, S) counts
+    and (F * numK, H) hot credits against the plain versions."""
+    from kasa_tpu_torch.match import turbo as PT
+    arrays, meta, q_np, R, _, _ = _tiers(False)
+    kpr = 16            # 96 slots per read: no read over CW runs
+    tt = PT.tables_from_numpy(arrays, meta, cuda)
+    q = torch.from_numpy(q_np[:R * kpr]).to(cuda)
+    S, nk, F = meta["num_species"], 6, 3
+    fo = torch.tensor(np.repeat(np.arange(F), [R // 4, R // 2, R - 3 * R // 4])
+                      .astype(np.int32), device=cuda)
+    skey, mpay = PT.turbo_match(q, tt, R, kpr)
+    ck, cc, runs, mcnt, cp = PT.turbo_reads_pre(skey, mpay)
+    ca1 = torch.zeros((F, nk, S), device=cuda)
+    ca2 = torch.zeros((F, nk, S), device=cuda)
+    m1 = PT.turbo_multi(cp, mcnt, runs, tt, ca1, PT.MULTI_BUDGET,
+                        PT.EXP_BUDGET, fo)
+    m2 = PT.turbo_multi_plain(cp, mcnt, runs, tt, ca2, PT.MULTI_BUDGET,
+                              PT.EXP_BUDGET, fo)
+    assert torch.equal(m1[0].cpu(), m2[0].cpu())
+    assert m1[3].shape == (F * nk, tt.hotmask.shape[0])
+    for a, b in zip(m1[1:4], m2[1:4]):
+        _close(a, b)
+    _close(ca1, ca2)
+    cu1 = torch.zeros((F, nk, S), dtype=torch.int32, device=cuda)
+    cu2 = torch.zeros((F, nk, S), dtype=torch.int32, device=cuda)
+    cap = 4 * R
+    p1 = PT.turbo_reads_post(ck, cc, m2[0], m2[1], tt.weights, ca1, cu1,
+                             m2[4], cap, fo)
+    p2 = PT.turbo_reads_post_plain(ck, cc, m2[0], m2[1], tt.weights, ca2,
+                                   cu2, m2[4], cap, fo)
+    assert torch.equal(p1[1].cpu(), p2[1].cpu())
+    assert torch.equal(cu1.cpu(), cu2.cpu())
+    assert (cu2.sum(dim=(1, 2)) > 0).all()
+    assert float(m2[3].sum()) > 0           # hot credits
     _close(ca1, ca2)
 
 

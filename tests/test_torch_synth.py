@@ -63,3 +63,34 @@ def test_synth_corpus_identifies(tmp_path):
     # reads are sampled from the genomes: nearly every read hits
     assert cu.sum() > 0 and np.isfinite(ca).all()
     assert fast.LAST_FALLBACK[1] == 100
+
+
+def test_synth_pairs_come_from_one_fragment(tmp_path):
+    """Both mates of a pair lie on one fragment of their source genome:
+    mate 1 at its start, mate 2 reverse-complemented at its end, the
+    insert within INSERT_MIN..INSERT_MAX."""
+    from kasa_tpu_torch import synth
+    from kasa_tpu_torch.core.alphabet import build_revcomp_lut
+    p = synth.generate(str(tmp_path), smoke_reads=100, log=lambda *a: None,
+                       **TINY)
+    genomes = synth._gen_genomes(np.random.default_rng(synth.SEED),
+                                 TINY["num_species"], TINY["genome_len"],
+                                 TINY["core_genes"])
+    mates = [open(f, "rb").read().splitlines() for f in p["pairs"]]
+    assert len(mates[0]) == len(mates[1]) == 4 * 50
+    revcomp = build_revcomp_lut()
+    L = synth.READ_LEN
+
+    def best_offset(genome, read):
+        win = np.lib.stride_tricks.sliding_window_view(genome, L)
+        dist = (win != read).sum(axis=1)
+        return int(dist.argmin()), int(dist.min())
+
+    for i in range(0, 200, 40):
+        assert mates[0][i] == mates[1][i]
+        g = genomes[int(mates[0][i].split(b"src")[1]) - 1]
+        m1 = np.frombuffer(mates[0][i + 1], np.uint8)
+        m2 = revcomp[np.frombuffer(mates[1][i + 1], np.uint8)][::-1]
+        (o1, d1), (o2, d2) = best_offset(g, m1), best_offset(g, m2)
+        assert d1 <= 6 and d2 <= 6
+        assert synth.INSERT_MIN <= o2 + L - o1 <= synth.INSERT_MAX

@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
 """On-card smoke run of kasa_tpu_torch: the port's identify on one
-NVIDIA GPU, through its five CUDA kernels, checked against references.
+NVIDIA GPU, through its six CUDA kernels, checked against references.
 
     python3 chip_smoke.py          # from the root of a checkout
 
 Phases (any failure ends the run with a non-zero exit; none is caught):
 
+  prep     from the start, three host processes (python -m
+           kasa_tpu_torch.synth <name> --tables, CPU only) generate the
+           three synthetic corpora of kasa_tpu_torch/synth.py into
+           .synth_corpus/ and build their turbo-table sidecars; the run
+           waits for them after golden-flags, before anything is timed;
   build    compile the CUDA kernels (one nvcc per source, in parallel)
            and the host C++ library;
   golden   identify fixtures/reads.fastq on tests/golden/exampleIndex on
@@ -19,13 +24,12 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
            launch counts reset before and checked after; and seeded
            protein reads that hit protIndex (synth.protein_reads), held
            against the port's own run on the CPU, with hits required;
-  full     the 2047-species synthetic corpus (kasa_tpu_torch/synth.py,
-           ~32.7 M entries, cached in .synth_corpus/): tables, one
-           8,192-read warm-up run, then 65,536 reads (8 batches) through
-           identify with the launch counts reset just before and read
-           just after; reads/s, host stage times, host-recompute share,
-           peak device memory; 512 sampled reads of a real batch held
-           against the exact host recompute (host_classify_read);
+  full     the 2047-species synthetic corpus (~32.7 M entries): tables,
+           one 8,192-read warm-up run, then 65,536 reads (8 batches)
+           through identify with the launch counts reset just before and
+           read just after; reads/s, host stage times, host-recompute
+           share, peak device memory; 512 sampled reads of a real batch
+           held against the exact host recompute (host_classify_read);
   full-flags  the same 65,536 reads under --six -e (K5 on every batch;
            512 sampled reads against host_classify_read of the deduped
            windows), 32,768 read pairs of the corpus (both mates from one
@@ -43,12 +47,26 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
            computes the same function, that call's time as a yardstick
            the port never uses; the new arms (K1 one-frame and protein,
            the per-file counts of K3 and K4) against their plain
-           versions too, and the whole batch step timed per mode.
+           versions too, and the whole batch step timed per mode;
+  sparse   the 10,001-species corpus (~80 M entries, no hot tier: the
+           sparse fold): tables, a warm-up, 65,536 reads through identify
+           (K6 launched on every batch, beside K4's counts-only arm and
+           K3's list arm) and as 4 files through identify_multiple with
+           profiles (per-file counts against the single-file run's), peak
+           device memory beside the resident tables, 512 sampled reads
+           against host_classify_read; then K4's counts-only arm, K6 and
+           K3's list arm against their plain versions on a real batch,
+           timed, with K6's yardstick torch.sort of the lane keys;
+  wide     the 128-bit corpus (the default genomes at highestK 25, ~32.6 M
+           five-limb entries) at k 20..25: the 65,536 smoke reads,
+           default and --six -e, with the same prints and sample checks;
+           then the five-limb arms of K1, K2 and K5 against their plain
+           versions on real batches, timed.
 
-Prints the card's name and power limit, a JSON line of the kernels, and
-last the line {"ok": true, "device": {...}}.  Longer logs and the
-full-size outputs go to .synth_corpus/out/.  Without a CUDA device, or outside a checkout, it exits
-non-zero and prints no result.
+Prints the card's name and power limit, a JSON line of the kernels and
+their new arms, and last the line {"ok": true, "device": {...}}.  Longer
+logs and the full-size outputs go to .synth_corpus/out/.  Without a CUDA
+device, or outside a checkout, it exits non-zero and prints no result.
 """
 
 import json
@@ -432,6 +450,7 @@ def phase_full_flags(corpus, single_counts):
     """--six -e, paired-end and identify_multiple on the smoke set."""
     import numpy as np
     from kasa_tpu_torch import synth
+    from kasa_tpu_torch.match import fast
     N = synth.SMOKE_READS
     infos, launches = {}, {}
     (ca, cu, nreads, _), launches["six_e"], infos["six_e"] = drive(
@@ -441,9 +460,10 @@ def phase_full_flags(corpus, single_counts):
         over={"six_frames": True, "unique": True}, corpus=corpus)
     if nreads != N or not np.isfinite(ca).all() or cu.sum() <= 0:
         fail("six -e: wrong read count or empty / non-finite counts")
-    if launches["six_e"]["dedup"] != N // 8192:
+    nb = N // fast.READS_PER_BATCH
+    if launches["six_e"]["dedup"] != nb:
         fail(f"six -e: dedup launched {launches['six_e']['dedup']} times, "
-             f"expected {N // 8192}")
+             f"expected {nb}")
 
     mates = corpus["pairs"]
     (ca, cu, nreads, _), launches["paired"], infos["paired"] = drive(
@@ -468,31 +488,21 @@ def phase_full_flags(corpus, single_counts):
         "full-flags multi", folder, os.path.join(OUT, "multi4_q_"),
         os.path.join(OUT, "multi4_p_"), PATH_KERNELS, corpus=corpus,
         multi=True)
-    if [r[2] for r in res] != [N // 4] * 4:
-        fail(f"multi: per-file reads {[r[2] for r in res]}")
-    ca_sum = sum(r[0] for r in res)
-    cu_sum = sum(r[1].astype(np.int64) for r in res)
-    if not np.array_equal(cu_sum, single_counts[1].astype(np.int64)):
-        fail("multi: summed per-file unique counts differ from the "
-             "single-file run's")
-    np.testing.assert_allclose(ca_sum, single_counts[0], rtol=2e-5,
-                               atol=2e-3)
-    log("full-flags multi: summed per-file unique counts identical to the "
-        "single-file run's, all-counts within rtol 2e-5 / atol 2e-3 (max "
-        f"abs diff {float(np.abs(ca_sum - single_counts[0]).max()):.3g})")
+    per_file_agree("full-flags multi", res, single_counts, 4, N)
     return launches, infos
 
 
-def real_batch(corpus, six=False):
+def real_batch(corpus, six=False, highest_k=12, min_k=7):
     """The first 8,192 reads of the smoke set as the main path lays
-    them out (two rows per read under --six).  -> (mat, R, w, lpr)."""
+    them out for an index of highest_k and a k range from min_k (two
+    rows per read under --six).  -> (mat, R, w, lpr)."""
     import numpy as np
     from kasa_tpu_torch.match.fast import BatchAssembler, READS_PER_BATCH
     from kasa_tpu_torch.native import load_fastx, sanitize_inplace
     seq, so, _, _, _ = load_fastx(corpus["smoke"], True)
     sanitize_inplace(seq, False)
     R = READS_PER_BATCH
-    asm = BatchAssembler(12, 7, six=six)
+    asm = BatchAssembler(highest_k, min_k, six=six)
     lens = np.diff(so[:R + 1])
     maxlen = (int(lens.max()) + asm.marker_len + 15) // 16 * 16
     mat = asm.assemble(seq[:so[R]], so[:R + 1].astype(np.int64), maxlen, R)
@@ -526,8 +536,8 @@ def phase_sample(disp, mat, R, w, lpr=1, unique=False):
     for r in sample:
         if ofl[r]:
             continue            # the host recomputes these reads anyway
-        q = T.read_windows_np(mat[r * lpr:(r + 1) * lpr], lut_np, 12, False,
-                              False, w)
+        q = T.read_windows_np(mat[r * lpr:(r + 1) * lpr], lut_np,
+                              tt.highest_k, False, False, w)
         if unique:
             q = T.dedup_windows_np(q)
         exact, _, _ = T.host_classify_read(tt, q)
@@ -541,7 +551,8 @@ def phase_sample(disp, mat, R, w, lpr=1, unique=False):
         checked += 1
     if checked < 0.75 * n_sample:
         fail(f"only {checked} of {n_sample} sampled reads were unflagged")
-    log(f"sample{' (--six -e)' if unique else ''}: {checked} of {n_sample} "
+    log(f"sample{' (--six -e)' if unique else ''} (S={tt.num_species}, "
+        f"L={tt.keys2.shape[1]}): {checked} of {n_sample} "
         "sampled reads agree with host_classify_read "
         f"({n_sample - checked} flagged, recomputed on the host by design)")
 
@@ -580,7 +591,7 @@ def match_bytes(q, tt, R, SW):
     the search touches."""
     import torch
     from kasa_tpu_torch.match import turbo as T
-    n = tt.n
+    n, L = tt.n, q.shape[1]
     q0, q1 = q[:, 0], q[:, 1]
     bucket = (q0 >> (T.LIMB_BITS - T.ROUTER_BITS)).long()
     rr = tt.router[bucket]
@@ -599,20 +610,24 @@ def match_bytes(q, tt, R, SW):
         mid = (lo + hi) >> 1
         mids.append(mid.clamp(max=n - 1))
         kk = tt.keys2[mids[-1].long()]
-        less = (kk[:, 0] < q0) | ((kk[:, 0] == q0) & (kk[:, 1] < q1))
+        less = kk[:, L - 1] < q[:, L - 1]
+        for i in range(L - 2, -1, -1):
+            less = (kk[:, i] < q[:, i]) | ((kk[:, i] == q[:, i]) & less)
         lo = torch.where(less, mid + 1, lo)
         hi = torch.where(less, hi, mid)
     rows = torch.cat([lo.clamp(max=n - 1), (lo - 1).clamp(0, n - 1)])
     return (q.numel() * 4 + 2 * R * SW * 4
             + sector_bytes(bucket, 8) + sector_bytes(sidx[is_sub], 8)
-            + sector_bytes(torch.cat(mids), 8) + sector_bytes(rows, 16))
+            + sector_bytes(torch.cat(mids), 4 * L)
+            + sector_bytes(rows, 4 * (L + 2)))
 
 
-def multi_bytes(cp, mcnt, ofc, tt, R, S, H, B):
+def multi_bytes(cp, mcnt, ofc, tt, R, S, H, B, counts_only=False):
     """Least bytes K4 moves: the read counts, the multi payloads, the
     distinct sectors of grp2, t_hot and d_tax4 (headers of the cold
     slots, taxa rows of the admitted ones) and of the count cells the
-    expansion adds to (read and written), and its outputs once."""
+    expansion adds to (read and written), and its outputs once (no
+    score rows or hot credits in the counts-only arm)."""
     import torch
     nk, n = tt.num_k, tt.n
     valid = cp >= 0
@@ -634,11 +649,12 @@ def multi_bytes(cp, mcnt, ofc, tt, R, S, H, B):
     taxa_rows = (first[sl] + j).clamp(max=tt.d_tax4.shape[0] - 1)
     taxa = tt.d_tax4[taxa_rows]
     cells = (ki[cold][ok][sl][:, None] * S + taxa)[taxa >= 0]
+    outs = R + 8 + (0 if counts_only else R * S * 4 + R * H * 4
+                    + nk * H * 4)
     return (2 * R * 4 + sector_bytes(pos, 4) + sector_bytes(g, 4)
             + sector_bytes(-row0[hot] - 1, 4)
             + sector_bytes(torch.cat([row0[cold], taxa_rows]), 16)
-            + 2 * sector_bytes(cells, 4)
-            + R + R * S * 4 + R * H * 4 + nk * H * 4 + 8)
+            + 2 * sector_bytes(cells, 4) + outs)
 
 
 def phase_kernels(disp, mat, R, w, launches):
@@ -998,6 +1014,476 @@ def phase_budgets(disp, corpus, R):
     return out
 
 
+# ---------------------------------------------------------------------------
+# large indices: the sparse fold (more than SPARSE_FOLD_S species) and
+# 128-bit indices (five limbs)
+
+PREP = ("default", "bigS", "wide")
+
+
+def start_prep():
+    """Generate the three corpora and build their turbo-table sidecars in
+    three host processes started together (python -m
+    kasa_tpu_torch.synth <name> --tables; CPU only, they never touch the
+    card), each logging to .synth_corpus/out/prep_<name>.log."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    procs = {}
+    for name in PREP:
+        path = os.path.join(OUT, f"prep_{name}.log")
+        fh = open(path, "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", "kasa_tpu_torch.synth", name, "--tables"],
+            cwd=HERE, stdout=fh, stderr=subprocess.STDOUT, env=env), fh, path)
+    return procs
+
+
+def wait_prep(procs, t0):
+    for name in PREP:
+        proc, fh, path = procs[name]
+        rc = proc.wait()
+        fh.close()
+        with open(path) as f:
+            text = f.read()
+        if rc != 0:
+            fail(f"preparing the {name} corpus failed (rc {rc}):\n"
+                 f"{text[-3000:]}")
+        log(f"prep {name}: " + "; ".join(
+            ln[2:] for ln in text.splitlines() if ln.startswith("# ")))
+    log(f"prep: the three corpora and their tables ready "
+        f"{time.perf_counter() - t0:.1f} s after the start")
+
+
+def stop_prep(procs):
+    for proc, fh, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        fh.close()
+
+
+def table_bytes(tt):
+    from kasa_tpu_torch.match.turbo import DEVICE_FIELDS
+    return sum(getattr(tt, f).numel() * getattr(tt, f).element_size()
+               for f in DEVICE_FIELDS)
+
+
+def warm_up(tag, index, reads, over=()):
+    """Tables (from the sidecar) and one warm-up identify run; -> the
+    dispatch."""
+    import torch
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.match import fast
+    from kasa_tpu_torch.match.pipeline import identify
+    from kasa_tpu_torch.utils import timers
+    cfg = Config()
+    for k, v in dict(over).items():
+        setattr(cfg, k, v)
+    timers.reset()
+    t0 = time.perf_counter()
+    identify(cfg, index_path=index, input_path=reads,
+             out_file=os.path.join(OUT, f"{tag}_warm.json"),
+             profile_file=None, device=DEVICE)
+    torch.cuda.synchronize()
+    disp = fast.LAST_DISPATCH
+    tt = disp.tt
+    tstages = {k: round(v, 3) for k, v in timers.report(lambda *_: None)
+               .items() if k.startswith(("turbo/", "ttbuild/"))}
+    log(f"{tag}: tables (S={tt.num_species}, n={tt.n:,}, L="
+        f"{tt.keys2.shape[1]}, hot sets {tt.hotmask.shape[0]}, "
+        f"{table_bytes(tt) / 2**30:.3f} GiB on the device) + warm-up run "
+        f"{time.perf_counter() - t0:.1f} s; table stages {tstages}")
+    return disp
+
+
+def per_file_agree(tag, res, single, n_files, n):
+    import numpy as np
+    if [r[2] for r in res] != [n // n_files] * n_files:
+        fail(f"{tag}: per-file reads {[r[2] for r in res]}")
+    ca_sum = sum(r[0] for r in res)
+    cu_sum = sum(r[1].astype(np.int64) for r in res)
+    if not np.array_equal(cu_sum, single[1].astype(np.int64)):
+        fail(f"{tag}: summed per-file unique counts differ from the "
+             "single-file run's")
+    np.testing.assert_allclose(ca_sum, single[0], rtol=2e-5, atol=2e-3)
+    log(f"{tag}: summed per-file unique counts identical to the "
+        "single-file run's, all-counts within rtol 2e-5 / atol 2e-3 (max "
+        f"abs diff {float(np.abs(ca_sum - single[0]).max()):.3g})")
+
+
+def phase_sparse():
+    """The 10,001-species corpus through the sparse fold: tables without
+    a hot tier, a warm-up, 65,536 reads through identify (K6 on every
+    batch beside K4's counts-only arm and K3's list arm), the same reads
+    as 4 files through identify_multiple with profiles, and 512 sampled
+    reads of a real batch against host_classify_read."""
+    import numpy as np
+    from kasa_tpu_torch import synth
+    from kasa_tpu_torch.match import fast
+    from kasa_tpu_torch.match import turbo as T
+    big = synth.generate_big_s(log=log)
+    disp = warm_up("sparse", big["index"], big["warm"])
+    tt = disp.tt
+    if tt.hotmask.shape[0] != 1 or tt.num_species <= T.SPARSE_FOLD_S:
+        fail(f"sparse: S={tt.num_species} with {tt.hotmask.shape[0]} hot "
+             "sets does not take the sparse fold")
+    N, R = synth.SMOKE_READS, fast.READS_PER_BATCH
+    expect = PATH_KERNELS + ("sparse_fold",)
+    (ca, cu, nreads, _), launches, info = drive(
+        "sparse", big["smoke"], os.path.join(OUT, "bigS_smoke.json"),
+        os.path.join(OUT, "bigS_smoke.csv"), expect, corpus=big)
+    if nreads != N or not np.isfinite(ca).all() or cu.sum() <= 0:
+        fail("sparse: wrong read count or empty / non-finite counts")
+    if launches["sparse_fold"] != N // R or launches["turbo_multi"] != N // R:
+        fail(f"sparse: K6 and K4 must launch once per batch: {launches}")
+    info["tables_bytes"] = table_bytes(tt)
+    log(f"sparse: peak device memory {info['peak_bytes'] / 2**20:.1f} MiB, "
+        f"{(info['peak_bytes'] - info['tables_bytes']) / 2**20:.1f} MiB "
+        "above the resident tables; the dense fold's (R, S) score rows "
+        f"alone would take {R * tt.num_species * 4 / 2**20:.1f} MiB per "
+        "batch")
+    folder = os.path.join(HERE, ".synth_corpus", "bigS_multi4")
+    split_fastq(big["smoke"], 4, folder)
+    res, launches_m, info_m = drive(
+        "sparse multi", folder, os.path.join(OUT, "bigS_multi4_q_"),
+        os.path.join(OUT, "bigS_multi4_p_"), expect, corpus=big, multi=True)
+    per_file_agree("sparse multi", res, (ca, cu), 4, N)
+    mat, R, w, _ = real_batch(big)
+    phase_sample(disp, mat, R, w)
+    return disp, big, launches, info, info_m
+
+
+def phase_wide(corpus):
+    """The 128-bit corpus (the default corpus's genomes at highestK 25)
+    at k 20..25: the 65,536 smoke reads, default and --six -e, each
+    with 512 sampled reads against host_classify_read."""
+    import numpy as np
+    from kasa_tpu_torch import synth
+    wide = synth.generate_wide(log=log)
+    over = {"lower_k": 20, "higher_k": 25}
+    disp = warm_up("wide", wide["index"], corpus["warm"], over)
+    tt = disp.tt
+    if tt.keys2.shape[1] != 5 or tt.highest_k != 25:
+        fail(f"wide: tables of {tt.keys2.shape[1]} limbs, highestK "
+             f"{tt.highest_k}")
+    N = synth.SMOKE_READS
+    infos, launches = {}, {}
+    for tag, extra, expect in (
+            ("wide", {}, PATH_KERNELS),
+            ("wide --six -e", {"six_frames": True, "unique": True},
+             PATH_KERNELS + ("dedup",))):
+        stem = tag.replace(" ", "_").replace("-", "")
+        (ca, cu, nreads, _), launches[tag], infos[tag] = drive(
+            tag, corpus["smoke"], os.path.join(OUT, f"{stem}.json"),
+            os.path.join(OUT, f"{stem}.csv"), expect,
+            over=dict(over, **extra), corpus=wide)
+        if nreads != N or not np.isfinite(ca).all() or cu.sum() <= 0:
+            fail(f"{tag}: wrong read count or empty / non-finite counts")
+    mat, R, w, _ = real_batch(corpus, highest_k=25, min_k=20)
+    phase_sample(disp, mat, R, w)
+    mat6, _, w6, lpr = real_batch(corpus, six=True, highest_k=25, min_k=20)
+    phase_sample(disp, mat6, R, w6, lpr=lpr, unique=True)
+    return disp, launches, infos
+
+
+def kernel_entry(name, src, rep, launches, err, ms, plain_ms, nbytes,
+                 lib_ms, note=""):
+    e = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches, "max_abs_err": err, "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+         "bound_by": "bytes", "library_ms": lib_ms}
+    log(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+        f"{e['bound_ms']:.4f} ms from {nbytes / 1e6:.2f} MB"
+        + (f"; {note} {lib_ms:.4f} ms" if lib_ms is not None else "")
+        + f"), {launches} launches in the main run")
+    return e
+
+
+def fold_bytes(cp, mcnt, ofc, tt):
+    """Least bytes K6 moves: the read counts and flags, the payloads of
+    the unflagged reads' slots, the distinct sectors of grp2 and of the
+    d_tax4 header and taxa rows they reach, and the (R, WM) lists."""
+    import torch
+    from kasa_tpu_torch.match import turbo as T
+    R, SW = cp.shape
+    n, nk = tt.n, tt.num_k
+    valid = (torch.arange(SW, device=cp.device)[None, :] < mcnt[:, None]) \
+        & ~ofc[:, None]
+    pos = torch.nonzero(valid.reshape(-1)).reshape(-1)
+    mp = cp.reshape(-1)[pos]
+    g = ((mp & 7).long() * n + (mp >> 3).long()).clamp(max=nk * n - 1)
+    row0 = tt.grp2[g].long()
+    row0 = row0[row0 > 0]
+    nrow = (tt.d_tax4[row0, 0].long() + 3) >> 2
+    sl = torch.repeat_interleave(torch.arange(len(nrow), device=cp.device),
+                                 nrow)
+    j = torch.arange(len(sl), device=cp.device) \
+        - (torch.cumsum(nrow, 0) - nrow)[sl]
+    rows = torch.cat([row0, row0[sl] + 1 + j])
+    return (R * 4 + R + sector_bytes(pos, 4) + sector_bytes(g, 4)
+            + sector_bytes(rows, 16) + nk * 4 + R * T.WM * 8 + R)
+
+
+def phase_kernels_sparse(disp, big, launches):
+    """On a real batch of the 10,001-species corpus: K4's counts-only
+    arm, K6 and K3's list arm against their plain versions, with their
+    times, bounds and K6's yardstick (torch.sort of the batch's
+    (read << 24 | tax) int64 lane keys, part of the same function)."""
+    import numpy as np
+    import torch
+    from kasa_tpu_torch.core import encode as E
+    from kasa_tpu_torch.core.alphabet import build_codon_code_lut
+    from kasa_tpu_torch.match import turbo as T
+    tt = disp.tt
+    dev = torch.device(DEVICE)
+    nk, S = tt.num_k, tt.num_species
+    mb, eb = disp.multi_budget, disp.exp_budget
+    mat, R, w, _ = real_batch(big)
+    cap = disp.csr_cap(R)
+    mat_d = torch.from_numpy(mat).to(dev)
+    lut = torch.from_numpy(build_codon_code_lut().astype(np.int32)).to(dev)
+
+    def acc():
+        return (torch.zeros((nk, S), dtype=torch.float32, device=dev),
+                torch.zeros((nk, S), dtype=torch.int32, device=dev))
+    q = E.encode_windows(mat_d, lut, w)
+    skey, mpay = T.turbo_match(q, tt, R, w)
+    ck, cc, runs, mcnt, cp = T.turbo_reads_pre(skey, mpay)
+    (ca_k, _), (ca_p, _) = acc(), acc()
+    mk = T.turbo_multi(cp, mcnt, runs, tt, ca_k, mb, eb, counts_only=True)
+    mp_ = T.turbo_multi_plain(cp, mcnt, runs, tt, ca_p, mb, eb,
+                              counts_only=True)
+    if mk[1] is not None or mk[2] is not None:
+        fail("turbo_multi counts-only arm returned score rows")
+    same("turbo_multi.counts_only.ofc", mk[0], mp_[0])
+    same("turbo_multi.counts_only.diag", mk[4], mp_[4])
+    err4 = close("turbo_multi.counts_only.acc_ca", ca_k, ca_p)
+    ofc, diag = mp_[0], mp_[4]
+    fk = T.sparse_fold(cp, mcnt, ofc, tt)
+    fp = T.sparse_fold_plain(cp, mcnt, ofc, tt)
+    same("sparse_fold.mk", fk[0], fp[0])
+    same("sparse_fold.multi_of", fk[2], fp[2])
+    err6 = close("sparse_fold.mv", fk[1], fp[1])
+    (ca_k, cu_k), (ca_p, cu_p) = acc(), acc()
+    po_k = T.turbo_reads_post(ck, cc, ofc, None, tt.weights, ca_k, cu_k,
+                              diag, cap, None, fp)
+    po_p = T.turbo_reads_post_plain(ck, cc, ofc, None, tt.weights, ca_p,
+                                    cu_p, diag, cap, None, fp)
+    pk, pp = po_k[0].cpu(), po_p[0].cpu()
+    ints = torch.ones(len(pk), dtype=torch.bool)
+    ints[2 * R + 1:2 * R + 2 * cap:2] = False
+    same("turbo_reads.list.packed", pk[ints], pp[ints])
+    same("turbo_reads.list.ht", po_k[1], po_p[1])
+    same("turbo_reads.list.acc_cu", cu_k, cu_p)
+    err3 = max(close("turbo_reads.list.ksum", pk[2 * R + 1:2 * R + 2 * cap:2]
+                     .view(torch.float32),
+                     pp[2 * R + 1:2 * R + 2 * cap:2].view(torch.float32)),
+               close("turbo_reads.list.hk", po_k[2], po_p[2]),
+               close("turbo_reads.list.acc_ca", ca_k, ca_p))
+    rid, tax, _ = T.fold_lanes(cp, mcnt, ofc, tt)
+    lane_keys = (rid << 24) | tax
+    torch.cuda.synchronize()
+    log(f"kernels sparse: turbo_multi (counts-only), sparse_fold and "
+        f"turbo_reads (list) agree with their plain versions on a {R}-read "
+        f"batch of S={S} (multi slots {int(diag[0])}, {len(rid):,} lanes, "
+        f"{int(fp[2].sum())} reads over WM, {int(ofc.sum())} flagged)")
+
+    ca_t, cu_t = acc()
+    ms6 = time_ms(lambda: T.sparse_fold(cp, mcnt, ofc, tt), 20)
+    plain6 = time_ms(lambda: T.sparse_fold_plain(cp, mcnt, ofc, tt), 3)
+    lib6 = time_ms(lambda: torch.sort(lane_keys), 20)
+    ms4 = time_ms(lambda: T.turbo_multi(cp, mcnt, runs, tt, ca_t, mb, eb,
+                                        counts_only=True), 10)
+    plain4 = time_ms(lambda: T.turbo_multi_plain(
+        cp, mcnt, runs, tt, ca_t, mb, eb, counts_only=True), 3)
+    ms3 = time_ms(lambda: T.turbo_reads_pre(skey, mpay), 10) \
+        + time_ms(lambda: T.turbo_reads_post(ck, cc, ofc, None, tt.weights,
+                                             ca_t, cu_t, diag, cap, None,
+                                             fp), 10)
+    plain3 = time_ms(lambda: T.turbo_reads_pre_plain(skey, mpay), 3) \
+        + time_ms(lambda: T.turbo_reads_post_plain(
+            ck, cc, ofc, None, tt.weights, ca_t, cu_t, diag, cap, None,
+            fp), 3)
+    step_ms = time_ms(lambda: T.fused_turbo_acc(tt, mat_d, lut, ca_t, cu_t,
+                                                R, w, cap, mb, eb), 10)
+    kms = {"encode": time_ms(lambda: E.encode_windows(mat_d, lut, w), 20),
+           "turbo_match": time_ms(lambda: T.turbo_match(q, tt, R, w), 20),
+           "turbo_reads.list": ms3, "turbo_multi.counts_only": ms4,
+           "sparse_fold": ms6}
+    log("kernels on the sparse batch: ms "
+        + json.dumps({k: round(v, 4) for k, v in kms.items()}))
+    # without a hot tier every multi slot expands: the rows the batch
+    # needs, and the reads flagged at 1x, 2x and 4x the expansion budget
+    need = T.turbo_multi(cp, mcnt, runs, tt, ca_t, 1 << 30, 1 << 30,
+                         counts_only=True)[4]
+    kms["budgets"] = {"multi_slots": int(need[0]),
+                      "expansion_rows": int(need[1])}
+    for scale in (1, 2, 4):
+        ofc_s = T.turbo_multi(cp, mcnt, runs, tt, ca_t, mb, eb * scale,
+                              counts_only=True)[0]
+        kms["budgets"][f"x{scale}"] = {"exp_budget": eb * scale,
+                                       "count_flagged": int(ofc_s.sum())}
+    log("budgets sparse: " + json.dumps(kms["budgets"]))
+    log(f"step: fused_turbo_acc {step_ms:.4f} ms per {R}-read batch of the "
+        "10,001-species corpus (sparse fold)")
+    SW = w * nk
+    t1 = ck[(ck != T.SENT) & ~ofc[:, None]]
+    t1_cells = (t1 & 7).long() * S + (t1 >> 3).long()
+    b3 = (2 * R * SW * 4 + R * SW * 4 + 2 * R * T.CW * 4 + 2 * R * 4
+          + 2 * R * T.CW * 4 + R + R * T.WM * 8 + R
+          + 2 * R * T.WOUT * 4 + (2 * R + 2 * cap + 4) * 4
+          + 2 * 2 * sector_bytes(t1_cells, 4))
+    entries = [
+        kernel_entry("sparse_fold", "kasa_tpu_torch/csrc/sparse_fold.cu",
+                     "kasa_tpu/match/turbo.py:870", launches["sparse_fold"],
+                     err6, ms6, plain6, fold_bytes(cp, mcnt, ofc, tt), lib6,
+                     "torch.sort of the (read << 24 | tax) lane keys"),
+        kernel_entry("turbo_multi.counts_only",
+                     "kasa_tpu_torch/csrc/turbo_multi.cu",
+                     "kasa_tpu/match/turbo.py:871", launches["turbo_multi"],
+                     err4, ms4, plain4,
+                     multi_bytes(cp, mcnt, ofc, tt, R, S, 1, mb, True),
+                     None),
+        kernel_entry("turbo_reads.list", "kasa_tpu_torch/csrc/turbo_reads.cu",
+                     "kasa_tpu/match/turbo.py:950", launches["turbo_reads"],
+                     err3, ms3, plain3, b3, None)]
+    return entries, step_ms, kms
+
+
+def phase_kernels_wide(disp, corpus, launches, launches_e):
+    """The five-limb arms of K1, K2 and K5 on real batches of the
+    128-bit corpus against their plain versions, with their times and
+    bounds; the batch step, default and --six -e."""
+    import numpy as np
+    import torch
+    from kasa_tpu_torch.core import encode as E
+    from kasa_tpu_torch.core.alphabet import build_codon_code_lut
+    from kasa_tpu_torch.match import turbo as T
+    tt = disp.tt
+    dev = torch.device(DEVICE)
+    nk, S = tt.num_k, tt.num_species
+    mb, eb = disp.multi_budget, disp.exp_budget
+    lut = torch.from_numpy(build_codon_code_lut().astype(np.int32)).to(dev)
+    mat, R, w, _ = real_batch(corpus, highest_k=25, min_k=20)
+    mat6, _, w6, lpr = real_batch(corpus, six=True, highest_k=25, min_k=20)
+    cap = disp.csr_cap(R)
+    mat_d = torch.from_numpy(mat).to(dev)
+    mat6_d = torch.from_numpy(mat6).to(dev)
+    q = E.encode_windows(mat_d, lut, w, highest_k=25)
+    same("encode.L5", q, E.encode_windows_plain(mat_d, lut, w, highest_k=25))
+    skey, mpay = T.turbo_match(q, tt, R, w)
+    sk2, mp2 = T.turbo_match_plain(q, tt, R, w)
+    same("turbo_match.L5.skey", skey, sk2)
+    same("turbo_match.L5.mpay", mpay, mp2)
+    kpr6 = w6 * lpr
+    q6 = E.encode_windows(mat6_d, lut, w6, highest_k=25)
+    same("dedup.L5", T.dedup_windows(q6, R, kpr6),
+         T.dedup_windows_plain(q6, R, kpr6))
+    torch.cuda.synchronize()
+    log(f"kernels wide: encode, turbo_match and dedup agree with their "
+        f"plain versions in their five-limb arms (R={R}, w={w}, --six -e "
+        f"kpr={kpr6}, n={tt.n:,})")
+    M = q.shape[0]
+    ms = {"encode.L5": time_ms(lambda: E.encode_windows(mat_d, lut, w,
+                                                          highest_k=25), 20),
+          "turbo_match.L5": time_ms(lambda: T.turbo_match(q, tt, R, w), 20),
+          "dedup.L5": time_ms(lambda: T.dedup_windows(q6, R, kpr6), 20)}
+    plain = {"encode.L5": time_ms(lambda: E.encode_windows_plain(
+                 mat_d, lut, w, highest_k=25), 5),
+             "turbo_match.L5": time_ms(lambda: T.turbo_match_plain(
+                 q, tt, R, w), 5),
+             "dedup.L5": time_ms(lambda: T.dedup_windows_plain(q6, R, kpr6),
+                                 5)}
+    ca_t = torch.zeros((nk, S), dtype=torch.float32, device=dev)
+    cu_t = torch.zeros((nk, S), dtype=torch.int32, device=dev)
+    steps = {"wide": time_ms(lambda: T.fused_turbo_acc(
+                 tt, mat_d, lut, ca_t, cu_t, R, w, cap, mb, eb), 10),
+             "wide_six_e": time_ms(lambda: T.fused_turbo_acc(
+                 tt, mat6_d, lut, ca_t, cu_t, R, w6, cap, mb, eb,
+                 lines_per_read=2, unique=True), 10)}
+    log(f"step: fused_turbo_acc ms per {R}-read batch of the 128-bit corpus "
+        + json.dumps({k: round(v, 4) for k, v in steps.items()}))
+    nbytes = {"encode.L5": R * mat.shape[1] + M * 20,
+              "turbo_match.L5": match_bytes(q, tt, R, w * nk),
+              "dedup.L5": 2 * q6.numel() * 4}
+    src = {"encode.L5": ("encode", "kasa_tpu/core/encode.py:71",
+                         launches["encode"]),
+           "turbo_match.L5": ("turbo_match", "kasa_tpu/match/turbo.py:599",
+                              launches["turbo_match"]),
+           "dedup.L5": ("dedup", "kasa_tpu/match/turbo.py:128",
+                        launches_e["dedup"])}
+    entries = [kernel_entry(name, f"kasa_tpu_torch/csrc/{src[name][0]}.cu",
+                            src[name][1], src[name][2], 0.0, ms[name],
+                            plain[name], nbytes[name], None)
+               for name in ("encode.L5", "turbo_match.L5", "dedup.L5")]
+    return entries, steps, ms
+
+
+def run(preps, smi, t_all):
+    import torch
+    phase_build()
+    phase_golden()
+    phase_golden_flags()
+    wait_prep(preps, t_all)
+    corpus = phase_corpus()
+    disp, launches, info, single_counts = phase_full(corpus)
+    launches_f, infos_f = phase_full_flags(corpus, single_counts)
+    mat, R, w, _ = real_batch(corpus)
+    phase_sample(disp, mat, R, w)
+    mat6, _, w6, lpr = real_batch(corpus, six=True)
+    phase_sample(disp, mat6, R, w6, lpr=lpr, unique=True)
+    kern, step_ms = phase_kernels(disp, mat, R, w, launches)
+    k5, steps, six_e_ms = phase_kernels_flags(disp, corpus, mat, R, w,
+                                              launches_f["six_e"])
+    kern.append(k5)
+    budgets = phase_budgets(disp, corpus, R)
+    # one index on the card at a time: the next run's peak memory is its
+    # own tables and batches
+    del disp
+    from kasa_tpu_torch.match import fast
+    fast.LAST_DISPATCH = None
+    torch.cuda.empty_cache()
+    disp_s, big, launches_s, info_s, info_sm = phase_sparse()
+    k_sparse, steps["sparse"], sparse_ms = phase_kernels_sparse(
+        disp_s, big, launches_s)
+    del disp_s
+    fast.LAST_DISPATCH = None
+    torch.cuda.empty_cache()
+    disp_w, launches_w, infos_w = phase_wide(corpus)
+    k_wide, steps_w, wide_ms = phase_kernels_wide(
+        disp_w, corpus, launches_w["wide"], launches_w["wide --six -e"])
+    steps.update(steps_w)
+    kern += k_sparse + k_wide
+    for tag, inf, ms in (("full", info, step_ms),
+                         ("full-flags six -e", infos_f["six_e"],
+                          steps["six_e"]),
+                         ("full-flags paired", infos_f["paired"],
+                          steps["paired"]),
+                         ("full-flags paired --six", infos_f["paired_six"],
+                          steps["paired_six"]),
+                         ("full-flags multi", infos_f["multi"],
+                          steps["files4"]),
+                         ("sparse", info_s, steps["sparse"]),
+                         ("sparse multi", info_sm, steps["sparse"]),
+                         ("wide", infos_w["wide"], steps["wide"]),
+                         ("wide --six -e", infos_w["wide --six -e"],
+                          steps["wide_six_e"])):
+        nb = -(-inf["reads"] // R)
+        inf["busy_pct"] = 100.0 * ms * 1e-3 * nb / inf["seconds"]
+        log(f"{tag}: the device is busy about {inf['busy_pct']:.2f} % of "
+            f"the identify run ({nb} batch steps of {ms:.4f} ms in "
+            f"{inf['seconds']:.3f} s; copies not counted)")
+    with open(os.path.join(OUT, "chip_smoke.json"), "w") as fh:
+        json.dump({"card": smi, "full": info, "full_flags": infos_f,
+                   "launches_flags": launches_f, "sparse": info_s,
+                   "sparse_multi": info_sm, "launches_sparse": launches_s,
+                   "wide": infos_w, "launches_wide": launches_w,
+                   "kernels": kern, "step_ms": step_ms,
+                   "step_ms_by_mode": steps, "six_e_kernel_ms": six_e_ms,
+                   "sparse_kernel_ms": sparse_ms, "wide_kernel_ms": wide_ms,
+                   "budgets": budgets}, fh, indent=1)
+    return kern
+
+
 def main():
     try:
         import torch
@@ -1013,41 +1499,11 @@ def main():
     t_all = time.perf_counter()
     smi = smi_line()
     log(smi)
-    phase_build()
-    phase_golden()
-    phase_golden_flags()
-    corpus = phase_corpus()
-    disp, launches, info, single_counts = phase_full(corpus)
-    launches_f, infos_f = phase_full_flags(corpus, single_counts)
-    mat, R, w, _ = real_batch(corpus)
-    phase_sample(disp, mat, R, w)
-    mat6, _, w6, lpr = real_batch(corpus, six=True)
-    phase_sample(disp, mat6, R, w6, lpr=lpr, unique=True)
-    kern, step_ms = phase_kernels(disp, mat, R, w, launches)
-    k5, steps, six_e_ms = phase_kernels_flags(disp, corpus, mat, R, w,
-                                              launches_f["six_e"])
-    kern.append(k5)
-    budgets = phase_budgets(disp, corpus, R)
-    for tag, inf, ms in (("full", info, step_ms),
-                         ("full-flags six -e", infos_f["six_e"],
-                          steps["six_e"]),
-                         ("full-flags paired", infos_f["paired"],
-                          steps["paired"]),
-                         ("full-flags paired --six", infos_f["paired_six"],
-                          steps["paired_six"]),
-                         ("full-flags multi", infos_f["multi"],
-                          steps["files4"])):
-        nb = -(-inf["reads"] // R)
-        inf["busy_pct"] = 100.0 * ms * 1e-3 * nb / inf["seconds"]
-        log(f"{tag}: the device is busy about {inf['busy_pct']:.2f} % of "
-            f"the identify run ({nb} batch steps of {ms:.4f} ms in "
-            f"{inf['seconds']:.3f} s; copies not counted)")
-    with open(os.path.join(OUT, "chip_smoke.json"), "w") as fh:
-        json.dump({"card": smi, "full": info, "full_flags": infos_f,
-                   "launches_flags": launches_f, "kernels": kern,
-                   "step_ms": step_ms, "step_ms_by_mode": steps,
-                   "six_e_kernel_ms": six_e_ms, "budgets": budgets}, fh,
-                  indent=1)
+    preps = start_prep()
+    try:
+        kern = run(preps, smi, t_all)
+    finally:
+        stop_prep(preps)
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_all:.1f} s")
     print(smi)

@@ -16,7 +16,8 @@ first W windows of a row never read past the row's end (DNA: W =
 maxlen - 3*highestK + 1, the last triplet of window W-1 ends at
 maxlen-1; protein: W = maxlen - highestK + 1; one frame: W = maxlen//3 -
 highestK + 1, window W-1 ends at 3*(maxlen//3) - 1), so each row encodes
-on its own.  ``encode_windows`` is the wrapper of kernel K1
+on its own.  A window is ``kmer.num_limbs(highestK)`` limbs: two at
+highestK = 12 (64-bit indices), five at 25 (128-bit indices).  ``encode_windows`` is the wrapper of kernel K1
 (csrc/encode.cu); ``encode_windows_plain`` is its plain PyTorch version.
 The numpy twins serve the host recompute of flagged reads.
 """
@@ -79,34 +80,39 @@ def custom_code_lut(cfg) -> np.ndarray | None:
     return (lut & np.uint8(31)).astype(np.uint8)
 
 
-def window_span(protein: bool, one_frame: bool) -> tuple[int, int]:
+def window_span(protein: bool, one_frame: bool,
+                highest_k: int) -> tuple[int, int]:
     """(bytes one window covers, bytes between window starts)."""
     if protein:
-        return 12, 1
-    return 36, (3 if one_frame else 1)
+        return highest_k, 1
+    return 3 * highest_k, (3 if one_frame else 1)
 
 
 def _check(byte_mat: torch.Tensor, lut: torch.Tensor, w: int,
-           protein: bool, one_frame: bool) -> None:
+           protein: bool, one_frame: bool, highest_k: int) -> None:
     if byte_mat.dtype != torch.uint8 or byte_mat.dim() != 2:
         raise ValueError("byte_mat must be a (rows, maxlen) uint8 tensor")
     if lut.dtype != torch.int32 or lut.dim() != 1:
         raise ValueError("lut must be a 1-d int32 tensor")
-    span, step = window_span(protein, one_frame)
+    if not 1 <= highest_k <= 25:
+        raise ValueError(f"highest_k={highest_k}: k-mers hold 1..25 letters")
+    span, step = window_span(protein, one_frame, highest_k)
     if w < 1 or (w - 1) * step + span > byte_mat.shape[1]:
         raise ValueError(f"w={w} windows do not fit rows of "
                          f"{byte_mat.shape[1]} characters")
 
 
 def encode_windows_plain(byte_mat: torch.Tensor, lut: torch.Tensor, w: int,
-                         protein: bool = False,
-                         one_frame: bool = False) -> torch.Tensor:
-    """(rows, maxlen) uint8 -> (rows * w, 2) int32 limbs of the first w
-    windows of every row (highestK = 12).  DNA: letters at stride 3
-    through the LUT, triplet hashes past the LUT clamped to its last
+                         protein: bool = False, one_frame: bool = False,
+                         highest_k: int = 12) -> torch.Tensor:
+    """(rows, maxlen) uint8 -> (rows * w, L) int32 limbs of the first w
+    windows of every row, L = kmer.num_limbs(highest_k) limbs of
+    kmer.limb_letters(highest_k) letters (two full limbs at highestK =
+    12, five at 25 with one letter in the last).  DNA: letters at stride
+    3 through the LUT, triplet hashes past the LUT clamped to its last
     entry as a gather does in kasa_tpu; one frame keeps windows 0, 3,
     6, ...; protein: letter = byte & 31 at stride 1 (the LUT unused)."""
-    _check(byte_mat, lut, w, protein, one_frame)
+    _check(byte_mat, lut, w, protein, one_frame, highest_k)
     rows = byte_mat.shape[0]
     b = byte_mat.to(torch.int32)
     if protein:
@@ -117,23 +123,26 @@ def encode_windows_plain(byte_mat: torch.Tensor, lut: torch.Tensor, w: int,
         aa, stride = lut[idx.clamp(max=lut.numel() - 1).long()], 3
     step = 3 if one_frame and not protein else 1
     n = (w - 1) * step + 1          # window starts 0 .. (w-1)*step
+    letters = kmer.limb_letters(highest_k)
     limbs = []
-    for li in range(2):
+    for li, nlet in enumerate(letters):
         acc = torch.zeros((rows, n), dtype=torch.int32, device=b.device)
-        for j in range(LPL):
+        for j in range(nlet):
             p = stride * (LPL * li + j)
             acc |= aa[:, p:p + n] << (BITS * (LPL - 1 - j))
         limbs.append(acc[:, ::step])
-    return torch.stack(limbs, dim=-1).reshape(rows * w, 2)
+    return torch.stack(limbs, dim=-1).reshape(rows * w, len(letters))
 
 
 def encode_windows(byte_mat: torch.Tensor, lut: torch.Tensor, w: int,
-                   protein: bool = False,
-                   one_frame: bool = False) -> torch.Tensor:
+                   protein: bool = False, one_frame: bool = False,
+                   highest_k: int = 12) -> torch.Tensor:
     """K1 wrapper: the CUDA kernel on a CUDA tensor, else the plain
     version."""
     if byte_mat.device.type == "cpu":
-        return encode_windows_plain(byte_mat, lut, w, protein, one_frame)
-    _check(byte_mat, lut, w, protein, one_frame)
+        return encode_windows_plain(byte_mat, lut, w, protein, one_frame,
+                                    highest_k)
+    _check(byte_mat, lut, w, protein, one_frame, highest_k)
     from .. import kernels
-    return kernels.encode_windows(byte_mat, lut, w, protein, one_frame)
+    return kernels.encode_windows(byte_mat, lut, w, protein, one_frame,
+                                  highest_k)

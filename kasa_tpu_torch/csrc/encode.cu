@@ -1,36 +1,41 @@
-// K1 encode: padded DNA read rows -> two 30-bit limbs per window.
+// K1 encode: padded DNA read rows -> L 30-bit limbs per window.
 //
 // Replaces kasa_tpu/core/encode.py:52 dna_to_aa_codes and :70
 // encode_windows together with the windowing prologue of
 // kasa_tpu/match/turbo.py:1206-1216 (fused_turbo_acc): the codon LUT
-// gather per position, 12 letters at stride 3 packed into two int32
-// limbs, and the first W windows of every row.  Two more arms of the
-// same prologue: protein input (-z, letter = byte & 31 at stride 1,
-// dna_to_aa_codes(protein=True)) and one frame (--one, JAX's
-// win[:, ::3]: window c starts at byte 3c).
+// gather per position, highestK letters at stride 3 packed into
+// L = ceil(highestK / 6) int32 limbs of six 5-bit letters (the last limb
+// holds the rest: two full limbs at highestK = 12, five limbs at 25 with
+// one letter in the last), and the first W windows of every row.  Two
+// more arms of the same prologue: protein input (-z, letter = byte & 31
+// at stride 1, dna_to_aa_codes(protein=True)) and one frame (--one,
+// JAX's win[:, ::3]: window c starts at byte 3c).
 //
-// Bound on the H100: memory.  Per window it reads 36 bytes of its row
-// and writes 8 bytes; neighbouring windows share 35 of their 36 bytes,
-// so the row bytes come from L1/L2 and device memory sees each byte
-// about once (rows*maxlen in, rows*W*8 out).  The 512-entry LUT lives
-// in shared memory.
+// Bound on the H100: memory.  Per window it reads 3 * highestK bytes of
+// its row and writes 4 * L bytes; neighbouring windows share all but one
+// of their bytes, so the row bytes come from L1/L2 and device memory sees
+// each byte about once (rows*maxlen in, rows*W*4*L out).  The 512-entry
+// LUT lives in shared memory.
 //
 // Design: one thread per window, windows of a row adjacent in the grid
-// (coalesced 8-byte stores).  A window never reads past its row: the
-// wrapper checks (W-1)*step + span <= maxlen (DNA: span 36, so for
-// W = maxlen - 35 the last triplet ends at maxlen - 1; one frame: step
-// 3 and W = maxlen/3 - 11; protein: span 12).  Hash indices past the
-// LUT clamp to its last entry, as kasa_tpu's gather does.
+// (the L stores of neighbouring threads are contiguous).  A window never
+// reads past its row: the wrapper checks (W-1)*step + span <= maxlen
+// (DNA: span 3 * highestK, so for W = maxlen - span + 1 the last triplet
+// ends at maxlen - 1; one frame: step 3 and W = maxlen/3 - highestK + 1;
+// protein: span highestK).  Hash indices past the LUT clamp to its last
+// entry, as kasa_tpu's gather does.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kLutMax = 512;
+constexpr int kMaxLimbs = 5;
 
 __global__ void encode_kernel(const uint8_t* __restrict__ mat,
                               const int32_t* __restrict__ lut, int lut_n,
                               int rows, int maxlen, int w, int protein,
-                              int step, int2* __restrict__ out) {
+                              int step, int hk, int L,
+                              int32_t* __restrict__ out) {
     __shared__ int32_t slut[kLutMax];
     for (int i = threadIdx.x; i < kLutMax; i += blockDim.x)
         slut[i] = lut[min(i, lut_n - 1)];
@@ -40,30 +45,36 @@ __global__ void encode_kernel(const uint8_t* __restrict__ mat,
     const long long r = m / w;
     const int c = (int)(m - r * w);
     const uint8_t* p = mat + r * maxlen + (long long)c * step;
-    int32_t limb[2] = {0, 0};
-    if (protein) {
-#pragma unroll
-        for (int j = 0; j < 12; ++j)
-            limb[j / 6] |= (p[j] & 31) << (5 * (5 - (j % 6)));
-    } else {
-#pragma unroll
-        for (int j = 0; j < 12; ++j) {
+    // each limb is stored once its sixth (or the last) letter is in:
+    // no per-thread array, so nothing spills to local memory
+    int32_t* o = out + m * L;
+    int32_t limb = 0;
+    for (int j = 0; j < hk; ++j) {
+        int32_t code;
+        if (protein) {
+            code = p[j] & 31;
+        } else {
             const int c1 = p[3 * j], c2 = p[3 * j + 1], c3 = p[3 * j + 2];
             const int idx = ((c1 & 14) << 5) | ((c2 & 14) << 2)
                             | ((c3 & 14) >> 1);
-            const int32_t code = slut[idx];   // idx <= 511 < kLutMax
-            limb[j / 6] |= code << (5 * (5 - (j % 6)));
+            code = slut[idx];                 // idx <= 511 < kLutMax
+        }
+        limb |= code << (5 * (5 - (j % 6)));
+        if (j % 6 == 5 || j == hk - 1) {
+            o[j / 6] = limb;
+            limb = 0;
         }
     }
-    out[m] = make_int2(limb[0], limb[1]);
 }
 
 }  // namespace
 
 extern "C" int kasa_encode_windows(const void* mat, const void* lut,
                                    int lut_n, int rows, int maxlen, int w,
-                                   int protein, int step, void* out,
+                                   int protein, int step, int hk, void* out,
                                    void* stream) {
+    const int L = (hk + 5) / 6;
+    if (hk < 1 || L > kMaxLimbs) return (int)cudaErrorInvalidValue;
     const long long m = (long long)rows * w;
     if (m > 0) {
         const int threads = 256;
@@ -71,7 +82,7 @@ extern "C" int kasa_encode_windows(const void* mat, const void* lut,
         encode_kernel<<<(unsigned)blocks, threads, 0,
                         (cudaStream_t)stream>>>(
             (const uint8_t*)mat, (const int32_t*)lut, lut_n, rows, maxlen,
-            w, protein, step, (int2*)out);
+            w, protein, step, hk, L, (int32_t*)out);
     }
     return (int)cudaGetLastError();
 }

@@ -4,25 +4,30 @@
 // Replaces the "search" and "slots" stages of kasa_tpu/match/turbo.py
 // :518 _turbo_core (lines 569-667): '^' validity per k level; the
 // 24-bit router row, the sub-router row of a fat bucket and num_steps
-// bisect steps over keys2; then the index rows at pos and pos-1 and,
-// per k level, a masked prefix compare that yields either a T == 1
-// slot key tax*8+ki or a multi-taxa payload psel*8+ki.
+// bisect steps over keys2 with a lexicographic compare over the L limbs
+// (599-613); then the index rows at pos and pos-1 and, per k level, a
+// masked prefix compare over the L limbs that yields either a T == 1
+// slot key tax*8+ki or a multi-taxa payload psel*8+ki.  L = 2 for 64-bit
+// indices (k <= 12), 3..5 for 128-bit ones (k <= 25); a level's mask is
+// zero on the limbs past its k and partial on the limb holding letter k.
 //
 // Bound on the H100: dependent random gathers.  Per window: one 8-byte
-// router row, maybe one sub-router row, num_steps 8-byte keys2 rows and
-// two 16-byte rowdat rows, each on its own 32-byte sector; the tables
-// (hundreds of MB at full size) do not fit the 50 MB L2, so most
-// gathers go to device memory, and each step waits for the previous.
-// The last steps of a bisect over a bucket of ~8 keys re-read sectors
-// the first ones loaded, so the bytes the search needs are the
-// distinct sectors it touches, a few per window.
+// router row, maybe one sub-router row, num_steps keys2 rows of 4*L
+// bytes and two rowdat rows of 4*(L+2) bytes, each within one or two
+// 32-byte sectors; the tables (hundreds of MB to GB at full size) do not
+// fit the 50 MB L2, so most gathers go to device memory, and each step
+// waits for the previous.  The last steps of a bisect over a bucket of
+// ~8 keys re-read sectors the first ones loaded, so the bytes the search
+// needs are the distinct sectors it touches, a few per window.
 //
 // Design: one thread per window (enough windows in flight to hide the
-// latency of the chain), the whole chain in registers, read-only
+// latency of the chain), the whole chain in registers (the limb count is
+// a template parameter, so the limb arrays stay in registers), read-only
 // loads; outputs are written slot-major per read, (R, SW) with slot
-// window*numK + ki, as kasa_tpu lays them out.  The search reproduces
-// kasa_tpu exactly, including its fixed step count (a window above
-// every key ends at pos = n + 1) and its clamped gathers.
+// window*numK + ki, as kasa_tpu lays them out.  The router and the
+// sub-router read limbs 0 and 1 only, as in kasa_tpu.  The search
+// reproduces kasa_tpu exactly, including its fixed step count (a window
+// above every key ends at pos = n + 1) and its clamped gathers.
 #include "common.cuh"
 
 namespace {
@@ -32,26 +37,32 @@ struct MatchParams {
     long long M;
 };
 
-__global__ void turbo_match_kernel(const int2* __restrict__ q,
+template <int L>
+__global__ void turbo_match_kernel(const int32_t* __restrict__ q,
                                    const int2* __restrict__ router,
                                    const int2* __restrict__ sub2,
-                                   const int2* __restrict__ keys2,
-                                   const int4* __restrict__ rowdat,
-                                   const int2* __restrict__ masks2,
+                                   const int32_t* __restrict__ keys2,
+                                   const int32_t* __restrict__ rowdat,
+                                   const int32_t* __restrict__ masks2,
                                    MatchParams p,
                                    int32_t* __restrict__ skey,
                                    int32_t* __restrict__ mpay) {
     const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (m >= p.M) return;
-    const int2 qq = __ldg(&q[m]);
-    const int q0 = qq.x, q1 = qq.y;
+    int qv[L];
+#pragma unroll
+    for (int i = 0; i < L; ++i) qv[i] = __ldg(&q[m * L + i]);
+    const int q0 = qv[0], q1 = qv[1];
 
-    // cumulative '^' (code 30) validity over letters min_k-1 .. k-1
+    // cumulative '^' (code 30) validity over letters min_k-1 .. k-1; the
+    // letter at position pos sits in limb pos / 6
     unsigned ok_bits = 0;   // bit ki set: valid at k = max_k - ki
     {
         bool ok = true;
         for (int pos = p.min_k - 1; pos < p.max_k; ++pos) {
-            const int limb = pos < 6 ? q0 : q1;
+            int limb = qv[0];
+#pragma unroll
+            for (int i = 1; i < L; ++i) limb = (pos / 6 == i) ? qv[i] : limb;
             const int shift = 5 * (5 - (pos % 6));
             ok = ok && (((limb >> shift) & 31) != 30);
             const int ki = p.max_k - (pos + 1);
@@ -73,8 +84,14 @@ __global__ void turbo_match_kernel(const int2* __restrict__ q,
     }
     for (int step = 0; step < p.num_steps; ++step) {
         const int mid = (lo + hi) >> 1;
-        const int2 kk = __ldg(&keys2[min(mid, p.n - 1)]);
-        const bool less = (kk.x < q0) || (kk.x == q0 && kk.y < q1);
+        const int32_t* kk = keys2 + (long long)min(mid, p.n - 1) * L;
+        // rows < q, lexicographic over the limbs (kasa_tpu's lex_less)
+        bool less = __ldg(&kk[L - 1]) < qv[L - 1];
+#pragma unroll
+        for (int i = L - 2; i >= 0; --i) {
+            const int k = __ldg(&kk[i]);
+            less = (k < qv[i]) || (k == qv[i] && less);
+        }
         lo = less ? mid + 1 : lo;
         hi = less ? hi : mid;
     }
@@ -82,21 +99,29 @@ __global__ void turbo_match_kernel(const int2* __restrict__ q,
     const int pos_c = min(pos, p.n - 1);
     const bool at_n = pos >= p.n;
     const int prev = max(pos - 1, 0);
-    const int4 at = __ldg(&rowdat[pos_c]);
-    const int4 pv = __ldg(&rowdat[min(prev, p.n - 1)]);
+    int at[L + 2], pv[L + 2];
+    const int32_t* ra = rowdat + (long long)pos_c * (L + 2);
+    const int32_t* rp = rowdat + (long long)min(prev, p.n - 1) * (L + 2);
+#pragma unroll
+    for (int i = 0; i < L + 2; ++i) {
+        at[i] = __ldg(&ra[i]);
+        pv[i] = __ldg(&rp[i]);
+    }
     const bool prev_ok = pos > 0;
 
     const long long base = m * p.num_k;
     for (int ki = 0; ki < p.num_k; ++ki) {
-        const int2 mk = __ldg(&masks2[ki]);
-        const int qm0 = q0 & mk.x, qm1 = q1 & mk.y;
-        const bool hit_at = !at_n && ((at.x & mk.x) == qm0)
-                            && ((at.y & mk.y) == qm1);
-        const bool hit_pv = prev_ok && ((pv.x & mk.x) == qm0)
-                            && ((pv.y & mk.y) == qm1);
+        bool hit_at = !at_n, hit_pv = prev_ok;
+#pragma unroll
+        for (int i = 0; i < L; ++i) {
+            const int mk = __ldg(&masks2[ki * L + i]);
+            const int qm = qv[i] & mk;
+            hit_at = hit_at && ((at[i] & mk) == qm);
+            hit_pv = hit_pv && ((pv[i] & mk) == qm);
+        }
         const bool matched = (hit_at || hit_pv) && ((ok_bits >> ki) & 1u);
-        const int tax = hit_pv ? pv.z : at.z;
-        const int tp = hit_pv ? pv.w : at.w;
+        const int tax = hit_pv ? pv[L] : at[L];
+        const int tp = hit_pv ? pv[L + 1] : at[L + 1];
         const int tc = (tp >> (5 * ki)) & 31;
         const int psel = hit_pv ? prev : pos_c;
         skey[base + ki] = (matched && tc == 1) ? tax * 8 + ki : p.sent;
@@ -104,23 +129,40 @@ __global__ void turbo_match_kernel(const int2* __restrict__ q,
     }
 }
 
+template <int L>
+void launch(const void* q, const void* router, const void* sub2,
+            const void* keys2, const void* rowdat, const void* masks2,
+            MatchParams p, void* skey, void* mpay, cudaStream_t st) {
+    const int threads = 256;
+    const long long blocks = (p.M + threads - 1) / threads;
+    turbo_match_kernel<L><<<(unsigned)blocks, threads, 0, st>>>(
+        (const int32_t*)q, (const int2*)router, (const int2*)sub2,
+        (const int32_t*)keys2, (const int32_t*)rowdat,
+        (const int32_t*)masks2, p, (int32_t*)skey, (int32_t*)mpay);
+}
+
 }  // namespace
 
 extern "C" int kasa_turbo_match(const void* q, const void* router,
                                 const void* sub2, const void* keys2,
                                 const void* rowdat, const void* masks2,
-                                long long M, int n, int num_k, int min_k,
-                                int max_k, int num_steps, int sent,
-                                void* skey, void* mpay, void* stream) {
+                                long long M, int L, int n, int num_k,
+                                int min_k, int max_k, int num_steps,
+                                int sent, void* skey, void* mpay,
+                                void* stream) {
     MatchParams p{n, num_k, min_k, max_k, num_steps, sent, M};
-    if (M > 0) {
-        const int threads = 256;
-        const long long blocks = (M + threads - 1) / threads;
-        turbo_match_kernel<<<(unsigned)blocks, threads, 0,
-                             (cudaStream_t)stream>>>(
-            (const int2*)q, (const int2*)router, (const int2*)sub2,
-            (const int2*)keys2, (const int4*)rowdat, (const int2*)masks2, p,
-            (int32_t*)skey, (int32_t*)mpay);
+    if (M <= 0) return (int)cudaGetLastError();
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (L) {
+        case 2: launch<2>(q, router, sub2, keys2, rowdat, masks2, p, skey,
+                          mpay, st); break;
+        case 3: launch<3>(q, router, sub2, keys2, rowdat, masks2, p, skey,
+                          mpay, st); break;
+        case 4: launch<4>(q, router, sub2, keys2, rowdat, masks2, p, skey,
+                          mpay, st); break;
+        case 5: launch<5>(q, router, sub2, keys2, rowdat, masks2, p, skey,
+                          mpay, st); break;
+        default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();
 }

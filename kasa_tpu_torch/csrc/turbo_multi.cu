@@ -33,7 +33,12 @@
 //           (identify_multiple, fused_turbo_files at turbo.py:826-833
 //           and 853-861) the count cell is (file * numK + k) * S + tax
 //           of an (F, numK, S) matrix and the hot credit row is
-//           file * numK + k of an (F * numK, H) matrix.
+//           file * numK + k of an (F * numK, H) matrix.  Counts-only arm
+//           (the sparse regime: S > SPARSE_FOLD_S and no hot tier, the
+//           cflat of turbo.py:871-880 with its file offset fk_e):
+//           dm, a3w and a3c are null, cold slots add only to the counts
+//           and K6 (sparse_fold.cu) builds the per-read lists, so no
+//           (R, S) buffer exists (328 MB at R = 8192, S = 10,002).
 //
 // Bound on the H100: atomics and gathers of the expansion.  Each cold
 // slot gathers ceil(T/4) 16-byte taxa rows and issues 2T float atomics
@@ -222,10 +227,10 @@ __global__ void multi_expand_kernel(const int32_t* __restrict__ wl_row0,
                 const int32_t tax = d_tax4[row * 4 + (t & 3)];
                 if (tax >= 0) {
                     atomicAdd(&acc_ca[fk * p.S + tax], inv);
-                    atomicAdd(&dm[(long long)r * p.S + tax], wv);
+                    if (dm) atomicAdd(&dm[(long long)r * p.S + tax], wv);
                 }
             }
-        } else if (lane == 0) {
+        } else if (lane == 0 && a3w) {
             const int hid = -row0 - 1;
             const float inv = 1.0f / (float)max(T, 1);
             atomicAdd(&a3w[(long long)r * p.H + hid], weights[ki] * inv);

@@ -19,14 +19,18 @@
 //         (integer atomics for counts_unique; with a file_of_read map,
 //         identify_multiple's fused_turbo_files at turbo.py:936-945, the
 //         cell is (file * numK + k) * S + tax of an (F, numK, S) matrix),
-//         scans its (R, S) score
-//         row in taxon order for the first WM taxa with a positive
-//         score, merges them with the T1 taxa and writes the hit list,
-//         hit count and flags; then one block scans the hit counts and
-//         one block per read scatters its CSR pairs.
+//         takes the read's first WM multi taxa in taxon order, merges
+//         them with the T1 taxa and writes the hit list, hit count and
+//         flags; then one block scans the hit counts and one block per
+//         read scatters its CSR pairs.  The multi taxa come from one of
+//         two arms: the dense arm scans the read's (R, S) score row for
+//         the taxa with a positive score (turbo.py:968-973); the list
+//         arm (the sparse regime) reads K6's (R, WM) list and its
+//         multi_of flag (turbo.py:914-918), and S is passed explicitly.
 //
-// Bound on the H100: memory for "post" (each read's S-float score row
-// is read once: R*S*4 bytes, 64 MB at R = 8192, S = 2048); "pre" is
+// Bound on the H100: memory for "post" (dense arm: each read's S-float
+// score row is read once, R*S*4 bytes, 64 MB at R = 8192, S = 2048; the
+// list arm reads R*WM*8 bytes instead); "pre" is
 // bound by the shared-memory sort, O(P log^2 P) compare-exchanges per
 // read, which at P = 1024 sits below the card's memory time only when
 // many blocks are resident.
@@ -114,6 +118,9 @@ __global__ void reads_post_kernel(const int32_t* __restrict__ ck,
                                   const int32_t* __restrict__ cc,
                                   const uint8_t* __restrict__ ofc,
                                   const float* __restrict__ dm,
+                                  const int32_t* __restrict__ mlk,
+                                  const float* __restrict__ mlv,
+                                  const uint8_t* __restrict__ mof,
                                   const float* __restrict__ weights,
                                   const int32_t* __restrict__ file_of_read,
                                   float* __restrict__ acc_ca,
@@ -151,19 +158,35 @@ __global__ void reads_post_kernel(const int32_t* __restrict__ ck,
         }
     }
 
-    // the read's multi taxa: first wm with a positive score, in order
-    const float* drow = dm + r * S;
+    // the read's multi taxa: first wm in taxon order; m_over when it has
+    // more than wm
     int moff = 0;
-    for (int t0 = 0; t0 < S; t0 += kThreads) {
-        const int s = t0 + tid;
-        const float v = s < S ? drow[s] : 0.0f;
-        int tot;
-        const int rank = block_rank<kWarps>(v > 0.0f, warp_sums, &tot);
-        if (v > 0.0f && moff + rank < wm) {
-            mk[moff + rank] = s;
-            mv[moff + rank] = v;
+    bool m_over;
+    if (dm) {
+        // dense arm: the taxa with a positive score in the (R, S) row
+        const float* drow = dm + r * S;
+        for (int t0 = 0; t0 < S; t0 += kThreads) {
+            const int s = t0 + tid;
+            const float v = s < S ? drow[s] : 0.0f;
+            int tot;
+            const int rank = block_rank<kWarps>(v > 0.0f, warp_sums, &tot);
+            if (v > 0.0f && moff + rank < wm) {
+                mk[moff + rank] = s;
+                mv[moff + rank] = v;
+            }
+            moff += tot;
         }
-        moff += tot;
+        m_over = moff > wm;
+    } else {
+        // list arm: K6's sent-padded (R, wm) list (wm <= kThreads)
+        bool v = false;
+        if (tid < wm) {
+            mk[tid] = mlk[r * wm + tid];
+            mv[tid] = mlv[r * wm + tid];
+            v = mk[tid] != sent;
+        }
+        moff = __syncthreads_count(v);
+        m_over = mof[r] != 0;
     }
     __syncthreads();
 
@@ -205,7 +228,7 @@ __global__ void reads_post_kernel(const int32_t* __restrict__ ck,
         const int nout = min(ntax, wout);
         s_nout = nout;
         hc[r] = nout;
-        const bool ofl = !keep || ntax1 > wout || moff > wm || ntax > wout;
+        const bool ofl = !keep || ntax1 > wout || m_over || ntax > wout;
         flags[r] = (keep ? 0 : 1) | (ofl ? 2 : 0);
     }
     __syncthreads();
@@ -289,7 +312,8 @@ extern "C" int kasa_turbo_reads_pre(const void* skey, const void* mpay,
 
 extern "C" int kasa_turbo_reads_post(const void* ck, const void* cc,
                                      const void* ofc, const void* dm,
-                                     const void* weights,
+                                     const void* mlk, const void* mlv,
+                                     const void* mof, const void* weights,
                                      const void* file_of_read, void* acc_ca,
                                      void* acc_cu, const void* diag, int R,
                                      int S, int num_k, int cw, int sent,
@@ -297,13 +321,16 @@ extern "C" int kasa_turbo_reads_post(const void* ck, const void* cc,
                                      int wm, long long cap, void* ht,
                                      void* hk, void* hc, void* flags,
                                      void* cum, void* packed, void* stream) {
-    if (cw > kListMax || wout > kListMax || wm > kListMax)
+    if (cw > kListMax || wout > kListMax || wm > kListMax
+        || (dm == nullptr && (mlk == nullptr || mlv == nullptr
+                              || mof == nullptr)))
         return (int)cudaErrorInvalidValue;
     if (R > 0) {
         cudaStream_t st = (cudaStream_t)stream;
         reads_post_kernel<<<R, kThreads, 0, st>>>(
             (const int32_t*)ck, (const int32_t*)cc, (const uint8_t*)ofc,
-            (const float*)dm, (const float*)weights,
+            (const float*)dm, (const int32_t*)mlk, (const float*)mlv,
+            (const uint8_t*)mof, (const float*)weights,
             (const int32_t*)file_of_read, (float*)acc_ca,
             (int32_t*)acc_cu, S, num_k, cw, sent, wout, wm, (int32_t*)ht,
             (float*)hk, (int32_t*)hc, (int32_t*)flags);

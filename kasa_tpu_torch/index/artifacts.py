@@ -1,12 +1,13 @@
 """On-disk index artifact family, byte-compatible with the reference
-(port of kasa_tpu/index/artifacts.py: the 64-bit and halved readers and
-the writers the synthetic corpus uses).
+(port of kasa_tpu/index/artifacts.py: the 64-bit, 128-bit and halved
+readers and the writers the synthetic corpora use).
 
 An index named ``<idx>`` consists of (SURVEY §5; reference README 462-479):
 
   <idx>            sorted (k-mer, taxid) records, dedup'd; 64-bit: 12 B
                    packed (u64 LE kmer, u32 LE taxid), file padded with
                    zeros to 2101248-byte stxxl blocks (MetaHeader.h:137);
+                   128-bit: 20 B packed (u128 LE, u32), blocks of 2048000;
                    halved: 6 B packed (u32 suffix, u16 taxon index)
   <idx>_info.txt   entry count [+ "\\n128" or "\\n3" type tag]
   <idx>_trie       RLE of the 6-letter prefixes: 12 B packed
@@ -28,20 +29,17 @@ import numpy as np
 from ..core import kmer
 
 BLOCK_64 = 2101248
+BLOCK_128 = 2048000
 
 REC_64 = np.dtype([("kmer", "<u8"), ("taxid", "<u4")])
+# uint128_t is {uint64 LOWER, uint64 UPPER} on little-endian (uint128_t.hpp:74)
+REC_128 = np.dtype([("lo", "<u8"), ("hi", "<u8"), ("taxid", "<u4")])
 REC_HALF = np.dtype([("suffix", "<u4"), ("taxidx", "<u2")])
 REC_TRIE = np.dtype([("count", "<u8"), ("prefix", "<u4")])
 
 INDEX_TYPE_64 = 0
 INDEX_TYPE_128 = 128
 INDEX_TYPE_HALF = 3
-
-
-def _pad_to_blocks(raw: bytes, block: int) -> bytes:
-    n = len(raw)
-    total = -(-max(n, 1) // block) * block
-    return raw + b"\x00" * (total - n)
 
 
 def read_info(path: str) -> tuple[int, int]:
@@ -53,37 +51,47 @@ def read_info(path: str) -> tuple[int, int]:
     return n, itype
 
 
-def write_info(path: str, n: int):
+def write_info(path: str, n: int, itype: int = INDEX_TYPE_64):
     with open(path + "_info.txt", "w") as fh:
         fh.write(str(n))
+        if itype == INDEX_TYPE_128:
+            fh.write("\n128")
 
 
-def write_index(path: str, limbs: np.ndarray, taxids: np.ndarray):
-    """Sorted (N, 2) limbs + taxids (N,) -> packed 64-bit index + info."""
-    rec = np.empty(len(taxids), dtype=REC_64)
-    rec["kmer"] = kmer.limbs_to_u64(limbs)
+def write_index(path: str, limbs: np.ndarray, taxids: np.ndarray,
+                highest_k: int = 12):
+    """Sorted (N, L) limbs + taxids (N,) -> packed index + info: 64-bit
+    records for highest_k <= 12, 128-bit ones above."""
+    if highest_k <= 12:
+        rec = np.empty(len(taxids), dtype=REC_64)
+        rec["kmer"] = kmer.limbs_to_u64(limbs)
+        block, itype = BLOCK_64, INDEX_TYPE_64
+    else:
+        hi, lo = kmer.limbs_to_u128_parts(limbs)
+        rec = np.empty(len(taxids), dtype=REC_128)
+        rec["lo"], rec["hi"] = lo, hi
+        block, itype = BLOCK_128, INDEX_TYPE_128
     rec["taxid"] = taxids.astype(np.uint32)
+    nbytes = rec.nbytes
     with open(path, "wb") as fh:
-        fh.write(_pad_to_blocks(rec.tobytes(), BLOCK_64))
-    write_info(path, len(taxids))
+        rec.tofile(fh)
+        fh.write(b"\x00" * (-(-max(nbytes, 1) // block) * block - nbytes))
+    write_info(path, len(taxids), itype)
 
 
 _READ_INDEX_CACHE: dict = {}
 
 
 def read_index(path: str) -> tuple[np.ndarray, np.ndarray, int, int]:
-    """64-bit index -> (limbs (N, 2) int32, taxids (N,) uint32, highest_k
-    = 12, index_type).  A halved index gives its raw records: limb 1 the
-    stored suffix, limb 0 zero, the u16 taxon indices as taxids
-    (read_halved_reconstructed rebuilds the full k-mers).  128-bit
-    indices raise (a later slice).
+    """-> (limbs (N, L) int32, taxids (N,) uint32, highest_k,
+    index_type): 64-bit indices give L = 2 and highest_k 12, 128-bit ones
+    L = 5 and highest_k 25.  A halved index gives its raw records: limb
+    1 the stored suffix, limb 0 zero, the u16 taxon indices as taxids
+    (read_halved_reconstructed rebuilds the full k-mers).
 
     One-entry RAM cache keyed by (path, mtime, size): repeated identify
     calls over the same index skip the artifact load."""
     n, itype = read_info(path)
-    if itype not in (INDEX_TYPE_64, INDEX_TYPE_HALF):
-        raise NotImplementedError(f"index type {itype} (128-bit) is a later "
-                                  "slice of the port")
     try:
         st = os.stat(path)
         key = (os.path.abspath(path), st.st_mtime_ns, st.st_size)
@@ -91,7 +99,11 @@ def read_index(path: str) -> tuple[np.ndarray, np.ndarray, int, int]:
         key = None
     if key is not None and key in _READ_INDEX_CACHE:
         return _READ_INDEX_CACHE[key]
-    if itype == INDEX_TYPE_HALF:
+    if itype == INDEX_TYPE_128:
+        rec = np.fromfile(path, dtype=REC_128, count=n)
+        out = (kmer.u128_parts_to_limbs(rec["hi"], rec["lo"]),
+               rec["taxid"].copy(), 25, itype)
+    elif itype == INDEX_TYPE_HALF:
         rec = np.fromfile(path, dtype=REC_HALF, count=n)
         limbs = np.zeros((n, 2), dtype=np.int32)
         limbs[:, 1] = rec["suffix"].astype(np.int32)

@@ -26,14 +26,15 @@ import torch
 _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD = os.path.join(_DIR, "_build", "cuda")
-SOURCES = ("encode", "turbo_match", "turbo_reads", "turbo_multi", "dedup")
+SOURCES = ("encode", "turbo_match", "turbo_reads", "turbo_multi", "dedup",
+           "sparse_fold")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches per kernel since the last reset_counts(): one per wrapper
 # call that launched (turbo_reads counts its pre and post entry points)
 COUNTS = {"encode": 0, "turbo_match": 0, "turbo_reads": 0,
-          "turbo_multi": 0, "dedup": 0}
+          "turbo_multi": 0, "dedup": 0, "sparse_fold": 0}
 
 _libs: dict = {}
 
@@ -41,20 +42,22 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = {
-    "kasa_encode_windows": [_P, _P] + [_I] * 6 + [_P, _P],
-    "kasa_turbo_match": [_P] * 6 + [_L] + [_I] * 6 + [_P, _P, _P],
+    "kasa_encode_windows": [_P, _P] + [_I] * 7 + [_P, _P],
+    "kasa_turbo_match": [_P] * 6 + [_L] + [_I] * 7 + [_P, _P, _P],
     "kasa_turbo_reads_pre": [_P, _P] + [_I] * 5 + [_P] * 6,
-    "kasa_turbo_reads_post": [_P] * 9 + [_I] * 7 + [_L] + [_P] * 7,
+    "kasa_turbo_reads_post": [_P] * 12 + [_I] * 7 + [_L] + [_P] * 7,
     "kasa_turbo_multi": [_P] * 8 + [_I] * 8 + [_L, _I, _I] + [_P] * 14
                         + [_I, _P],
-    "kasa_dedup_windows": [_P] + [_I] * 4 + [_P, _P],
+    "kasa_dedup_windows": [_P] + [_I] * 5 + [_P, _P],
+    "kasa_sparse_fold": [_P] * 6 + [_I] * 6 + [_P] * 4,
 }
 _LIB_OF = {"kasa_encode_windows": "encode",
            "kasa_turbo_match": "turbo_match",
            "kasa_turbo_reads_pre": "turbo_reads",
            "kasa_turbo_reads_post": "turbo_reads",
            "kasa_turbo_multi": "turbo_multi",
-           "kasa_dedup_windows": "dedup"}
+           "kasa_dedup_windows": "dedup",
+           "kasa_sparse_fold": "sparse_fold"}
 
 
 def reset_counts() -> None:
@@ -152,29 +155,33 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _ptr(t: torch.Tensor) -> int:
-    return t.data_ptr()
+def _ptr(t: torch.Tensor | None) -> int | None:
+    """The tensor's device address; None (a null pointer) for an absent
+    optional input or output."""
+    return None if t is None else t.data_ptr()
 
 
 # ---------------------------------------------------------------------------
 # K1 encode (csrc/encode.cu)
 
 def encode_windows(byte_mat: torch.Tensor, lut: torch.Tensor, w: int,
-                   protein: bool = False,
-                   one_frame: bool = False) -> torch.Tensor:
+                   protein: bool = False, one_frame: bool = False,
+                   highest_k: int = 12) -> torch.Tensor:
+    from .core.kmer import num_limbs
     dev = byte_mat.device
     if dev.type != "cuda":
         raise ValueError("encode_windows: the kernel takes CUDA tensors")
     rows, maxlen = byte_mat.shape
     _check(byte_mat, "byte_mat", torch.uint8, (rows, maxlen), dev)
     _check(lut, "lut", torch.int32, (lut.numel(),), dev)
-    out = torch.empty((rows * w, 2), dtype=torch.int32, device=dev)
     if lut.numel() < 1:
         raise ValueError("lut: empty")
+    out = torch.empty((rows * w, num_limbs(highest_k)), dtype=torch.int32,
+                      device=dev)
     step = 3 if one_frame and not protein else 1
     _launch("kasa_encode_windows", "encode", _ptr(byte_mat), _ptr(lut),
-            lut.numel(), rows, maxlen, w, int(protein), step, _ptr(out),
-            _stream(dev))
+            lut.numel(), rows, maxlen, w, int(protein), step, highest_k,
+            _ptr(out), _stream(dev))
     return out
 
 
@@ -182,15 +189,17 @@ def encode_windows(byte_mat: torch.Tensor, lut: torch.Tensor, w: int,
 # K2 turbo_match (csrc/turbo_match.cu)
 
 def _check_tables(tt, dev) -> None:
-    n, nk = tt.n, tt.num_k
-    _check(tt.keys2, "keys2", torch.int32, (n, 2), dev)
-    _check(tt.rowdat, "rowdat", torch.int32, (n, 4), dev)
+    n, nk, L = tt.n, tt.num_k, tt.keys2.shape[1]
+    if not 2 <= L <= 5:
+        raise ValueError(f"keys2: {L} limbs, the kernels take 2..5")
+    _check(tt.keys2, "keys2", torch.int32, (n, L), dev)
+    _check(tt.rowdat, "rowdat", torch.int32, (n, L + 2), dev)
     _check(tt.router, "router", torch.int32, (1 << 24, 2), dev)
     _check(tt.sub2, "sub2", torch.int32, (tt.sub2.shape[0], 2), dev)
     _check(tt.grp2, "grp2", torch.int32, (nk * n,), dev)
     _check(tt.d_tax4, "d_tax4", torch.int32, (tt.d_tax4.shape[0], 4), dev)
     _check(tt.weights, "weights", torch.float32, (nk,), dev)
-    _check(tt.masks2, "masks2", torch.int32, (nk, 2), dev)
+    _check(tt.masks2, "masks2", torch.int32, (nk, L), dev)
     _check(tt.t_hot, "t_hot", torch.int32, (tt.hotmask.shape[0],), dev)
 
 
@@ -201,13 +210,14 @@ def turbo_match(q: torch.Tensor, tt, num_reads: int, kmers_per_read: int,
         raise ValueError("turbo_match: the kernel takes CUDA tensors")
     R, kpr, nk = num_reads, kmers_per_read, tt.num_k
     M = R * kpr
-    _check(q, "q", torch.int32, (M, 2), dev)
     _check_tables(tt, dev)
+    L = tt.keys2.shape[1]
+    _check(q, "q", torch.int32, (M, L), dev)
     skey = torch.empty((R, kpr * nk), dtype=torch.int32, device=dev)
     mpay = torch.empty((R, kpr * nk), dtype=torch.int32, device=dev)
     _launch("kasa_turbo_match", "turbo_match", _ptr(q), _ptr(tt.router),
             _ptr(tt.sub2), _ptr(tt.keys2), _ptr(tt.rowdat), _ptr(tt.masks2),
-            M, tt.n, nk, tt.min_k, tt.max_k, tt.num_steps, sent,
+            M, L, tt.n, nk, tt.min_k, tt.max_k, tt.num_steps, sent,
             _ptr(skey), _ptr(mpay), _stream(dev))
     return skey, mpay
 
@@ -257,17 +267,28 @@ def _check_files(file_of_read, acc_ca, R, nk, S, dev):
 
 def turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
                      csr_cap: int, sent: int, wout: int, wm: int,
-                     file_of_read=None):
+                     file_of_read=None, mlist=None):
+    """Dense arm: the multi taxa from dm, the (R, S) score rows.  List
+    arm (dm None): from mlist = (mk (R, wm) int32, mv (R, wm) f32,
+    multi_of (R,) bool), K6's lists; S is the accumulators' last
+    dimension in both arms."""
     dev = ck.device
     if dev.type != "cuda":
         raise ValueError("turbo_reads_post: the kernel takes CUDA tensors")
     R, cw = ck.shape
-    S = dm.shape[1]
+    S = acc_ca.shape[-1]
     nk = weights.shape[0]
     _check(ck, "ck", torch.int32, (R, cw), dev)
     _check(cc, "cc", torch.int32, (R, cw), dev)
     _check(ofc, "ofc", torch.bool, (R,), dev)
-    _check(dm, "dm", torch.float32, (R, S), dev)
+    if dm is not None:
+        _check(dm, "dm", torch.float32, (R, S), dev)
+        mk = mv = mof = None
+    else:
+        mk, mv, mof = mlist
+        _check(mk, "mk", torch.int32, (R, wm), dev)
+        _check(mv, "mv", torch.float32, (R, wm), dev)
+        _check(mof, "multi_of", torch.bool, (R,), dev)
     _check(weights, "weights", torch.float32, (nk,), dev)
     acc_shape = _check_files(file_of_read, acc_ca, R, nk, S, dev)
     _check(acc_ca, "acc_ca", torch.float32, acc_shape, dev)
@@ -280,13 +301,12 @@ def turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
     flags = torch.empty((R,), **i32)
     cum = torch.empty((R,), **i32)
     packed = torch.zeros((2 * R + 2 * csr_cap + 4,), **i32)
-    fo = None if file_of_read is None else _ptr(file_of_read)
     _launch("kasa_turbo_reads_post", "turbo_reads", _ptr(ck), _ptr(cc),
-            _ptr(ofc), _ptr(dm), _ptr(weights), fo, _ptr(acc_ca),
-            _ptr(acc_cu), _ptr(diag), R, S, nk, cw, sent, wout, wm,
-            csr_cap, _ptr(ht),
-            _ptr(hk), _ptr(hc), _ptr(flags), _ptr(cum), _ptr(packed),
-            _stream(dev))
+            _ptr(ofc), _ptr(dm), _ptr(mk), _ptr(mv), _ptr(mof), _ptr(weights),
+            _ptr(file_of_read), _ptr(acc_ca), _ptr(acc_cu), _ptr(diag), R, S,
+            nk, cw, sent,
+            wout, wm, csr_cap, _ptr(ht), _ptr(hk), _ptr(hc), _ptr(flags),
+            _ptr(cum), _ptr(packed), _stream(dev))
     return packed, ht, hk
 
 
@@ -294,7 +314,10 @@ def turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
 # K4 turbo_multi (csrc/turbo_multi.cu)
 
 def turbo_multi(cp, mcnt, runs, tt, acc_ca, multi_budget: int,
-                exp_budget: int, cw: int, sent: int, file_of_read=None):
+                exp_budget: int, cw: int, sent: int, file_of_read=None,
+                counts_only: bool = False):
+    """counts_only (the sparse regime): no (R, S) score rows and no hot
+    credits are allocated or written; dm, a3w and a3c come back None."""
     dev = cp.device
     if dev.type != "cuda":
         raise ValueError("turbo_multi: the kernel takes CUDA tensors")
@@ -320,14 +343,16 @@ def turbo_multi(cp, mcnt, runs, tt, acc_ca, multi_budget: int,
     r_big = torch.empty((R,), dtype=torch.uint8, device=dev)
     ofc = torch.empty((R,), dtype=torch.bool, device=dev)
     diag = torch.zeros((2,), **i32)
-    dm = torch.zeros((R, S), **f32)
-    a3w = torch.zeros((R, H), **f32)
-    a3c = torch.zeros((F * nk, H), **f32)
+    dm = a3w = a3c = None
+    if not counts_only:
+        dm = torch.zeros((R, S), **f32)
+        a3w = torch.zeros((R, H), **f32)
+        a3c = torch.zeros((F * nk, H), **f32)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     _launch("kasa_turbo_multi", "turbo_multi", _ptr(cp), _ptr(mcnt),
             _ptr(runs), _ptr(tt.grp2), _ptr(tt.d_tax4), _ptr(tt.t_hot),
             _ptr(tt.weights),
-            None if file_of_read is None else _ptr(file_of_read),
+            _ptr(file_of_read),
             R, SW, tt.n, nk, S, H, tt.d_tax4.shape[0], B,
             int(exp_budget), cw, hist_n, _ptr(read_base), _ptr(wl[0]),
             _ptr(wl[1]), _ptr(wl[2]), _ptr(hist), _ptr(r_cnt),
@@ -345,13 +370,41 @@ def dedup_windows(q: torch.Tensor, num_reads: int, kmers_per_read: int,
     dev = q.device
     if dev.type != "cuda":
         raise ValueError("dedup_windows: the kernel takes CUDA tensors")
-    R, kpr = num_reads, kmers_per_read
-    _check(q, "q", torch.int32, (R * kpr, 2), dev)
+    R, kpr, L = num_reads, kmers_per_read, q.shape[1]
+    if not 2 <= L <= 5:
+        raise ValueError(f"q: {L} limbs, the kernel takes 2..5")
+    _check(q, "q", torch.int32, (R * kpr, L), dev)
     P = _pow2(kpr)
+    # one read's rows sit in shared memory: P * 4L bytes, 80 KB at most
     if P > 4096:
         raise NotImplementedError(f"{kpr} windows per read exceed the "
                                   "dedup kernel's cap of 4096")
     out = torch.empty_like(q)
-    _launch("kasa_dedup_windows", "dedup", _ptr(q), R, kpr, P, poison,
+    _launch("kasa_dedup_windows", "dedup", _ptr(q), R, kpr, L, P, poison,
             _ptr(out), _stream(dev))
     return out
+
+
+# ---------------------------------------------------------------------------
+# K6 sparse_fold (csrc/sparse_fold.cu)
+
+def sparse_fold(cp, mcnt, ofc, tt, wm: int, sent: int):
+    """-> (mk (R, wm) int32 sent-padded, mv (R, wm) f32, multi_of (R,)
+    bool): each unflagged read's first wm multi taxa in taxon order with
+    their w(k)/T sums."""
+    dev = cp.device
+    if dev.type != "cuda":
+        raise ValueError("sparse_fold: the kernel takes CUDA tensors")
+    R, SW = cp.shape
+    _check(cp, "cp", torch.int32, (R, SW), dev)
+    _check(mcnt, "mcnt", torch.int32, (R,), dev)
+    _check(ofc, "ofc", torch.bool, (R,), dev)
+    _check_tables(tt, dev)
+    mk = torch.empty((R, wm), dtype=torch.int32, device=dev)
+    mv = torch.empty((R, wm), dtype=torch.float32, device=dev)
+    multi_of = torch.empty((R,), dtype=torch.bool, device=dev)
+    _launch("kasa_sparse_fold", "sparse_fold", _ptr(cp), _ptr(mcnt),
+            _ptr(ofc), _ptr(tt.grp2), _ptr(tt.d_tax4), _ptr(tt.weights), R,
+            SW, tt.n, tt.num_k, wm, sent, _ptr(mk), _ptr(mv), _ptr(multi_of),
+            _stream(dev))
+    return mk, mv, multi_of

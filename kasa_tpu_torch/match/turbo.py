@@ -1,12 +1,12 @@
 """Turbo classify path on PyTorch + CUDA (port of kasa_tpu/match/turbo.py).
 
-One batch of reads goes through five hand-written CUDA kernels
+One batch of reads goes through six hand-written CUDA kernels
 (kasa_tpu_torch/csrc/, bound in kasa_tpu_torch/kernels.py):
 
-  K1 encode        (core/encode.py)   bytes -> (M, 2) int32 limb windows
+  K1 encode        (core/encode.py)   bytes -> (M, L) int32 limb windows
   K2 turbo_match   (this module)      router + bisect search and per-level
-                                      slots: T==1 keys tax*8+ki, multi
-                                      payloads psel*8+ki
+                                      slots over L limbs: T==1 keys
+                                      tax*8+ki, multi payloads psel*8+ki
   K3 turbo_reads   (this module)      per read, in shared memory: before
                                       K4 the T1 sort/runs/CW compaction and
                                       the multi-slot compaction; after K4
@@ -19,9 +19,19 @@ One batch of reads goes through five hand-written CUDA kernels
                                       score rows, hot-set credits
   K5 dedup         (this module)      -e: per read, the windows sorted and
                                       duplicates poisoned (before K2)
+  K6 sparse_fold   (this module)      the sparse regime's per-read multi
+                                      lists (after K4's counts-only arm)
 
 K3 (post) and K4 also take a file_of_read map (identify_multiple): the
 counts then go to an (F, numK, S) matrix, one slab per file.
+
+Two regimes, as in kasa_tpu (turbo.py:818): the dense fold (S <=
+SPARSE_FOLD_S, or tables with a hot tier) builds (R, S) score rows in
+K4 and folds the hot sets through two products; the sparse fold (more
+species and no hot tier) has K4 add only to the counts and K6 build each
+read's list of its first WM multi taxa, which K3 (post) reads instead of
+a score row.  L is 2 for 64-bit indices (k <= 12) and 3..5 for 128-bit
+ones (k <= 25).
 
 Every kernel has a plain PyTorch version of the same function here, with
 the same outputs.  A wrapper takes the plain version only for tensors on
@@ -30,9 +40,6 @@ the CPU; on a CUDA tensor it launches the kernel or raises.
 Scoring semantics are those of kasa_tpu's turbo kernel (split credit
 w(k)/T, '^' validity, per-k prefix groups; reads over a budget are
 flagged and recomputed exactly on the host by host_classify_read).
-This slice covers the 64-bit index (two 30-bit limbs) and the dense
-fold (S <= SPARSE_FOLD_S or a hot tier); the rest raises
-NotImplementedError.
 """
 
 from __future__ import annotations
@@ -61,9 +68,9 @@ EXP_BUDGET = 1 << 19        # (slot, 4-taxa-row) expansion rows per batch
 # are scored as a dense (R, H) credit matrix folded through one
 # (R, H) @ (H, S) product instead of per-pair atomics
 HOT_SETS = 512
-# above this species count kasa_tpu folds multi credits through a
-# sorted (read, tax) pair list (the sparse fold, a later slice of the
-# port) and the table builder skips the hot tier
+# above this species count the multi credits fold into per-read lists
+# (K6, kasa_tpu's sorted (read, tax) pair list) instead of (R, S) score
+# rows, and the table builder skips the hot tier
 SPARSE_FOLD_S = 4096
 HOT_MASK_BYTES = 64 << 20
 
@@ -143,14 +150,14 @@ class TurboTables:
     exact per-read recompute.  Field names and layouts are those of
     kasa_tpu's TurboTables, so tables built by either package load into
     the other (tables_from_numpy, the .tabs sidecar)."""
-    keys2: torch.Tensor     # (n, 2) int32 sorted distinct limbs
-    rowdat: torch.Tensor    # (n, 4) int32 [limb0, limb1, tax, tpack]
+    keys2: torch.Tensor     # (n, L) int32 sorted distinct limbs
+    rowdat: torch.Tensor    # (n, L+2) int32 [limbs..., tax, tpack]
     router: torch.Tensor    # (2^ROUTER_BITS, 2) int32 [lo, meta]
     sub2: torch.Tensor      # (SUB, 2) int32 [lo, hi] sub-router rows
     grp2: torch.Tensor      # (numK * n,) int32 row ptr / -(hot+1) / 0
     d_tax4: torch.Tensor    # (DR, 4) int32 header+taxa rows per group
     weights: torch.Tensor   # (numK,) float32 w(k), row ki <-> k=maxK-ki
-    masks2: torch.Tensor    # (numK, 2) int32 prefix masks
+    masks2: torch.Tensor    # (numK, L) int32 prefix masks
     hotmask: torch.Tensor   # (H, S) f32 0/1 membership of hot taxa sets
     t_hot: torch.Tensor     # (H,) int32 distinct-taxa count per hot set
     num_steps: int
@@ -159,11 +166,11 @@ class TurboTables:
     highest_k: int
     num_species: int
     n: int
-    host_limbs: np.ndarray  # (N_entries, 2) int32, with duplicates
+    host_limbs: np.ndarray  # (N_entries, L) int32, with duplicates
     host_grp_start: list
     host_d_tax: list
     host_grp_id: list
-    host_masks: np.ndarray  # (numK, 2) int32
+    host_masks: np.ndarray  # (numK, L) int32
     _host_key64: np.ndarray | None = None
 
     @property
@@ -459,15 +466,17 @@ def _build(limbs, tax_rows, tables, highest_k, min_k, max_k, num_species):
 
 def turbo_match_plain(q: torch.Tensor, tt: TurboTables, num_reads: int,
                       kmers_per_read: int):
-    """(M, 2) int32 windows -> (skey, mpay), both (R, SW) int32 with
+    """(M, L) int32 windows -> (skey, mpay), both (R, SW) int32 with
     slot s = window * numK + ki of its read:
       skey: tax*8+ki for a T == 1 match at level ki, else SENT;
       mpay: psel*8+ki for a multi-taxa (T >= 2) match, else -1.
-    Mirrors kasa_tpu bit for bit, including its clamped gathers when
-    the search runs past the last key (pos = n + 1)."""
+    The bisect compares the L limbs lexicographically and each level's
+    prefix compare masks every limb (zero past the level's k).  Mirrors
+    kasa_tpu bit for bit, including its clamped gathers when the search
+    runs past the last key (pos = n + 1)."""
     n = tt.n
     num_k = tt.num_k
-    M = q.shape[0]
+    M, L = q.shape
     R, kpr = num_reads, kmers_per_read
     SW = kpr * num_k
     q0, q1 = q[:, 0], q[:, 1]
@@ -499,7 +508,9 @@ def turbo_match_plain(q: torch.Tensor, tt: TurboTables, num_reads: int,
     for _ in range(tt.num_steps):
         mid = (lo + hi) >> 1
         kk = tt.keys2[mid.clamp(max=n - 1).long()]
-        less = (kk[:, 0] < q0) | ((kk[:, 0] == q0) & (kk[:, 1] < q1))
+        less = kk[:, L - 1] < q[:, L - 1]
+        for i in range(L - 2, -1, -1):
+            less = (kk[:, i] < q[:, i]) | ((kk[:, i] == q[:, i]) & less)
         lo = torch.where(less, mid + 1, lo)
         hi = torch.where(less, hi, mid)
     pos = lo
@@ -510,17 +521,16 @@ def turbo_match_plain(q: torch.Tensor, tt: TurboTables, num_reads: int,
     pv = tt.rowdat[prev.clamp(max=n - 1).long()]
     prev_ok = pos > 0
 
-    masks = tt.host_masks
+    masks = torch.from_numpy(np.asarray(tt.host_masks, np.int32)) \
+        .to(q.device)
     skeys, mpays = [], []
     for ki in range(num_k):
-        m0, m1 = int(masks[ki, 0]), int(masks[ki, 1])
-        qm0, qm1 = q0 & m0, q1 & m1
-        hit_at = ~at_n & ((at[:, 0] & m0) == qm0) & ((at[:, 1] & m1) == qm1)
-        hit_pv = prev_ok & ((pv[:, 0] & m0) == qm0) \
-            & ((pv[:, 1] & m1) == qm1)
+        qm = q & masks[ki]
+        hit_at = ~at_n & ((at[:, :L] & masks[ki]) == qm).all(dim=1)
+        hit_pv = prev_ok & ((pv[:, :L] & masks[ki]) == qm).all(dim=1)
         matched = (hit_at | hit_pv) & cum_ok[ki]
-        tax = torch.where(hit_pv, pv[:, 2], at[:, 2])
-        tp = torch.where(hit_pv, pv[:, 3], at[:, 3])
+        tax = torch.where(hit_pv, pv[:, L], at[:, L])
+        tp = torch.where(hit_pv, pv[:, L + 1], at[:, L + 1])
         tc = (tp >> (5 * ki)) & 31
         psel = torch.where(hit_pv, prev, pos_c)
         skeys.append(torch.where(matched & (tc == 1), tax * 8 + ki,
@@ -595,7 +605,7 @@ def turbo_reads_pre(skey: torch.Tensor, mpay: torch.Tensor):
 
 def turbo_multi_plain(cp, mcnt, runs, tt: TurboTables, acc_ca,
                       multi_budget: int, exp_budget: int,
-                      file_of_read=None):
+                      file_of_read=None, counts_only: bool = False):
     """The batch's multi slots in read-major worklist order (at most
     B = min(multi_budget, R*SW) of them): exact T from the group header
     or the hot-set table; cold slots sorted stably by T and admitted
@@ -605,6 +615,8 @@ def turbo_multi_plain(cp, mcnt, runs, tt: TurboTables, acc_ca,
 
     With file_of_read (R,) int32, acc_ca is (F, numK, S) and a slot of
     read r counts in slab file_of_read[r] (kasa_tpu's fused_turbo_files).
+    counts_only (the sparse regime, kasa_tpu's cflat at turbo.py:871-880)
+    adds to acc_ca only: dm, a3w and a3c come back None.
 
     -> ofc (R,) bool, dm (R, S) f32, a3w (R, H) f32, a3c (F*numK, H) f32,
        diag (2,) int32 [multi slots, expansion rows used]."""
@@ -655,7 +667,9 @@ def turbo_multi_plain(cp, mcnt, runs, tt: TurboTables, acc_ca,
 
     # cold expansion: each admitted slot's taxa rows after its header
     w = tt.weights
-    dm = torch.zeros((R, S), dtype=torch.float32, device=dev)
+    diag = torch.tensor([total, eused], dtype=torch.int32, device=dev)
+    dm = None if counts_only else \
+        torch.zeros((R, S), dtype=torch.float32, device=dev)
     okr = rows_per[ok_slot]
     if len(okr):
         sl = torch.repeat_interleave(torch.arange(len(okr), device=dev), okr)
@@ -674,8 +688,12 @@ def turbo_multi_plain(cp, mcnt, runs, tt: TurboTables, acc_ca,
         fk_ok = fk_of[rid_ok] + ki_ok
         acc_ca.view(-1).index_add_(
             0, (fk_ok[sl][:, None] * S + taxa)[okt], inv_e)
-        wv = (w[ki_ok] * inv)[sl][:, None].expand(-1, 4)[okt]
-        dm.view(-1).index_add_(0, (rid_ok[sl][:, None] * S + taxa)[okt], wv)
+        if dm is not None:
+            wv = (w[ki_ok] * inv)[sl][:, None].expand(-1, 4)[okt]
+            dm.view(-1).index_add_(0, (rid_ok[sl][:, None] * S + taxa)[okt],
+                                   wv)
+    if counts_only:
+        return ofc, None, None, None, diag
 
     a3w = torch.zeros((R, H), dtype=torch.float32, device=dev)
     a3c = torch.zeros((F * num_k, H), dtype=torch.float32, device=dev)
@@ -686,19 +704,95 @@ def turbo_multi_plain(cp, mcnt, runs, tt: TurboTables, acc_ca,
                                 w[ki[ok_hot]] * inv_h)
         a3c.view(-1).index_add_(
             0, (fk_of[rid[ok_hot]] + ki[ok_hot]) * H + hid[ok_hot], inv_h)
-    diag = torch.tensor([total, eused], dtype=torch.int32, device=dev)
     return ofc, dm, a3w, a3c, diag
 
 
 def turbo_multi(cp, mcnt, runs, tt: TurboTables, acc_ca,
-                multi_budget: int, exp_budget: int, file_of_read=None):
+                multi_budget: int, exp_budget: int, file_of_read=None,
+                counts_only: bool = False):
     """K4 wrapper."""
     if cp.device.type == "cpu":
         return turbo_multi_plain(cp, mcnt, runs, tt, acc_ca, multi_budget,
-                                 exp_budget, file_of_read)
+                                 exp_budget, file_of_read, counts_only)
     from .. import kernels
     return kernels.turbo_multi(cp, mcnt, runs, tt, acc_ca, multi_budget,
-                               exp_budget, CW, SENT, file_of_read)
+                               exp_budget, CW, SENT, file_of_read,
+                               counts_only)
+
+
+# ---------------------------------------------------------------------------
+# K6 sparse_fold: the sparse regime's per-read multi lists (kasa_tpu
+# turbo.py:881-918)
+
+def fold_lanes(cp, mcnt, ofc, tt: TurboTables):
+    """The sparse fold's lanes: every cold slot of an unflagged read (all
+    of them were admitted: a dropped slot flags its read) expands into
+    one lane per taxon of its group.  -> (rid, tax, w(k)/T), each (N,),
+    in slot order."""
+    R, SW = cp.shape
+    dev = cp.device
+    n, num_k = tt.n, tt.num_k
+    iota = torch.arange(SW, device=dev)
+    slot = torch.nonzero((iota[None, :] < mcnt[:, None]) & ~ofc[:, None])
+    mp = cp[slot[:, 0], slot[:, 1]]
+    ki = (mp & 7).long()
+    row0 = tt.grp2[(ki * n + (mp >> 3).long()).clamp(max=num_k * n - 1)]\
+        .long()
+    cold = row0 > 0
+    rid, ki, row0 = slot[cold, 0], ki[cold], row0[cold]
+    T = tt.d_tax4[row0, 0].long()
+    val = tt.weights[ki] * (1.0 / T.to(torch.float32))
+    sl = torch.repeat_interleave(torch.arange(len(T), device=dev), T)
+    j = torch.arange(len(sl), device=dev) - (torch.cumsum(T, 0) - T)[sl]
+    taxa = tt.d_tax4.view(-1)[(row0[sl] + 1) * 4 + j].long()
+    return rid[sl], taxa, val[sl]
+
+
+def sparse_fold_plain(cp, mcnt, ofc, tt: TurboTables):
+    """The sparse regime's multi lists, as kasa_tpu builds them from the
+    lanes of fold_lanes: a 2-key sort of the lanes by (read, tax), run
+    ends, each run's rank within its read, and a rank-addressed scatter
+    into (R, WM+1) lists whose last column marks a read with more than
+    WM distinct multi taxa.
+    -> (mk (R, WM) int32 SENT-padded, mv (R, WM) f32, multi_of (R,)
+    bool)."""
+    R = cp.shape[0]
+    dev = cp.device
+    rid, taxa, val = fold_lanes(cp, mcnt, ofc, tt)
+    # the 2-key sort as one int64 key (read << 32 | tax), stable
+    ks, order = torch.sort((rid << 32) | taxa, stable=True)
+    vs = val[order]
+    k1s, k2s = ks >> 32, ks & 0xFFFFFFFF
+    nxt = torch.cat([ks[1:], ks.new_full((1,), -1)])
+    run_end = ks != nxt
+    re_i = run_end.long()
+    cexc = torch.cumsum(re_i, 0) - re_i
+    rdstart = k1s != torch.cat([k1s.new_full((1,), -1), k1s[:-1]])
+    if len(ks):
+        rank = cexc - torch.cummax(torch.where(rdstart, cexc,
+                                               torch.full_like(cexc, -1)),
+                                   0)[0]
+    else:
+        rank = cexc
+    wmp = WM + 1
+    dest = k1s * wmp + rank.clamp(max=WM)
+    mkf = torch.full((R * wmp,), SENT, dtype=torch.int32, device=dev)
+    mkf[dest[run_end]] = k2s[run_end].to(torch.int32)
+    mvf = torch.zeros((R * wmp,), dtype=torch.float32, device=dev)\
+        .index_add_(0, dest, vs)
+    mk = mkf.view(R, wmp)[:, :WM].contiguous()
+    multi_of = mkf.view(R, wmp)[:, WM] != SENT
+    mv = torch.where(mk != SENT, mvf.view(R, wmp)[:, :WM],
+                     torch.zeros_like(mk, dtype=torch.float32))
+    return mk, mv.contiguous(), multi_of
+
+
+def sparse_fold(cp, mcnt, ofc, tt: TurboTables):
+    """K6 wrapper."""
+    if cp.device.type == "cpu":
+        return sparse_fold_plain(cp, mcnt, ofc, tt)
+    from .. import kernels
+    return kernels.sparse_fold(cp, mcnt, ofc, tt, WM, SENT)
 
 
 # ---------------------------------------------------------------------------
@@ -726,16 +820,19 @@ def _segment_sums(keys, vals):
 
 
 def turbo_reads_post_plain(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
-                           csr_cap: int, file_of_read=None):
+                           csr_cap: int, file_of_read=None, mlist=None):
     """T1 fold into the count accumulators (in place), per-read hit
-    lists (T1 taxa + the first WM taxa of the read's score row, merged,
-    first WOUT kept), flags, and the packed int32 readback:
+    lists (T1 taxa + the read's first WM multi taxa, merged, first WOUT
+    kept), flags, and the packed int32 readback:
     [hc (R) | flags (R) | CSR (tax, ksum bits) * csr_cap | mtot, eused,
-    sum hc, flagged reads].  With file_of_read the accumulators are
-    (F, numK, S) and read r's runs go to slab file_of_read[r].
+    sum hc, flagged reads].  The multi taxa come from dm, the (R, S)
+    score rows (dense regime), or, with dm None, from mlist = (mk, mv,
+    multi_of), K6's lists (sparse regime).  With file_of_read the
+    accumulators are (F, numK, S) and read r's runs go to slab
+    file_of_read[r].
     -> (packed, ht (R, WOUT), hk (R, WOUT))."""
     R = ck.shape[0]
-    S = dm.shape[1]
+    S = acc_ca.shape[-1]
     dev = ck.device
     keep = ~ofc
     cvalid = ck != SENT
@@ -758,13 +855,16 @@ def turbo_reads_post_plain(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
                        torch.full_like(ck, SENT))
     ok1, os1, ntax1 = _segment_sums(tkey, ks_v)
 
-    iota_s = torch.arange(S, dtype=torch.int32, device=dev).expand(R, S)
-    mk = torch.where(dm > 0, iota_s, torch.full_like(iota_s, SENT))
-    mk2, midx = torch.sort(mk, dim=1, stable=True)
-    mk2 = mk2[:, :WM]
-    mv2 = torch.gather(dm, 1, midx)[:, :WM]
-    mv2 = torch.where(mk2 != SENT, mv2, torch.zeros_like(mv2))
-    multi_of = (dm > 0).sum(dim=1) > WM
+    if dm is not None:
+        iota_s = torch.arange(S, dtype=torch.int32, device=dev).expand(R, S)
+        mk = torch.where(dm > 0, iota_s, torch.full_like(iota_s, SENT))
+        mk2, midx = torch.sort(mk, dim=1, stable=True)
+        mk2 = mk2[:, :WM]
+        mv2 = torch.gather(dm, 1, midx)[:, :WM]
+        mv2 = torch.where(mk2 != SENT, mv2, torch.zeros_like(mv2))
+        multi_of = (dm > 0).sum(dim=1) > WM
+    else:
+        mk2, mv2, multi_of = mlist
 
     allk = torch.cat([ok1[:, :WOUT], mk2], dim=1)
     allv = torch.cat([os1[:, :WOUT], mv2], dim=1)
@@ -794,15 +894,16 @@ def turbo_reads_post_plain(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
 
 
 def turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
-                     csr_cap: int, file_of_read=None):
+                     csr_cap: int, file_of_read=None, mlist=None):
     """K3 (post) wrapper."""
     if ck.device.type == "cpu":
         return turbo_reads_post_plain(ck, cc, ofc, dm, weights, acc_ca,
-                                      acc_cu, diag, csr_cap, file_of_read)
+                                      acc_cu, diag, csr_cap, file_of_read,
+                                      mlist)
     from .. import kernels
     return kernels.turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca,
                                     acc_cu, diag, csr_cap, SENT, WOUT, WM,
-                                    file_of_read)
+                                    file_of_read, mlist)
 
 
 # ---------------------------------------------------------------------------
@@ -810,20 +911,23 @@ def turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
 
 def dedup_windows_plain(q: torch.Tensor, num_reads: int,
                         kmers_per_read: int) -> torch.Tensor:
-    """(R * kpr, 2) int32 read-major windows -> the same windows sorted
-    per read by (limb0, limb1), every window equal to its predecessor
-    replaced by POISON_LIMB in both limbs.  Limbs are non-negative
-    30-bit values, so the 60-bit key orders as kasa_tpu's two-key
-    sort."""
-    key = ((q[:, 0].long() << LIMB_BITS) | q[:, 1].long()) \
-        .reshape(num_reads, kmers_per_read)
-    ks, _ = torch.sort(key, dim=1)
-    dup = torch.zeros_like(ks, dtype=torch.bool)
-    dup[:, 1:] = ks[:, 1:] == ks[:, :-1]
-    poison = torch.full_like(ks, POISON_LIMB)
-    l0 = torch.where(dup, poison, ks >> LIMB_BITS)
-    l1 = torch.where(dup, poison, ks & ((1 << LIMB_BITS) - 1))
-    return torch.stack([l0, l1], dim=-1).reshape(-1, 2).to(torch.int32)
+    """(R * kpr, L) int32 read-major windows -> the same windows sorted
+    per read by (limb0, ..., limb L-1), every window equal to its
+    predecessor replaced by POISON_LIMB in all its limbs.  Limbs are
+    non-negative 30-bit values, so stable sorts from the last limb to the
+    first order them as kasa_tpu's L-key sort."""
+    R, kpr, L = num_reads, kmers_per_read, q.shape[1]
+    rows = q.reshape(R, kpr, L)
+    order = torch.arange(kpr, device=q.device).expand(R, kpr)
+    for i in range(L - 1, -1, -1):
+        _, o = torch.sort(torch.gather(rows[:, :, i], 1, order), dim=1,
+                          stable=True)
+        order = torch.gather(order, 1, o)
+    ss = torch.gather(rows, 1, order[:, :, None].expand(R, kpr, L))
+    dup = torch.zeros((R, kpr), dtype=torch.bool, device=q.device)
+    dup[:, 1:] = (ss[:, 1:] == ss[:, :-1]).all(dim=2)
+    out = torch.where(dup[:, :, None], torch.full_like(ss, POISON_LIMB), ss)
+    return out.reshape(R * kpr, L).contiguous()
 
 
 def dedup_windows(q: torch.Tensor, num_reads: int,
@@ -836,10 +940,17 @@ def dedup_windows(q: torch.Tensor, num_reads: int,
 
 
 def dedup_windows_np(q: np.ndarray) -> np.ndarray:
-    """Host twin for the overflow fallback: distinct windows only."""
-    q64 = (q[:, 0].astype(np.int64) << LIMB_BITS) | q[:, 1].astype(np.int64)
-    _, first = np.unique(q64, return_index=True)
-    return q[np.sort(first)]
+    """Host twin for the overflow fallback: distinct windows only, in
+    first-occurrence order (kasa_tpu turbo.py:148-158)."""
+    if q.shape[1] == 2:
+        q64 = (q[:, 0].astype(np.int64) << LIMB_BITS) \
+            | q[:, 1].astype(np.int64)
+        _, first = np.unique(q64, return_index=True)
+        return q[np.sort(first)]
+    qq = np.ascontiguousarray(q)
+    v = qq.view([("", qq.dtype)] * qq.shape[1]).ravel()
+    _, first = np.unique(v, return_index=True)
+    return qq[np.sort(first)]
 
 
 # ---------------------------------------------------------------------------
@@ -879,7 +990,8 @@ def fused_turbo_acc(tt: TurboTables, byte_mat: torch.Tensor,
     from ..core.encode import encode_windows
     kpr = w_per_line * lines_per_read
     check_slot_cap(kpr, tt.num_k)
-    q = encode_windows(byte_mat, lut, w_per_line, protein, one_frame)
+    q = encode_windows(byte_mat, lut, w_per_line, protein, one_frame,
+                       tt.highest_k)
     if unique:
         q = dedup_windows(q, num_reads, kpr)
     return turbo_core(tt, q, num_reads, kpr, acc_ca, acc_cu, csr_cap,
@@ -891,23 +1003,23 @@ def turbo_core(tt: TurboTables, q: torch.Tensor, num_reads: int,
                acc_cu: torch.Tensor, csr_cap: int,
                multi_budget: int | None = None,
                exp_budget: int | None = None, file_of_read=None):
-    """The classify step on (R * kpr, 2) int32 windows in read-major
+    """The classify step on (R * kpr, L) int32 windows in read-major
     layout (kasa_tpu's _turbo_core plus the packed tail): K2, K3 (pre),
-    K4, the two hot-set products, K3 (post)."""
-    if tt.hotmask.shape[0] <= 1 and tt.num_species > SPARSE_FOLD_S:
-        raise NotImplementedError(
-            "the sparse multi fold (S > SPARSE_FOLD_S without a hot tier) "
-            "is a later slice of the port")
-    if tt.keys2.shape[1] != 2 or tt.highest_k != 12:
-        raise NotImplementedError(
-            "128-bit indices are a later slice of the port")
+    K4, then the dense fold (the two hot-set products) or, for more than
+    SPARSE_FOLD_S species without a hot tier, the sparse fold (K4's
+    counts-only arm and K6), then K3 (post)."""
+    sparse = tt.hotmask.shape[0] <= 1 and tt.num_species > SPARSE_FOLD_S
     check_slot_cap(kmers_per_read, tt.num_k)
     mb = int(multi_budget or MULTI_BUDGET)
     eb = int(exp_budget or EXP_BUDGET)
     skey, mpay = turbo_match(q, tt, num_reads, kmers_per_read)
     ck, cc, runs, mcnt, cp = turbo_reads_pre(skey, mpay)
     ofc, dm, a3w, a3c, diag = turbo_multi(cp, mcnt, runs, tt, acc_ca, mb, eb,
-                                          file_of_read)
+                                          file_of_read, counts_only=sparse)
+    if sparse:
+        mlist = sparse_fold(cp, mcnt, ofc, tt)
+        return turbo_reads_post(ck, cc, ofc, None, tt.weights, acc_ca,
+                                acc_cu, diag, csr_cap, file_of_read, mlist)
     # hot-set products against the 0/1 membership mask (kasa_tpu leaves
     # them to an XLA dot); TF32 is off (kasa_tpu_torch/__init__.py)
     dm.addmm_(a3w, tt.hotmask)

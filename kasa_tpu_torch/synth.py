@@ -1,5 +1,6 @@
-"""Synthetic benchmark corpus (the port's copy of bench_corpus.py's
-generator: same constants, same seed, same files).
+"""Synthetic benchmark corpora (the port's copy of bench_corpus.py's
+generator: same constants, same seed, same files), and two large-index
+variants of it.
 
 Generates, once, under ``.synth_corpus/`` at the repo root (listed in
 .gitignore):
@@ -18,11 +19,28 @@ Generates, once, under ``.synth_corpus/`` at the repo root (listed in
     INSERT_MIN..INSERT_MAX bp), mate 1 its first 150 bp, mate 2 the
     reverse complement of its last 150 bp (Illumina's FR orientation).
 
+Two large-index variants, each in its own directory:
+
+  * ``bigS/`` (``generate_big_s``): BIG_S = 10,001 species, the species
+    count of the RefSeq-scale index in docs/perf.md, so the index takes
+    the sparse multi fold (more than SPARSE_FOLD_S species, no hot tier).
+    Genomes of BIG_GENOME_LEN = 8,000 bp with one 300 bp core gene each
+    keep the default corpus's conserved share (2 x 300 of 16,000 = 3.75
+    %); BIG_CORE_GENES = 625 keeps ~16 genomes per gene; the same 150
+    genomes carry the ultra-conserved gene.  ~80 M index entries.  Its
+    own 150 bp reads (warm-up and smoke sets), no pairs.
+  * ``wide/`` (``generate_wide``): the default corpus's 2,047 genomes
+    (same seed, so the same genomes) as a 128-bit index at highestK =
+    25 (five limbs per k-mer, ~32.6 M entries).  The default corpus's
+    reads serve it: they come from the same genomes.
+
 ``protein_reads`` writes seeded protein reads cut from a protein fasta
 (the golden protein reads of tests/golden match nothing).
 
-``python -m kasa_tpu_torch.synth`` builds it.  ``generate`` takes the
-sizes as arguments so tests can build a tiny corpus.
+``python -m kasa_tpu_torch.synth [default] [bigS] [wide]`` builds the
+named corpora and, with ``--tables``, the turbo-table sidecar each is
+identified with (``prepare``).  ``generate`` takes the sizes as
+arguments so tests can build a tiny corpus.
 """
 
 from __future__ import annotations
@@ -47,17 +65,23 @@ READ_LEN = 150
 INSERT_MIN, INSERT_MAX = 300, 500
 ERR_RATE = 0.005
 SEED = 20260820
+BIG_S = 10_001
+BIG_GENOME_LEN = 8_000
+BIG_CORE_GENES = 625
+BIG_CORE_PER_GENOME = 1
+WIDE_K = 25
 
 _DNA = np.frombuffer(b"ACGT", np.uint8)
 
 
-def _gen_genomes(rng, num_species, genome_len, core_genes):
+def _gen_genomes(rng, num_species, genome_len, core_genes,
+                 core_per_genome=CORE_PER_GENOME):
     core = rng.integers(0, 4, size=(core_genes, 300))
     ultra = rng.integers(0, 4, size=300)
     genomes = []
     for g in range(num_species):
         dna = rng.integers(0, 4, size=genome_len)
-        for pick in rng.integers(0, core_genes, size=CORE_PER_GENOME):
+        for pick in rng.integers(0, core_genes, size=core_per_genome):
             off = int(rng.integers(0, genome_len - 300))
             dna[off:off + 300] = core[pick]
         if g < ULTRA_GENOMES:
@@ -67,9 +91,11 @@ def _gen_genomes(rng, num_species, genome_len, core_genes):
     return genomes
 
 
-def _index_from_genomes(genomes):
+def _index_from_genomes(genomes, highest_k=12):
     """All windows of every genome -> sorted, deduplicated (limbs,
-    taxids), ordered by (limb0, limb1, taxid)."""
+    taxids), ordered by (limb0, ..., limb L-1, taxid).  64-bit keys go
+    through the native sort; wider ones (highest_k > 12) through
+    np.lexsort."""
     from .core import kmer
     from .core.encode import (build_codon_code_lut, dna_to_aa_codes_np,
                               encode_windows_np)
@@ -78,16 +104,19 @@ def _index_from_genomes(genomes):
     all_limbs, all_tax = [], []
     for g, dna in enumerate(genomes):
         aa = dna_to_aa_codes_np(dna, lut)
-        w = len(dna) - 36 + 1          # windows fully inside the genome
-        all_limbs.append(encode_windows_np(aa, 12, 3)[:w])
+        w = len(dna) - 3 * highest_k + 1   # windows fully inside the genome
+        all_limbs.append(encode_windows_np(aa, highest_k, 3)[:w])
         all_tax.append(np.full(w, g + 1, np.uint32))
     limbs = np.concatenate(all_limbs)
+    del all_limbs
     taxids = np.concatenate(all_tax)
-    keys = kmer.limbs_to_u64(limbs)
-    if sort_kmer_tax(keys, taxids, 60, os.cpu_count() or 1):
+    keys = kmer.limbs_to_u64(limbs) if highest_k <= 12 else None
+    if keys is not None and sort_kmer_tax(keys, taxids, 60,
+                                          os.cpu_count() or 1):
         limbs = kmer.u64_to_limbs(keys)
     else:
-        order = np.lexsort((taxids, limbs[:, 1], limbs[:, 0]))
+        order = np.lexsort((taxids,) + tuple(
+            limbs[:, i] for i in range(limbs.shape[1] - 1, -1, -1)))
         limbs, taxids = limbs[order], taxids[order]
     keep = np.ones(len(taxids), bool)
     keep[1:] = np.any(limbs[1:] != limbs[:-1], axis=1) \
@@ -117,17 +146,17 @@ def compute_frequencies(limbs: np.ndarray, taxids: np.ndarray, entries,
     return freq
 
 
-def _write_artifacts(index, limbs, taxids, num_species):
+def _write_artifacts(index, limbs, taxids, num_species, highest_k=12):
     from .index import artifacts
     from .index.content import ContentEntry, write_content_file
     entries = [ContentEntry(name=f"Synthetic species {i}", taxid=str(i),
                             lowest_taxids=[str(i)], accessions=[f"SYN{i}"])
                for i in range(1, num_species + 1)]
     write_content_file(index + "_content.txt", entries)
-    artifacts.write_index(index, limbs, taxids)
+    artifacts.write_index(index, limbs, taxids, highest_k)
     prefixes, counts = artifacts.trie_from_sorted_prefixes(limbs[:, 0])
     artifacts.write_trie(index, prefixes, counts)
-    freq = compute_frequencies(limbs, taxids, entries, 12, 1)
+    freq = compute_frequencies(limbs, taxids, entries, highest_k, 1)
     artifacts.write_frequency_file(index, entries, freq)
 
 
@@ -214,7 +243,9 @@ def generate(directory: str = DIR, num_species: int = NUM_SPECIES,
              genome_len: int = GENOME_LEN, core_genes: int = CORE_GENES,
              reads: int = READS, small_reads: int = SMALL_READS,
              warm_reads: int = WARM_READS, smoke_reads: int = SMOKE_READS,
-             seed: int = SEED, log=print) -> dict:
+             seed: int = SEED, log=print,
+             core_per_genome: int = CORE_PER_GENOME,
+             pairs: bool = True) -> dict:
     """Generate (once per directory) and return the corpus paths plus
     the entry count."""
     p = paths(directory)
@@ -223,7 +254,8 @@ def generate(directory: str = DIR, num_species: int = NUM_SPECIES,
         os.makedirs(directory, exist_ok=True)
         rng = np.random.default_rng(seed)
         t0 = time.time()
-        genomes = _gen_genomes(rng, num_species, genome_len, core_genes)
+        genomes = _gen_genomes(rng, num_species, genome_len, core_genes,
+                               core_per_genome)
         log(f"# corpus: genomes generated ({time.time() - t0:.1f}s)")
         limbs, taxids = _index_from_genomes(genomes)
         log(f"# corpus: index built n={len(taxids):,} "
@@ -238,9 +270,10 @@ def generate(directory: str = DIR, num_species: int = NUM_SPECIES,
         with open(p["reads"], "rb") as src, open(p["smoke"], "wb") as dst:
             for _ in range(4 * min(smoke_reads, reads)):
                 dst.write(src.readline())
-        with open(p["pairs"][0], "wb") as fh1, \
-                open(p["pairs"][1], "wb") as fh2:
-            _emit_pairs(fh1, fh2, rng, genomes, smoke_reads // 2)
+        if pairs:
+            with open(p["pairs"][0], "wb") as fh1, \
+                    open(p["pairs"][1], "wb") as fh2:
+                _emit_pairs(fh1, fh2, rng, genomes, smoke_reads // 2)
         log(f"# corpus: reads written ({time.time() - t0:.1f}s)")
         with open(stamp, "w") as fh:
             fh.write(f"{len(taxids)}\n")
@@ -250,5 +283,79 @@ def generate(directory: str = DIR, num_species: int = NUM_SPECIES,
     return p
 
 
+def generate_big_s(directory: str = os.path.join(DIR, "bigS"),
+                   num_species: int = BIG_S,
+                   genome_len: int = BIG_GENOME_LEN,
+                   core_genes: int = BIG_CORE_GENES,
+                   smoke_reads: int = SMOKE_READS,
+                   warm_reads: int = WARM_READS, log=print) -> dict:
+    """The large-species corpus (module docstring): its index, a warm-up
+    read set and smoke_reads reads."""
+    return generate(directory, num_species, genome_len, core_genes,
+                    reads=smoke_reads, small_reads=0, warm_reads=warm_reads,
+                    smoke_reads=smoke_reads, log=log,
+                    core_per_genome=BIG_CORE_PER_GENOME, pairs=False)
+
+
+def generate_wide(directory: str = os.path.join(DIR, "wide"),
+                  num_species: int = NUM_SPECIES,
+                  genome_len: int = GENOME_LEN,
+                  core_genes: int = CORE_GENES, highest_k: int = WIDE_K,
+                  seed: int = SEED, log=print) -> dict:
+    """The default corpus's genomes as a 128-bit index (module
+    docstring); only the index family is written."""
+    index = os.path.join(directory, "benchIndex")
+    stamp = os.path.join(directory, "DONE")
+    if not os.path.exists(stamp):
+        os.makedirs(directory, exist_ok=True)
+        t0 = time.time()
+        genomes = _gen_genomes(np.random.default_rng(seed), num_species,
+                               genome_len, core_genes)
+        limbs, taxids = _index_from_genomes(genomes, highest_k)
+        log(f"# wide corpus: index built n={len(taxids):,} "
+            f"({time.time() - t0:.1f}s)")
+        _write_artifacts(index, limbs, taxids, num_species, highest_k)
+        log(f"# wide corpus: artifacts written ({time.time() - t0:.1f}s)")
+        with open(stamp, "w") as fh:
+            fh.write(f"{len(taxids)}\n")
+    with open(stamp) as fh:
+        n = int(fh.read().split()[0])
+    return dict(index=index, n_entries=n, num_species=num_species)
+
+
+# the k range each corpus is identified with
+K_RANGES = {"default": (7, 12), "bigS": (7, 12), "wide": (20, 25)}
+
+
+def prepare(which: str, tables: bool = False, log=print) -> dict:
+    """Generate corpus `which` ("default", "bigS" or "wide") and, with
+    tables, build its turbo-table sidecar for its k range on the host
+    (the identify runs then load it from disk)."""
+    corpus = {"default": generate, "bigS": generate_big_s,
+              "wide": generate_wide}[which](log=log)
+    if tables:
+        from .config import Config
+        from .match.pipeline import _load_index
+        from .match.turbo import load_or_build_turbo
+        t0 = time.time()
+        cfg = Config()
+        cfg.lower_k, cfg.higher_k = K_RANGES[which]
+        limbs, _, highest_k, content, _, tax_rows = \
+            _load_index(cfg, corpus["index"])
+        load_or_build_turbo(corpus["index"], limbs, tax_rows, highest_k,
+                            cfg.lower_k, cfg.higher_k, content.num_species,
+                            "cpu")
+        import resource
+        log(f"# {which}: turbo tables k {cfg.lower_k}..{cfg.higher_k} "
+            f"built in {time.time() - t0:.1f}s, peak host memory "
+            f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.1f}"
+            " GiB")
+    return corpus
+
+
 if __name__ == "__main__":
-    print(generate())
+    import sys
+    args = sys.argv[1:]
+    with_tables = "--tables" in args
+    for name in [a for a in args if a != "--tables"] or ["default"]:
+        print(prepare(name, with_tables), flush=True)

@@ -162,10 +162,15 @@ def test_unsupported_flags_raise(tmp_path, index_dir, attr, value):
 
 
 def test_unsupported_inputs_raise(tmp_path):
+    """A 128-bit index over more than six k levels (the golden's 12..25)
+    needs the classic engine, a later slice."""
     from kasa_tpu_torch.config import Config
     from kasa_tpu_torch.match.pipeline import identify
+    cfg = Config()
+    cfg.content_file = str(GOLDEN / "exampleIndex_content.txt")
+    cfg.lower_k, cfg.higher_k = 12, 25
     with pytest.raises(NotImplementedError, match="later slice"):
-        identify(Config(), index_path=str(GOLDEN / "exampleIndex128"),
+        identify(cfg, index_path=str(GOLDEN / "exampleIndex128"),
                  input_path=str(FIXTURES / "reads.fastq"),
                  out_file=str(tmp_path / "o.json"), device="cpu")
 
@@ -186,25 +191,6 @@ def test_other_strategies_raise(tmp_path, monkeypatch, index_dir, case):
         identify(cfg, index_path=str(index_dir / "exampleIndex"),
                  input_path=str(FIXTURES / "reads.fastq"),
                  out_file=str(tmp_path / "o.json"), device="cpu")
-
-
-def test_sparse_fold_raises(monkeypatch):
-    """S above SPARSE_FOLD_S without a hot tier takes kasa_tpu's sparse
-    fold, a later slice."""
-    from kasa_tpu.match.turbo import TurboTables
-    from kasa_tpu_torch.match import turbo as PT
-    from test_torch_tables import _golden_inputs, jax_arrays
-    limbs, tax_rows, S = _golden_inputs()
-    arrays, meta = jax_arrays(
-        TurboTables.build_from_arrays(limbs, tax_rows, 12, 7, 12, S))
-    arrays.update(hotmask=np.zeros((1, S), np.float32),
-                  t_hot=np.zeros(1, np.int32))
-    tt = PT.tables_from_numpy(arrays, meta, "cpu")
-    monkeypatch.setattr(PT, "SPARSE_FOLD_S", S - 1)
-    q = torch.zeros((4 * 30, 2), dtype=torch.int32)
-    acc = torch.zeros((6, S)), torch.zeros((6, S), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="sparse"):
-        PT.turbo_core(tt, q, 4, 30, *acc, 64)
 
 
 def test_many_line_lengths_stay_under_the_slot_cap(tmp_path, monkeypatch,

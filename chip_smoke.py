@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """On-card smoke run of kasa_tpu_torch: the port's identify on one
-NVIDIA GPU, through its six CUDA kernels, checked against references.
+NVIDIA GPU, through its eight CUDA kernels, checked against references.
 
     python3 chip_smoke.py          # from the root of a checkout
 
 Phases (any failure ends the run with a non-zero exit; none is caught):
 
   prep     from the start, three host processes (python -m
-           kasa_tpu_torch.synth <name> --tables, CPU only) generate the
-           three synthetic corpora of kasa_tpu_torch/synth.py into
-           .synth_corpus/ and build their turbo-table sidecars; the run
-           waits for them after golden-flags, before anything is timed;
+           kasa_tpu_torch.synth <name> --tables [--tiered BYTES], CPU
+           only) generate the three synthetic corpora of
+           kasa_tpu_torch/synth.py into .synth_corpus/ and build their
+           turbo-table sidecars, and for the default and 10,001-species
+           corpora the tiered chunk caches of a 256 MiB device budget;
+           the run waits for each before its first phase, before
+           anything of it is timed;
   build    compile the CUDA kernels (one nvcc per source, in parallel)
            and the host C++ library;
   golden   identify fixtures/reads.fastq on tests/golden/exampleIndex on
@@ -61,7 +64,23 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
            five-limb entries) at k 20..25: the 65,536 smoke reads,
            default and --six -e, with the same prints and sample checks;
            then the five-limb arms of K1, K2 and K5 against their plain
-           versions on real batches, timed.
+           versions on real batches, timed;
+  tiered   the beyond-resident path under KASA_DEVICE_BUDGET = 256 MiB
+           (chunks of 8,388,608 entries): the default corpus's 65,536
+           reads (2 batches of 32,768), default and --six -e, and the
+           first 32,768 reads of the 10,001-species corpus (one batch),
+           each through identify with every hit written, with the launch
+           counts reset just before and read just after (K7, K8 and K3
+           launched, K2 and K4 not); chunks, chunks kept on the device,
+           bytes streamed per batch, the tiered/* host timers, reads/s,
+           the host-ADD and host-rebuild shares and peak device memory;
+           each held to the port's resident run on the same reads
+           (unique counts identical, all-counts within rtol 2e-5 / atol
+           2e-3, every read's taxa identical, scores within rtol 2e-4);
+           then K7, K8 and K3's additive arm against their plain versions
+           on a real batch of each run, timed, with torch.sort of the
+           batch's 60-bit window keys (K7) and torch.searchsorted over
+           each chunk's keys (K8) as yardsticks.
 
 Prints the card's name and power limit, a JSON line of the kernels and
 their new arms, and last the line {"ok": true, "device": {...}}.  Longer
@@ -492,8 +511,8 @@ def phase_full_flags(corpus, single_counts):
     return launches, infos
 
 
-def real_batch(corpus, six=False, highest_k=12, min_k=7):
-    """The first 8,192 reads of the smoke set as the main path lays
+def real_batch(corpus, six=False, highest_k=12, min_k=7, R=None):
+    """The first R (8,192) reads of the smoke set as the main path lays
     them out for an index of highest_k and a k range from min_k (two
     rows per read under --six).  -> (mat, R, w, lpr)."""
     import numpy as np
@@ -501,7 +520,7 @@ def real_batch(corpus, six=False, highest_k=12, min_k=7):
     from kasa_tpu_torch.native import load_fastx, sanitize_inplace
     seq, so, _, _, _ = load_fastx(corpus["smoke"], True)
     sanitize_inplace(seq, False)
-    R = READS_PER_BATCH
+    R = R or READS_PER_BATCH
     asm = BatchAssembler(highest_k, min_k, six=six)
     lens = np.diff(so[:R + 1])
     maxlen = (int(lens.max()) + asm.marker_len + 15) // 16 * 16
@@ -768,11 +787,13 @@ def phase_kernels(disp, mat, R, w, launches):
     bytes_ = {
         "encode": R * mat.shape[1] + M * 8,
         "turbo_match": match_bytes(q, tt, R, SW),
-        "turbo_reads": (2 * R * SW * 4 + R * SW * 4 + 2 * R * T.CW * 4
-                        + 2 * R * 4) + (2 * R * T.CW * 4 + R + R * S * 4
-                                        + 2 * R * T.WOUT * 4
-                                        + (2 * R + 2 * cap + 4) * 4
-                                        + 2 * 2 * sector_bytes(t1_cells, 4)),
+        # pre: skey and mpay in, cp, runs and mcnt out (to K4); post:
+        # ofc and the score rows in, ht / hk and the packed readback out,
+        # the T1 cells of both accumulators read and written; the (R, CW)
+        # runs pre hands post stay inside the function
+        "turbo_reads": (2 * R * SW * 4 + R * SW * 4 + 2 * R * 4)
+        + (R + R * S * 4 + 2 * R * T.WOUT * 4 + (2 * R + 2 * cap + 4) * 4
+           + 2 * 2 * sector_bytes(t1_cells, 4)),
         "turbo_multi": multi_bytes(cp, mcnt, ofc, tt, R, S, H, mb),
     }
     sources = {"encode": ("kasa_tpu_torch/csrc/encode.cu",
@@ -1019,28 +1040,37 @@ def phase_budgets(disp, corpus, R):
 # 128-bit indices (five limbs)
 
 PREP = ("default", "bigS", "wide")
+# the tiered runs' device budget: chunks of 8,388,608 entries
+TIERED_BUDGET = 256 << 20
+TIERED_PREP = ("default", "bigS")
 
 
 def start_prep():
-    """Generate the three corpora and build their turbo-table sidecars in
-    three host processes started together (python -m
-    kasa_tpu_torch.synth <name> --tables; CPU only, they never touch the
-    card), each logging to .synth_corpus/out/prep_<name>.log."""
+    """Generate the three corpora and build their turbo-table sidecars
+    (and the tiered chunk caches of TIERED_BUDGET) in three host
+    processes started together (python -m kasa_tpu_torch.synth <name>
+    --tables [--tiered BYTES]; CPU only, they never touch the card), each
+    logging to .synth_corpus/out/prep_<name>.log."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     procs = {}
     for name in PREP:
         path = os.path.join(OUT, f"prep_{name}.log")
         fh = open(path, "w")
+        tiered = (["--tiered", str(TIERED_BUDGET)] if name in TIERED_PREP
+                  else [])
         procs[name] = (subprocess.Popen(
-            [sys.executable, "-m", "kasa_tpu_torch.synth", name, "--tables"],
-            cwd=HERE, stdout=fh, stderr=subprocess.STDOUT, env=env), fh, path)
+            [sys.executable, "-m", "kasa_tpu_torch.synth", name, "--tables",
+             *tiered], cwd=HERE, stdout=fh, stderr=subprocess.STDOUT,
+            env=env), fh, path)
     return procs
 
 
-def wait_prep(procs, t0):
-    for name in PREP:
+def wait_prep(procs, t0, names):
+    for name in names:
         proc, fh, path = procs[name]
         rc = proc.wait()
+        if fh.closed:
+            continue
         fh.close()
         with open(path) as f:
             text = f.read()
@@ -1049,8 +1079,8 @@ def wait_prep(procs, t0):
                  f"{text[-3000:]}")
         log(f"prep {name}: " + "; ".join(
             ln[2:] for ln in text.splitlines() if ln.startswith("# ")))
-    log(f"prep: the three corpora and their tables ready "
-        f"{time.perf_counter() - t0:.1f} s after the start")
+        log(f"prep {name}: ready {time.perf_counter() - t0:.1f} s after the "
+            "start")
 
 
 def stop_prep(procs):
@@ -1058,7 +1088,8 @@ def stop_prep(procs):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-        fh.close()
+        if not fh.closed:
+            fh.close()
 
 
 def table_bytes(tt):
@@ -1328,8 +1359,8 @@ def phase_kernels_sparse(disp, big, launches):
     SW = w * nk
     t1 = ck[(ck != T.SENT) & ~ofc[:, None]]
     t1_cells = (t1 & 7).long() * S + (t1 >> 3).long()
-    b3 = (2 * R * SW * 4 + R * SW * 4 + 2 * R * T.CW * 4 + 2 * R * 4
-          + 2 * R * T.CW * 4 + R + R * T.WM * 8 + R
+    b3 = (2 * R * SW * 4 + R * SW * 4 + 2 * R * 4
+          + R + R * T.WM * 8 + R
           + 2 * R * T.WOUT * 4 + (2 * R + 2 * cap + 4) * 4
           + 2 * 2 * sector_bytes(t1_cells, 4))
     entries = [
@@ -1418,12 +1449,384 @@ def phase_kernels_wide(disp, corpus, launches, launches_e):
     return entries, steps, ms
 
 
+# ---------------------------------------------------------------------------
+# the tiered beyond-resident path (a device budget below the tables)
+
+TIERED_KERNELS = ("encode", "tiered_route", "tiered_pass", "turbo_reads")
+ALL_HITS = 100_000      # -b: write every hit (reads tie at the third best)
+
+
+def forget_tables():
+    """Free the resident tables of the last run on the card."""
+    import torch
+    from kasa_tpu_torch.match import fast
+    from kasa_tpu_torch.match import turbo as T
+    T._TT_RAM_CACHE.clear()
+    fast.LAST_DISPATCH = None
+    torch.cuda.empty_cache()
+
+
+def tiered_agree(tag, ref, got):
+    """The tiered run against the resident run of the same reads: unique
+    counts identical, all-counts within rtol 2e-5 / atol 2e-3 (the level
+    the CPU tests and the identify_multiple phase hold them to: both runs
+    sum thousands of float32 adds per (k, taxon) cell, in another order),
+    every read's taxa identical, scores within rtol 2e-4 (kasa_tpu's own
+    tiered contract, tests/test_tiered.py:117-131)."""
+    import numpy as np
+    (ra, ja), (rb, jb) = ref, got
+    if ra[2:] != rb[2:]:
+        fail(f"{tag}: reads / k-mers {rb[2:]} vs {ra[2:]}")
+    if not np.array_equal(np.asarray(ra[1], np.int64),
+                          np.asarray(rb[1], np.int64)):
+        fail(f"{tag}: unique counts differ from the resident run's")
+    dca = np.abs(rb[0] - ra[0])
+    # the share of its allowance the worst cell uses (fails above 1)
+    used = float((dca / (2e-3 + 2e-5 * np.abs(ra[0]))).max())
+    if not np.isfinite(rb[0]).all() or used > 1.0:
+        fail(f"{tag}: all-counts differ from the resident run's beyond rtol "
+             f"2e-5 / atol 2e-3 (max abs diff {float(dca.max()):.4g}, "
+             f"{used:.3g} of the allowance)")
+    if len(ja) != len(jb):
+        fail(f"{tag}: {len(jb)} reads written, resident {len(ja)}")
+    worst = 0.0
+    for x, y in zip(ja, jb):
+        hx = {h["tax ID"]: float(h["k-mer Score"])
+              for h in x["Top hits"] + x["Further hits"]}
+        hy = {h["tax ID"]: float(h["k-mer Score"])
+              for h in y["Top hits"] + y["Further hits"]}
+        if set(hx) != set(hy):
+            fail(f"{tag}: read {x['Read number']}: taxa differ from the "
+                 "resident run's")
+        for t, v in hx.items():
+            if abs(hy[t] - v) > 2e-4 * abs(v) + 2e-4:
+                fail(f"{tag}: read {x['Read number']} taxon {t}: score "
+                     f"{hy[t]} vs {v}")
+            worst = max(worst, abs(hy[t] - v))
+    log(f"{tag}: agrees with the resident run (unique counts identical, "
+        f"{len(jb)} reads' taxa identical, max score diff {worst:.3g}; "
+        f"all-counts within rtol 2e-5 / atol 2e-3, max abs diff "
+        f"{float(dca.max()):.4g} of counts up to "
+        f"{float(np.abs(ra[0]).max()):.6g}, {used:.3g} of the allowance)")
+
+
+def tiered_drive(tag, index, reads, over, expect, n_reads):
+    """The resident run and the tiered run (KASA_DEVICE_BUDGET =
+    TIERED_BUDGET) of the same reads, every hit written, each with its
+    launch counts; the tiered one's chunk and host-fixup telemetry.
+    -> (tiered launches, info, dispatch)."""
+    from kasa_tpu_torch.match import fast
+    corpus = {"index": index}
+    over = dict(over, num_of_beasts=ALL_HITS)
+    stem = tag.replace(" ", "_").replace("-", "")
+    outs = {}
+    for kind in ("resident", "tiered"):
+        forget_tables()
+        if kind == "tiered":
+            os.environ["KASA_DEVICE_BUDGET"] = str(TIERED_BUDGET)
+        try:
+            j = os.path.join(OUT, f"{stem}_{kind}.json")
+            res, launches, info = drive(
+                f"{tag} ({kind})", reads, j, None,
+                expect if kind == "tiered" else PATH_KERNELS, over=over,
+                corpus=corpus)
+        finally:
+            os.environ.pop("KASA_DEVICE_BUDGET", None)
+        with open(j) as fh:
+            outs[kind] = (res, json.load(fh))
+        os.remove(j)
+    disp = fast.LAST_DISPATCH
+    if type(disp).__name__ != "TieredTurboDispatch":
+        fail(f"{tag}: the budget did not select the tiered path")
+    if launches["turbo_match"] or launches["turbo_multi"]:
+        fail(f"{tag}: the tiered run launched K2/K4: {launches}")
+    if res[2] != n_reads:
+        fail(f"{tag}: {res[2]} reads identified, expected {n_reads}")
+    tiered_agree(tag, outs["resident"], outs["tiered"])
+    nb = disp.batches
+    info.update(chunks=len(disp.chunks), chunk_pad=disp.chunk_pad,
+                chunks_on_device=len(disp._dev_chunks),
+                streamed_mb_per_batch=disp.streamed_bytes / nb / 1e6,
+                batches=nb, host_add_pct=100.0 * disp.host_add_reads / n_reads,
+                host_rebuild_pct=100.0 * disp.host_rebuild_reads / n_reads,
+                tiered_stages={k: v for k, v in info["stages"].items()
+                               if k.startswith("tiered/")})
+    log(f"{tag}: {info['chunks']} chunks of <= {disp.chunk_pad:,} entries, "
+        f"{info['chunks_on_device']} kept on the device, "
+        f"{info['streamed_mb_per_batch']:.1f} MB streamed per batch "
+        f"({nb} batches of {disp.reads_per_batch}); host ADD "
+        f"{disp.host_add_reads} reads ({info['host_add_pct']:.4f} %), host "
+        f"list rebuild {disp.host_rebuild_reads} reads "
+        f"({info['host_rebuild_pct']:.4f} %); timers "
+        + json.dumps({k: round(v, 4)
+                      for k, v in info["tiered_stages"].items()}))
+    return launches, info, disp
+
+
+def phase_tiered(corpus, big):
+    """The tiered path on the default corpus (default and --six -e) and
+    on the first 32,768 reads of the 10,001-species corpus."""
+    from kasa_tpu_torch import synth
+    N = synth.SMOKE_READS
+    runs = {}
+    runs["tiered"] = tiered_drive("tiered", corpus["index"], corpus["smoke"],
+                                  {}, TIERED_KERNELS, N)
+    runs["tiered --six -e"] = tiered_drive(
+        "tiered --six -e", corpus["index"], corpus["smoke"],
+        {"six_frames": True, "unique": True}, TIERED_KERNELS + ("dedup",), N)
+    half = split_fastq(big["smoke"], 2,
+                       os.path.join(HERE, ".synth_corpus", "bigS_half"))[0]
+    runs["tiered bigS"] = tiered_drive("tiered bigS", big["index"], half, {},
+                                       TIERED_KERNELS, N // 2)
+    return runs
+
+
+def pass_bytes(tabs, qr, vbr, posr, lo, hi, disp, R):
+    """Least bytes K8 moves on one chunk's windows: the routed windows
+    once, their slot rows written once, the distinct 32-byte sectors of
+    rowdat (every bisect row and the two rows at the hit), of mstart at
+    the multi hits' bisect midpoints and of mrow at their final index,
+    of the taxa rows they expand, and of the score and count cells they
+    add to (read and written), the big flags."""
+    import torch
+    from kasa_tpu_torch.match.tiered import TMAX
+    rowdat, mstart, mrow, moff, d_tax4 = tabs
+    n, mp, dr = rowdat.shape[0], mstart.shape[0], d_tax4.shape[0]
+    q, vb, ps = qr[lo:hi], vbr[lo:hi], posr[lo:hi].long()
+    lo_, hi_ = torch.zeros_like(ps), torch.full_like(ps, n)
+    rows = []
+    for _ in range(disp.num_steps):
+        mid = (lo_ + hi_) >> 1
+        rows.append(mid.clamp(max=n - 1))
+        kk = rowdat[rows[-1]]
+        less = (kk[:, 0] < q[:, 0]) | ((kk[:, 0] == q[:, 0])
+                                       & (kk[:, 1] < q[:, 1]))
+        lo_ = torch.where(less, mid + 1, lo_)
+        hi_ = torch.where(less, hi_, mid)
+    pos_c, prev = lo_.clamp(max=n - 1), (lo_ - 1).clamp(0, n - 1)
+    rows += [pos_c, prev]
+    at, pv = rowdat[pos_c], rowdat[prev]
+    mids, grows, trows, scells, ccells = [], [], [], [], []
+    moff_h = moff.tolist()
+    S = disp.S
+    for ki in range(disp.num_k):
+        mk = disp.masks[ki].tolist()
+        hit_at = lo_ < n
+        hit_pv = lo_ > 0
+        for i in range(2):
+            if mk[i]:
+                qi = q[:, i] & mk[i]
+                hit_at &= (at[:, i] & mk[i]) == qi
+                hit_pv &= (pv[:, i] & mk[i]) == qi
+        ok = (hit_at | hit_pv) & (((vb >> ki) & 1) == 1)
+        tp = torch.where(hit_pv, pv[:, 3], at[:, 3])
+        tc = torch.where(ok, (tp >> (5 * ki)) & 31, torch.zeros_like(tp))
+        small = (tc >= 2) & (tc <= TMAX)
+        psel = torch.where(hit_pv, lo_ - 1, pos_c)[small]
+        base, cnt = moff_h[ki], moff_h[ki + 1] - moff_h[ki]
+        if not len(psel):
+            continue
+        ml, mh = torch.zeros_like(psel), torch.full_like(psel, cnt)
+        for _ in range(disp.msteps):
+            act = ml < mh
+            mid = (ml + mh) >> 1
+            idx = (base + mid).clamp(max=mp - 1)
+            mids.append(idx)
+            le = mstart[idx] <= psel
+            ml = torch.where(act & le, mid + 1, ml)
+            mh = torch.where(act & ~le, mid, mh)
+        g = (base + (ml - 1).clamp(min=0)).clamp(max=mp - 1)
+        grows.append(g)
+        rowb = mrow[g].long()
+        T = tc[small].long()
+        nrow = (T + 3) >> 2
+        sl = torch.repeat_interleave(torch.arange(len(T), device=q.device),
+                                     nrow)
+        j = torch.arange(len(sl), device=q.device) \
+            - (torch.cumsum(nrow, 0) - nrow)[sl]
+        tr = (rowb[sl] + j).clamp(max=dr - 1)
+        trows.append(tr)
+        taxa = d_tax4[tr].long()
+        okt = taxa >= 0
+        rid = (ps[small] // (len(posr) // R))[sl]
+        scells.append((rid[:, None] * S + taxa)[okt])
+        ccells.append((ki * S + taxa)[okt])
+    cat = (lambda xs: torch.cat(xs) if xs else
+           torch.zeros(0, dtype=torch.long, device=q.device))
+    m = hi - lo
+    return (m * 16 + m * disp.num_k * 4 + sector_bytes(torch.cat(rows), 16)
+            + sector_bytes(cat(mids), 4) + sector_bytes(cat(grows), 4)
+            + sector_bytes(cat(trows), 16)
+            + 2 * sector_bytes(cat(scells), 4)
+            + 2 * sector_bytes(cat(ccells), 4) + R * 4)
+
+
+def phase_kernels_tiered(disp, mat, R, w, lpr, unique, launches, tag,
+                         suffix=""):
+    """K7, K8 (every chunk) and K3's additive arm against their plain
+    versions on one real batch of a tiered run, timed, with their bounds
+    and yardsticks.  -> (kernel entries, ms by kernel)."""
+    import numpy as np
+    import torch
+    from kasa_tpu_torch.core import encode as E
+    from kasa_tpu_torch.core.alphabet import build_codon_code_lut
+    from kasa_tpu_torch.match import tiered as TI
+    from kasa_tpu_torch.match import turbo as T
+    dev = torch.device(DEVICE)
+    nk, S = disp.num_k, disp.S
+    kpr = w * lpr
+    lut = torch.from_numpy(build_codon_code_lut().astype(np.int32)).to(dev)
+    q = E.encode_windows(torch.from_numpy(mat).to(dev), lut, w)
+    if unique:
+        q = T.dedup_windows(q, R, kpr)
+    M = q.shape[0]
+    l0 = disp.chunk_limb0
+    # K7
+    got = TI.tiered_route(q, l0, disp.min_k, disp.max_k)
+    want = TI.tiered_route_plain(q, l0, disp.min_k, disp.max_k)
+    for nm, a, b in zip(("qr", "vbr", "posr", "cuts"), got, want):
+        same(f"tiered_route.{nm}", a, b)
+    qr, vbr, posr, cuts = got
+    cuts_h = cuts.tolist()
+    ranges = [(c, e) for c, e in zip(cuts_h, cuts_h[1:] + [M])]
+    tabs = [disp._tables(ci) for ci in range(len(disp.chunks))]
+
+    def state():
+        return (torch.full((M + 1, nk), T.SENT, dtype=torch.int32,
+                           device=dev),
+                torch.zeros(R * S + 1, device=dev),
+                torch.zeros(nk * S + 1, device=dev),
+                torch.zeros(R + 1, dtype=torch.int32, device=dev))
+
+    def passes(fn, st):
+        for ci, (a, b) in enumerate(ranges):
+            if b > a:
+                fn(tabs[ci], disp.weights, qr, vbr, posr, a, b, *st,
+                   disp.num_steps, disp.msteps, disp.masks, disp.full, S,
+                   kpr)
+        return st
+    # K8
+    sk, sp = passes(TI.tiered_pass, state()), passes(TI.tiered_pass_plain,
+                                                     state())
+    same("tiered_pass.skey", sk[0], sp[0])
+    same("tiered_pass.big", sk[3], sp[3])
+    err8 = max(close("tiered_pass.sflat", sk[1], sp[1]),
+               close("tiered_pass.cflat", sk[2], sp[2]))
+    # K3's additive arm (pre with cw = SW, post additive)
+    cap = disp.csr_cap(R)
+
+    def acc():
+        return (torch.zeros((nk, S), device=dev),
+                torch.zeros((nk, S), dtype=torch.int32, device=dev))
+    (ca_k, cu_k), (ca_p, cu_p) = acc(), acc()
+    fk = TI.tiered_finish(*sp, disp.weights, ca_k, cu_k, R, kpr, cap)
+    SW = kpr * nk
+    skv = sp[0][:R * kpr].view(R, SW)
+    ck, cc, _, _, _ = T.turbo_reads_pre_plain(skv, None, cw=SW)
+    ofc = sp[3][:R] > 0
+    dm = sp[1][:R * S].view(R, S)
+    zero2 = torch.zeros(2, dtype=torch.int32, device=dev)
+    wm = min(S, 256)
+    fp = T.turbo_reads_post_plain(ck, cc, ofc, dm, disp.weights, ca_p, cu_p,
+                                  zero2, cap, wm=wm, additive=True,
+                                  cadd=sp[2][:nk * S])
+    pk, pp = fk[0].cpu(), fp[0].cpu()
+    ints = torch.ones(len(pk), dtype=torch.bool)
+    ints[2 * R + 1:2 * R + 2 * cap:2] = False
+    same("turbo_reads.additive.packed", pk[ints], pp[ints])
+    same("turbo_reads.additive.ht", fk[1], fp[1])
+    same("turbo_reads.additive.acc_cu", cu_k, cu_p)
+    err3 = max(close("turbo_reads.additive.ksum",
+                     pk[~ints].view(torch.float32),
+                     pp[~ints].view(torch.float32)),
+               close("turbo_reads.additive.hk", fk[2], fp[2]),
+               close("turbo_reads.additive.acc_ca", ca_k, ca_p))
+    torch.cuda.synchronize()
+    flags = pp[R:2 * R]
+    log(f"kernels {tag}: tiered_route, tiered_pass ({len(ranges)} chunks) "
+        f"and turbo_reads (additive) agree with their plain versions on a "
+        f"{R}-read batch (M={M}, SW={SW}, S={S}, big reads "
+        f"{int((flags & 1).sum())}, rebuilt {int((flags >> 1 & 1).sum())}, "
+        f"hits {int(pp[-2])})")
+
+    # times, kernel reps then plain reps on the same inputs
+    st = state()
+    ca_t, cu_t = acc()
+    ms = {"tiered_route": time_ms(lambda: TI.tiered_route(
+              q, l0, disp.min_k, disp.max_k), 20),
+          "tiered_pass": time_ms(lambda: passes(TI.tiered_pass, st), 10),
+          "turbo_reads.additive": time_ms(lambda: TI.tiered_finish(
+              *sp, disp.weights, ca_t, cu_t, R, kpr, cap), 10)}
+    plain = {"tiered_route": time_ms(lambda: TI.tiered_route_plain(
+                 q, l0, disp.min_k, disp.max_k), 3),
+             "tiered_pass": time_ms(lambda: passes(TI.tiered_pass_plain, st),
+                                    2),
+             "turbo_reads.additive": time_ms(
+                 lambda: T.turbo_reads_post_plain(
+                     *T.turbo_reads_pre_plain(skv, None, cw=SW)[:2], ofc, dm,
+                     disp.weights, ca_t, cu_t, zero2, cap, wm=wm,
+                     additive=True, cadd=sp[2][:nk * S]), 2)}
+    keys = (q[:, 0].long() << 30) | q[:, 1].long()
+    lib_route = time_ms(lambda: torch.sort(keys), 20)
+    chunk_keys = [((t[0][:, 0].long() << 30) | t[0][:, 1].long())
+                  for t in tabs]
+    qkeys = (qr[:, 0].long() << 30) | qr[:, 1].long()
+
+    def searches():
+        for ci, (a, b) in enumerate(ranges):
+            if b > a:
+                torch.searchsorted(chunk_keys[ci], qkeys[a:b])
+    lib_pass = time_ms(searches, 10)
+    # the step as the main path queues it (tables on the device)
+    step_ms = ms["tiered_route"] + ms["tiered_pass"] \
+        + ms["turbo_reads.additive"] + time_ms(
+            lambda: E.encode_windows(torch.from_numpy(mat).to(dev), lut, w),
+            10)
+    t1 = ck[ck != T.SENT]
+    t1_cells = (t1 & 7).long() * S + (t1 >> 3).long()
+    nbytes = {
+        "tiered_route": M * 8 + M * 16 + l0.numel() * 4 * 2,
+        "tiered_pass": sum(pass_bytes(tabs[ci], qr, vbr, posr, a, b, disp, R)
+                           for ci, (a, b) in enumerate(ranges) if b > a),
+        # skey rows and the big flags in, the (R, S) score rows, acc_ca
+        # read and written whole with cflat added, acc_cu at the T1 cells
+        # (read and written), ht / hk and the packed readback out; the
+        # (R, SW) runs pre hands post stay inside the function
+        "turbo_reads.additive": (R * SW * 4 + R * 4 + R * S * 4
+                                 + 3 * nk * S * 4
+                                 + 2 * sector_bytes(t1_cells, 4)
+                                 + 2 * R * T.WOUT * 4
+                                 + (2 * R + 2 * cap + 4) * 4),
+    }
+    src = {"tiered_route": ("tiered_route", "kasa_tpu/match/tiered.py:140",
+                            lib_route, "torch.sort of the 60-bit keys"),
+           "tiered_pass": ("tiered_pass", "kasa_tpu/match/tiered.py:201",
+                           lib_pass, "torch.searchsorted in each chunk's "
+                           "keys"),
+           "turbo_reads.additive": ("turbo_reads",
+                                    "kasa_tpu/match/tiered.py:354", None,
+                                    "")}
+    entries = []
+    for name in ("tiered_route", "tiered_pass", "turbo_reads.additive"):
+        f, rep, lib, note = src[name]
+        err = {"tiered_route": 0.0, "tiered_pass": err8,
+               "turbo_reads.additive": err3}[name]
+        entries.append(kernel_entry(
+            name + suffix, f"kasa_tpu_torch/csrc/{f}.cu", rep,
+            launches[f], err, ms[name], plain[name], nbytes[name], lib,
+            note))
+    log(f"step {tag}: K1 + K7 + K8 over {len(ranges)} chunks + K3 additive "
+        f"{step_ms:.4f} ms per {R}-read batch with every chunk on the "
+        "device")
+    return entries, dict(ms, step=step_ms)
+
+
 def run(preps, smi, t_all):
     import torch
     phase_build()
     phase_golden()
     phase_golden_flags()
-    wait_prep(preps, t_all)
+    wait_prep(preps, t_all, ("default",))
     corpus = phase_corpus()
     disp, launches, info, single_counts = phase_full(corpus)
     launches_f, infos_f = phase_full_flags(corpus, single_counts)
@@ -1439,20 +1842,39 @@ def run(preps, smi, t_all):
     # one index on the card at a time: the next run's peak memory is its
     # own tables and batches
     del disp
-    from kasa_tpu_torch.match import fast
-    fast.LAST_DISPATCH = None
-    torch.cuda.empty_cache()
+    forget_tables()
+    wait_prep(preps, t_all, ("bigS",))
     disp_s, big, launches_s, info_s, info_sm = phase_sparse()
     k_sparse, steps["sparse"], sparse_ms = phase_kernels_sparse(
         disp_s, big, launches_s)
     del disp_s
-    fast.LAST_DISPATCH = None
-    torch.cuda.empty_cache()
+    forget_tables()
+    wait_prep(preps, t_all, ("wide",))
     disp_w, launches_w, infos_w = phase_wide(corpus)
     k_wide, steps_w, wide_ms = phase_kernels_wide(
         disp_w, corpus, launches_w["wide"], launches_w["wide --six -e"])
     steps.update(steps_w)
     kern += k_sparse + k_wide
+    del disp_w
+    forget_tables()
+    # the tiered path: the runs, then each kernel on a batch of each run
+    runs = phase_tiered(corpus, big)
+    tiered_ms = {}
+    for tag, src, six, suffix in (("tiered", corpus, False, ""),
+                                  ("tiered --six -e", corpus, True,
+                                   ".six_e"),
+                                  ("tiered bigS", big, False, ".bigS")):
+        tl, tinfo, tdisp = runs[tag]
+        tmat, tR, tw, tlpr = real_batch(src, six=six,
+                                        R=tdisp.reads_per_batch)
+        entries, tiered_ms[tag] = phase_kernels_tiered(
+            tdisp, tmat, tR, tw, tlpr, six, tl, tag, suffix)
+        if suffix != ".six_e":
+            kern += entries
+        steps[tag] = tiered_ms[tag]["step"]
+        runs[tag] = (tl, tinfo, None)
+        del tdisp
+        forget_tables()
     for tag, inf, ms in (("full", info, step_ms),
                          ("full-flags six -e", infos_f["six_e"],
                           steps["six_e"]),
@@ -1472,11 +1894,21 @@ def run(preps, smi, t_all):
         log(f"{tag}: the device is busy about {inf['busy_pct']:.2f} % of "
             f"the identify run ({nb} batch steps of {ms:.4f} ms in "
             f"{inf['seconds']:.3f} s; copies not counted)")
+    for tag, (_, inf, _) in runs.items():
+        ms = steps[tag]
+        inf["busy_pct"] = 100.0 * ms * 1e-3 * inf["batches"] \
+            / inf["seconds"]
+        log(f"{tag}: the device is busy about {inf['busy_pct']:.2f} % of "
+            f"the identify run ({inf['batches']} batch steps of {ms:.4f} ms "
+            f"in {inf['seconds']:.3f} s; chunk uploads not counted)")
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as fh:
         json.dump({"card": smi, "full": info, "full_flags": infos_f,
                    "launches_flags": launches_f, "sparse": info_s,
                    "sparse_multi": info_sm, "launches_sparse": launches_s,
                    "wide": infos_w, "launches_wide": launches_w,
+                   "tiered": {t: r[1] for t, r in runs.items()},
+                   "launches_tiered": {t: r[0] for t, r in runs.items()},
+                   "tiered_kernel_ms": tiered_ms,
                    "kernels": kern, "step_ms": step_ms,
                    "step_ms_by_mode": steps, "six_e_kernel_ms": six_e_ms,
                    "sparse_kernel_ms": sparse_ms, "wide_kernel_ms": wide_ms,

@@ -28,6 +28,15 @@
 //         arm (the sparse regime) reads K6's (R, WM) list and its
 //         multi_of flag (turbo.py:914-918), and S is passed explicitly.
 //
+// The additive arm replaces kasa_tpu/match/tiered.py:354 tiered_finish,
+// the resident tail with four differences: pre keeps every run (cw =
+// SW) and compacts no multi payloads (mpay null, the tiered pass has
+// already expanded the multi groups); post keeps a flagged read's counts
+// and T1 scores (the flag is K8's per-read big bit: the host only adds
+// the skipped big groups), lists the multi taxa from the dense (R, S)
+// rows with wm = min(S, 256), and adds the batch's (numK, S) multi
+// counts (cadd) to acc_ca in its scan block.
+//
 // Bound on the H100: memory for "post" (dense arm: each read's S-float
 // score row is read once, R*S*4 bytes, 64 MB at R = 8192, S = 2048; the
 // list arm reads R*WM*8 bytes instead); "pre" is
@@ -36,10 +45,11 @@
 // many blocks are resident.
 //
 // Design: shared memory holds at most P = SW_CAP = 4096 int32 keys
-// (16 KB), so a read line with more than 4096 slots is refused by the
-// Python wrapper; CW, WM and WOUT must be <= 256.  The serial parts
-// (T1 taxon sums and the two-list merge, <= 320 steps) run on one
-// thread of the block: simple, and short next to the sort.
+// (16 KB) and cw <= 4096 run ends, so a read line with more than 4096 slots
+// is refused by the Python wrapper; WM and WOUT must be <= 256.  The
+// serial parts (T1 taxon sums over the read's runs, read back from
+// global memory, and the two-list merge) run on one thread of the
+// block: simple, and short next to the sort.
 #include "common.cuh"
 
 namespace {
@@ -99,6 +109,7 @@ __global__ void reads_pre_kernel(const int32_t* __restrict__ skey,
     }
 
     // multi payloads to the row's front, in slot order
+    if (mpay == nullptr) return;
     const int32_t* mrow = mpay + r * SW;
     int32_t* crow = cp + r * SW;
     int moff = 0;
@@ -126,13 +137,11 @@ __global__ void reads_post_kernel(const int32_t* __restrict__ ck,
                                   float* __restrict__ acc_ca,
                                   int32_t* __restrict__ acc_cu,
                                   int S, int num_k, int cw, int sent,
-                                  int wout, int wm,
+                                  int wout, int wm, int additive,
                                   int32_t* __restrict__ ht,
                                   float* __restrict__ hk,
                                   int32_t* __restrict__ hc,
                                   int32_t* __restrict__ flags) {
-    __shared__ int32_t s_key[kListMax];
-    __shared__ int32_t s_cnt[kListMax];
     __shared__ int32_t t1tax[kListMax];
     __shared__ float t1val[kListMax];
     __shared__ int32_t mk[kListMax];
@@ -141,17 +150,20 @@ __global__ void reads_post_kernel(const int32_t* __restrict__ ck,
     __shared__ int s_nout;
     const int tid = threadIdx.x;
     const long long r = blockIdx.x;
-    const bool keep = ofc[r] == 0;
+    const bool flagged = ofc[r] != 0;
+    // a flagged read is recomputed whole on the host, except in the
+    // additive arm, where the host only adds its big groups
+    const bool keep = additive || !flagged;
     const long long fk = file_of_read ? (long long)file_of_read[r] * num_k
                                       : 0;
+    const int32_t* ckr = ck + r * cw;
+    const int32_t* ccr = cc + r * cw;
 
-    // T1 fold (flagged reads are recomputed whole on the host)
+    // T1 fold
     for (int rho = tid; rho < cw; rho += kThreads) {
-        const int32_t key = ck[r * cw + rho];
-        const int32_t cnt = cc[r * cw + rho];
-        s_key[rho] = key;
-        s_cnt[rho] = cnt;
+        const int32_t key = ckr[rho];
         if (key != sent && keep) {
+            const int32_t cnt = ccr[rho];
             const long long cell = (fk + (key & 7)) * S + (key >> 3);
             atomicAdd(&acc_cu[cell], cnt);
             atomicAdd(&acc_ca[cell], (float)cnt);
@@ -191,17 +203,23 @@ __global__ void reads_post_kernel(const int32_t* __restrict__ ck,
     __syncthreads();
 
     if (tid == 0) {
+        // the read's T1 taxa in order with their w(k) * count sums; the
+        // first wout are kept (the merge reads no more), all are counted
         int ntax1 = 0;
+        int32_t last = -1;
         for (int rho = 0; rho < cw; ++rho) {
-            const int32_t key = s_key[rho];
+            const int32_t key = ckr[rho];
             if (key == sent) break;
             const int32_t tax = key >> 3;
-            const float v = weights[key & 7] * (keep ? (float)s_cnt[rho] : 0.0f);
-            if (ntax1 > 0 && t1tax[ntax1 - 1] == tax) {
-                t1val[ntax1 - 1] += v;
+            const float v = weights[key & 7] * (keep ? (float)ccr[rho] : 0.0f);
+            if (ntax1 > 0 && last == tax) {
+                if (ntax1 - 1 < wout) t1val[ntax1 - 1] += v;
             } else {
-                t1tax[ntax1] = tax;
-                t1val[ntax1] = v;
+                if (ntax1 < wout) {
+                    t1tax[ntax1] = tax;
+                    t1val[ntax1] = v;
+                }
+                last = tax;
                 ++ntax1;
             }
         }
@@ -228,8 +246,8 @@ __global__ void reads_post_kernel(const int32_t* __restrict__ ck,
         const int nout = min(ntax, wout);
         s_nout = nout;
         hc[r] = nout;
-        const bool ofl = !keep || ntax1 > wout || m_over || ntax > wout;
-        flags[r] = (keep ? 0 : 1) | (ofl ? 2 : 0);
+        const bool ofl = flagged || ntax1 > wout || m_over || ntax > wout;
+        flags[r] = (flagged ? 1 : 0) | (ofl ? 2 : 0);
     }
     __syncthreads();
     for (int i = s_nout + tid; i < wout; i += kThreads) {
@@ -243,6 +261,8 @@ constexpr int kScanThreads = 1024;
 __global__ void pack_scan_kernel(const int32_t* __restrict__ hc,
                                  const int32_t* __restrict__ flags,
                                  const int32_t* __restrict__ diag, int R,
+                                 const float* __restrict__ cadd, int ncadd,
+                                 float* __restrict__ acc_ca,
                                  int32_t* __restrict__ cum,
                                  int32_t* __restrict__ tail) {
     __shared__ long long buf[kScanThreads];
@@ -261,6 +281,9 @@ __global__ void pack_scan_kernel(const int32_t* __restrict__ hc,
         cum[r] = (int32_t)run;
         run += hc[r];
     }
+    // the additive arm's multi counts (every T1 atomic of the batch is
+    // in: this kernel runs after reads_post_kernel on the stream)
+    for (int i = tid; i < ncadd; i += kScanThreads) acc_ca[i] += cadd[i];
     if (tid == 0) {
         tail[0] = diag[0];
         tail[1] = diag[1];
@@ -298,7 +321,9 @@ extern "C" int kasa_turbo_reads_pre(const void* skey, const void* mpay,
                                     int R, int SW, int P, int sent, int cw,
                                     void* ck, void* cc, void* runs,
                                     void* mcnt, void* cp, void* stream) {
-    if (cw > kListMax || P < SW || (P & (P - 1)) != 0)
+    // smem: P keys and cw run ends, at most 2 x 4,096 int32 (32 KB)
+    if (cw < 1 || cw > 4096 || P > 4096 || P < SW || (P & (P - 1)) != 0
+        || (mpay != nullptr && (mcnt == nullptr || cp == nullptr)))
         return (int)cudaErrorInvalidValue;
     if (R > 0) {
         const size_t smem = (size_t)(P + cw) * sizeof(int32_t);
@@ -315,15 +340,17 @@ extern "C" int kasa_turbo_reads_post(const void* ck, const void* cc,
                                      const void* mlk, const void* mlv,
                                      const void* mof, const void* weights,
                                      const void* file_of_read, void* acc_ca,
-                                     void* acc_cu, const void* diag, int R,
-                                     int S, int num_k, int cw, int sent,
-                                     int wout,
-                                     int wm, long long cap, void* ht,
-                                     void* hk, void* hc, void* flags,
-                                     void* cum, void* packed, void* stream) {
-    if (cw > kListMax || wout > kListMax || wm > kListMax
+                                     void* acc_cu, const void* diag,
+                                     const void* cadd, int R, int S,
+                                     int num_k, int cw, int sent, int wout,
+                                     int wm, int additive, int ncadd,
+                                     long long cap, void* ht, void* hk,
+                                     void* hc, void* flags, void* cum,
+                                     void* packed, void* stream) {
+    if (wout > kListMax || wm > kListMax
         || (dm == nullptr && (mlk == nullptr || mlv == nullptr
-                              || mof == nullptr)))
+                              || mof == nullptr))
+        || (ncadd > 0 && cadd == nullptr))
         return (int)cudaErrorInvalidValue;
     if (R > 0) {
         cudaStream_t st = (cudaStream_t)stream;
@@ -332,12 +359,13 @@ extern "C" int kasa_turbo_reads_post(const void* ck, const void* cc,
             (const float*)dm, (const int32_t*)mlk, (const float*)mlv,
             (const uint8_t*)mof, (const float*)weights,
             (const int32_t*)file_of_read, (float*)acc_ca,
-            (int32_t*)acc_cu, S, num_k, cw, sent, wout, wm, (int32_t*)ht,
-            (float*)hk, (int32_t*)hc, (int32_t*)flags);
+            (int32_t*)acc_cu, S, num_k, cw, sent, wout, wm, additive,
+            (int32_t*)ht, (float*)hk, (int32_t*)hc, (int32_t*)flags);
         int32_t* tail = (int32_t*)packed + 2LL * R + 2LL * cap;
         pack_scan_kernel<<<1, kScanThreads, 0, st>>>(
             (const int32_t*)hc, (const int32_t*)flags, (const int32_t*)diag,
-            R, (int32_t*)cum, tail);
+            R, (const float*)cadd, ncadd, (float*)acc_ca, (int32_t*)cum,
+            tail);
         pack_scatter_kernel<<<R, 128, 0, st>>>(
             (const int32_t*)hc, (const int32_t*)flags, (const int32_t*)cum,
             (const int32_t*)ht, (const float*)hk, R, wout, cap,

@@ -10,8 +10,8 @@ Every wrapper checks dtype, shape, contiguity and device, allocates its
 outputs and scratch with torch.empty/torch.zeros, launches, adds one to
 its launch count, and raises if the launcher reports a CUDA error.
 Nothing here synchronises.  Nothing here runs on the CPU: the callers
-(core/encode.py, match/turbo.py) take the plain PyTorch versions for
-CPU tensors.
+(core/encode.py, match/turbo.py, match/tiered.py) take the plain PyTorch
+versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -27,14 +27,15 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD = os.path.join(_DIR, "_build", "cuda")
 SOURCES = ("encode", "turbo_match", "turbo_reads", "turbo_multi", "dedup",
-           "sparse_fold")
+           "sparse_fold", "tiered_route", "tiered_pass")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches per kernel since the last reset_counts(): one per wrapper
 # call that launched (turbo_reads counts its pre and post entry points)
 COUNTS = {"encode": 0, "turbo_match": 0, "turbo_reads": 0,
-          "turbo_multi": 0, "dedup": 0, "sparse_fold": 0}
+          "turbo_multi": 0, "dedup": 0, "sparse_fold": 0, "tiered_route": 0,
+          "tiered_pass": 0}
 
 _libs: dict = {}
 
@@ -45,11 +46,13 @@ _ARGTYPES = {
     "kasa_encode_windows": [_P, _P] + [_I] * 7 + [_P, _P],
     "kasa_turbo_match": [_P] * 6 + [_L] + [_I] * 7 + [_P, _P, _P],
     "kasa_turbo_reads_pre": [_P, _P] + [_I] * 5 + [_P] * 6,
-    "kasa_turbo_reads_post": [_P] * 12 + [_I] * 7 + [_L] + [_P] * 7,
+    "kasa_turbo_reads_post": [_P] * 13 + [_I] * 9 + [_L] + [_P] * 7,
     "kasa_turbo_multi": [_P] * 8 + [_I] * 8 + [_L, _I, _I] + [_P] * 14
                         + [_I, _P],
     "kasa_dedup_windows": [_P] + [_I] * 5 + [_P, _P],
     "kasa_sparse_fold": [_P] * 6 + [_I] * 6 + [_P] * 4,
+    "kasa_tiered_route": [_P, _P, _L, _I, _I, _I, _I] + [_P] * 6,
+    "kasa_tiered_pass": [_P] * 10 + [_L, _L] + [_I] * 11 + [_P] * 5,
 }
 _LIB_OF = {"kasa_encode_windows": "encode",
            "kasa_turbo_match": "turbo_match",
@@ -57,7 +60,9 @@ _LIB_OF = {"kasa_encode_windows": "encode",
            "kasa_turbo_reads_post": "turbo_reads",
            "kasa_turbo_multi": "turbo_multi",
            "kasa_dedup_windows": "dedup",
-           "kasa_sparse_fold": "sparse_fold"}
+           "kasa_sparse_fold": "sparse_fold",
+           "kasa_tiered_route": "tiered_route",
+           "kasa_tiered_pass": "tiered_pass"}
 
 
 def reset_counts() -> None:
@@ -232,8 +237,10 @@ def _pow2(n: int) -> int:
     return p
 
 
-def turbo_reads_pre(skey: torch.Tensor, mpay: torch.Tensor, sent: int,
-                    cw: int):
+def turbo_reads_pre(skey: torch.Tensor, mpay: torch.Tensor | None,
+                    sent: int, cw: int):
+    """Without mpay (the tiered finish) no multi payloads are compacted:
+    mcnt and cp come back None."""
     from .match.turbo import SW_CAP
     dev = skey.device
     if dev.type != "cuda":
@@ -242,14 +249,18 @@ def turbo_reads_pre(skey: torch.Tensor, mpay: torch.Tensor, sent: int,
     if SW > SW_CAP:
         raise NotImplementedError(f"{SW} slots per read exceed the "
                                   f"per-read kernel's cap of {SW_CAP}")
+    if not 1 <= cw <= SW_CAP:
+        raise ValueError(f"cw={cw}: the kernel keeps 1..{SW_CAP} runs")
     _check(skey, "skey", torch.int32, (R, SW), dev)
-    _check(mpay, "mpay", torch.int32, (R, SW), dev)
     i32 = dict(dtype=torch.int32, device=dev)
+    mcnt = cp = None
+    if mpay is not None:
+        _check(mpay, "mpay", torch.int32, (R, SW), dev)
+        mcnt = torch.empty((R,), **i32)
+        cp = torch.empty((R, SW), **i32)
     ck = torch.empty((R, cw), **i32)
     cc = torch.empty((R, cw), **i32)
     runs = torch.empty((R,), **i32)
-    mcnt = torch.empty((R,), **i32)
-    cp = torch.empty((R, SW), **i32)
     _launch("kasa_turbo_reads_pre", "turbo_reads", _ptr(skey), _ptr(mpay),
             R, SW, _pow2(SW), sent, cw, _ptr(ck), _ptr(cc), _ptr(runs),
             _ptr(mcnt), _ptr(cp), _stream(dev))
@@ -267,11 +278,14 @@ def _check_files(file_of_read, acc_ca, R, nk, S, dev):
 
 def turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
                      csr_cap: int, sent: int, wout: int, wm: int,
-                     file_of_read=None, mlist=None):
+                     file_of_read=None, mlist=None, additive: bool = False,
+                     cadd=None):
     """Dense arm: the multi taxa from dm, the (R, S) score rows.  List
     arm (dm None): from mlist = (mk (R, wm) int32, mv (R, wm) f32,
     multi_of (R,) bool), K6's lists; S is the accumulators' last
-    dimension in both arms."""
+    dimension in both arms.  Additive arm (the tiered finish): flagged
+    reads keep their counts and scores, and cadd, (numK * S,) f32 multi
+    counts, is added to acc_ca."""
     dev = ck.device
     if dev.type != "cuda":
         raise ValueError("turbo_reads_post: the kernel takes CUDA tensors")
@@ -294,6 +308,11 @@ def turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
     _check(acc_ca, "acc_ca", torch.float32, acc_shape, dev)
     _check(acc_cu, "acc_cu", torch.int32, acc_shape, dev)
     _check(diag, "diag", torch.int32, (2,), dev)
+    if cadd is not None:
+        if file_of_read is not None:
+            raise ValueError("cadd: the additive counts take (numK, S) "
+                             "accumulators")
+        _check(cadd, "cadd", torch.float32, (nk * S,), dev)
     i32 = dict(dtype=torch.int32, device=dev)
     ht = torch.empty((R, wout), **i32)
     hk = torch.empty((R, wout), dtype=torch.float32, device=dev)
@@ -303,10 +322,10 @@ def turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
     packed = torch.zeros((2 * R + 2 * csr_cap + 4,), **i32)
     _launch("kasa_turbo_reads_post", "turbo_reads", _ptr(ck), _ptr(cc),
             _ptr(ofc), _ptr(dm), _ptr(mk), _ptr(mv), _ptr(mof), _ptr(weights),
-            _ptr(file_of_read), _ptr(acc_ca), _ptr(acc_cu), _ptr(diag), R, S,
-            nk, cw, sent,
-            wout, wm, csr_cap, _ptr(ht), _ptr(hk), _ptr(hc), _ptr(flags),
-            _ptr(cum), _ptr(packed), _stream(dev))
+            _ptr(file_of_read), _ptr(acc_ca), _ptr(acc_cu), _ptr(diag),
+            _ptr(cadd), R, S, nk, cw, sent, wout, wm, int(additive),
+            0 if cadd is None else nk * S, csr_cap, _ptr(ht), _ptr(hk),
+            _ptr(hc), _ptr(flags), _ptr(cum), _ptr(packed), _stream(dev))
     return packed, ht, hk
 
 
@@ -408,3 +427,83 @@ def sparse_fold(cp, mcnt, ofc, tt, wm: int, sent: int):
             SW, tt.n, tt.num_k, wm, sent, _ptr(mk), _ptr(mv), _ptr(multi_of),
             _stream(dev))
     return mk, mv, multi_of
+
+
+# ---------------------------------------------------------------------------
+# K7 tiered_route (csrc/tiered_route.cu)
+
+def tiered_route(q: torch.Tensor, chunk_limb0: torch.Tensor, min_k: int,
+                 max_k: int):
+    """-> (qr (M, 2), vbr (M,), posr (M,), cuts (C,)) int32: the windows
+    routed to their chunks (match/tiered.py tiered_route_plain)."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError("tiered_route: the kernel takes CUDA tensors")
+    M = q.shape[0]
+    C = chunk_limb0.shape[0]
+    _check(q, "q", torch.int32, (M, 2), dev)
+    _check(chunk_limb0, "chunk_limb0", torch.int32, (C,), dev)
+    # a segment's running offsets sit in 48 KB of shared memory
+    if not 1 <= C < 12_000:
+        raise NotImplementedError(f"{C} chunks: the routing kernel takes "
+                                  "1..11,999")
+    nseg = max(-(-M // 1024), 1)
+    i32 = dict(dtype=torch.int32, device=dev)
+    qr = torch.empty((M, 2), **i32)
+    vbr = torch.empty((M,), **i32)
+    posr = torch.empty((M,), **i32)
+    cuts = torch.empty((C,), **i32)
+    hist = torch.empty(((C + 1) * nseg,), **i32)
+    _launch("kasa_tiered_route", "tiered_route", _ptr(q), _ptr(chunk_limb0),
+            M, C, nseg, min_k, max_k, _ptr(hist), _ptr(qr), _ptr(vbr),
+            _ptr(posr), _ptr(cuts), _stream(dev))
+    return qr, vbr, posr, cuts
+
+
+# ---------------------------------------------------------------------------
+# K8 tiered_pass (csrc/tiered_pass.cu)
+
+def tiered_pass(tabs, weights, qr, vbr, posr, lo: int, hi: int, skey, sflat,
+                cflat, big, num_steps: int, msteps: int, masks, full,
+                num_species: int, kmers_per_read: int, tmax: int) -> None:
+    """Adds the routed windows [lo, hi) of one chunk to skey, sflat,
+    cflat and big in place (match/tiered.py tiered_pass_plain)."""
+    rowdat, mstart, mrow, moff, d_tax4 = tabs
+    dev = qr.device
+    if dev.type != "cuda":
+        raise ValueError("tiered_pass: the kernel takes CUDA tensors")
+    M = qr.shape[0]
+    nk = weights.shape[0]
+    S = num_species
+    _check(rowdat, "rowdat", torch.int32, (rowdat.shape[0], 4), dev)
+    mp = mstart.shape[0]
+    _check(mstart, "mstart", torch.int32, (mp,), dev)
+    _check(mrow, "mrow", torch.int32, (mp,), dev)
+    _check(moff, "moff", torch.int32, (nk + 1,), dev)
+    _check(d_tax4, "d_tax4", torch.int32, (d_tax4.shape[0], 4), dev)
+    _check(weights, "weights", torch.float32, (nk,), dev)
+    _check(masks, "masks", torch.int32, (nk, 2), dev)
+    _check(qr, "qr", torch.int32, (M, 2), dev)
+    _check(vbr, "vbr", torch.int32, (M,), dev)
+    _check(posr, "posr", torch.int32, (M,), dev)
+    _check(skey, "skey", torch.int32, (skey.shape[0], nk), dev)
+    _check(sflat, "sflat", torch.float32, (sflat.shape[0],), dev)
+    _check(cflat, "cflat", torch.float32, (nk * S + 1,), dev)
+    _check(big, "big", torch.int32, (big.shape[0],), dev)
+    R = big.shape[0] - 1
+    if skey.shape[0] != M + 1 or sflat.shape[0] != R * S + 1 \
+            or R * kmers_per_read != M:
+        raise ValueError(f"skey {tuple(skey.shape)}, sflat "
+                         f"{tuple(sflat.shape)} and big {tuple(big.shape)} "
+                         f"do not fit {M} windows of {kmers_per_read} per "
+                         "read")
+    if not 0 <= lo <= hi <= M:
+        raise ValueError(f"window range [{lo}, {hi}) outside 0..{M}")
+    if nk > 6:
+        raise ValueError(f"{nk} k levels: tpack holds six")
+    _launch("kasa_tiered_pass", "tiered_pass", _ptr(rowdat), _ptr(mstart),
+            _ptr(mrow), _ptr(moff), _ptr(d_tax4), _ptr(weights),
+            _ptr(masks), _ptr(qr), _ptr(vbr), _ptr(posr), lo, hi,
+            rowdat.shape[0], mp, d_tax4.shape[0], nk, num_steps,
+            msteps, int(full[0]), int(full[1]), S, kmers_per_read, tmax,
+            _ptr(skey), _ptr(sflat), _ptr(cflat), _ptr(big), _stream(dev))

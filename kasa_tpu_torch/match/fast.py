@@ -1,10 +1,13 @@
 """Throughput identify pipeline (port of kasa_tpu/match/fast.py, turbo
-strategy only).
+strategies on one device).
 
 native file parse -> vectorized padded read matrix -> one turbo batch
-step on the device per batch (match/turbo.py fused_turbo_acc: the CUDA
-kernels K1-K5) -> packed readback decode -> exact host recompute of
-flagged reads -> native rank+format -> file.  A writer thread consumes
+step on the device per batch (resident tables: match/turbo.py
+fused_turbo_acc, the CUDA kernels K1-K6; an index over the device
+budget: match/tiered.py, chunk-streamed tables through K1, K5, K7, K8
+and K3) -> packed readback decode -> exact host recompute of flagged
+reads (tiered: the host adds the big groups and rebuilds truncated
+lists) -> native rank+format -> file.  A writer thread consumes
 finished batches in order, so host post-processing of batch i overlaps
 device work of batch i+1; the per-taxon count matrices accumulate on
 the device and are flushed every COUNT_FLUSH batches (one (numK, S)
@@ -167,20 +170,16 @@ def _len_bucket(n: int, minimum: int, step: int = 16) -> int:
     return (n + step - 1) // step * step
 
 
-class SingleTurboDispatch:
-    """Single-device dispatch/decode strategy for the turbo drive loop.
+class TurboDispatchBase:
+    """What the drive loop needs of every dispatch strategy besides
+    dispatch(): the device count accumulators, the CSR capacity, the
+    asynchronous readback and its decode."""
 
-    The multi worklist and expansion budgets are plain runtime sizes
-    (kasa_tpu freezes them per run because each value is a compiled
-    shape), and the kernels' scratch comes from PyTorch's caching
-    allocator."""
+    additive_fixup = False
 
-    def __init__(self, tt, num_k: int, num_species: int):
-        self.tt = tt
-        self.device = tt.device
+    def __init__(self, device: torch.device, num_k: int, num_species: int):
+        self.device = device
         self._acc_shape = (num_k, num_species)
-        self.multi_budget = MULTI_BUDGET
-        self.exp_budget = EXP_BUDGET
 
     def new_acc(self, num_files: int | None = None):
         shape = self._acc_shape if num_files is None \
@@ -215,6 +214,35 @@ class SingleTurboDispatch:
         done.record()
         return hosts, done
 
+    def fetch(self, handle) -> list:
+        """Host views of a batch's results (waits for its batch only)."""
+        tensors, done = handle
+        if done is not None:
+            done.synchronize()
+        return [t.numpy() for t in tensors]
+
+    def decode(self, packed: np.ndarray, rows_pad: int, rb: int,
+               cap: int, want_lists: bool, ht_d=None, hk_d=None):
+        from .tiered import SingleTurboDispatch_decode
+        return SingleTurboDispatch_decode(packed, rows_pad, rb, cap,
+                                          want_lists, ht_d, hk_d)
+
+
+class SingleTurboDispatch(TurboDispatchBase):
+    """Single-device dispatch/decode strategy for the turbo drive loop
+    over resident tables.
+
+    The multi worklist and expansion budgets are plain runtime sizes
+    (kasa_tpu freezes them per run because each value is a compiled
+    shape), and the kernels' scratch comes from PyTorch's caching
+    allocator."""
+
+    def __init__(self, tt, num_k: int, num_species: int):
+        super().__init__(tt.device, num_k, num_species)
+        self.tt = tt
+        self.multi_budget = MULTI_BUDGET
+        self.exp_budget = EXP_BUDGET
+
     def multi_budget_for(self, lines_per_read: int) -> int:
         """The multi worklist of a batch: kasa_tpu's MULTI_BUDGET per two
         lines of a read.  On the synthetic corpus a batch of reads of
@@ -241,52 +269,88 @@ class SingleTurboDispatch:
             self.exp_budget, file_of_read=fo, **mode)
         return self._to_host([packed]), ht, hk
 
-    def fetch(self, handle) -> list:
-        """Host views of a batch's results (waits for its batch only)."""
-        tensors, done = handle
-        if done is not None:
-            done.synchronize()
-        return [t.numpy() for t in tensors]
 
-    def decode(self, packed: np.ndarray, rows_pad: int, rb: int,
-               cap: int, want_lists: bool, ht_d=None, hk_d=None):
-        from .tiered import SingleTurboDispatch_decode
-        return SingleTurboDispatch_decode(packed, rows_pad, rb, cap,
-                                          want_lists, ht_d, hk_d)
+def _tiered(cfg, index_path, limbs, tax_rows, highest_k, budget, device,
+            S):
+    """The tiered strategy: chunks of (budget * 0.75) / 24 entries (at
+    least 2^16), cached under cfg.temp_path or next to the index."""
+    from .tiered import TieredTurboDispatch, chunk_entries_for
+    min_k, max_k = cfg.lower_k, cfg.higher_k
+    chunk_entries = chunk_entries_for(budget, max_k - min_k + 1)
+    with timers.stage("tiered/tables"):
+        return TieredTurboDispatch(
+            index_path, limbs, tax_rows, highest_k, min_k, max_k, S,
+            chunk_entries, device,
+            cache_dir=(os.path.join(cfg.temp_path,
+                                    f"oocache_turbo_torch_{cfg.call_idx}")
+                       if cfg.temp_path else None))
 
 
 def select_turbo_dispatch(cfg, index_path, limbs, taxids, content,
                           highest_k, tax_rows, device: torch.device):
-    """The resident turbo strategy for this index on `device`.  Indices
-    that need another strategy (too large for the device, more than six
-    k levels, min_k*5 < 24, ...) raise NotImplementedError: the tiered
-    path, the mesh and the classic engine are later slices."""
-    from .turbo import turbo_supported, load_or_build_turbo
+    """The dispatch strategy for this index on `device` (kasa_tpu
+    fast.py:299, single-device arm): resident turbo tables when they fit
+    the device budget (or -r); else, for a 64-bit index over at most six
+    k levels from min_k >= 6, tiered chunk streaming (also when the
+    resident tables' int32 row pointers would wrap).  Other indices raise
+    NotImplementedError naming the later slice (the classic engine, the
+    mesh)."""
+    from .tiered import TMAX, chunk_entries_for
+    from .turbo import (TurboRowOverflow, load_or_build_turbo,
+                        turbo_supported)
     min_k, max_k = cfg.lower_k, cfg.higher_k
     num_k = max_k - min_k + 1
     S = content.num_species
-    num_limbs = limbs.shape[1] if len(taxids) else 2
-    if not turbo_supported(len(taxids), num_limbs, min_k, max_k, S):
+    n_idx = len(taxids)
+    num_limbs = limbs.shape[1] if n_idx else 2
+    eligible_resident = turbo_supported(n_idx, num_limbs, min_k, max_k, S)
+    eligible_tiered = (n_idx > 0 and num_limbs == 2 and num_k <= 6
+                       and min_k >= 6 and S < (1 << 24))
+    if not (eligible_resident or eligible_tiered):
         raise NotImplementedError(
             "this index/k range needs the classic engine (turbo tables "
             "need n > 0, <= 6 k levels and min_k >= 5), a later slice of "
             "the port")
     budget = device_table_budget(cfg, device)
-    table_bytes = bytes_per_entry_resident(num_k, num_limbs) \
-        * max(len(taxids), 1)
-    if not cfg.ram and table_bytes > budget:
+    table_bytes = bytes_per_entry_resident(num_k, num_limbs) * max(n_idx, 1)
+    over = not cfg.ram and table_bytes > budget
+    if eligible_tiered and over:
+        print(f"OUT: turbo tables ({table_bytes >> 20} MiB) exceed the "
+              "memory budget; tiered turbo streams "
+              f"{chunk_entries_for(budget, num_k)}-entry "
+              f"chunks (T>{TMAX} groups on host)", flush=True)
+        return _tiered(cfg, index_path, limbs, tax_rows, highest_k, budget,
+                       device, S)
+    if over:
         raise NotImplementedError(
             f"turbo tables ({table_bytes >> 20} MiB) exceed the device "
-            f"budget ({budget >> 20} MiB): the tiered streaming path is a "
-            "later slice of the port")
+            f"budget ({budget >> 20} MiB) and tiered streaming takes 64-bit "
+            "indices only: sharding the tables over several cards is the "
+            "multi-GPU mesh, a later slice of the port")
+    if not eligible_resident:
+        raise NotImplementedError(
+            "this index/k range needs the classic engine (resident turbo "
+            "tables need min_k >= 5 and n < 2^28), a later slice of the "
+            "port")
     try:
         content_token = os.stat(cfg.content_file
                                 or index_path + "_content.txt").st_mtime_ns
     except OSError:
         content_token = None
-    with timers.stage("turbo/tables"):
-        tt = load_or_build_turbo(index_path, limbs, tax_rows, highest_k,
-                                 min_k, max_k, S, device, content_token)
+    try:
+        with timers.stage("turbo/tables"):
+            tt = load_or_build_turbo(index_path, limbs, tax_rows, highest_k,
+                                     min_k, max_k, S, device, content_token)
+    except TurboRowOverflow as e:
+        # multi-heavy index: the resident tables' int32 row pointers
+        # would wrap; the tiered chunks' tables stay int32-safe
+        if not eligible_tiered:
+            raise NotImplementedError(
+                f"{e}: this index needs the classic engine, a later slice "
+                "of the port") from e
+        print(f"OUT: {e}; streaming tiered turbo instead", flush=True)
+        return _tiered(cfg, index_path, limbs, tax_rows, highest_k, budget,
+                       device, S)
     return SingleTurboDispatch(tt, num_k, S)
 
 
@@ -426,6 +490,12 @@ def fast_identify_multi(cfg, index_path: str, files: list, out_files: list,
 
     disp = select_turbo_dispatch(cfg, index_path, limbs, taxids, content,
                                  highest_k, tax_rows, device)
+    if profile_files and disp.additive_fixup:
+        raise NotImplementedError(
+            "identify_multiple with profiles on an index over the device "
+            "budget: the tiered path has no per-file counts (kasa_tpu's "
+            "TieredTurboDispatch has no dispatch_files either and fails "
+            "there)")
     global LAST_DISPATCH
     LAST_DISPATCH = disp
     segments = [dict(start=bounds[i], end=bounds[i + 1], out=out_files[i],
@@ -469,6 +539,7 @@ def _fast_identify_turbo(cfg, disp, asm, lpr, mate_views, name_blob,
     from .turbo import dedup_windows_np, host_classify_read, read_windows_np
 
     tt = disp.tt
+    additive = disp.additive_fixup
     highest_k = asm.highest_k
     min_k, max_k = cfg.lower_k, cfg.higher_k
     num_k = max_k - min_k + 1
@@ -550,14 +621,28 @@ def _fast_identify_turbo(cfg, disp, asm, lpr, mate_views, name_blob,
                 fixes = {}
                 wmax = ht.shape[1] if ht is not None else 0
                 for r in rows:
-                    scores, ca2, cu2 = host_classify_read(
-                        tt, read_q(mat, int(r), w))
-                    if ofc[r]:
-                        f = file_of(r0 + int(r)) if per_file_counts else ()
-                        counts_all[f] += ca2
-                        counts_unique[f] += cu2.astype(np.uint64)
-                    if ranker is None:
-                        continue
+                    q = read_q(mat, int(r), w)
+                    if additive:
+                        # tiered contract: the device counted every group
+                        # of T <= TMAX; the host ADDS the big groups (ofc
+                        # bit) and rebuilds truncated lists (ofl bit)
+                        scores, ca2, cu2 = disp.host_fixup(q)
+                        if ofc[r]:
+                            counts_all[:] += ca2
+                            counts_unique[:] += cu2.astype(np.uint64)
+                            disp.host_add_reads += 1
+                        if ranker is None:
+                            continue
+                        disp.host_rebuild_reads += 1
+                    else:
+                        scores, ca2, cu2 = host_classify_read(tt, q)
+                        if ofc[r]:
+                            f = file_of(r0 + int(r)) if per_file_counts \
+                                else ()
+                            counts_all[f] += ca2
+                            counts_unique[f] += cu2.astype(np.uint64)
+                        if ranker is None:
+                            continue
                     items = sorted((int(t), float(v))
                                    for t, v in scores.items() if v > 0.0)
                     fixes[int(r)] = items
@@ -641,7 +726,7 @@ def _fast_identify_turbo(cfg, disp, asm, lpr, mate_views, name_blob,
         sin_flush = 0
 
     t_start = _time.perf_counter()
-    rpb = READS_PER_BATCH
+    rpb = getattr(disp, "reads_per_batch", None) or READS_PER_BATCH
     producer_ok = False
     try:
         for r0 in range(0, R_total, rpb):

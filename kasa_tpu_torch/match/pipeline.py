@@ -4,10 +4,11 @@ engine only): fastq/fasta(.gz) -> per-read output + profile.
 The port covers kasa_tpu's CLI identify on the turbo engine: DNA in
 one, three or six frames, protein input (-z), a custom codon table
 (-a), unique k-mers per read (-e), paired-end input (-1/-2), --filter,
-a folder of inputs (identify_multiple) and 64-bit or halved indices
-with resident turbo tables.  Every other mode or flag raises
-NotImplementedError naming the later slice; nothing falls back to
-another engine or to the CPU.
+a folder of inputs (identify_multiple) and 64-bit, 128-bit or halved
+indices with resident turbo tables, and 64-bit indices over the device
+budget through the tiered chunk streaming.  Every other mode or flag
+raises NotImplementedError naming the later slice; nothing falls back
+to another engine or to the CPU.
 """
 
 from __future__ import annotations

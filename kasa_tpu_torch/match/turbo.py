@@ -555,12 +555,15 @@ def turbo_match(q: torch.Tensor, tt: TurboTables, num_reads: int,
 # ---------------------------------------------------------------------------
 # K3 turbo_reads, first entry point: before K4 (kasa_tpu turbo.py:672-738)
 
-def turbo_reads_pre_plain(skey: torch.Tensor, mpay: torch.Tensor):
+def turbo_reads_pre_plain(skey: torch.Tensor, mpay: torch.Tensor | None,
+                          cw: int = CW):
     """Per read: sort the T1 keys, find the (tax, k) runs, keep the
-    first CW runs, and compact the multi payloads to the row's front.
-    -> ck (R, CW) int32 run keys (SENT-padded), cc (R, CW) int32 run
+    first cw runs, and compact the multi payloads to the row's front.
+    -> ck (R, cw) int32 run keys (SENT-padded), cc (R, cw) int32 run
     counts, runs (R,) int32 runs per read, mcnt (R,) int32 multi slots
-    per read, cp (R, SW) int32 compacted payloads (-1 after mcnt)."""
+    per read, cp (R, SW) int32 compacted payloads (-1 after mcnt).
+    Without mpay (the tiered finish: cw = SW, every run kept) mcnt and cp
+    are None."""
     R, SW = skey.shape
     dev = skey.device
     sk, _ = torch.sort(skey, dim=1)
@@ -578,11 +581,13 @@ def turbo_reads_pre_plain(skey: torch.Tensor, mpay: torch.Tensor):
     ckey = torch.where(run_end, sk, torch.full_like(sk, SENT))
     ck, order = torch.sort(ckey, dim=1, stable=True)
     cc = torch.gather(run_c, 1, order)
-    ncol = min(CW, SW)
-    ck = torch.full((R, CW), SENT, dtype=torch.int32, device=dev)\
+    ncol = min(cw, SW)
+    ck = torch.full((R, cw), SENT, dtype=torch.int32, device=dev)\
         .index_copy_(1, torch.arange(ncol, device=dev), ck[:, :ncol])
-    cc = torch.zeros((R, CW), dtype=torch.int32, device=dev)\
+    cc = torch.zeros((R, cw), dtype=torch.int32, device=dev)\
         .index_copy_(1, torch.arange(ncol, device=dev), cc[:, :ncol])
+    if mpay is None:
+        return ck, cc, runs, None, None
 
     is_m = mpay >= 0
     mcnt = is_m.sum(dim=1, dtype=torch.int32)
@@ -592,12 +597,13 @@ def turbo_reads_pre_plain(skey: torch.Tensor, mpay: torch.Tensor):
     return ck, cc, runs, mcnt, cp
 
 
-def turbo_reads_pre(skey: torch.Tensor, mpay: torch.Tensor):
+def turbo_reads_pre(skey: torch.Tensor, mpay: torch.Tensor | None,
+                    cw: int = CW):
     """K3 (pre) wrapper."""
     if skey.device.type == "cpu":
-        return turbo_reads_pre_plain(skey, mpay)
+        return turbo_reads_pre_plain(skey, mpay, cw)
     from .. import kernels
-    return kernels.turbo_reads_pre(skey, mpay, SENT, CW)
+    return kernels.turbo_reads_pre(skey, mpay, SENT, cw)
 
 
 # ---------------------------------------------------------------------------
@@ -820,9 +826,11 @@ def _segment_sums(keys, vals):
 
 
 def turbo_reads_post_plain(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
-                           csr_cap: int, file_of_read=None, mlist=None):
+                           csr_cap: int, file_of_read=None, mlist=None, *,
+                           wm: int = WM, additive: bool = False,
+                           cadd=None):
     """T1 fold into the count accumulators (in place), per-read hit
-    lists (T1 taxa + the read's first WM multi taxa, merged, first WOUT
+    lists (T1 taxa + the read's first wm multi taxa, merged, first WOUT
     kept), flags, and the packed int32 readback:
     [hc (R) | flags (R) | CSR (tax, ksum bits) * csr_cap | mtot, eused,
     sum hc, flagged reads].  The multi taxa come from dm, the (R, S)
@@ -830,11 +838,18 @@ def turbo_reads_post_plain(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
     multi_of), K6's lists (sparse regime).  With file_of_read the
     accumulators are (F, numK, S) and read r's runs go to slab
     file_of_read[r].
+
+    A flagged read (ofc) counts nothing and contributes no T1 score: the
+    host recomputes it whole.  The additive arm (the tiered finish) keeps
+    its counts and scores instead (the host only adds its big groups),
+    and adds cadd, the batch's (numK * S,) multi counts, to acc_ca.
+    Flag bit0 is ofc, bit1 the list rebuild (ofc, more than WOUT T1
+    taxa, more than wm multi taxa, or more than WOUT merged).
     -> (packed, ht (R, WOUT), hk (R, WOUT))."""
     R = ck.shape[0]
     S = acc_ca.shape[-1]
     dev = ck.device
-    keep = ~ofc
+    keep = torch.ones_like(ofc) if additive else ~ofc
     cvalid = ck != SENT
     cki = torch.where(cvalid, ck & 7, torch.zeros_like(ck)).long()
     ctax = torch.where(cvalid, ck >> 3, torch.zeros_like(ck)).long()
@@ -847,6 +862,8 @@ def turbo_reads_post_plain(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
     # in place: T1 counts feed both accumulators directly
     acc_ca.view(-1).index_add_(0, cell, cc[sel].to(torch.float32))
     acc_cu.view(-1).index_add_(0, cell, cc[sel])
+    if cadd is not None:
+        acc_ca.view(-1).add_(cadd)
 
     ccf = torch.where(keep[:, None], cc, torch.zeros_like(cc))\
         .to(torch.float32)
@@ -859,10 +876,10 @@ def turbo_reads_post_plain(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
         iota_s = torch.arange(S, dtype=torch.int32, device=dev).expand(R, S)
         mk = torch.where(dm > 0, iota_s, torch.full_like(iota_s, SENT))
         mk2, midx = torch.sort(mk, dim=1, stable=True)
-        mk2 = mk2[:, :WM]
-        mv2 = torch.gather(dm, 1, midx)[:, :WM]
+        mk2 = mk2[:, :wm]
+        mv2 = torch.gather(dm, 1, midx)[:, :wm]
         mv2 = torch.where(mk2 != SENT, mv2, torch.zeros_like(mv2))
-        multi_of = (dm > 0).sum(dim=1) > WM
+        multi_of = (dm > 0).sum(dim=1) > wm
     else:
         mk2, mv2, multi_of = mlist
 
@@ -894,16 +911,19 @@ def turbo_reads_post_plain(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
 
 
 def turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
-                     csr_cap: int, file_of_read=None, mlist=None):
+                     csr_cap: int, file_of_read=None, mlist=None, *,
+                     wm: int = WM, additive: bool = False, cadd=None):
     """K3 (post) wrapper."""
     if ck.device.type == "cpu":
         return turbo_reads_post_plain(ck, cc, ofc, dm, weights, acc_ca,
                                       acc_cu, diag, csr_cap, file_of_read,
-                                      mlist)
+                                      mlist, wm=wm, additive=additive,
+                                      cadd=cadd)
     from .. import kernels
     return kernels.turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca,
-                                    acc_cu, diag, csr_cap, SENT, WOUT, WM,
-                                    file_of_read, mlist)
+                                    acc_cu, diag, csr_cap, SENT, WOUT, wm,
+                                    file_of_read, mlist, additive=additive,
+                                    cadd=cadd)
 
 
 # ---------------------------------------------------------------------------

@@ -39,8 +39,11 @@ Two large-index variants, each in its own directory:
 
 ``python -m kasa_tpu_torch.synth [default] [bigS] [wide]`` builds the
 named corpora and, with ``--tables``, the turbo-table sidecar each is
-identified with (``prepare``).  ``generate`` takes the sizes as
-arguments so tests can build a tiny corpus.
+identified with (``prepare``); with ``--tiered BYTES`` also the tiered
+path's chunk cache (``<index>_oocache_turbo_torch``) for a device budget
+of BYTES, as identify builds it under ``KASA_DEVICE_BUDGET=BYTES``.
+``generate`` takes the sizes as arguments so tests can build a tiny
+corpus.
 """
 
 from __future__ import annotations
@@ -327,35 +330,57 @@ def generate_wide(directory: str = os.path.join(DIR, "wide"),
 K_RANGES = {"default": (7, 12), "bigS": (7, 12), "wide": (20, 25)}
 
 
-def prepare(which: str, tables: bool = False, log=print) -> dict:
+def _peak_gib() -> float:
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def prepare(which: str, tables: bool = False, tiered_budget: int = 0,
+            log=print) -> dict:
     """Generate corpus `which` ("default", "bigS" or "wide") and, with
     tables, build its turbo-table sidecar for its k range on the host
-    (the identify runs then load it from disk)."""
+    (the identify runs then load it from disk); with tiered_budget > 0,
+    also the tiered chunk cache for that device budget in bytes."""
     corpus = {"default": generate, "bigS": generate_big_s,
               "wide": generate_wide}[which](log=log)
+    if not (tables or tiered_budget):
+        return corpus
+    from .config import Config
+    from .match.pipeline import _load_index
+    cfg = Config()
+    cfg.lower_k, cfg.higher_k = K_RANGES[which]
+    limbs, _, highest_k, content, _, tax_rows = \
+        _load_index(cfg, corpus["index"])
     if tables:
-        from .config import Config
-        from .match.pipeline import _load_index
         from .match.turbo import load_or_build_turbo
         t0 = time.time()
-        cfg = Config()
-        cfg.lower_k, cfg.higher_k = K_RANGES[which]
-        limbs, _, highest_k, content, _, tax_rows = \
-            _load_index(cfg, corpus["index"])
         load_or_build_turbo(corpus["index"], limbs, tax_rows, highest_k,
                             cfg.lower_k, cfg.higher_k, content.num_species,
                             "cpu")
-        import resource
         log(f"# {which}: turbo tables k {cfg.lower_k}..{cfg.higher_k} "
             f"built in {time.time() - t0:.1f}s, peak host memory "
-            f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.1f}"
-            " GiB")
+            f"{_peak_gib():.1f} GiB")
+    if tiered_budget:
+        import torch
+        from .match.tiered import TieredTurboDispatch, chunk_entries_for
+        t0 = time.time()
+        disp = TieredTurboDispatch(
+            corpus["index"], limbs, tax_rows, highest_k, cfg.lower_k,
+            cfg.higher_k, content.num_species,
+            chunk_entries_for(tiered_budget, cfg.num_k), torch.device("cpu"))
+        log(f"# {which}: tiered chunk cache for a {tiered_budget}-byte "
+            f"budget, {len(disp.chunks)} chunks of <= {disp.chunk_pad} "
+            f"entries, built in {time.time() - t0:.1f}s, peak host memory "
+            f"{_peak_gib():.1f} GiB")
     return corpus
 
 
 if __name__ == "__main__":
-    import sys
-    args = sys.argv[1:]
-    with_tables = "--tables" in args
-    for name in [a for a in args if a != "--tables"] or ["default"]:
-        print(prepare(name, with_tables), flush=True)
+    import argparse
+    ap = argparse.ArgumentParser(prog="python -m kasa_tpu_torch.synth")
+    ap.add_argument("names", nargs="*", default=["default"])
+    ap.add_argument("--tables", action="store_true")
+    ap.add_argument("--tiered", type=int, default=0, metavar="BYTES")
+    args = ap.parse_args()
+    for name in args.names:
+        print(prepare(name, args.tables, args.tiered), flush=True)

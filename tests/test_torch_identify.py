@@ -177,18 +177,24 @@ def test_unsupported_inputs_raise(tmp_path):
 
 @pytest.mark.parametrize("case", ["tiered", "classic"])
 def test_other_strategies_raise(tmp_path, monkeypatch, index_dir, case):
-    """An index over the device budget needs the tiered path; a k range
-    the turbo tables cannot take (min_k * 5 < 24) needs the classic
-    engine: both are later slices."""
+    """A 128-bit index over the device budget needs its tables sharded
+    over several cards (tiered streaming takes 64-bit indices only); a k
+    range the turbo tables cannot take (min_k * 5 < 24) needs the
+    classic engine: both are later slices.  (A 64-bit index over the
+    budget streams tiered: tests/test_torch_tiered.py.)"""
     from kasa_tpu_torch.config import Config
     from kasa_tpu_torch.match.pipeline import identify
     cfg = Config()
+    index = str(index_dir / "exampleIndex")
     if case == "tiered":
         monkeypatch.setenv("KASA_DEVICE_BUDGET", "1")
+        cfg.content_file = str(GOLDEN / "exampleIndex_content.txt")
+        cfg.lower_k, cfg.higher_k = 20, 25
+        index = str(GOLDEN / "exampleIndex128")
     else:
         cfg.lower_k = 4
     with pytest.raises(NotImplementedError, match="later slice"):
-        identify(cfg, index_path=str(index_dir / "exampleIndex"),
+        identify(cfg, index_path=index,
                  input_path=str(FIXTURES / "reads.fastq"),
                  out_file=str(tmp_path / "o.json"), device="cpu")
 

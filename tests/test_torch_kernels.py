@@ -1,6 +1,6 @@
 """The CUDA kernels of kasa_tpu_torch against their plain PyTorch
-versions, on the card: K1-K6, the per-file, counts-only and list arms,
-and the five-limb arms of K1, K2 and K5.  CUDA kernels have no CPU mode: without a GPU
+versions, on the card: K1-K8, the per-file, counts-only, list and
+additive arms, and the five-limb arms of K1, K2 and K5.  CUDA kernels have no CPU mode: without a GPU
 these tests skip.  On a machine with one (and without JAX):
 
     python3 -m pytest --noconftest -q -m cuda tests/test_torch_kernels.py
@@ -318,3 +318,158 @@ def test_dedup_kernel_five_limbs(cuda, kpr):
     want = PT.dedup_windows_plain(qd, R, kpr)
     assert torch.equal(PT.dedup_windows(qd, R, kpr).cpu(), want.cpu())
     assert int((want == PT.POISON_LIMB).all(dim=1).sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the tiered path: K7, K8 and K3's additive arm
+
+@pytest.mark.parametrize("M,C", [(1, 1), (5000, 4), (70_001, 300)])
+def test_tiered_route_kernel(cuda, M, C):
+    """The stable routing is deterministic: the kernel's routed arrays
+    and cuts equal the plain version's exactly."""
+    from kasa_tpu_torch.match import tiered as TI
+    rng = np.random.default_rng(M)
+    q = rng.integers(0, 1 << 30, size=(M, 2), dtype=np.int64)
+    q[rng.random(M) < 0.05, 0] = sum(30 << (5 * j) for j in range(6))
+    # some '^' letters (code 30) inside the k range
+    bad = rng.random(M) < 0.2
+    q[bad, 1] |= 30 << (5 * rng.integers(0, 6, size=int(bad.sum())))
+    limb0 = np.unique(rng.integers(1 << 20, 1 << 30, size=C))[:C]
+    qd = torch.from_numpy(q.astype(np.int32)).to(cuda)
+    l0 = torch.from_numpy(np.sort(limb0).astype(np.int32)).to(cuda)
+    got = TI.tiered_route(qd, l0, 7, 12)
+    want = TI.tiered_route_plain(qd, l0, 7, 12)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+def _tier_chunks(tmp_path):
+    """The port's chunk tables of tests/test_turbo.py's tiers index (T =
+    4, 13, 30 on the device, 61, 201 on the host) in >= 4 chunks, and
+    queries over it."""
+    from kasa_tpu_torch.index import artifacts
+    from kasa_tpu_torch.match.tiered import TieredTurboDispatch
+    from test_turbo import _index_with_tiers, S
+    limbs, taxids, hot = _index_with_tiers(n=30_000,
+                                           heavy_ts=(3, 12, 29, 60, 200))
+    idx = str(tmp_path / "kIdx")
+    artifacts.write_index(idx, limbs, taxids, 12)
+    disp = TieredTurboDispatch(idx, limbs, taxids.astype(np.int32), 12, 7,
+                               12, S, 7000, torch.device("cpu"),
+                               cache_dir=str(tmp_path / "cache"))
+    assert len(disp.chunks) >= 4
+    rng = np.random.default_rng(2)
+    R, kpr = 64, 36
+    q = limbs[rng.integers(0, len(limbs), size=R * kpr)].copy()
+    miss = rng.random(R * kpr) < 0.3
+    q[miss, 1] ^= (rng.integers(1, 31, size=int(miss.sum()))
+                   .astype(np.int32) << 5)
+    for i in range(R):
+        q[i * kpr + 3] = hot[i % len(hot)]
+    return disp, np.ascontiguousarray(q), R, kpr, S
+
+
+def test_tiered_pass_kernel(cuda, tmp_path):
+    """K8 over every chunk against the plain version, on the windows K7
+    routed: the T1 keys and big flags identical, the score rows and
+    counts within the contract (atomics add in another order)."""
+    from kasa_tpu_torch.match import tiered as TI
+    disp, q_np, R, kpr, S = _tier_chunks(tmp_path)
+    nk = 6
+    q = torch.from_numpy(q_np).to(cuda)
+    l0 = disp.chunk_limb0.to(cuda)
+    qr, vbr, posr, cuts = TI.tiered_route(q, l0, 7, 12)
+    w = disp.weights.to(cuda)
+    masks = disp.masks.to(cuda)
+    m = R * kpr
+    st = [(torch.full((m + 1, nk), TI.SENT, dtype=torch.int32, device=cuda),
+           torch.zeros(R * S + 1, device=cuda),
+           torch.zeros(nk * S + 1, device=cuda),
+           torch.zeros(R + 1, dtype=torch.int32, device=cuda))
+          for _ in range(2)]
+    ends = cuts.tolist()[1:] + [m]
+    for ci in range(len(disp.chunks)):
+        with np.load(disp._chunk_file(ci)) as z:
+            tabs = tuple(torch.from_numpy(z[f]).to(cuda)
+                         for f in TI.TIERED_FIELDS)
+        lo, hi = int(cuts[ci]), ends[ci]
+        TI.tiered_pass(tabs, w, qr, vbr, posr, lo, hi, *st[0],
+                       disp.num_steps, disp.msteps, masks, disp.full, S,
+                       kpr)
+        TI.tiered_pass_plain(tabs, w, qr, vbr, posr, lo, hi, *st[1],
+                             disp.num_steps, disp.msteps, masks,
+                             disp.full, S, kpr)
+        assert torch.equal(st[0][0].cpu(), st[1][0].cpu())
+        assert torch.equal(st[0][3].cpu(), st[1][3].cpu())
+        _close(st[0][1], st[1][1])
+        _close(st[0][2], st[1][2])
+    assert int(st[1][3].sum()) > 0 and int((st[1][1] > 0).sum()) > 80
+
+
+def test_additive_finish_kernel(cuda, tmp_path):
+    """K3 pre with every run kept (cw = SW, no payloads) and post's
+    additive arm against the plain versions, on pass outputs and on
+    random extremes (over WOUT T1 taxa, over min(S, 256) multi taxa)."""
+    from kasa_tpu_torch.match import tiered as TI
+    from kasa_tpu_torch.match import turbo as PT
+    disp, q_np, R, kpr, S = _tier_chunks(tmp_path)
+    nk = 6
+    q = torch.from_numpy(q_np)
+    qr, vbr, posr, cuts = TI.tiered_route_plain(q, disp.chunk_limb0, 7, 12)
+    m = R * kpr
+    skey = torch.full((m + 1, nk), TI.SENT, dtype=torch.int32)
+    sflat, cflat = torch.zeros(R * S + 1), torch.zeros(nk * S + 1)
+    big = torch.zeros(R + 1, dtype=torch.int32)
+    ends = cuts.tolist()[1:] + [m]
+    for ci in range(len(disp.chunks)):
+        with np.load(disp._chunk_file(ci)) as z:
+            tabs = tuple(torch.from_numpy(z[f]) for f in TI.TIERED_FIELDS)
+        TI.tiered_pass_plain(tabs, disp.weights, qr, vbr, posr,
+                             int(cuts[ci]), ends[ci], skey, sflat, cflat,
+                             big, disp.num_steps, disp.msteps, disp.masks,
+                             disp.full, S, kpr)
+    rng = np.random.default_rng(3)
+    S2, R2 = 600, 48
+    t1 = np.arange((R2 * kpr + 1) * nk).reshape(-1, nk) % S2
+    hit = rng.random(t1.shape) < 0.3
+    sk2 = np.where(hit, t1 * 8 + np.arange(nk), PT.SENT).astype(np.int32)
+    dens = np.where(np.arange(R2) % 5 == 0, 0.6, 0.05)
+    sf2 = np.where(rng.random((R2, S2)) < dens[:, None],
+                   rng.random((R2, S2)), 0.0).astype(np.float32)
+    cases = [(skey, sflat, cflat, big, R, S),
+             (torch.from_numpy(sk2),
+              torch.from_numpy(np.r_[sf2.reshape(-1), 0].astype(np.float32)),
+              torch.from_numpy(rng.random(nk * S2 + 1).astype(np.float32)),
+              torch.from_numpy((rng.random(R2 + 1) < 0.2).astype(np.int32)),
+              R2, S2)]
+    w = disp.weights.to(cuda)
+    for sk, sf, cf, bg, RR, SS in cases:
+        sk, sf, cf, bg = (x.to(cuda) for x in (sk, sf, cf, bg))
+        SW = kpr * nk
+        pre = PT.turbo_reads_pre(sk[:RR * kpr].view(RR, SW), None, cw=SW)
+        pre2 = PT.turbo_reads_pre_plain(sk[:RR * kpr].view(RR, SW), None,
+                                        cw=SW)
+        assert pre[3] is None and pre[4] is None
+        for a, b in zip(pre[:3], pre2[:3]):
+            assert torch.equal(a.cpu(), b.cpu())
+        accs = [(torch.ones((nk, SS), device=cuda),
+                 torch.ones((nk, SS), dtype=torch.int32, device=cuda))
+                for _ in range(2)]
+        cap = 4 * RR
+        p1 = TI.tiered_finish(sk, sf, cf, bg, w, *accs[0], RR, kpr, cap)
+        ck, cc = pre2[0], pre2[1]
+        p2 = PT.turbo_reads_post_plain(
+            ck, cc, bg[:RR] > 0, sf[:RR * SS].view(RR, SS), w, *accs[1],
+            torch.zeros(2, dtype=torch.int32, device=cuda), cap,
+            wm=min(SS, 256), additive=True, cadd=cf[:nk * SS])
+        ints = torch.ones(p1[0].numel(), dtype=torch.bool)
+        ints[2 * RR + 1:2 * RR + 2 * cap:2] = False
+        assert torch.equal(p1[0].cpu()[ints], p2[0].cpu()[ints])
+        assert torch.equal(p1[1].cpu(), p2[1].cpu())
+        _close(p1[2], p2[2])
+        _close(p1[0].cpu()[~ints].view(torch.float32),
+               p2[0].cpu()[~ints].view(torch.float32))
+        assert torch.equal(accs[0][1].cpu(), accs[1][1].cpu())
+        _close(accs[0][0], accs[1][0])
+        flags = p2[0][RR:2 * RR].cpu()
+        assert bool((flags & 2).any())

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """On-card smoke run of kasa_tpu_torch: the port's identify on one
-NVIDIA GPU, through its eight CUDA kernels, checked against references.
+NVIDIA GPU, through its nine CUDA kernels, checked against references.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -21,6 +21,19 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
            (tests/golden/reads_identify.json, reads_profile.csv) under
            the contract: same hit taxa, k-mer scores within rtol 2e-5 /
            atol 1e-4, identical unique counts; every kernel launched;
+  golden-classic  the classic engine (K1, K9; K5 under -e) on the golden
+           fixtures, each call on the card and then with device="cpu"
+           (the plain versions, which the CPU tests hold to kasa_tpu),
+           held together under the contract with every hit written:
+           tests/golden/exampleIndex128 at -k 25 12 (14 levels: default,
+           --six, --one, -e, fasta, gz, and paired reads through the
+           per-batch engine), exampleIndex at -k 12 4 and under
+           KASA_TPU_NO_TURBO, --coherence (also against
+           tests/golden/reads_coh.json), -j (on exampleIndex and on its
+           sloppy-reduced twin, which the reduced windows hit), reads
+           above MAXLEN_CAP (per-batch engine) and an empty input (the
+           format check refuses it, as in kasa_tpu); the classic runs
+           launch no turbo or tiered kernel;
   golden-flags  the same for --six, --one, -e, paired-end, -z (protIndex),
            a halved index, --filter (split files byte-identical) and
            identify_multiple on fixtures/multi, each with its kernels'
@@ -51,6 +64,15 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
            the port never uses; the new arms (K1 one-frame and protein,
            the per-file counts of K3 and K4) against their plain
            versions too, and the whole batch step timed per mode;
+  classic-vs-turbo  the default corpus at k 7..12 (after the full
+           phases) and the 128-bit corpus at k 20..25 (after the wide
+           phase) under KASA_TPU_NO_TURBO, the 65,536 smoke reads with
+           every hit written, held to the turbo run of the same reads:
+           hit taxa and unique counts identical, all-counts within rtol
+           2e-5 / atol 2e-3; K9 on a real batch of the default run and
+           K1's sloppy arm on a batch of the default reads against their
+           plain versions, timed, with torch.searchsorted over the 60-bit
+           keys as K9's yardstick;
   sparse   the 10,001-species corpus (~80 M entries, no hot tier: the
            sparse fold): tables, a warm-up, 65,536 reads through identify
            (K6 launched on every batch, beside K4's counts-only arm and
@@ -65,6 +87,15 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
            default and --six -e, with the same prints and sample checks;
            then the five-limb arms of K1, K2 and K5 against their plain
            versions on real batches, timed;
+  classic  the 128-bit corpus at -k 25 12 (all 14 levels) through the
+           classic engine: tables (host build seconds), a warm-up, the
+           65,536 smoke reads default and -e, and 32,768 read pairs
+           through the per-batch engine; reads/s, host stages, peak
+           device memory, the step per batch; K9 on a real batch of the
+           fused path (uniform layout) against its plain version, timed;
+           then the pairs run's batch as the per-batch engine builds it:
+           K1 on its (1, n) line buffer and K9 in the scatter layout
+           (S = 2,048 > 512), each against its plain version, timed;
   tiered   the beyond-resident path under KASA_DEVICE_BUDGET = 256 MiB
            (chunks of 8,388,608 entries): the default corpus's 65,536
            reads (2 batches of 32,768), default and --six -e, and the
@@ -361,6 +392,494 @@ def phase_golden_flags():
     log(f"golden-flags protein hits: {len(got)} seeded protein reads, "
         f"{hits} hits, agree with the port's CPU run under the contract; "
         f"launches {counts}")
+
+
+# ---------------------------------------------------------------------------
+# the classic engine (K9), where the turbo structure declines
+
+CLASSIC_KERNELS = ("encode", "classic_classify")
+TURBO_ONLY = ("turbo_match", "turbo_reads", "turbo_multi", "sparse_fold",
+              "tiered_route", "tiered_pass")
+K128 = {"lower_k": 12, "higher_k": 25}
+
+
+def expect_classic(tag, counts, extra=()):
+    """The run launched K1 and K9 (and `extra`), and no turbo or tiered
+    kernel."""
+    expect_launched(tag, counts, CLASSIC_KERNELS + tuple(extra))
+    bad = {k: counts[k] for k in TURBO_ONLY if counts[k]}
+    if bad:
+        fail(f"{tag}: a classic run launched turbo kernels {bad}")
+
+
+def reduced_index(directory):
+    """tests/golden/exampleIndex with its k-mers folded by the sloppy
+    reduction (deduplicated, beside the golden frequency and content
+    files): the index -j reads hit."""
+    import shutil
+    import numpy as np
+    import torch
+    from kasa_tpu_torch.core.encode import aas_code_lut, sloppy_reduce_plain
+    from kasa_tpu_torch.index import artifacts as A
+    gold = os.path.join(HERE, "tests", "golden")
+    limbs, taxids, _, _ = A.read_index(os.path.join(gold, "exampleIndex"))
+    red = sloppy_reduce_plain(torch.from_numpy(limbs),
+                              torch.from_numpy(aas_code_lut())).numpy()
+    order = np.lexsort((taxids, red[:, 1], red[:, 0]))
+    red, taxids = red[order], taxids[order]
+    keep = np.ones(len(taxids), bool)
+    keep[1:] = np.any(red[1:] != red[:-1], axis=1) \
+        | (taxids[1:] != taxids[:-1])
+    out = os.path.join(directory, "reducedIndex")
+    A.write_index(out, red[keep], taxids[keep], 12)
+    A.write_trie(out, *A.trie_from_sorted_prefixes(red[keep][:, 0]))
+    shutil.copy(os.path.join(gold, "exampleIndex_f.txt"), out + "_f.txt")
+    return out
+
+
+def giant_reads(path):
+    """fixtures/example.fasta's genomes joined into two reads above
+    MAXLEN_CAP (70-character lines) and one short read."""
+    from kasa_tpu_torch.host.fastx import iter_records
+    seqs = [r.seq for r in iter_records(os.path.join(HERE, "fixtures",
+                                                     "example.fasta"))]
+    reads = ["".join(seqs[:4]), "".join(seqs[4:]), seqs[0][:150]]
+    with open(path, "w") as fh:
+        for i, r in enumerate(reads):
+            fh.write(f">g{i}\n" + "".join(r[j:j + 70] + "\n"
+                                         for j in range(0, len(r), 70)))
+    return path
+
+
+def phase_golden_classic():
+    """Every route to the classic engine on the golden fixtures: the
+    card's run against the port's CPU run (every hit written), the
+    --coherence run also against the reference binary's output.
+    -> launches of the -j run (the sloppy arm's main-path run)."""
+    import torch
+    from kasa_tpu_torch import kernels
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.match.pipeline import identify
+    gold = os.path.join(HERE, "tests", "golden")
+    fix = os.path.join(HERE, "fixtures")
+    rq = os.path.join(fix, "reads.fastq")
+    paired = {"paired_end_1": os.path.join(fix, "reads_1.fastq"),
+              "paired_end_2": os.path.join(fix, "reads_2.fastq")}
+    red = reduced_index(OUT)
+    cases = (
+        ("128 k25-12", "exampleIndex128", rq, K128, (), None),
+        ("128 --six", "exampleIndex128", rq, dict(K128, six_frames=True),
+         (), None),
+        ("128 --one", "exampleIndex128", rq, dict(K128, one_frame=True),
+         (), None),
+        ("128 -e", "exampleIndex128", rq, dict(K128, unique=True),
+         ("dedup",), None),
+        ("128 fasta", "exampleIndex128", os.path.join(fix, "reads.fasta"),
+         K128, (), None),
+        ("128 gz", "exampleIndex128", os.path.join(fix, "reads.fastq.gz"),
+         K128, (), None),
+        ("128 paired", "exampleIndex128", "", dict(K128, **paired), (),
+         None),
+        ("k12-4", "exampleIndex", rq, {"lower_k": 4}, (), None),
+        ("no-turbo", "exampleIndex", rq, {}, (), "KASA_TPU_NO_TURBO"),
+        ("no-turbo -e", "exampleIndex", rq, {"unique": True}, ("dedup",),
+         "KASA_TPU_NO_TURBO"),
+        ("coherence", "exampleIndex", rq, {"post_process": True}, (), None),
+        ("-j", "exampleIndex", rq, {"sloppy": True}, (), None),
+        ("-j reduced", red, rq, {"sloppy": True}, (), None),
+        ("giant reads", "exampleIndex",
+         giant_reads(os.path.join(OUT, "giant.fasta")), {}, (), None),
+    )
+    launched = {}
+    for tag, index, inp, over, extra, env in cases:
+        outs = {}
+        for dev in (DEVICE, "cpu"):
+            cfg = Config()
+            cfg.content_file = os.path.join(gold, "exampleIndex_content.txt")
+            cfg.num_of_beasts = ALL_HITS
+            for k, v in over.items():
+                setattr(cfg, k, v)
+            stem = os.path.join(OUT, "gc_" + tag.replace(" ", "_")
+                                .replace("-", "") + f"_{dev}")
+            if env:
+                os.environ[env] = "1"
+            kernels.reset_counts()
+            try:
+                identify(cfg, index_path=os.path.join(gold, index),
+                         input_path=inp, out_file=stem + ".json",
+                         profile_file=stem + ".csv", device=dev)
+            finally:
+                os.environ.pop(env or "", None)
+            if dev == DEVICE:
+                torch.cuda.synchronize()
+                launched[tag] = dict(kernels.COUNTS)
+                expect_classic(tag, launched[tag], extra)
+            outs[dev] = (json.load(open(stem + ".json")),
+                         open(stem + ".csv").read())
+        num_k = over.get("higher_k", 12) - over.get("lower_k", 7) + 1
+        assert_identify_agrees(outs["cpu"][0], outs[DEVICE][0],
+                               outs["cpu"][1], outs[DEVICE][1], num_k)
+        hits = sum(1 for r in outs[DEVICE][0] if r["Top hits"])
+        if (hits == 0) != (tag == "-j"):
+            fail(f"golden-classic {tag}: {hits} reads with hits")
+    # --coherence against the reference binary (its three hits per read)
+    cfg = Config()
+    cfg.content_file = os.path.join(gold, "exampleIndex_content.txt")
+    cfg.post_process = True
+    out_j = os.path.join(OUT, "gc_coherence_golden.json")
+    out_p = os.path.join(OUT, "gc_coherence_golden.csv")
+    identify(cfg, index_path=os.path.join(gold, "exampleIndex"),
+             input_path=rq, out_file=out_j, profile_file=out_p,
+             device=DEVICE)
+    ref = json.load(open(os.path.join(gold, "reads_coh.json")))
+    got = json.load(open(out_j))
+    assert_identify_agrees(ref, got,
+                           open(os.path.join(gold,
+                                             "reads_coh_profile.csv")).read(),
+                           open(out_p).read(), 6)
+    for a, b in zip(ref, got):
+        if [h.get("Coherence") for h in a["Top hits"]] != \
+                [h.get("Coherence") for h in b["Top hits"]]:
+            fail(f"coherence: read {a['Read number']}: coherence differs "
+                 "from tests/golden/reads_coh.json")
+    # an empty input: refused by the format check in both packages
+    empty = os.path.join(OUT, "empty.fastq")
+    open(empty, "w").close()
+    try:
+        identify(Config(), index_path=os.path.join(gold, "exampleIndex"),
+                 input_path=empty, out_file=os.path.join(OUT, "e.json"),
+                 device=DEVICE)
+        fail("an empty input was not refused")
+    except ValueError as e:
+        if "does not start with" not in str(e):
+            raise
+    log("golden-classic: " + ", ".join(launched) + " agree with the port's "
+        "CPU runs under the contract (every hit written); --coherence "
+        "agrees with tests/golden/reads_coh.json; an empty input is "
+        "refused by the format check; launches "
+        + json.dumps({t: {k: v for k, v in c.items() if v}
+                      for t, c in launched.items()}))
+    return launched["-j reduced"]
+
+
+def span_sectors(start, width):
+    """The 32-byte sector ids that reads of `width` bytes (at most 32; an
+    int or a tensor) at byte offsets `start` touch."""
+    a = start.long().reshape(-1)
+    return __import__("torch").cat([a // 32, (a + width - 1) // 32])
+
+
+def classic_bytes(t, q, read_ids, valid, R):
+    """Least bytes K9 moves on this batch: the flags once, the valid
+    windows, the read ids of the windows it classifies (scatter layout),
+    the prefix entries, the distinct sectors of the index that its reads
+    touch (limb 0 at each limb-0 bisect midpoint and at the run start,
+    limbs 1.. up to the first differing limb at each run-bisect midpoint,
+    the full rows at pos and pos - 1) and of run_end, the grp_id,
+    grp_start and d_tax cells of the matched groups, the masks and
+    weights, and the outputs once (the (R, S) score rows, the two count
+    tables)."""
+    import torch
+    from kasa_tpu_torch.match.device import _valid_levels
+    n, L, nk, S = t.n, q.shape[1], t.num_k, t.num_species
+    dev = q.device
+    vi = torch.nonzero(valid)[:, 0]
+    kv_all = _valid_levels(q[vi], t.min_k, t.max_k)
+    act = kv_all >= t.min_k
+    ai, qa, kv = vi[act], q[vi][act], kv_all[act]
+    row_b = 4 * L
+    b = (qa[:, 0] >> 10).long()
+    lo, hi = t.prefix_tbl[b].long(), t.prefix_tbl[b + 1].long()
+    idx_sec = []
+
+    def touch(sectors):
+        # keep the distinct sectors only: a batch of ~10 M windows reads
+        # billions of bytes of midpoints
+        idx_sec.append(sectors)
+        if len(idx_sec) > 4:
+            idx_sec[:] = [torch.unique(torch.cat(idx_sec))]
+    while bool((lo < hi).any()):
+        o = lo < hi
+        mid = (lo + hi) >> 1
+        touch(span_sectors(mid[o] * row_b, 4))
+        less = t.idx_limbs[mid.clamp(max=n - 1), 0] < qa[:, 0]
+        lo = torch.where(o & less, mid + 1, lo)
+        hi = torch.where(o & ~less, mid, hi)
+    touch(span_sectors(lo[lo < n] * row_b, 4))
+    present = (lo < n) & (t.idx_limbs[lo.clamp(max=n - 1), 0] == qa[:, 0])
+    runs = lo[present]
+    hi = torch.where(present, t.run_end[lo.clamp(max=n - 1)].long(), lo)
+    while bool((lo < hi).any()):
+        o = lo < hi
+        mid = (lo + hi) >> 1
+        row = t.idx_limbs[mid.clamp(max=n - 1)]
+        less = torch.zeros_like(o)
+        dec = torch.zeros_like(o)
+        width = torch.zeros_like(mid)
+        for i in range(1, L):
+            width += (~dec).long() * 4
+            less |= ~dec & (row[:, i] < qa[:, i])
+            dec |= row[:, i] != qa[:, i]
+        touch(span_sectors(mid[o] * row_b + 4, width[o]))
+        lo = torch.where(o & less, mid + 1, lo)
+        hi = torch.where(o & ~less, mid, hi)
+    pos = lo
+    touch(span_sectors(pos[pos < n] * row_b, row_b))
+    touch(span_sectors((pos - 1)[pos > 0] * row_b, row_b))
+    at = t.idx_limbs[pos.clamp(max=n - 1)]
+    pr = t.idx_limbs[(pos - 1).clamp(min=0)]
+    gid, gst, dtx = [], [], []
+    for ki in range(nk):
+        m = t.masks[ki]
+        qm = qa & m
+        e_at = (pos < n) & ((at & m) == qm).all(1)
+        e_pr = (pos > 0) & ((pr & m) == qm).all(1)
+        ok = (e_at | e_pr) & (kv >= t.max_k - ki)
+        e = torch.where(e_at, pos, pos - 1)[ok]
+        g = t.grp_id[ki][e].long()
+        ts = t.grp_start[ki][g].long()
+        T = t.grp_start[ki][g + 1].long() - ts
+        gid.append(torch.unique(ki * n + e))
+        gst.append(torch.unique(ki * t.grp_start.shape[1]
+                                + torch.cat([g, g + 1])))
+        rep = torch.repeat_interleave(torch.arange(len(T), device=dev), T)
+        j = torch.arange(len(rep), device=dev) - (torch.cumsum(T, 0) - T)[rep]
+        dtx.append(torch.unique(ki * t.d_tax.shape[1] + ts[rep] + j))
+    cat = torch.cat
+    return (q.shape[0] + sector_bytes(vi, row_b)
+            + (sector_bytes(ai, 4) if read_ids is not None else 0)
+            + sector_bytes(cat([b, b + 1]), 4)
+            + 32 * int(torch.unique(cat(idx_sec)).numel())
+            + sector_bytes(runs, 4) + sector_bytes(cat(gid), 4)
+            + sector_bytes(cat(gst), 4) + sector_bytes(cat(dtx), 4)
+            + nk * (L + 1) * 4 + R * S * 4 + 2 * nk * S * 4 + 4)
+
+
+def k9_against_plain(tables, q, read_ids, valid, R, kpr, suffix, what):
+    """K9 on one batch against its plain version (hit cells, unique
+    counts and tail_pairs identical, floats within the contract), then
+    both timed.  -> (max abs err, ms, plain ms)."""
+    import torch
+    from kasa_tpu_torch.match import device as D
+    from kasa_tpu_torch.match.engine import CAP
+
+    def k9():
+        return D.classify_batch(tables, q, read_ids, valid, R, CAP, kpr)
+
+    def plain():
+        return D.classify_batch_plain(tables, q, read_ids, valid, R, CAP,
+                                      kpr)
+    got, want = k9(), plain()
+    same(f"classic_classify{suffix}.hit_cells", got[0] > 0, want[0] > 0)
+    same(f"classic_classify{suffix}.counts_unique", got[2], want[2])
+    if int(got[3]) != want[3]:
+        fail(f"classic_classify{suffix}: tail_pairs {int(got[3])} vs "
+             f"{want[3]}")
+    err = max(close(f"classic_classify{suffix}.scores", got[0], want[0]),
+              close(f"classic_classify{suffix}.counts_all", got[1], want[1]))
+    torch.cuda.synchronize()
+    log(f"kernels classic: classic_classify agrees with its plain version "
+        f"on a {R}-read batch of the {what} (M={q.shape[0]:,} windows, "
+        f"{int(valid.sum()):,} valid, L={q.shape[1]}, {tables.num_k} "
+        f"levels, n={tables.n:,}, S={tables.num_species}, hit cells "
+        f"{int((want[0] > 0).sum()):,}, tail_pairs {want[3]:,})")
+    return err, time_ms(k9, 10), time_ms(plain, 3)
+
+
+def phase_kernels_classic(tables, mat, R, w, launches, tag, suffix,
+                          sloppy_launches=None):
+    """K9 on a real batch (the windows K1 gives it in the fused path)
+    against its plain version, timed, with its bound; at L = 2 the
+    yardstick torch.searchsorted over the packed 60-bit keys.  With
+    sloppy_launches, K1's sloppy arm on the same batch too.  -> (kernel
+    entries, step ms of fused_classify)."""
+    import numpy as np
+    import torch
+    from kasa_tpu_torch.core import encode as E
+    from kasa_tpu_torch.core.alphabet import build_codon_code_lut
+    from kasa_tpu_torch.match.fast import fused_classify
+    dev = torch.device(DEVICE)
+    hk = tables.highest_k
+    lut = torch.from_numpy(build_codon_code_lut().astype(np.int32)).to(dev)
+    mat_d = torch.from_numpy(mat).to(dev)
+    q = E.encode_windows(mat_d, lut, w, highest_k=hk)
+    valid = torch.ones(q.shape[0], dtype=torch.bool, device=dev)
+    err, ms, plain_ms = k9_against_plain(tables, q, None, valid, R, w,
+                                         suffix, f"{tag} run (uniform layout)")
+    lib_ms = None
+    if q.shape[1] == 2:
+        keys64 = (tables.idx_limbs[:, 0].long() << 30) \
+            | tables.idx_limbs[:, 1].long()
+        q64 = (q[:, 0].long() << 30) | q[:, 1].long()
+        lib_ms = time_ms(lambda: torch.searchsorted(keys64, q64), 20)
+    step_ms = time_ms(lambda: fused_classify(tables, mat_d, lut, R, w), 10)
+    log(f"step: fused_classify {step_ms:.4f} ms per {R}-read batch of the "
+        f"{tag} run (K1, K9, the zeroed score rows)")
+    out = [kernel_entry(
+        f"classic_classify{suffix}", "kasa_tpu_torch/csrc/classic_classify.cu",
+        "kasa_tpu/match/device.py:156", launches["classic_classify"], err,
+        ms, plain_ms, classic_bytes(tables, q, None, valid, R), lib_ms,
+        "torch.searchsorted over the 60-bit keys")]
+    if sloppy_launches is not None:
+        aas = torch.from_numpy(E.aas_code_lut()).to(dev)
+        qs = E.encode_windows(mat_d, lut, w, aas_lut=aas)
+        same("encode.sloppy", qs, E.sloppy_reduce_plain(
+            E.encode_windows_plain(mat_d, lut, w), aas))
+        ms_s = time_ms(lambda: E.encode_windows(mat_d, lut, w, aas_lut=aas),
+                       20)
+        plain_s = time_ms(lambda: E.sloppy_reduce_plain(
+            E.encode_windows_plain(mat_d, lut, w), aas), 5)
+        out.append(kernel_entry(
+            "encode.sloppy", "kasa_tpu_torch/csrc/encode.cu",
+            "kasa_tpu/core/encode.py:103", sloppy_launches["encode"], 0.0,
+            ms_s, plain_s, R * mat.shape[1] + 4 * 1024 + qs.numel() * 4,
+            None))
+    return out, step_ms
+
+
+def phase_kernels_per_batch(tables, pairs, launches):
+    """The per-batch engine's first batch of the classic pairs run, built
+    as _identify_per_batch builds it: K1 on the (1, n) line buffer
+    against its plain version, then K9 in the layout TpuEngine gives the
+    batch (the scatter layout: S > DENSE_MAX_S) against its plain
+    version, each timed.  -> kernel entries."""
+    import numpy as np
+    import torch
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.core import encode as E
+    from kasa_tpu_torch.match import engine as EN
+    from kasa_tpu_torch.match import ingest
+    from kasa_tpu_torch.match.pipeline import encode_batch
+    cfg = Config()
+    for k, v in K128.items():
+        setattr(cfg, k, v)
+    hk = tables.highest_k
+    builder = ingest.BatchBuilder(hk, cfg.lower_k, protein=False,
+                                  six_frames=cfg.six_frames,
+                                  one_frame=cfg.one_frame)
+    batch = next(iter(ingest.read_paired_batches(
+        pairs[0], pairs[1], builder,
+        max_kmers_per_batch=max(int(cfg.memory_avail) // 64, 1 << 16))))
+    encoder = E.Encoder(codon_code_lut=E.custom_code_lut(cfg),
+                        device=DEVICE)
+    # K1 on the flat buffer
+    buf = np.ascontiguousarray(np.concatenate(batch.buffers), np.uint8)
+    row = torch.from_numpy(buf.reshape(1, -1)).to(DEVICE)
+    w = len(buf) - 3 * hk + 1
+    q1 = E.encode_windows(row, encoder.lut, w, highest_k=hk)
+    err1 = same("encode.flat", q1,
+                E.encode_windows_plain(row, encoder.lut, w, highest_k=hk))
+    ms1 = time_ms(lambda: E.encode_windows(row, encoder.lut, w,
+                                           highest_k=hk), 10)
+    plain1 = time_ms(lambda: E.encode_windows_plain(row, encoder.lut, w,
+                                                    highest_k=hk), 3)
+    log(f"kernels per-batch: encode agrees with its plain version on the "
+        f"(1, {len(buf):,}) line buffer of the pairs run's batch "
+        f"({w:,} windows, L={q1.shape[1]})")
+    # K9 in the engine's layout
+    R = batch.num_reads
+    q_limbs, read_ids = encode_batch(batch, encoder, hk, False,
+                                     cfg.one_frame)
+    q, r, v, kpr = EN.layout(q_limbs, read_ids, R, tables.num_species)
+    if r is None:
+        fail("per-batch: the pairs batch took the uniform layout, "
+             "expected the scatter layout")
+    q, r, v = (torch.from_numpy(a).to(DEVICE) for a in (q, r, v))
+    err9, ms9, plain9 = k9_against_plain(
+        tables, q, r, v, R, kpr, ".scatter",
+        "classic pairs run (per-batch engine, scatter layout)")
+    return [kernel_entry(
+        "encode.flat", "kasa_tpu_torch/csrc/encode.cu",
+        "kasa_tpu/core/encode.py:70", launches["encode"], err1, ms1, plain1,
+        len(buf) + q1.numel() * 4, None),
+        kernel_entry(
+        "classic_classify.scatter", "kasa_tpu_torch/csrc/classic_classify.cu",
+        "kasa_tpu/match/device.py:156", launches["classic_classify"], err9,
+        ms9, plain9, classic_bytes(tables, q, r, v, R), None)]
+
+
+def classic_vs_turbo(tag, index, reads, over, n_reads):
+    """The turbo run and the KASA_TPU_NO_TURBO classic run of the same
+    reads, every hit written: hit taxa and unique counts identical,
+    all-counts within rtol 2e-5 / atol 2e-3.  -> (classic launches, info,
+    classic tables)."""
+    from kasa_tpu_torch.match import fast
+    corpus = {"index": index}
+    over = dict(over, num_of_beasts=ALL_HITS)
+    stem = tag.replace(" ", "_").replace("-", "")
+    outs = {}
+    for kind in ("turbo", "classic"):
+        if kind == "classic":
+            os.environ["KASA_TPU_NO_TURBO"] = "1"
+        try:
+            j = os.path.join(OUT, f"{stem}_{kind}.json")
+            res, launches, info = drive(
+                f"{tag} ({kind})", reads, j, None,
+                PATH_KERNELS if kind == "turbo" else CLASSIC_KERNELS,
+                over=over, corpus=corpus)
+        finally:
+            os.environ.pop("KASA_TPU_NO_TURBO", None)
+        with open(j) as fh:
+            outs[kind] = (res, json.load(fh))
+        os.remove(j)
+    expect_classic(tag, launches)
+    if res[2] != n_reads:
+        fail(f"{tag}: {res[2]} reads identified, expected {n_reads}")
+    tiered_agree(f"{tag} classic", outs["turbo"], outs["classic"], RTOL,
+                 ATOL)
+    return launches, info, fast.LAST_DISPATCH
+
+
+def phase_classic(corpus):
+    """The 128-bit corpus at -k 25 12, all 14 levels, through the classic
+    engine: the smoke reads default and -e (fused path), 32,768 pairs
+    (per-batch engine).  -> (launches, infos, tables)."""
+    import numpy as np
+    import torch
+    from kasa_tpu_torch import synth
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.match import fast
+    from kasa_tpu_torch.match.pipeline import identify
+    from kasa_tpu_torch.utils import timers
+    wide = synth.generate_wide(log=log)
+    timers.reset()
+    t0 = time.perf_counter()
+    cfg = Config()
+    for k, v in K128.items():
+        setattr(cfg, k, v)
+    identify(cfg, index_path=wide["index"], input_path=corpus["warm"],
+             out_file=os.path.join(OUT, "classic_warm.json"),
+             profile_file=None, device=DEVICE)
+    torch.cuda.synchronize()
+    tables = fast.LAST_DISPATCH
+    tstages = {k: round(v, 3) for k, v in timers.report(lambda *_: None)
+               .items() if k.startswith("classic/")}
+    tbytes = sum(getattr(tables, f).numel() * 4 for f in
+                 ("idx_limbs", "grp_id", "grp_start", "d_tax", "run_end",
+                  "prefix_tbl"))
+    log(f"classic: tables (n={tables.n:,}, L={tables.idx_limbs.shape[1]}, "
+        f"{tables.num_k} levels, {tbytes / 2**30:.3f} GiB on the device) + "
+        f"{synth.WARM_READS}-read warm-up run {time.perf_counter() - t0:.1f}"
+        f" s; table stages {tstages}")
+    infos, launches = {}, {}
+    for tag, extra, expect, inp in (
+            ("classic", {}, (), corpus["smoke"]),
+            ("classic -e", {"unique": True}, ("dedup",), corpus["smoke"]),
+            ("classic pairs", {"paired_end_1": corpus["pairs"][0],
+                               "paired_end_2": corpus["pairs"][1]}, (),
+             "")):
+        stem = tag.replace(" ", "_").replace("-", "")
+        (ca, cu, nreads, _), launches[tag], infos[tag] = drive(
+            tag, inp, os.path.join(OUT, f"{stem}.json"),
+            os.path.join(OUT, f"{stem}.csv"), CLASSIC_KERNELS + expect,
+            over=dict(K128, **extra), corpus=wide,
+            unit="pairs" if "pairs" in tag else "reads")
+        expect_classic(tag, launches[tag], expect)
+        want = synth.SMOKE_READS // (2 if "pairs" in tag else 1)
+        if nreads != want or not np.isfinite(ca).all() or cu.sum() <= 0:
+            fail(f"{tag}: wrong read count or empty / non-finite counts")
+    infos["tables"] = tstages
+    return launches, infos, tables
 
 
 def phase_corpus():
@@ -1459,20 +1978,23 @@ ALL_HITS = 100_000      # -b: write every hit (reads tie at the third best)
 def forget_tables():
     """Free the resident tables of the last run on the card."""
     import torch
+    from kasa_tpu_torch.match import device as D
     from kasa_tpu_torch.match import fast
     from kasa_tpu_torch.match import turbo as T
     T._TT_RAM_CACHE.clear()
+    D._ST_RAM_CACHE.clear()
     fast.LAST_DISPATCH = None
     torch.cuda.empty_cache()
 
 
-def tiered_agree(tag, ref, got):
+def tiered_agree(tag, ref, got, srtol=2e-4, satol=2e-4):
     """The tiered run against the resident run of the same reads: unique
     counts identical, all-counts within rtol 2e-5 / atol 2e-3 (the level
     the CPU tests and the identify_multiple phase hold them to: both runs
     sum thousands of float32 adds per (k, taxon) cell, in another order),
     every read's taxa identical, scores within rtol 2e-4 (kasa_tpu's own
-    tiered contract, tests/test_tiered.py:117-131)."""
+    tiered contract, tests/test_tiered.py:117-131; the classic runs are
+    held to the contract's 2e-5 / 1e-4)."""
     import numpy as np
     (ra, ja), (rb, jb) = ref, got
     if ra[2:] != rb[2:]:
@@ -1499,7 +2021,7 @@ def tiered_agree(tag, ref, got):
             fail(f"{tag}: read {x['Read number']}: taxa differ from the "
                  "resident run's")
         for t, v in hx.items():
-            if abs(hy[t] - v) > 2e-4 * abs(v) + 2e-4:
+            if abs(hy[t] - v) > srtol * abs(v) + satol:
                 fail(f"{tag}: read {x['Read number']} taxon {t}: score "
                      f"{hy[t]} vs {v}")
             worst = max(worst, abs(hy[t] - v))
@@ -1823,9 +2345,12 @@ def phase_kernels_tiered(disp, mat, R, w, lpr, unique, launches, tag,
 
 def run(preps, smi, t_all):
     import torch
+    from kasa_tpu_torch import synth
     phase_build()
     phase_golden()
     phase_golden_flags()
+    launches_j = phase_golden_classic()
+    forget_tables()
     wait_prep(preps, t_all, ("default",))
     corpus = phase_corpus()
     disp, launches, info, single_counts = phase_full(corpus)
@@ -1839,9 +2364,18 @@ def run(preps, smi, t_all):
                                               launches_f["six_e"])
     kern.append(k5)
     budgets = phase_budgets(disp, corpus, R)
+    # the classic engine against the turbo run of the same reads (the
+    # turbo tables are still on the card), then K9 and the sloppy arm
+    cvt = {}
+    launches_c, cvt["default"], ctab = classic_vs_turbo(
+        "classic-vs-turbo default", corpus["index"], corpus["smoke"], {},
+        synth.SMOKE_READS)
+    k_cl, steps["classic_default"] = phase_kernels_classic(
+        ctab, mat, R, w, launches_c, "default k 7..12", "", launches_j)
+    kern += k_cl
     # one index on the card at a time: the next run's peak memory is its
     # own tables and batches
-    del disp
+    del disp, ctab
     forget_tables()
     wait_prep(preps, t_all, ("bigS",))
     disp_s, big, launches_s, info_s, info_sm = phase_sparse()
@@ -1855,7 +2389,19 @@ def run(preps, smi, t_all):
         disp_w, corpus, launches_w["wide"], launches_w["wide --six -e"])
     steps.update(steps_w)
     kern += k_sparse + k_wide
+    _, cvt["wide"], _ = classic_vs_turbo(
+        "classic-vs-turbo wide", synth.generate_wide(log=log)["index"],
+        corpus["smoke"], {"lower_k": 20, "higher_k": 25}, synth.SMOKE_READS)
     del disp_w
+    forget_tables()
+    # the classic engine at full width: the 128-bit corpus over 14 levels
+    launches_cl, infos_cl, ctab = phase_classic(corpus)
+    mat5, _, w5, _ = real_batch(corpus, highest_k=25, min_k=12)
+    k_cl5, steps["classic"] = phase_kernels_classic(
+        ctab, mat5, R, w5, launches_cl["classic"], "128-bit k 12..25", ".L5")
+    kern += k_cl5 + phase_kernels_per_batch(ctab, corpus["pairs"],
+                                            launches_cl["classic pairs"])
+    del ctab
     forget_tables()
     # the tiered path: the runs, then each kernel on a batch of each run
     runs = phase_tiered(corpus, big)
@@ -1888,7 +2434,10 @@ def run(preps, smi, t_all):
                          ("sparse multi", info_sm, steps["sparse"]),
                          ("wide", infos_w["wide"], steps["wide"]),
                          ("wide --six -e", infos_w["wide --six -e"],
-                          steps["wide_six_e"])):
+                          steps["wide_six_e"]),
+                         ("classic-vs-turbo default (classic)",
+                          cvt["default"], steps["classic_default"]),
+                         ("classic", infos_cl["classic"], steps["classic"])):
         nb = -(-inf["reads"] // R)
         inf["busy_pct"] = 100.0 * ms * 1e-3 * nb / inf["seconds"]
         log(f"{tag}: the device is busy about {inf['busy_pct']:.2f} % of "
@@ -1906,6 +2455,8 @@ def run(preps, smi, t_all):
                    "launches_flags": launches_f, "sparse": info_s,
                    "sparse_multi": info_sm, "launches_sparse": launches_s,
                    "wide": infos_w, "launches_wide": launches_w,
+                   "classic_vs_turbo": cvt, "classic": infos_cl,
+                   "launches_classic": launches_cl,
                    "tiered": {t: r[1] for t, r in runs.items()},
                    "launches_tiered": {t: r[0] for t, r in runs.items()},
                    "tiered_kernel_ms": tiered_ms,

@@ -20,6 +20,12 @@ on its own.  A window is ``kmer.num_limbs(highestK)`` limbs: two at
 highestK = 12 (64-bit indices), five at 25 (128-bit indices).  ``encode_windows`` is the wrapper of kernel K1
 (csrc/encode.cu); ``encode_windows_plain`` is its plain PyTorch version.
 The numpy twins serve the host recompute of flagged reads.
+
+Sloppy mode (-j) folds the 12 letters of a 64-bit window into 6 through
+a 1,024-entry pair LUT (``sloppy_reduce``, K1's sloppy arm after the
+window encode).  ``Encoder`` encodes the flat line buffers of the
+per-batch engine (match/pipeline.py) through K1, or its plain version
+on the CPU.
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ import numpy as np
 import torch
 
 from . import kmer
-from .alphabet import build_codon_code_lut  # noqa: F401  (re-export)
+from ._aas_table import AAS_OOB_TAIL, AAS_TABLE
+from .alphabet import build_codon_code_lut
 
 BITS = kmer.BITS_PER_LETTER
 LPL = kmer.LETTERS_PER_LIMB
@@ -69,6 +76,41 @@ def encode_windows_np(aa_codes: np.ndarray, highest_k: int,
     return np.stack(limbs, axis=-1)
 
 
+def aas_code_lut() -> np.ndarray:
+    """1024-entry LUT of the sloppy pair reduction: index (code1 << 5) |
+    code2, value the reduced 5-bit code.  Entries 900..1023 reproduce the
+    reference binary's reads past its int8_t[900] table
+    (_aas_table.AAS_OOB_TAIL)."""
+    lut = np.zeros(1024, dtype=np.int32)
+    for i, ch in enumerate(AAS_TABLE):
+        lut[i] = ord(ch) & 31
+    for i, b in enumerate(AAS_OOB_TAIL):
+        lut[900 + i] = b & 31
+    return lut
+
+
+def sloppy_reduce_plain(limbs: torch.Tensor,
+                        aas_lut: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K1's sloppy arm (kasa_tpu
+    core/encode.py:103 sloppy_reduce, aminoAcidsToAminoAcid,
+    kASA.hpp:147-157): (M, 2) int32 windows of 12 letters -> (M, 2), the
+    letter pairs (0,1), (2,3), ... joined through the pair LUT into the
+    six letters of limb 0, limb 1 = 0."""
+    if limbs.dim() != 2 or limbs.shape[1] != 2:
+        raise ValueError("sloppy reduction takes (M, 2) windows of 12 "
+                         "letters (highestK 12)")
+    out0 = torch.zeros(limbs.shape[0], dtype=torch.int32,
+                       device=limbs.device)
+    for pair in range(6):
+        ia, ja = divmod(2 * pair, LPL)
+        ib, jb = divmod(2 * pair + 1, LPL)
+        ca = (limbs[:, ia] >> (BITS * (LPL - 1 - ja))) & 31
+        cb = (limbs[:, ib] >> (BITS * (LPL - 1 - jb))) & 31
+        red = aas_lut[((ca << 5) | cb).long()]
+        out0 |= red << (BITS * (LPL - 1 - pair))
+    return torch.stack([out0, torch.zeros_like(out0)], dim=1)
+
+
 def custom_code_lut(cfg) -> np.ndarray | None:
     """-a <gc.prt> <id>: the code-space LUT of a custom codon table, or
     None for the default alphabet (setCodonTable, kASA.hpp:579-615)."""
@@ -89,7 +131,8 @@ def window_span(protein: bool, one_frame: bool,
 
 
 def _check(byte_mat: torch.Tensor, lut: torch.Tensor, w: int,
-           protein: bool, one_frame: bool, highest_k: int) -> None:
+           protein: bool, one_frame: bool, highest_k: int,
+           aas_lut: torch.Tensor | None = None) -> None:
     if byte_mat.dtype != torch.uint8 or byte_mat.dim() != 2:
         raise ValueError("byte_mat must be a (rows, maxlen) uint8 tensor")
     if lut.dtype != torch.int32 or lut.dim() != 1:
@@ -100,19 +143,27 @@ def _check(byte_mat: torch.Tensor, lut: torch.Tensor, w: int,
     if w < 1 or (w - 1) * step + span > byte_mat.shape[1]:
         raise ValueError(f"w={w} windows do not fit rows of "
                          f"{byte_mat.shape[1]} characters")
+    if aas_lut is not None:
+        if highest_k != 12:
+            raise ValueError("-j folds windows of 12 letters: a 64-bit "
+                             "index (highestK 12) only")
+        if aas_lut.dtype != torch.int32 or tuple(aas_lut.shape) != (1024,):
+            raise ValueError("aas_lut must be a (1024,) int32 tensor")
 
 
 def encode_windows_plain(byte_mat: torch.Tensor, lut: torch.Tensor, w: int,
                          protein: bool = False, one_frame: bool = False,
-                         highest_k: int = 12) -> torch.Tensor:
+                         highest_k: int = 12,
+                         aas_lut: torch.Tensor | None = None) -> torch.Tensor:
     """(rows, maxlen) uint8 -> (rows * w, L) int32 limbs of the first w
     windows of every row, L = kmer.num_limbs(highest_k) limbs of
     kmer.limb_letters(highest_k) letters (two full limbs at highestK =
     12, five at 25 with one letter in the last).  DNA: letters at stride
     3 through the LUT, triplet hashes past the LUT clamped to its last
     entry as a gather does in kasa_tpu; one frame keeps windows 0, 3,
-    6, ...; protein: letter = byte & 31 at stride 1 (the LUT unused)."""
-    _check(byte_mat, lut, w, protein, one_frame, highest_k)
+    6, ...; protein: letter = byte & 31 at stride 1 (the LUT unused).
+    With aas_lut (-j) the windows are folded by sloppy_reduce_plain."""
+    _check(byte_mat, lut, w, protein, one_frame, highest_k, aas_lut)
     rows = byte_mat.shape[0]
     b = byte_mat.to(torch.int32)
     if protein:
@@ -131,18 +182,61 @@ def encode_windows_plain(byte_mat: torch.Tensor, lut: torch.Tensor, w: int,
             p = stride * (LPL * li + j)
             acc |= aa[:, p:p + n] << (BITS * (LPL - 1 - j))
         limbs.append(acc[:, ::step])
-    return torch.stack(limbs, dim=-1).reshape(rows * w, len(letters))
+    out = torch.stack(limbs, dim=-1).reshape(rows * w, len(letters))
+    return out if aas_lut is None else sloppy_reduce_plain(out, aas_lut)
 
 
 def encode_windows(byte_mat: torch.Tensor, lut: torch.Tensor, w: int,
                    protein: bool = False, one_frame: bool = False,
-                   highest_k: int = 12) -> torch.Tensor:
+                   highest_k: int = 12,
+                   aas_lut: torch.Tensor | None = None) -> torch.Tensor:
     """K1 wrapper: the CUDA kernel on a CUDA tensor, else the plain
-    version."""
+    version.  aas_lut (-j) selects the sloppy arm."""
     if byte_mat.device.type == "cpu":
         return encode_windows_plain(byte_mat, lut, w, protein, one_frame,
-                                    highest_k)
-    _check(byte_mat, lut, w, protein, one_frame, highest_k)
+                                    highest_k, aas_lut)
+    _check(byte_mat, lut, w, protein, one_frame, highest_k, aas_lut)
     from .. import kernels
     return kernels.encode_windows(byte_mat, lut, w, protein, one_frame,
-                                  highest_k)
+                                  highest_k, aas_lut)
+
+
+class Encoder:
+    """Flat-buffer encoder of the per-batch engine (kasa_tpu
+    core/encode.py:203): a line buffer -> its (W, L) windows, through K1
+    on `device` (a CUDA device) or its plain version (the CPU), with the
+    sloppy fold under -j.  Returns host numpy arrays."""
+
+    def __init__(self, codon_code_lut: np.ndarray | None = None,
+                 sloppy: bool = False, device=None):
+        self.device = torch.device("cpu" if device is None else device)
+        self.sloppy = sloppy
+        lut = np.asarray(codon_code_lut if codon_code_lut is not None
+                         else build_codon_code_lut(), dtype=np.int32)
+        self.lut = torch.from_numpy(lut).to(self.device)
+        self.aas_lut = (torch.from_numpy(aas_code_lut()).to(self.device)
+                        if sloppy else None)
+
+    def _encode(self, buf: np.ndarray, highest_k: int, protein: bool,
+                reduce: bool | None) -> np.ndarray:
+        red = self.sloppy if reduce is None else reduce
+        span = highest_k if protein else 3 * highest_k
+        w = len(buf) - span + 1
+        if w <= 0:
+            return np.zeros((0, 2 if red else kmer.num_limbs(highest_k)),
+                            np.int32)
+        mat = torch.from_numpy(np.ascontiguousarray(buf, np.uint8)
+                               .reshape(1, -1)).to(self.device)
+        win = encode_windows(mat, self.lut, w, protein, False, highest_k,
+                             self.aas_lut if red else None)
+        return win.cpu().numpy()
+
+    def encode_dna_buffer(self, buf: np.ndarray, highest_k: int,
+                          reduce: bool | None = None) -> np.ndarray:
+        """Sanitized DNA bytes -> (len - 3 * highestK + 1, L) windows
+        (all three frames); `reduce=False` skips the sloppy fold."""
+        return self._encode(buf, highest_k, False, reduce)
+
+    def encode_protein_buffer(self, buf: np.ndarray, highest_k: int,
+                              reduce: bool | None = None) -> np.ndarray:
+        return self._encode(buf, highest_k, True, reduce)

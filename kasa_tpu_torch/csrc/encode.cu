@@ -24,21 +24,34 @@
 // ends at maxlen - 1; one frame: step 3 and W = maxlen/3 - highestK + 1;
 // protein: span highestK).  Hash indices past the LUT clamp to its last
 // entry, as kasa_tpu's gather does.
+//
+// Sloppy arm (-j; kasa_tpu/core/encode.py:103 sloppy_reduce, applied
+// inside encode_windows at :98-99): with a 1,024-entry pair LUT, the 12
+// letters of a 64-bit window fold pairwise into six, limb 0 holds them
+// and limb 1 is 0.  The LUT sits in shared memory beside the codon LUT;
+// the fold works on the two limbs in registers, so the arm adds no
+// device-memory traffic (it writes the same 8 bytes per window).
 #include "common.cuh"
 
 namespace {
 
 constexpr int kLutMax = 512;
+constexpr int kAasN = 1024;
 constexpr int kMaxLimbs = 5;
 
 __global__ void encode_kernel(const uint8_t* __restrict__ mat,
                               const int32_t* __restrict__ lut, int lut_n,
                               int rows, int maxlen, int w, int protein,
                               int step, int hk, int L,
+                              const int32_t* __restrict__ aas,
                               int32_t* __restrict__ out) {
     __shared__ int32_t slut[kLutMax];
+    __shared__ int32_t saas[kAasN];
     for (int i = threadIdx.x; i < kLutMax; i += blockDim.x)
         slut[i] = lut[min(i, lut_n - 1)];
+    if (aas != nullptr)
+        for (int i = threadIdx.x; i < kAasN; i += blockDim.x)
+            saas[i] = aas[i];
     __syncthreads();
     const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (m >= (long long)rows * w) return;
@@ -49,6 +62,34 @@ __global__ void encode_kernel(const uint8_t* __restrict__ mat,
     // no per-thread array, so nothing spills to local memory
     int32_t* o = out + m * L;
     int32_t limb = 0;
+    if (aas != nullptr) {
+        // the sloppy arm (hk == 12, L == 2): both limbs in registers,
+        // then letter pairs (2p, 2p + 1) -> letter p of limb 0
+        int32_t l2[2] = {0, 0};
+        for (int j = 0; j < 12; ++j) {
+            int32_t code;
+            if (protein) {
+                code = p[j] & 31;
+            } else {
+                const int c1 = p[3 * j], c2 = p[3 * j + 1],
+                          c3 = p[3 * j + 2];
+                code = slut[((c1 & 14) << 5) | ((c2 & 14) << 2)
+                            | ((c3 & 14) >> 1)];
+            }
+            l2[j / 6] |= code << (5 * (5 - (j % 6)));
+        }
+        int32_t red = 0;
+#pragma unroll
+        for (int pr = 0; pr < 6; ++pr) {
+            const int a = 2 * pr, b = 2 * pr + 1;
+            const int ca = (l2[a / 6] >> (5 * (5 - a % 6))) & 31;
+            const int cb = (l2[b / 6] >> (5 * (5 - b % 6))) & 31;
+            red |= saas[(ca << 5) | cb] << (5 * (5 - pr));
+        }
+        o[0] = red;
+        o[1] = 0;
+        return;
+    }
     for (int j = 0; j < hk; ++j) {
         int32_t code;
         if (protein) {
@@ -71,10 +112,12 @@ __global__ void encode_kernel(const uint8_t* __restrict__ mat,
 
 extern "C" int kasa_encode_windows(const void* mat, const void* lut,
                                    int lut_n, int rows, int maxlen, int w,
-                                   int protein, int step, int hk, void* out,
+                                   int protein, int step, int hk,
+                                   const void* aas, void* out,
                                    void* stream) {
     const int L = (hk + 5) / 6;
     if (hk < 1 || L > kMaxLimbs) return (int)cudaErrorInvalidValue;
+    if (aas != nullptr && hk != 12) return (int)cudaErrorInvalidValue;
     const long long m = (long long)rows * w;
     if (m > 0) {
         const int threads = 256;
@@ -82,7 +125,7 @@ extern "C" int kasa_encode_windows(const void* mat, const void* lut,
         encode_kernel<<<(unsigned)blocks, threads, 0,
                         (cudaStream_t)stream>>>(
             (const uint8_t*)mat, (const int32_t*)lut, lut_n, rows, maxlen,
-            w, protein, step, hk, L, (int32_t*)out);
+            w, protein, step, hk, L, (const int32_t*)aas, (int32_t*)out);
     }
     return (int)cudaGetLastError();
 }

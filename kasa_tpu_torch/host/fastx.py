@@ -1,12 +1,14 @@
 """Input format detection for FASTA/FASTQ (plain or gzip), the input
-files of a folder, and the verbatim record reader of --filter.  The
-records themselves are parsed by the native loader (native/loader.cpp)."""
+files of a folder, the verbatim record reader of --filter, the record
+iterator of the per-batch engine (native loader, native/loader.cpp) and
+the binary opener of its chunked reader."""
 
 from __future__ import annotations
 
 import gzip
 import io
 import os
+from dataclasses import dataclass
 from typing import Iterator
 
 
@@ -19,6 +21,14 @@ def open_text(path: str):
     return open(path, "r", buffering=1 << 20)
 
 
+def binary_opener(path: str):
+    """Zero-arg callable yielding a fresh binary stream (decompressed for
+    .gz): the chunked reader re-opens the file after its info pre-scan."""
+    if path.endswith(".gz"):
+        return lambda: gzip.open(path, "rb")
+    return lambda: open(path, "rb")
+
+
 def sniff_format(path: str) -> str:
     """'fasta' or 'fastq' from the first character (Compare.hpp:2984-2995)."""
     with open_text(path) as fh:
@@ -28,6 +38,34 @@ def sniff_format(path: str) -> str:
     if first == "@":
         return "fastq"
     raise ValueError("Input does not start with @ or >.")
+
+
+@dataclass
+class Record:
+    name: str       # header without the leading > or @
+    seq: str
+    nlines: int = 1  # sequence lines (the reference's char counter
+                     # includes one newline per line, Read.hpp:730-731)
+
+
+def iter_records(path: str, fmt: str | None = None) -> Iterator[Record]:
+    """The records of a fasta/fastq(.gz) file, parsed by the native
+    loader (native/loader.cpp)."""
+    from ..native import load_fastx
+    fmt = fmt or sniff_format(path)
+    parsed = load_fastx(path, is_fastq=(fmt == "fastq"))
+    if parsed is None:
+        raise RuntimeError(f"could not parse {path} (the native host "
+                           "library needs g++ and zlib)")
+    seq, seq_off, names, name_off, nlines = parsed
+
+    def gen():
+        nb, sb = names.tobytes(), seq.tobytes()
+        for i in range(len(nlines)):
+            yield Record(nb[name_off[i]:name_off[i + 1]].decode("ascii"),
+                         sb[seq_off[i]:seq_off[i + 1]].decode("ascii"),
+                         int(nlines[i]))
+    return gen()
 
 
 def iter_raw_records(path: str, fmt: str | None = None) -> Iterator[list]:

@@ -10,8 +10,8 @@ Every wrapper checks dtype, shape, contiguity and device, allocates its
 outputs and scratch with torch.empty/torch.zeros, launches, adds one to
 its launch count, and raises if the launcher reports a CUDA error.
 Nothing here synchronises.  Nothing here runs on the CPU: the callers
-(core/encode.py, match/turbo.py, match/tiered.py) take the plain PyTorch
-versions for CPU tensors.
+(core/encode.py, match/turbo.py, match/tiered.py, match/device.py) take
+the plain PyTorch versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD = os.path.join(_DIR, "_build", "cuda")
 SOURCES = ("encode", "turbo_match", "turbo_reads", "turbo_multi", "dedup",
-           "sparse_fold", "tiered_route", "tiered_pass")
+           "sparse_fold", "tiered_route", "tiered_pass", "classic_classify")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -35,7 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # call that launched (turbo_reads counts its pre and post entry points)
 COUNTS = {"encode": 0, "turbo_match": 0, "turbo_reads": 0,
           "turbo_multi": 0, "dedup": 0, "sparse_fold": 0, "tiered_route": 0,
-          "tiered_pass": 0}
+          "tiered_pass": 0, "classic_classify": 0}
 
 _libs: dict = {}
 
@@ -43,7 +43,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = {
-    "kasa_encode_windows": [_P, _P] + [_I] * 7 + [_P, _P],
+    "kasa_encode_windows": [_P, _P] + [_I] * 7 + [_P, _P, _P],
     "kasa_turbo_match": [_P] * 6 + [_L] + [_I] * 7 + [_P, _P, _P],
     "kasa_turbo_reads_pre": [_P, _P] + [_I] * 5 + [_P] * 6,
     "kasa_turbo_reads_post": [_P] * 13 + [_I] * 9 + [_L] + [_P] * 7,
@@ -53,6 +53,7 @@ _ARGTYPES = {
     "kasa_sparse_fold": [_P] * 6 + [_I] * 6 + [_P] * 4,
     "kasa_tiered_route": [_P, _P, _L, _I, _I, _I, _I] + [_P] * 6,
     "kasa_tiered_pass": [_P] * 10 + [_L, _L] + [_I] * 11 + [_P] * 5,
+    "kasa_classic_classify": [_P] * 11 + [_L] * 4 + [_I] * 8 + [_P] * 5,
 }
 _LIB_OF = {"kasa_encode_windows": "encode",
            "kasa_turbo_match": "turbo_match",
@@ -62,7 +63,8 @@ _LIB_OF = {"kasa_encode_windows": "encode",
            "kasa_dedup_windows": "dedup",
            "kasa_sparse_fold": "sparse_fold",
            "kasa_tiered_route": "tiered_route",
-           "kasa_tiered_pass": "tiered_pass"}
+           "kasa_tiered_pass": "tiered_pass",
+           "kasa_classic_classify": "classic_classify"}
 
 
 def reset_counts() -> None:
@@ -171,7 +173,9 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 def encode_windows(byte_mat: torch.Tensor, lut: torch.Tensor, w: int,
                    protein: bool = False, one_frame: bool = False,
-                   highest_k: int = 12) -> torch.Tensor:
+                   highest_k: int = 12,
+                   aas_lut: torch.Tensor | None = None) -> torch.Tensor:
+    """aas_lut, (1024,) int32: the sloppy arm (highestK 12 only)."""
     from .core.kmer import num_limbs
     dev = byte_mat.device
     if dev.type != "cuda":
@@ -181,12 +185,21 @@ def encode_windows(byte_mat: torch.Tensor, lut: torch.Tensor, w: int,
     _check(lut, "lut", torch.int32, (lut.numel(),), dev)
     if lut.numel() < 1:
         raise ValueError("lut: empty")
+    # a window's offset in its row is a 32-bit int in the kernel (the
+    # per-batch engine encodes a whole batch as one row)
+    if max(w, maxlen) >= 1 << 31:
+        raise ValueError(f"rows of {maxlen} bytes: the kernel takes rows "
+                         "below 2^31 bytes")
+    if aas_lut is not None:
+        _check(aas_lut, "aas_lut", torch.int32, (1024,), dev)
+        if highest_k != 12:
+            raise ValueError("the sloppy arm folds windows of 12 letters")
     out = torch.empty((rows * w, num_limbs(highest_k)), dtype=torch.int32,
                       device=dev)
     step = 3 if one_frame and not protein else 1
     _launch("kasa_encode_windows", "encode", _ptr(byte_mat), _ptr(lut),
             lut.numel(), rows, maxlen, w, int(protein), step, highest_k,
-            _ptr(out), _stream(dev))
+            _ptr(aas_lut), _ptr(out), _stream(dev))
     return out
 
 
@@ -393,11 +406,12 @@ def dedup_windows(q: torch.Tensor, num_reads: int, kmers_per_read: int,
     if not 2 <= L <= 5:
         raise ValueError(f"q: {L} limbs, the kernel takes 2..5")
     _check(q, "q", torch.int32, (R * kpr, L), dev)
+    from .match.turbo import DEDUP_CAP
     P = _pow2(kpr)
     # one read's rows sit in shared memory: P * 4L bytes, 80 KB at most
-    if P > 4096:
+    if P > DEDUP_CAP:
         raise NotImplementedError(f"{kpr} windows per read exceed the "
-                                  "dedup kernel's cap of 4096")
+                                  f"dedup kernel's cap of {DEDUP_CAP}")
     out = torch.empty_like(q)
     _launch("kasa_dedup_windows", "dedup", _ptr(q), R, kpr, L, P, poison,
             _ptr(out), _stream(dev))
@@ -507,3 +521,50 @@ def tiered_pass(tabs, weights, qr, vbr, posr, lo: int, hi: int, skey, sflat,
             rowdat.shape[0], mp, d_tax4.shape[0], nk, num_steps,
             msteps, int(full[0]), int(full[1]), S, kmers_per_read, tmax,
             _ptr(skey), _ptr(sflat), _ptr(cflat), _ptr(big), _stream(dev))
+
+
+# ---------------------------------------------------------------------------
+# K9 classic_classify (csrc/classic_classify.cu)
+
+def classic_classify(t, q, read_ids, q_valid, num_reads: int, cap: int,
+                     kmers_per_read: int):
+    """-> (scores (R, S) f32, counts_all (numK, S) f32, counts_unique
+    (numK, S) int32, tail_pairs 0-d int32) for StackedTables t
+    (match/device.py classify_batch_plain)."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError("classic_classify: the kernel takes CUDA tensors")
+    M, L = q.shape
+    n, nk, S = t.n, t.num_k, t.num_species
+    if not 2 <= L <= 5:
+        raise ValueError(f"q: {L} limbs, the kernel takes 2..5")
+    _check(t.idx_limbs, "idx_limbs", torch.int32, (n, L), dev)
+    _check(t.grp_id, "grp_id", torch.int32, (nk, n), dev)
+    _check(t.grp_start, "grp_start", torch.int32, (nk, t.grp_start.shape[1]),
+           dev)
+    _check(t.d_tax, "d_tax", torch.int32, (nk, t.d_tax.shape[1]), dev)
+    _check(t.masks, "masks", torch.int32, (nk, L), dev)
+    _check(t.weights, "weights", torch.float32, (nk,), dev)
+    _check(t.run_end, "run_end", torch.int32, (n,), dev)
+    _check(t.prefix_tbl, "prefix_tbl", torch.int32, ((1 << 20) + 1,), dev)
+    _check(q, "q", torch.int32, (M, L), dev)
+    _check(q_valid, "q_valid", torch.bool, (M,), dev)
+    if kmers_per_read == 0:
+        _check(read_ids, "read_ids", torch.int32, (M,), dev)
+    # the score cells add in float64 and round to float32 once
+    # (csrc/classic_classify.cu)
+    scores = torch.zeros((num_reads, S), dtype=torch.float64, device=dev)
+    counts_all = torch.zeros((nk, S), dtype=torch.float32, device=dev)
+    counts_unique = torch.zeros((nk, S), dtype=torch.int32, device=dev)
+    tail = torch.zeros((), dtype=torch.int32, device=dev)
+    if M == 0 or n == 0:
+        return scores.float(), counts_all, counts_unique, tail
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _launch("kasa_classic_classify", "classic_classify", _ptr(t.idx_limbs),
+            _ptr(t.grp_id), _ptr(t.grp_start), _ptr(t.d_tax), _ptr(t.masks),
+            _ptr(t.weights), _ptr(t.run_end), _ptr(t.prefix_tbl), _ptr(q),
+            _ptr(read_ids if kmers_per_read == 0 else None), _ptr(q_valid),
+            n, t.grp_start.shape[1], t.d_tax.shape[1], M, L, nk, t.min_k,
+            t.max_k, S, cap, kmers_per_read, sms, _ptr(scores),
+            _ptr(counts_all), _ptr(counts_unique), _ptr(tail), _stream(dev))
+    return scores.float(), counts_all, counts_unique, tail

@@ -1,5 +1,5 @@
-"""Throughput identify pipeline (port of kasa_tpu/match/fast.py, turbo
-strategies on one device).
+"""Throughput identify pipeline (port of kasa_tpu/match/fast.py, one
+device).
 
 native file parse -> vectorized padded read matrix -> one turbo batch
 step on the device per batch (resident tables: match/turbo.py
@@ -7,7 +7,13 @@ fused_turbo_acc, the CUDA kernels K1-K6; an index over the device
 budget: match/tiered.py, chunk-streamed tables through K1, K5, K7, K8
 and K3) -> packed readback decode -> exact host recompute of flagged
 reads (tiered: the host adds the big groups and rebuilds truncated
-lists) -> native rank+format -> file.  A writer thread consumes
+lists) -> native rank+format -> file.  Where the turbo structure does
+not apply (more than six k levels, min_k * 5 < 24, KASA_TPU_NO_TURBO,
+int32 row pointers that would wrap), the classic engine takes the same
+padded matrices: fused_classify, K1 (+ K5 under -e) and K9 per batch,
+dense score rows to the native ranker.  Input the fused path does not
+cover raises FastPathUnavailable, and the pipeline runs its per-batch
+engine (kasa_tpu's routing).  A writer thread consumes
 finished batches in order, so host post-processing of batch i overlaps
 device work of batch i+1; the per-taxon count matrices accumulate on
 the device and are flushed every COUNT_FLUSH batches (one (numK, S)
@@ -28,6 +34,7 @@ import os
 import queue as _queue
 import threading as _threading
 import time as _time
+from collections import deque
 
 import numpy as np
 import torch
@@ -37,7 +44,12 @@ from ..utils import timers
 from .turbo import COUNT_FLUSH, CSR_CAP_FACTOR, EXP_BUDGET, MULTI_BUDGET
 
 READS_PER_BATCH = 8192
-MAXLEN_CAP = 8192
+MAXLEN_CAP = 8192       # longer reads take the per-batch engine
+
+
+class FastPathUnavailable(RuntimeError):
+    """Input the fused path does not cover (kasa_tpu fast.py:68): the
+    pipeline runs the per-batch engine instead."""
 
 # (fallback_reads, total_reads) of the last identify run
 LAST_FALLBACK = (0, 0)
@@ -200,26 +212,10 @@ class TurboDispatchBase:
         return CSR_CAP_FACTOR * rows_pad
 
     def _to_host(self, tensors):
-        """Handle of device results: on a CUDA device each is copied
-        into pinned host memory behind the batch's kernels and an event
-        marks their arrival."""
-        if self.device.type != "cuda":
-            return tensors, None
-        hosts = []
-        for t in tensors:
-            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            h.copy_(t, non_blocking=True)
-            hosts.append(h)
-        done = torch.cuda.Event()
-        done.record()
-        return hosts, done
+        return _to_host(tensors, self.device)
 
     def fetch(self, handle) -> list:
-        """Host views of a batch's results (waits for its batch only)."""
-        tensors, done = handle
-        if done is not None:
-            done.synchronize()
-        return [t.numpy() for t in tensors]
+        return _fetch(handle)
 
     def decode(self, packed: np.ndarray, rows_pad: int, rb: int,
                cap: int, want_lists: bool, ht_d=None, hk_d=None):
@@ -292,9 +288,12 @@ def select_turbo_dispatch(cfg, index_path, limbs, taxids, content,
     fast.py:299, single-device arm): resident turbo tables when they fit
     the device budget (or -r); else, for a 64-bit index over at most six
     k levels from min_k >= 6, tiered chunk streaming (also when the
-    resident tables' int32 row pointers would wrap).  Other indices raise
-    NotImplementedError naming the later slice (the classic engine, the
-    mesh)."""
+    resident tables' int32 row pointers would wrap).  None where kasa_tpu
+    returns None: the turbo structure does not apply, KASA_TPU_NO_TURBO
+    is set, or the row pointers would wrap without a tiered path (the
+    classic engine runs).  An over-budget index that tiered streaming
+    cannot take raises NotImplementedError (the multi-GPU mesh, a later
+    slice)."""
     from .tiered import TMAX, chunk_entries_for
     from .turbo import (TurboRowOverflow, load_or_build_turbo,
                         turbo_supported)
@@ -306,11 +305,9 @@ def select_turbo_dispatch(cfg, index_path, limbs, taxids, content,
     eligible_resident = turbo_supported(n_idx, num_limbs, min_k, max_k, S)
     eligible_tiered = (n_idx > 0 and num_limbs == 2 and num_k <= 6
                        and min_k >= 6 and S < (1 << 24))
-    if not (eligible_resident or eligible_tiered):
-        raise NotImplementedError(
-            "this index/k range needs the classic engine (turbo tables "
-            "need n > 0, <= 6 k levels and min_k >= 5), a later slice of "
-            "the port")
+    if not (eligible_resident or eligible_tiered) \
+            or os.environ.get("KASA_TPU_NO_TURBO"):
+        return None
     budget = device_table_budget(cfg, device)
     table_bytes = bytes_per_entry_resident(num_k, num_limbs) * max(n_idx, 1)
     over = not cfg.ram and table_bytes > budget
@@ -328,10 +325,9 @@ def select_turbo_dispatch(cfg, index_path, limbs, taxids, content,
             "indices only: sharding the tables over several cards is the "
             "multi-GPU mesh, a later slice of the port")
     if not eligible_resident:
-        raise NotImplementedError(
-            "this index/k range needs the classic engine (resident turbo "
-            "tables need min_k >= 5 and n < 2^28), a later slice of the "
-            "port")
+        raise FastPathUnavailable(
+            "index too large for resident turbo and tiered streaming was "
+            "excluded (-r)")
     try:
         content_token = os.stat(cfg.content_file
                                 or index_path + "_content.txt").st_mtime_ns
@@ -345,9 +341,8 @@ def select_turbo_dispatch(cfg, index_path, limbs, taxids, content,
         # multi-heavy index: the resident tables' int32 row pointers
         # would wrap; the tiered chunks' tables stay int32-safe
         if not eligible_tiered:
-            raise NotImplementedError(
-                f"{e}: this index needs the classic engine, a later slice "
-                "of the port") from e
+            print(f"OUT: {e}; using the classic engine", flush=True)
+            return None
         print(f"OUT: {e}; streaming tiered turbo instead", flush=True)
         return _tiered(cfg, index_path, limbs, tax_rows, highest_k, budget,
                        device, S)
@@ -367,20 +362,13 @@ def _parse(path: str):
     return parsed
 
 
-def _check_input(seqs: list, lens: np.ndarray, asm: BatchAssembler,
-                 lpr: int, num_k: int, protein: bool) -> None:
-    """Refuse, before any output is written, input outside this slice:
-    reads above MAXLEN_CAP, a read whose lines exceed K3's slot cap, and
-    spaces or tabs inside a read; then sanitize in place."""
+def _check_input(seqs: list, lens: np.ndarray, protein: bool) -> None:
+    """Before any output is written: reads above MAXLEN_CAP go to the
+    per-batch engine (FastPathUnavailable), spaces or tabs inside a read
+    raise; then sanitize in place."""
     from ..native import sanitize_inplace
-    from .turbo import check_slot_cap
-    maxraw = int(lens.max())
-    if maxraw > MAXLEN_CAP:
-        raise NotImplementedError("reads above MAXLEN_CAP need the chunked "
-                                  "pipeline, a later slice of the port")
-    # no batch's bucket is longer than the longest read's
-    check_slot_cap(asm.window_target(_len_bucket(
-        maxraw + asm.marker_len, asm.min_line)) * lpr, num_k)
+    if int(lens.max()) > MAXLEN_CAP:
+        raise FastPathUnavailable("giant reads need the chunked pipeline")
     for seq in seqs:
         if np.any((seq == ord(" ")) | (seq == ord("\t"))):
             raise RuntimeError("Spaces or tabs inside read, "
@@ -388,13 +376,25 @@ def _check_input(seqs: list, lens: np.ndarray, asm: BatchAssembler,
         sanitize_inplace(seq, protein)
 
 
+def _check_slot_cap(lens: np.ndarray, asm: BatchAssembler, lpr: int,
+                    num_k: int) -> None:
+    """Refuse a read whose lines exceed K3's slot cap (the turbo paths):
+    no batch's bucket is longer than the longest read's."""
+    from .turbo import check_slot_cap
+    check_slot_cap(asm.window_target(_len_bucket(
+        int(lens.max()) + asm.marker_len, asm.min_line)) * lpr, num_k)
+
+
 def fast_identify(cfg, index_path: str, input_path: str,
                   out_file: str | None, profile_file: str | None,
                   content, freqs, limbs, taxids, highest_k: int,
                   tax_rows, device: torch.device):
-    """Drive the turbo pipeline over one input file, or a paired-end
-    pair (cfg.paired_end_1/2).  Returns (counts_all, counts_unique,
-    reads, k-mers in input)."""
+    """Drive the fused pipeline over one input file, or a paired-end pair
+    (cfg.paired_end_1/2): the turbo strategies, or the classic engine
+    where select_turbo_dispatch returns None.  Returns (counts_all,
+    counts_unique, reads, k-mers in input).  Raises FastPathUnavailable
+    for an empty input, reads above MAXLEN_CAP and paired-end input on
+    the classic engine (kasa_tpu fast.py:458-499)."""
     protein = cfg.translated
     paired = bool(cfg.paired_end_1)
     paths = [cfg.paired_end_1, cfg.paired_end_2] if paired else [input_path]
@@ -403,14 +403,13 @@ def fast_identify(cfg, index_path: str, input_path: str,
     # the reference zips mates: unequal files end at the shorter
     R_total = min(len(m[1]) - 1 for m in mates)
     if R_total == 0:
-        raise NotImplementedError("an empty input is a later slice of the "
-                                  "port (kasa_tpu runs its parity engine)")
+        raise FastPathUnavailable("empty input")
     mate_lens = [np.diff(m[1])[:R_total] for m in mates]
+    all_lens = np.concatenate(mate_lens)
+    _check_input([m[0] for m in mates], all_lens, protein)
     asm = BatchAssembler(highest_k, cfg.lower_k, protein, cfg.six_frames,
                          cfg.one_frame)
     lpr = (2 if asm.six else 1) * len(mates)
-    _check_input([m[0] for m in mates], np.concatenate(mate_lens), asm, lpr,
-                 cfg.num_k, protein)
     # report lengths follow the reference's char counter (raw chars +
     # one newline per sequence line); paired mates share one read id
     # with summed lengths and names joined by a space
@@ -425,10 +424,200 @@ def fast_identify(cfg, index_path: str, input_path: str,
                                  highest_k, tax_rows, device)
     global LAST_DISPATCH
     LAST_DISPATCH = disp
+    if disp is None:
+        if paired:
+            raise FastPathUnavailable("paired-end rides the turbo path only")
+        from .device import load_or_build_classic
+        tables = load_or_build_classic(
+            index_path, limbs, taxids, content.tax_to_idx, highest_k,
+            cfg.lower_k, cfg.higher_k, content.num_species, device, tax_rows)
+        LAST_DISPATCH = tables
+        return _fast_identify_classic(
+            cfg, tables, asm, seq, seq_off, name_blob, name_off, rep_lens,
+            R_total, out_file, profile_file, content, freqs, input_path)
+    _check_slot_cap(all_lens, asm, lpr, cfg.num_k)
     return _fast_identify_turbo(
         cfg, disp, asm, lpr, [(m[0], m[1]) for m in mates], name_blob,
         name_off, rep_lens, R_total, out_file, profile_file, content, freqs,
         input_path)
+
+
+def fused_classify(tables, mat: torch.Tensor, lut: torch.Tensor,
+                   rows_pad: int, w: int, lines_per_read: int = 1,
+                   protein: bool = False, one_frame: bool = False,
+                   unique: bool = False):
+    """One classic batch (kasa_tpu fast.py:138 fused_classify): the
+    (rows_pad * lines_per_read, maxlen) uint8 matrix -> K1 windows, the
+    first w of every line, the read's lines adjacent -> (under -e, K5:
+    each read's repeated windows poisoned, which no level matches;
+    kasa_tpu's fused classic path skips this step) -> K9 in the uniform
+    layout.
+    -> classify_batch's (scores (rows_pad, S), counts_all, counts_unique,
+    tail_pairs)."""
+    from ..core.encode import encode_windows
+    from .device import classify_batch
+    from .engine import CAP
+    from .turbo import dedup_windows
+    q = encode_windows(mat, lut, w, protein, one_frame, tables.highest_k)
+    kpr = w * lines_per_read
+    if unique:
+        q = dedup_windows(q, rows_pad, kpr)
+    valid = torch.ones(q.shape[0], dtype=torch.bool, device=q.device)
+    return classify_batch(tables, q, None, valid, rows_pad, CAP, kpr)
+
+
+def _to_host(tensors, device: torch.device):
+    """Handle of device results: on a CUDA device each is copied into
+    pinned host memory behind the batch's kernels and an event marks
+    their arrival."""
+    if device.type != "cuda":
+        return tensors, None
+    hosts = []
+    for t in tensors:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        hosts.append(h)
+    done = torch.cuda.Event()
+    done.record()
+    return hosts, done
+
+
+def _fetch(handle) -> list:
+    """Host numpy views of a batch's results (waits for its batch
+    only)."""
+    tensors, done = handle
+    if done is not None:
+        done.synchronize()
+    return [t.numpy() for t in tensors]
+
+
+def _fast_identify_classic(cfg, tables, asm, seq, seq_off, name_blob,
+                           name_off, rep_lens, R_total, out_file,
+                           profile_file, content, freqs, input_path):
+    """Classic drive loop (kasa_tpu fast.py:500-618): one fused_classify
+    per READS_PER_BATCH reads; while the host ranks and writes batch i,
+    batch i + 1 runs on the device.  Per-batch float32 counts are summed
+    in float64 on the host."""
+    from ..core.alphabet import build_codon_code_lut
+    from ..core.encode import custom_code_lut
+    from ..host import output as out_mod
+    from ..native import NativeRanker
+    from .turbo import DEDUP_CAP
+
+    highest_k = asm.highest_k
+    min_k, max_k = cfg.lower_k, cfg.higher_k
+    num_k = max_k - min_k + 1
+    S = content.num_species
+    protein = cfg.translated
+    lpr = 2 if asm.six else 1
+    lens = np.diff(seq_off)[:R_total]
+    if cfg.unique:
+        kpr = asm.window_target(_len_bucket(
+            int(lens.max()) + asm.marker_len, asm.min_line)) * lpr
+        if kpr > DEDUP_CAP:
+            raise NotImplementedError(
+                f"-e on reads of {kpr} windows: the dedup kernel (K5) takes "
+                f"{DEDUP_CAP} windows per read (long reads are a later "
+                "slice of the port)")
+    device = tables.device
+    lut_np = custom_code_lut(cfg)
+    lut = torch.from_numpy(np.asarray(
+        lut_np if lut_np is not None else build_codon_code_lut(),
+        dtype=np.int32)).to(device)
+
+    ranker = None
+    if out_file or cfg.filter:
+        ranker = NativeRanker(
+            content.idx_to_tax, content.organisms, freqs[:, 0],
+            min_k, max_k, highest_k, protein, cfg.num_frames,
+            cfg.threshold, cfg.num_of_beasts, cfg.output_format,
+            filter_on=cfg.filter, error_threshold=cfg.error_threshold,
+            coherence_threshold=cfg.coherence_threshold)
+        if not ranker.ok:
+            raise RuntimeError("the native ranker is unavailable")
+    counts_all = np.zeros((num_k, S), dtype=np.float64)
+    counts_unique = np.zeros((num_k, S), dtype=np.uint64)
+    num_kmers_in_input = 0
+    filtered_ids: list = []
+    fh = None
+    if out_file:
+        fh = open(out_file, "wb")
+        if cfg.output_format == "json":
+            fh.write(b"[\n")
+        elif cfg.output_format == "tsv":
+            fh.write(b"#Read number\tSpecifier from input file\tMatched "
+                     b"taxa\tNames\tScores{relative,k-mer}\tError\n")
+
+    inflight: deque = deque()
+
+    def drain(block_all=False):
+        nonlocal num_kmers_in_input
+        while inflight and (block_all or len(inflight) > 1):
+            handle, r0, r1, nk = inflight.popleft()
+            with timers.stage("fast/fetch"):
+                scores, ca, cu = _fetch(handle)
+            counts_all[:] += ca.astype(np.float64)
+            counts_unique[:] += cu.astype(np.uint64)
+            num_kmers_in_input += nk
+            if ranker is None:
+                continue
+            with timers.stage("fast/rank+write"):
+                names = [name_blob[name_off[i]:name_off[i + 1]]
+                         .tobytes().decode("latin-1") + " "
+                         for i in range(r0, r1)]
+                text, flags = ranker.format(scores, names,
+                                            rep_lens[r0:r1], r0)
+                if fh is not None:
+                    fh.write(text)
+                if flags is not None:
+                    filtered_ids.extend((r0 + np.nonzero(flags)[0]).tolist())
+
+    t_start = _time.perf_counter()
+    try:
+        for r0 in range(0, R_total, READS_PER_BATCH):
+            r1 = min(r0 + READS_PER_BATCH, R_total)
+            if cfg.verbose and r0:
+                frac = r0 / R_total
+                el = _time.perf_counter() - t_start
+                print(f"OUT: Progress of current file: {frac * 100.0:.2f} %"
+                      f" (ETA: {el / frac - el:.0f}s)", flush=True)
+            blens = lens[r0:r1]
+            with timers.stage("fast/assemble"):
+                maxlen = _len_bucket(int(blens.max()) + asm.marker_len,
+                                     asm.min_line)
+                rows_pad = _bucket(r1 - r0, 512)
+                mat = asm.assemble(seq[seq_off[r0]:seq_off[r1]],
+                                   (seq_off[r0:r1 + 1] - seq_off[r0])
+                                   .astype(np.int64), maxlen, rows_pad)
+                nk = int(asm.true_counts(blens).sum())
+            with timers.stage("fast/dispatch"):
+                scores_d, ca_d, cu_d, _tail = fused_classify(
+                    tables, torch.from_numpy(mat).to(device), lut, rows_pad,
+                    asm.window_target(maxlen), lpr, protein, cfg.one_frame,
+                    cfg.unique)
+                inflight.append((_to_host([scores_d[:r1 - r0], ca_d, cu_d],
+                                          device), r0, r1, nk))
+            drain()
+        drain(block_all=True)
+        if fh is not None and cfg.output_format == "json":
+            fh.write(b"\n]")
+    finally:
+        if fh is not None:
+            fh.close()
+
+    if profile_file:
+        out_mod.write_profile(
+            profile_file, content.organisms, content.idx_to_tax,
+            counts_all, counts_unique, None, freqs, num_kmers_in_input,
+            R_total, min_k, max_k, cfg.num_frames, coverage=False)
+    if cfg.filter:
+        from .pipeline import write_filtered
+        write_filtered(cfg, input_path, filtered_ids)
+    if cfg.verbose:
+        timers.report()
+    global LAST_FALLBACK
+    LAST_FALLBACK = (0, R_total)       # the classic engine recomputes none
+    return counts_all, counts_unique, R_total, num_kmers_in_input
 
 
 def _join_name_blobs(blob1, off1, blob2, off2, R):
@@ -480,16 +669,18 @@ def fast_identify_multi(cfg, index_path: str, files: list, out_files: list,
     nlines = np.concatenate([p[4] for p in parsed])
     R_total = bounds[-1]
     if R_total == 0:
-        raise NotImplementedError("empty inputs are a later slice of the "
-                                  "port (kasa_tpu runs its parity engine)")
+        raise FastPathUnavailable("empty inputs")
     lens = np.diff(seq_off)
     asm = BatchAssembler(highest_k, cfg.lower_k, protein, False,
                          cfg.one_frame)
-    _check_input([seq], lens, asm, 1, cfg.num_k, protein)
+    _check_input([seq], lens, protein)
     rep_lens = (lens + nlines[:R_total]).astype(np.uint32)
 
     disp = select_turbo_dispatch(cfg, index_path, limbs, taxids, content,
                                  highest_k, tax_rows, device)
+    if disp is None:
+        raise FastPathUnavailable("turbo structure unavailable")
+    _check_slot_cap(lens, asm, 1, cfg.num_k)
     if profile_files and disp.additive_fixup:
         raise NotImplementedError(
             "identify_multiple with profiles on an index over the device "

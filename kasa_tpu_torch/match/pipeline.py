@@ -1,14 +1,18 @@
-"""The identify pipeline (port of kasa_tpu/match/pipeline.py, turbo
-engine only): fastq/fasta(.gz) -> per-read output + profile.
+"""The identify pipeline (port of kasa_tpu/match/pipeline.py, its tpu
+engine): fastq/fasta(.gz) -> per-read output + profile.
 
-The port covers kasa_tpu's CLI identify on the turbo engine: DNA in
-one, three or six frames, protein input (-z), a custom codon table
-(-a), unique k-mers per read (-e), paired-end input (-1/-2), --filter,
-a folder of inputs (identify_multiple) and 64-bit, 128-bit or halved
-indices with resident turbo tables, and 64-bit indices over the device
-budget through the tiered chunk streaming.  Every other mode or flag
-raises NotImplementedError naming the later slice; nothing falls back
-to another engine or to the CPU.
+The port covers kasa_tpu's CLI identify (--engine tpu): DNA in one,
+three or six frames, protein input (-z), a custom codon table (-a),
+unique k-mers per read (-e), paired-end input (-1/-2), --filter, a
+folder of inputs (identify_multiple), sloppy windows (-j) and
+--coherence, on 64-bit, 128-bit or halved indices.  The fused path
+(match/fast.py) runs the turbo strategies or, where the turbo structure
+does not apply, the classic engine; -j, --coherence and the input the
+fused path declines (FastPathUnavailable: an empty input, reads above
+MAXLEN_CAP, paired-end input on the classic engine) run the per-batch
+engine below, as in kasa_tpu.  --coverage, --visualize and a per-batch
+run over the memory budget raise NotImplementedError naming the later
+slice; nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import numpy as np
 from .. import resolve_device
 from ..config import Config
 from ..index import artifacts
+from ..utils import timers
 
 
 @dataclass
@@ -75,10 +80,8 @@ def load_frequencies(index_path: str, num_species: int, max_k: int, min_k: int
 
 # flag -> the later slice of the port that brings it
 _UNSUPPORTED = (
-    ("coverage", "--coverage", "the fallback engines"),
-    ("post_process", "--coherence", "the fallback engines"),
-    ("visualize", "--visualize", "the fallback engines"),
-    ("sloppy", "-j (sloppy)", "the fallback engines"),
+    ("coverage", "--coverage", "the join engine"),
+    ("visualize", "--visualize", "the join engine and the 128-bit walk"),
 )
 
 
@@ -152,27 +155,251 @@ def identify(cfg: Config, index_path: str | None = None,
         outs, profs = _output_names(cfg, files, input_path, out_file,
                                     profile_file)
         if (len(files) > 1 and not cfg.filter and not cfg.paired_end_1
-                and not (cfg.six_frames and not cfg.translated)):
+                and not (cfg.six_frames and not cfg.translated)
+                and not cfg.post_process and not cfg.sloppy):
             # packed multi-file path: one shared batch stream, per-file
             # output demux; with profiles the kernels split the count
             # matrices per file
-            from .fast import fast_identify_multi
+            from .fast import FastPathUnavailable, fast_identify_multi
             limbs, taxids, highest_k, content, freqs, tax_rows = \
                 _load_index(cfg, index_path)
-            return fast_identify_multi(
-                cfg, index_path, files, outs, content, freqs, limbs, taxids,
-                highest_k, tax_rows, dev,
-                profile_files=profs if profile_file else None)
+            try:
+                return fast_identify_multi(
+                    cfg, index_path, files, outs, content, freqs, limbs,
+                    taxids, highest_k, tax_rows, dev,
+                    profile_files=profs if profile_file else None)
+            except FastPathUnavailable as e:
+                print(f"OUT: packed multi-file unavailable ({e}); "
+                      "running per file", flush=True)
         return [identify(cfg, index_path=index_path, input_path=f,
                          out_file=o, profile_file=p, device=dev)
                 for f, o, p in zip(files, outs, profs)]
 
     limbs, taxids, highest_k, content, freqs, tax_rows = \
         _load_index(cfg, index_path)
-    from .fast import fast_identify
-    return fast_identify(cfg, index_path, input_path, out_file,
-                         profile_file, content, freqs, limbs, taxids,
-                         highest_k, tax_rows, dev)
+    if not (cfg.post_process or cfg.sloppy):
+        from .fast import FastPathUnavailable, fast_identify
+        try:
+            return fast_identify(cfg, index_path, input_path, out_file,
+                                 profile_file, content, freqs, limbs, taxids,
+                                 highest_k, tax_rows, dev)
+        except FastPathUnavailable as e:
+            print(f"OUT: fast path unavailable ({e}); using the per-batch "
+                  "tpu engine", flush=True)
+    return _identify_per_batch(cfg, index_path, input_path, out_file,
+                               profile_file, limbs, taxids, highest_k,
+                               content, freqs, tax_rows, dev)
+
+
+def encode_batch(batch, encoder, highest_k: int, protein: bool,
+                 one_frame: bool, want_positions: bool = False):
+    """Encode all line buffers of a batch (K1 through the Encoder) ->
+    (query limbs (M, L), read ids (M,)) [+ (positions (M,), frames (M,))
+    for --coherence: position = emission index within the line
+    (iPositionInString, Read.hpp:84-220), frame = 0 forward / 1
+    reverse-complement line]."""
+    from ..core import kmer
+    L = 2 if encoder.sloppy else kmer.num_limbs(highest_k)
+    empty = (np.zeros((0, L), np.int32), np.zeros(0, np.int32))
+    if want_positions:
+        empty = empty + (np.zeros(0, np.int32), np.zeros(0, np.int8))
+    if not batch.buffers:
+        return empty
+    buf = np.concatenate(batch.buffers)
+    starts = np.cumsum([0] + [len(b) for b in batch.buffers[:-1]])
+    if protein:
+        windows = encoder.encode_protein_buffer(buf, highest_k)
+    else:
+        windows = encoder.encode_dna_buffer(buf, highest_k)
+    keep_parts, rid_parts, pos_parts, frm_parts = [], [], [], []
+    for li, (s, cnt, rid) in enumerate(zip(starts, batch.line_counts,
+                                           batch.line_read_ids)):
+        if cnt == 0:
+            continue
+        if one_frame and not protein:
+            keep_parts.append(windows[s:s + 3 * cnt:3])
+        else:
+            keep_parts.append(windows[s:s + cnt])
+        rid_parts.append(np.full(cnt, rid, dtype=np.int32))
+        if want_positions:
+            pos_parts.append(np.arange(cnt, dtype=np.int32))
+            frm_parts.append(np.full(cnt, batch.line_frames[li], np.int8))
+    if not keep_parts:
+        return empty
+    out = (np.concatenate(keep_parts), np.concatenate(rid_parts))
+    if want_positions:
+        out = out + (np.concatenate(pos_parts), np.concatenate(frm_parts))
+    return out
+
+
+def _identify_per_batch(cfg: Config, index_path: str, input_path: str,
+                        out_file, profile_file, limbs, taxids, highest_k,
+                        content, freqs, tax_rows, dev):
+    """The per-batch engine (kasa_tpu pipeline.py:269-520, its tpu
+    engine): memory-bounded batches of reads (single-end input through
+    the reference's chunked reader, which may split a read across
+    batches and carries its partial scores), each encoded by K1 and
+    classified by K9 (match/engine.py TpuEngine), ranked and written
+    per read; --coherence scores the reads' overlapping match runs."""
+    from ..core import kmer
+    from ..core.encode import Encoder, custom_code_lut
+    from ..host import fastx
+    from ..host import output as out_mod
+    from . import chunking
+    from . import ingest as ingest_mod
+    from .engine import TpuEngine
+
+    min_k, max_k = cfg.lower_k, cfg.higher_k
+    num_k = max_k - min_k + 1
+    S = content.num_species
+    protein = cfg.translated
+    entries, itype = artifacts.read_info(index_path)
+    # an index over the memory budget streams limb0-run-aligned chunks
+    # through kasa_tpu's oocore loop (pipeline.py:334-350)
+    table_bytes = (4 * limbs.shape[1] + num_k * 8 + 48) * max(len(taxids), 1)
+    if (not cfg.ram and table_bytes > int(cfg.memory_avail * 0.8)
+            and itype == artifacts.INDEX_TYPE_64 and min_k >= 6):
+        raise NotImplementedError(
+            f"index tables ({table_bytes >> 20} MiB) exceed the memory "
+            "budget: the per-batch engine's chunk streaming (kasa_tpu's "
+            "oocore) comes with the join engine, a later slice of the port")
+    if cfg.post_process and highest_k > 12:
+        raise RuntimeError("--coherence supports 64-bit indices only")
+
+    builder = ingest_mod.BatchBuilder(highest_k, min_k, protein=protein,
+                                      six_frames=cfg.six_frames,
+                                      one_frame=cfg.one_frame)
+    encoder = Encoder(codon_code_lut=custom_code_lut(cfg),
+                      sloppy=cfg.sloppy, device=dev)
+    score_rows = out_file is not None or cfg.filter
+    if cfg.paired_end_1:
+        max_kmers = max(int(cfg.memory_avail) // 64, 1 << 16)
+        batches = ingest_mod.read_paired_batches(
+            cfg.paired_end_1, cfg.paired_end_2, builder,
+            max_kmers_per_batch=max_kmers)
+    else:
+        soft0 = chunking.identify_soft_budget(
+            cfg, index_path, content.organisms, content.idx_to_tax,
+            min_k, max_k, itype, entries)
+        elem = chunking.input_elem_size(highest_k > 12, cfg.post_process)
+        batches = chunking.chunked_batches(
+            fastx.binary_opener(input_path),
+            fastx.sniff_format(input_path) == "fasta", builder, soft0, S,
+            score_rows, cfg.post_process, elem)
+
+    counts_all = np.zeros((num_k, S), dtype=np.float64)
+    counts_unique = np.zeros((num_k, S), dtype=np.uint64)
+    num_kmers_in_input = 0
+    num_reads_sum = 0
+    filtered_ids: list = []
+    saved_scores = None   # partial scores of a read split across batches
+    writer = fh = None
+    if out_file:
+        # latin-1: codepoints 0-255 map to raw bytes 1:1 (the kraken
+        # unclassified row emits length%256 as a raw byte)
+        fh = open(out_file, "w", encoding="latin-1")
+        writer = out_mod.ReadResultWriter(fh, cfg.output_format,
+                                          num_of_beasts=cfg.num_of_beasts,
+                                          coherence=cfg.post_process)
+    engine = TpuEngine(limbs, taxids, content.tax_to_idx, highest_k, min_k,
+                       max_k, S, dev, tax_rows, index_path)
+    idx_u64 = kmer.limbs_to_u64(limbs) if cfg.post_process else None
+
+    try:
+        for batch in batches:
+            with timers.stage("identify/encode"):
+                enc = encode_batch(batch, encoder, highest_k, protein,
+                                   cfg.one_frame,
+                                   want_positions=cfg.post_process)
+            q_limbs, read_ids = enc[0], enc[1]
+            num_kmers_in_input += batch.num_kmers
+            R = batch.num_reads
+            coh = None
+            if cfg.post_process:
+                # --coherence: per-k-mer max matched k -> overlap-cluster
+                # scores (postProcess, Compare.hpp:2607-2728) on the
+                # unsorted batch, ordered (readID, frame-line, position)
+                from .coherence import coherence_scores, max_match_lengths
+                mlens = max_match_lengths(idx_u64,
+                                          kmer.limbs_to_u64(q_limbs),
+                                          min_k, max_k, highest_k)
+                coh = coherence_scores(read_ids, enc[3], enc[2], mlens, R,
+                                       cfg.six_frames)
+            with timers.stage("identify/match"):
+                res = engine.classify(q_limbs, read_ids, R,
+                                      unique=cfg.unique)
+            scores = res.scores
+            counts_all += res.counts_all
+            counts_unique += res.counts_unique
+            completed = R - 1 if batch.add_tail else R
+            if score_rows:
+                with timers.stage("identify/score+output"):
+                    def emit(readnum, name, length, score_row, coh_val):
+                        hits = out_mod.rank_read(
+                            score_row, length, freqs[:, 0], min_k, max_k,
+                            highest_k, protein, cfg.num_frames,
+                            cfg.threshold, cfg.num_of_beasts)
+                        if writer is not None:
+                            writer.write_read(readnum, name, length, hits,
+                                              content.idx_to_tax,
+                                              content.organisms,
+                                              coherence_val=coh_val)
+                        # --filter: a read matching the index well is
+                        # flagged as contaminated (Compare.hpp:1597-1608,
+                        # double arithmetic); with --coherence a high
+                        # coherence also flags it
+                        if cfg.filter and hits.spec_idx:
+                            best = hits.best_score
+                            if (float(best) - float(max(hits.kmer_scores))) \
+                                    / float(best) < cfg.error_threshold:
+                                filtered_ids.append(readnum)
+                            elif coh is not None and \
+                                    float(coh_val) >= cfg.coherence_threshold:
+                                filtered_ids.append(readnum)
+
+                    # saveResults (Compare.hpp:2324-2446): a read continued
+                    # from the previous batch merges its saved partial
+                    # scores (one float32 add per species) and goes first
+                    row0 = 0
+                    if saved_scores is not None and batch.finished:
+                        merged = saved_scores + np.asarray(scores[0],
+                                                           np.float32)
+                        emit(num_reads_sum, batch.names[0], batch.lengths[0],
+                             merged, float(coh[0]) if coh is not None
+                             else 0.0)
+                        saved_scores = None
+                        row0 = 1
+                    for r in range(row0, completed):
+                        emit(num_reads_sum + r, batch.names[r],
+                             batch.lengths[r], scores[r],
+                             float(coh[r]) if coh is not None else 0.0)
+                    if batch.add_tail:
+                        # park the unfinished last row's scores
+                        tail = np.asarray(scores[R - 1], np.float32)
+                        if (tail[1:] > 0.0).any():
+                            saved_scores = tail.copy() \
+                                if saved_scores is None \
+                                else saved_scores + tail
+            num_reads_sum += completed
+    finally:
+        if writer is not None:
+            writer.close()
+            fh.close()
+
+    if profile_file:
+        out_mod.write_profile(profile_file, content.organisms,
+                              content.idx_to_tax,
+                              counts_all, counts_unique, None, freqs,
+                              num_kmers_in_input, num_reads_sum, min_k,
+                              max_k, cfg.num_frames, coverage=False)
+    if cfg.filter:
+        write_filtered(cfg, input_path, filtered_ids)
+    if cfg.verbose:
+        timers.report()
+    from . import fast
+    fast.LAST_FALLBACK = (0, num_reads_sum)
+    fast.LAST_DISPATCH = engine.tables
+    return counts_all, counts_unique, num_reads_sum, num_kmers_in_input
 
 
 def identify_multiple(cfg: Config, device=None):

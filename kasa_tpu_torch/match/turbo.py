@@ -101,6 +101,8 @@ SENT = int(I32_MAX)
 # a power of two: 4096 int32 keys (16 KB) is the cap.  A 150 bp read
 # needs 846 (W = 141, numK = 6); a line with more slots raises.
 SW_CAP = 4096
+# K5 sorts one read's windows in shared memory: 4096 windows at most
+DEDUP_CAP = 4096
 
 
 def _num_steps(n: int) -> int:

@@ -1,6 +1,7 @@
 """ctypes bindings for the host C++ code (loader.cpp, writer.cpp,
-sortidx.cpp): fastx parsing, sanitizing, the sparse rank+format writer
-and the (key, tax) record sort.
+sortidx.cpp): fastx parsing, sanitizing, the dense and sparse
+rank+format writers, the (key, tax) record sort and the byte size of the
+reference's taxid map (the per-batch engine's memory ledger).
 
 The shared library is built lazily with g++ on first use into
 ``kasa_tpu_torch/_build/`` (listed in .gitignore).  The build writes a
@@ -72,6 +73,19 @@ def get_lib():
         lib.kasa_sort_kmer_tax.argtypes = [
             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int]
+        lib.kasa_umap_bytes.restype = ctypes.c_int64
+        lib.kasa_umap_bytes.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+        lib.kasa_rank_format.restype = ctypes.c_void_p
+        lib.kasa_rank_format.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64]   # scores R S
+            + [ctypes.c_void_p] * 2                             # names
+            + [ctypes.c_void_p] * 2                             # lengths coh
+            + [ctypes.c_void_p] * 4                             # tax org
+            + [ctypes.c_void_p]                                 # freqs
+            + [ctypes.c_int64] + [ctypes.c_int] * 5             # nums
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+            + [ctypes.POINTER(ctypes.c_int64)])
         lib.kasa_rank_format_sparse.restype = ctypes.c_void_p
         lib.kasa_rank_format_sparse.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int64]
@@ -128,6 +142,10 @@ def load_fastx(path: str, is_fastq: bool):
 _FMT_CODE = {"json": 0, "jsonl": 1, "tsv": 2, "kraken": 3}
 
 
+def _vp(a):
+    return a.ctypes.data_as(ctypes.c_void_p) if a is not None else None
+
+
 def _blob(strings) -> tuple[np.ndarray, np.ndarray]:
     bs = [s.encode("latin-1") for s in strings]
     off = np.zeros(len(bs) + 1, np.int64)
@@ -138,9 +156,10 @@ def _blob(strings) -> tuple[np.ndarray, np.ndarray]:
 
 
 class NativeRanker:
-    """Batch rank+format through writer.cpp from per-read compact hit
-    lists.  Construct once per identify run (tax/organism blobs are
-    cached), call .format_sparse per batch."""
+    """Batch rank+format through writer.cpp, from dense (R, S) score rows
+    (.format, the classic engine) or per-read compact hit lists
+    (.format_sparse, the turbo engine).  Construct once per identify run
+    (tax/organism blobs are cached)."""
 
     def __init__(self, idx_to_tax, organisms, freqs_max_k, min_k, max_k,
                  highest_k, protein, num_frames, threshold, num_beasts,
@@ -162,6 +181,35 @@ class NativeRanker:
         self.error_threshold = float(error_threshold)
         self.coherence_threshold = float(coherence_threshold)
 
+    def _text(self, h, out_len) -> bytes:
+        try:
+            return ctypes.string_at(self.lib.kasa_buf_ptr(h), out_len.value)
+        finally:
+            self.lib.kasa_buf_free(h)
+
+    def format(self, scores: np.ndarray, names: list, lengths,
+               read_num_start: int):
+        """-> (formatted bytes, filtered mask (R,) uint8 | None) from (R, S)
+        float32 score rows (kasa_rank_format)."""
+        scores = np.ascontiguousarray(scores, dtype=np.float32)
+        R = scores.shape[0]
+        name_blob, name_off = _blob(names)
+        lengths = np.ascontiguousarray(lengths, dtype=np.uint32)
+        filtered = np.zeros(R, np.uint8) if self.filter_on else None
+        out_len = ctypes.c_int64()
+        h = self.lib.kasa_rank_format(
+            _vp(scores), R, scores.shape[1],
+            _vp(name_blob), _vp(name_off), _vp(lengths), None,
+            _vp(self.tax_blob), _vp(self.tax_off),
+            _vp(self.org_blob), _vp(self.org_off), _vp(self.freqs),
+            read_num_start, *self.params,
+            ctypes.c_float(self.threshold), self.num_beasts, self.fmt,
+            self.coherence_on, self.filter_on,
+            ctypes.c_float(self.error_threshold),
+            ctypes.c_float(self.coherence_threshold), _vp(filtered),
+            ctypes.byref(out_len))
+        return self._text(h, out_len), filtered
+
     def format_sparse(self, hit_tax: np.ndarray, hit_ksc: np.ndarray,
                       hit_cnt: np.ndarray, names: list, lengths,
                       read_num_start: int):
@@ -176,26 +224,18 @@ class NativeRanker:
         lengths = np.ascontiguousarray(lengths, dtype=np.uint32)
         filtered = np.zeros(R, np.uint8) if self.filter_on else None
         out_len = ctypes.c_int64()
-
-        def vp(a):
-            return a.ctypes.data_as(ctypes.c_void_p) if a is not None else None
-
         h = self.lib.kasa_rank_format_sparse(
-            vp(hit_tax), vp(hit_ksc), vp(hit_cnt), R, W,
-            vp(name_blob), vp(name_off), vp(lengths), None,
-            vp(self.tax_blob), vp(self.tax_off),
-            vp(self.org_blob), vp(self.org_off), vp(self.freqs),
+            _vp(hit_tax), _vp(hit_ksc), _vp(hit_cnt), R, W,
+            _vp(name_blob), _vp(name_off), _vp(lengths), None,
+            _vp(self.tax_blob), _vp(self.tax_off),
+            _vp(self.org_blob), _vp(self.org_off), _vp(self.freqs),
             read_num_start, *self.params,
             ctypes.c_float(self.threshold), self.num_beasts, self.fmt,
             self.coherence_on, self.filter_on,
             ctypes.c_float(self.error_threshold),
-            ctypes.c_float(self.coherence_threshold), vp(filtered),
+            ctypes.c_float(self.coherence_threshold), _vp(filtered),
             ctypes.byref(out_len))
-        try:
-            text = ctypes.string_at(self.lib.kasa_buf_ptr(h), out_len.value)
-        finally:
-            self.lib.kasa_buf_free(h)
-        return text, filtered
+        return self._text(h, out_len), filtered
 
 
 def sanitize_inplace(seq: np.ndarray, protein: bool) -> int | None:
@@ -222,3 +262,15 @@ def sort_kmer_tax(keys: np.ndarray, tax: np.ndarray, key_bits: int = 60,
         tax.ctypes.data_as(ctypes.c_void_p), int(key_bits),
         max(int(nthreads), 1))
     return True
+
+
+def umap_bytes(keys) -> int:
+    """Byte size of the reference's taxid -> row unordered_map
+    (Utilities.hpp:1028-1040) through libstdc++."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("the native host library (g++ and zlib) is "
+                           "unavailable")
+    arr = np.ascontiguousarray(keys, dtype=np.uint32)
+    return int(lib.kasa_umap_bytes(arr.ctypes.data_as(ctypes.c_void_p),
+                                   len(arr)))

@@ -142,15 +142,15 @@ def test_output_formats_match_jax_turbo(tmp_path, monkeypatch, index_dir,
             np.testing.assert_allclose(fy, fx, rtol=2e-5, atol=1e-4)
 
 
-UNSUPPORTED = [
-    ("coverage", True), ("post_process", True), ("visualize", True),
-    ("sloppy", True),
-]
+UNSUPPORTED = [("coverage", True), ("visualize", True)]
 
 
 @pytest.mark.parametrize("attr,value", UNSUPPORTED,
                          ids=[a for a, _ in UNSUPPORTED])
 def test_unsupported_flags_raise(tmp_path, index_dir, attr, value):
+    """--coverage and --visualize come with the join engine, a later
+    slice (-j and --coherence run the per-batch classic engine:
+    tests/test_torch_classic_identify.py)."""
     from kasa_tpu_torch.config import Config
     from kasa_tpu_torch.match.pipeline import identify
     cfg = Config()
@@ -161,16 +161,20 @@ def test_unsupported_flags_raise(tmp_path, index_dir, attr, value):
                  out_file=str(tmp_path / "o.json"), device="cpu")
 
 
-def test_unsupported_inputs_raise(tmp_path):
-    """A 128-bit index over more than six k levels (the golden's 12..25)
-    needs the classic engine, a later slice."""
+def test_unsupported_inputs_raise(tmp_path, index_dir):
+    """-j takes the per-batch engine; over the memory budget (-m) that
+    engine streams index chunks in kasa_tpu (its oocore loop), which
+    comes with the join engine, a later slice.  (A 128-bit index over
+    more than six k levels, which this test held before, runs the
+    classic engine: tests/test_torch_classic_identify.py.)"""
     from kasa_tpu_torch.config import Config
     from kasa_tpu_torch.match.pipeline import identify
     cfg = Config()
-    cfg.content_file = str(GOLDEN / "exampleIndex_content.txt")
-    cfg.lower_k, cfg.higher_k = 12, 25
+    cfg.content_file = str(index_dir / "exampleIndex_content.txt")
+    cfg.sloppy = True
+    cfg.memory_avail = 1 << 20
     with pytest.raises(NotImplementedError, match="later slice"):
-        identify(cfg, index_path=str(GOLDEN / "exampleIndex128"),
+        identify(cfg, index_path=str(index_dir / "exampleIndex"),
                  input_path=str(FIXTURES / "reads.fastq"),
                  out_file=str(tmp_path / "o.json"), device="cpu")
 
@@ -178,24 +182,33 @@ def test_unsupported_inputs_raise(tmp_path):
 @pytest.mark.parametrize("case", ["tiered", "classic"])
 def test_other_strategies_raise(tmp_path, monkeypatch, index_dir, case):
     """A 128-bit index over the device budget needs its tables sharded
-    over several cards (tiered streaming takes 64-bit indices only); a k
-    range the turbo tables cannot take (min_k * 5 < 24) needs the
-    classic engine: both are later slices.  (A 64-bit index over the
-    budget streams tiered: tests/test_torch_tiered.py.)"""
+    over several cards (tiered streaming takes 64-bit indices only): the
+    multi-GPU mesh, a later slice.  The classic engine's per-batch loop
+    over the memory budget (paired-end input under KASA_TPU_NO_TURBO
+    with a small -m) needs kasa_tpu's oocore chunk streaming, a later
+    slice too.  (A 64-bit index over the budget streams tiered:
+    tests/test_torch_tiered.py; min_k * 5 < 24, which the classic case
+    held before, runs the classic engine:
+    tests/test_torch_classic_identify.py.)"""
     from kasa_tpu_torch.config import Config
     from kasa_tpu_torch.match.pipeline import identify
     cfg = Config()
     index = str(index_dir / "exampleIndex")
+    inp = str(FIXTURES / "reads.fastq")
     if case == "tiered":
         monkeypatch.setenv("KASA_DEVICE_BUDGET", "1")
         cfg.content_file = str(GOLDEN / "exampleIndex_content.txt")
         cfg.lower_k, cfg.higher_k = 20, 25
         index = str(GOLDEN / "exampleIndex128")
     else:
-        cfg.lower_k = 4
+        monkeypatch.setenv("KASA_TPU_NO_TURBO", "1")
+        cfg.content_file = str(index_dir / "exampleIndex_content.txt")
+        cfg.paired_end_1 = str(FIXTURES / "reads_1.fastq")
+        cfg.paired_end_2 = str(FIXTURES / "reads_2.fastq")
+        cfg.memory_avail = 1 << 20
+        inp = ""
     with pytest.raises(NotImplementedError, match="later slice"):
-        identify(cfg, index_path=index,
-                 input_path=str(FIXTURES / "reads.fastq"),
+        identify(cfg, index_path=index, input_path=inp,
                  out_file=str(tmp_path / "o.json"), device="cpu")
 
 

@@ -1,6 +1,6 @@
 """The CUDA kernels of kasa_tpu_torch against their plain PyTorch
-versions, on the card: K1-K8, the per-file, counts-only, list and
-additive arms, and the five-limb arms of K1, K2 and K5.  CUDA kernels have no CPU mode: without a GPU
+versions, on the card: K1-K9, the per-file, counts-only, list,
+additive and sloppy arms, and the five-limb arms of K1, K2 and K5.  CUDA kernels have no CPU mode: without a GPU
 these tests skip.  On a machine with one (and without JAX):
 
     python3 -m pytest --noconftest -q -m cuda tests/test_torch_kernels.py
@@ -473,3 +473,49 @@ def test_additive_finish_kernel(cuda, tmp_path):
         _close(accs[0][0], accs[1][0])
         flags = p2[0][RR:2 * RR].cpu()
         assert bool((flags & 2).any())
+
+
+@pytest.mark.parametrize("highest_k,min_k,max_k,S,kpr", [
+    (12, 4, 12, 64, 0), (12, 4, 12, 64, 32), (25, 12, 25, 64, 0),
+    (25, 12, 25, 64, 32), (25, 12, 25, 4000, 32), (25, 1, 6, 64, 0)],
+    ids=["L2_scatter", "L2_uniform", "L5_scatter", "L5_uniform",
+         "L5_global_counts", "L5_k1_6"])
+def test_classic_classify_kernel(cuda, highest_k, min_k, max_k, S, kpr):
+    """K9 against its plain version: identical hit cells, counts_unique
+    and tail_pairs, floats within the contract; in both layouts, with the
+    per-block shared counts (8 * numK * S bytes fit) and without them."""
+    from test_torch_classic import _index, _queries
+    from kasa_tpu_torch.match.device import (StackedTables, classify_batch,
+                                             classify_batch_plain)
+    from kasa_tpu_torch.match.join import DeviceIndex
+    limbs, taxids = _index(highest_k, 20_000, S, seed=highest_k + min_k)
+    t = StackedTables.build(DeviceIndex(
+        limbs, taxids, {i: i for i in range(S)}, highest_k, min_k, max_k,
+        S, cuda))
+    R, M = 128, 4096
+    q, rid, valid, _ = _queries(limbs, highest_k, M, R, seed=S)
+    q, rid, valid = (torch.from_numpy(a).to(cuda) for a in (q, rid, valid))
+    s1, ca1, cu1, t1 = classify_batch(t, q, rid, valid, R, 2, kpr)
+    s2, ca2, cu2, t2 = classify_batch_plain(t, q, rid, valid, R, 2, kpr)
+    torch.cuda.synchronize()
+    assert torch.equal(s1 > 0, s2 > 0) and int(cu2.sum()) > 0
+    _close(s1, s2)
+    _close(ca1, ca2)
+    assert torch.equal(cu1, cu2)
+    assert int(t1) == t2 > 0
+
+
+def test_sloppy_arm_kernel(cuda):
+    """K1's sloppy arm (-j) against encode + sloppy_reduce_plain, DNA and
+    protein rows."""
+    from kasa_tpu_torch.core import encode as E
+    rng = np.random.default_rng(9)
+    mat = torch.from_numpy(rng.choice(np.frombuffer(b"ACGTXZacgt^", np.uint8),
+                                      size=(300, 176))).to(cuda)
+    lut = torch.from_numpy(E.build_codon_code_lut().astype(np.int32)).to(cuda)
+    aas = torch.from_numpy(E.aas_code_lut()).to(cuda)
+    for w, protein in ((141, False), (165, True)):
+        got = E.encode_windows(mat, lut, w, protein=protein, aas_lut=aas)
+        want = E.sloppy_reduce_plain(
+            E.encode_windows_plain(mat, lut, w, protein=protein), aas)
+        assert torch.equal(got.cpu(), want.cpu())

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """On-card smoke run of kasa_tpu_torch: the port's identify on one
-NVIDIA GPU, through its nine CUDA kernels, checked against references.
+NVIDIA GPU, through its twelve CUDA kernels, checked against references.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -34,6 +34,21 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
            above MAXLEN_CAP (per-batch engine) and an empty input (the
            format check refuses it, as in kasa_tpu); the classic runs
            launch no turbo or tiered kernel;
+  golden-engines  the join and exact engines, --visualize and the
+           over-budget routes on the golden fixtures, each launch count
+           checked: --coverage on the default engine (the join engine: K1,
+           K12, K10, K11 and nothing else), --engine exact (K1 only) and
+           --engine join over the cases of tests/test_identify_parity.py,
+           --visualize on fixtures/one_read.fastq, exampleIndex128 at k
+           20..25 through the exact engine's walk and the join engine,
+           the two over-budget inputs that keep resident turbo tables
+           (KASA_DEVICE_BUDGET=1: exampleIndex128 k 20..25, exampleIndex
+           k 5..10), and -j and paired input under KASA_TPU_NO_TURBO over
+           a 1 MiB -m (oocore: K9 once per chunk per batch); byte for
+           byte against the goldens where the engine gives them (the
+           exact engine, the join engine's profiles, --visualize), else
+           under the contract against the goldens, the port's CPU run or
+           the run without a budget;
   golden-flags  the same for --six, --one, -e, paired-end, -z (protIndex),
            a halved index, --filter (split files byte-identical) and
            identify_multiple on fixtures/multi, each with its kernels'
@@ -73,6 +88,19 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
            K1's sloppy arm on a batch of the default reads against their
            plain versions, timed, with torch.searchsorted over the 60-bit
            keys as K9's yardstick;
+  join     the 65,536 smoke reads of the default corpus through
+           --engine join --coverage against their turbo run (every hit
+           written; hit taxa and unique counts identical, all-counts
+           within rtol 2e-5 / atol 2e-3, scores within the contract):
+           reads/s, the join/* and identify/* host stages, the device's
+           busy share; then K12, K10 and K11 on the run's first batch
+           against their plain versions, timed, with torch.sort,
+           torch.searchsorted and index_put_ as yardsticks;
+  oocore   8,192 read pairs of the default corpus under KASA_TPU_NO_TURBO
+           with a 700 MiB -m (6 index chunks, their cache built first)
+           against the resident per-batch run (-r): chunks, batches, MB
+           uploaded per batch, K9 per chunk on the first batch against its
+           plain version, timed;
   sparse   the 10,001-species corpus (~80 M entries, no hot tier: the
            sparse fold): tables, a warm-up, 65,536 reads through identify
            (K6 launched on every batch, beside K4's counts-only arm and
@@ -87,6 +115,9 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
            default and --six -e, with the same prints and sample checks;
            then the five-limb arms of K1, K2 and K5 against their plain
            versions on real batches, timed;
+  join wide  the wide index at k 20..25: the 8,192 warm-up reads through
+           the join engine against their turbo run, then K12, K10 and K11
+           at L = 5 on its first batch;
   classic  the 128-bit corpus at -k 25 12 (all 14 levels) through the
            classic engine: tables (host build seconds), a warm-up, the
            65,536 smoke reads default and -e, and 32,768 read pairs
@@ -569,24 +600,15 @@ def span_sectors(start, width):
     return __import__("torch").cat([a // 32, (a + width - 1) // 32])
 
 
-def classic_bytes(t, q, read_ids, valid, R):
-    """Least bytes K9 moves on this batch: the flags once, the valid
-    windows, the read ids of the windows it classifies (scatter layout),
-    the prefix entries, the distinct sectors of the index that its reads
-    touch (limb 0 at each limb-0 bisect midpoint and at the run start,
-    limbs 1.. up to the first differing limb at each run-bisect midpoint,
-    the full rows at pos and pos - 1) and of run_end, the grp_id,
-    grp_start and d_tax cells of the matched groups, the masks and
-    weights, and the outputs once (the (R, S) score rows, the two count
-    tables)."""
+def search_sectors(t, qa):
+    """The full-key lower bound of the queries qa (common.cuh
+    lower_bound_full, as K9 and K10 take it) and what its reads touch ->
+    (pos, the distinct 32-byte index sectors: limb 0 at each limb-0 bisect
+    midpoint and at the run start, limbs 1.. up to the first differing
+    limb at each run-bisect midpoint, the full rows at pos and pos - 1;
+    the prefix buckets b; the runs whose run_end it reads)."""
     import torch
-    from kasa_tpu_torch.match.device import _valid_levels
-    n, L, nk, S = t.n, q.shape[1], t.num_k, t.num_species
-    dev = q.device
-    vi = torch.nonzero(valid)[:, 0]
-    kv_all = _valid_levels(q[vi], t.min_k, t.max_k)
-    act = kv_all >= t.min_k
-    ai, qa, kv = vi[act], q[vi][act], kv_all[act]
+    n, L = t.n, qa.shape[1]
     row_b = 4 * L
     b = (qa[:, 0] >> 10).long()
     lo, hi = t.prefix_tbl[b].long(), t.prefix_tbl[b + 1].long()
@@ -626,6 +648,26 @@ def classic_bytes(t, q, read_ids, valid, R):
     pos = lo
     touch(span_sectors(pos[pos < n] * row_b, row_b))
     touch(span_sectors((pos - 1)[pos > 0] * row_b, row_b))
+    return pos, torch.unique(torch.cat(idx_sec)), b, runs
+
+
+def classic_bytes(t, q, read_ids, valid, R):
+    """Least bytes K9 moves on this batch: the flags once, the valid
+    windows, the read ids of the windows it classifies (scatter layout),
+    the prefix entries, the distinct sectors of the index that its
+    search reads (search_sectors) and of run_end, the grp_id, grp_start
+    and d_tax cells of the matched groups, the masks and weights, and
+    the outputs once (the (R, S) score rows, the two count tables)."""
+    import torch
+    from kasa_tpu_torch.match.device import _valid_levels
+    n, L, nk, S = t.n, q.shape[1], t.num_k, t.num_species
+    dev = q.device
+    vi = torch.nonzero(valid)[:, 0]
+    kv_all = _valid_levels(q[vi], t.min_k, t.max_k)
+    act = kv_all >= t.min_k
+    ai, qa, kv = vi[act], q[vi][act], kv_all[act]
+    row_b = 4 * L
+    pos, idx_sec, b, runs = search_sectors(t, qa)
     at = t.idx_limbs[pos.clamp(max=n - 1)]
     pr = t.idx_limbs[(pos - 1).clamp(min=0)]
     gid, gst, dtx = [], [], []
@@ -649,7 +691,7 @@ def classic_bytes(t, q, read_ids, valid, R):
     return (q.shape[0] + sector_bytes(vi, row_b)
             + (sector_bytes(ai, 4) if read_ids is not None else 0)
             + sector_bytes(cat([b, b + 1]), 4)
-            + 32 * int(torch.unique(cat(idx_sec)).numel())
+            + 32 * int(idx_sec.numel())
             + sector_bytes(runs, 4) + sector_bytes(cat(gid), 4)
             + sector_bytes(cat(gst), 4) + sector_bytes(cat(dtx), 4)
             + nk * (L + 1) * 4 + R * S * 4 + 2 * nk * S * 4 + 4)
@@ -2343,6 +2385,509 @@ def phase_kernels_tiered(disp, mat, R, w, lpr, unique, launches, tag,
     return entries, dict(ms, step=step_ms)
 
 
+# ---------------------------------------------------------------------------
+# the join and exact engines, --visualize, the per-batch engine over -m
+
+JOIN_KERNELS = ("encode", "query_sort", "join_match", "join_scatter")
+OOCORE_MEM = 700 << 20    # -m of the oocore phase: 6 chunks
+OOCORE_PAIRS = 8_192
+
+
+def expect_only(tag, counts, want):
+    """The run launched every kernel of `want` and no other."""
+    expect_launched(tag, counts, want)
+    bad = {k: v for k, v in counts.items() if v and k not in want}
+    if bad:
+        fail(f"{tag}: launched {bad} besides {want}")
+
+
+def golden_run(index, inp, over, stem, dev, env=None):
+    """identify on the golden index family (tests/golden/<index>, or a
+    path) -> (launches, stdout, output path, profile path)."""
+    import contextlib
+    import io
+    import torch
+    from kasa_tpu_torch import kernels
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.host.output import file_ending
+    from kasa_tpu_torch.match.pipeline import identify
+    gold = os.path.join(HERE, "tests", "golden")
+    cfg = Config()
+    cfg.content_file = os.path.join(gold, "exampleIndex_content.txt")
+    for k, v in dict(over).items():
+        setattr(cfg, k, v)
+    out = os.path.join(OUT, f"{stem}_{dev}" + file_ending(cfg.output_format))
+    prof = os.path.join(OUT, f"{stem}_{dev}.csv")
+    for k, v in dict(env or {}).items():
+        os.environ[k] = v
+    buf = io.StringIO()
+    kernels.reset_counts()
+    try:
+        with contextlib.redirect_stdout(buf):
+            identify(cfg, index_path=os.path.join(gold, index),
+                     input_path=inp, out_file=out, profile_file=prof,
+                     device=dev)
+    finally:
+        for k in dict(env or {}):
+            os.environ.pop(k, None)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    return dict(kernels.COUNTS), buf.getvalue(), out, prof
+
+
+def same_file(tag, a, b):
+    import filecmp
+    if not filecmp.cmp(a, b, shallow=False):
+        fail(f"{tag}: {os.path.basename(a)} differs from {b}")
+
+
+def json_file_agrees(tag, ref, got):
+    with open(ref) as f1, open(got) as f2:
+        r, g = json.load(f1), json.load(f2)
+    if not r:
+        fail(f"{tag}: no reads written")
+    json_agrees(r, g)
+
+
+# the cases of tests/test_identify_parity.py:20-42 (and its paired case):
+# tag, input, golden output, golden profile, Config overrides
+PARITY_CASES = (
+    ("default", "reads.fastq", "reads_identify.json", "reads_profile.csv",
+     {}),
+    ("tsv", "reads.fastq", "reads_identify.tsv", "reads_profile_tsv.csv",
+     {"output_format": "tsv"}),
+    ("jsonl", "reads.fastq", "reads_identify.jsonl", None,
+     {"output_format": "jsonl"}),
+    ("kraken", "reads.fastq", "reads_identify.ktsv", None,
+     {"output_format": "kraken"}),
+    ("k12", "reads.fastq", "reads_k12.json", "reads_k12_profile.csv",
+     {"lower_k": 12, "higher_k": 12}),
+    ("six", "reads.fastq", "reads_six.json", "reads_six_profile.csv",
+     {"six_frames": True}),
+    ("one", "reads.fastq", "reads_one.json", "reads_one_profile.csv",
+     {"one_frame": True}),
+    ("unique", "reads.fastq", "reads_unique.json", "reads_unique_profile.csv",
+     {"unique": True}),
+    ("fasta", "reads.fasta", "reads_fasta.json", "reads_fasta_profile.csv",
+     {}),
+    # tests/golden/reads_gz.json is empty: the reads are reads.fastq's
+    ("gz", "reads.fastq.gz", "reads_identify.json", None, {}),
+    ("edge", "edge.fasta", "edge.json", "edge_profile.csv", {}),
+    ("coverage", "reads.fastq", "reads_cov.json", "reads_cov_profile.csv",
+     {"coverage": True}),
+    ("paired", "", "reads_paired.json", "reads_paired_profile.csv",
+     {"paired_end_1": "reads_1.fastq", "paired_end_2": "reads_2.fastq"}),
+)
+
+
+def phase_golden_engines():
+    """The join and exact engines, --visualize, the over-budget routes
+    (F1 and oocore) on the golden fixtures, on the card: byte for byte
+    against the reference binary's goldens where the engine gives them
+    (the exact engine's outputs; every profile of the join engine, whose
+    float64 group sums are the exact engine's; --visualize), else under
+    the contract against the goldens or the port's CPU run of the same
+    call.  -> the launches of the --coverage run."""
+    from kasa_tpu_torch.match import fast
+    from kasa_tpu_torch.match.oocore import TieredIndex
+    gold = os.path.join(HERE, "tests", "golden")
+    fix = os.path.join(HERE, "fixtures")
+
+    def g(name):
+        return os.path.join(gold, name)
+
+    def fixture_over(over):
+        return {k: (os.path.join(fix, v) if k.startswith("paired") else v)
+                for k, v in over.items()}
+    done = []
+    # --coverage on the default engine: the join engine
+    cov, text, out, prof = golden_run(
+        "exampleIndex", os.path.join(fix, "reads.fastq"),
+        {"coverage": True}, "ge_cov", DEVICE)
+    if "OUT: --coverage uses the join engine" not in text:
+        fail("--coverage did not take the join engine")
+    expect_only("--coverage", cov, JOIN_KERNELS)
+    same_file("--coverage", prof, g("reads_cov_profile.csv"))
+    json_file_agrees("--coverage", g("reads_cov.json"), out)
+    done.append("--coverage")
+    for engine in ("exact", "join"):
+        for tag, inp, gout, gprof, over in PARITY_CASES:
+            if engine == "join" and not gout.endswith(".json"):
+                continue        # the writer's formats: the exact engine
+            t = f"--engine {engine} {tag}"
+            counts, _, out, prof = golden_run(
+                "exampleIndex", os.path.join(fix, inp) if inp else "",
+                dict(fixture_over(over), engine=engine),
+                f"ge_{engine}_{tag}", DEVICE)
+            expect_only(t, counts, ("encode",) if engine == "exact"
+                        else JOIN_KERNELS)
+            if engine == "exact":
+                same_file(t, out, g(gout))
+            else:
+                json_file_agrees(t, g(gout), out)
+            if gprof:
+                same_file(t, prof, g(gprof))
+            done.append(t)
+    # --visualize: the per-batch engine and the reference's print
+    counts, text, _, _ = golden_run(
+        "exampleIndex", os.path.join(fix, "one_read.fastq"),
+        {"visualize": True}, "ge_vis", DEVICE)
+    with open(g("visualize_one_read.txt")) as fh:
+        if text != fh.read():
+            fail("--visualize: the print differs from "
+                 "tests/golden/visualize_one_read.txt")
+    expect_only("--visualize", counts, CLASSIC_KERNELS)
+    done.append("--visualize")
+    # the 128-bit index at -k 25 20: the exact engine's walk and the join
+    # engine, each against the port's CPU run
+    for engine in ("exact", "join"):
+        t = f"128-bit k 20..25 --engine {engine}"
+        over = {"lower_k": 20, "higher_k": 25, "engine": engine}
+        res = {dev: golden_run("exampleIndex128",
+                               os.path.join(fix, "reads.fastq"), over,
+                               f"ge128_{engine}", dev)
+               for dev in (DEVICE, "cpu")}
+        expect_only(t, res[DEVICE][0], ("encode",) if engine == "exact"
+                    else JOIN_KERNELS)
+        same_file(t, res[DEVICE][3], res["cpu"][3])
+        if engine == "exact":
+            same_file(t, res[DEVICE][2], res["cpu"][2])
+        else:
+            json_file_agrees(t, res["cpu"][2], res[DEVICE][2])
+        done.append(t)
+    # F1: an over-budget index the tiered path cannot take keeps resident
+    # turbo tables, as in kasa_tpu: the same outputs as without a budget
+    for index, over in (("exampleIndex128", {"lower_k": 20, "higher_k": 25}),
+                        ("exampleIndex", {"lower_k": 5, "higher_k": 10})):
+        t = f"over budget {index} k {over['lower_k']}..{over['higher_k']}"
+        over = dict(over, num_of_beasts=ALL_HITS)
+        inp = os.path.join(fix, "reads.fastq")
+        ref = golden_run(index, inp, over, "ge_f1_ref", DEVICE)
+        got = golden_run(index, inp, over, "ge_f1", DEVICE,
+                         env={"KASA_DEVICE_BUDGET": "1"})
+        if type(fast.LAST_DISPATCH).__name__ != "SingleTurboDispatch":
+            fail(f"{t}: {type(fast.LAST_DISPATCH).__name__}, expected "
+                 "resident turbo tables")
+        expect_launched(t, got[0], PATH_KERNELS)
+        same_file(t, got[3], ref[3])
+        json_file_agrees(t, ref[2], got[2])
+        done.append(t)
+    # the per-batch engine over -m (oocore): -j on the sloppy-reduced
+    # index, paired input under KASA_TPU_NO_TURBO; K9 once per chunk per
+    # batch; the same outputs as the resident per-batch run
+    red = reduced_index(OUT)
+    for t, index, inp, over, env in (
+            ("-j over -m", red, os.path.join(fix, "reads.fastq"),
+             {"sloppy": True}, None),
+            ("paired no-turbo over -m", "exampleIndex", "",
+             fixture_over({"paired_end_1": "reads_1.fastq",
+                           "paired_end_2": "reads_2.fastq"}),
+             {"KASA_TPU_NO_TURBO": "1"})):
+        over = dict(over, num_of_beasts=ALL_HITS)
+        ref = golden_run(index, inp, over, "ge_oo_ref", DEVICE, env=env)
+        got = golden_run(index, inp, dict(over, memory_avail=1 << 20,
+                                          temp_path=OUT, call_idx=61),
+                         "ge_oo", DEVICE, env=env)
+        disp = fast.LAST_DISPATCH
+        if not isinstance(disp, TieredIndex):
+            fail(f"{t}: the run did not stream index chunks")
+        expect_only(t, got[0], CLASSIC_KERNELS)
+        if got[0]["classic_classify"] != len(disp.chunks) * disp.batches:
+            fail(f"{t}: {got[0]['classic_classify']} K9 launches for "
+                 f"{len(disp.chunks)} chunks x {disp.batches} batches")
+        same_file(t, got[3], ref[3])
+        json_file_agrees(t, ref[2], got[2])
+        done.append(t)
+    log(f"golden-engines: {len(done)} runs on the card agree: "
+        + ", ".join(done) + f"; --coverage launches "
+        + json.dumps({k: v for k, v in cov.items() if v}))
+    return cov
+
+
+class FirstCall:
+    """Records the arguments of the first call of module.name (the first
+    batch a run hands an engine) while the run goes on unchanged."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.args = None
+
+    def __enter__(self):
+        def wrapped(*a, **k):
+            if self.args is None:
+                self.args = a
+            return self.orig(*a, **k)
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def phase_join(tag, index, inp, over, n_reads):
+    """The turbo run and the join engine's run (--engine join, or
+    --coverage on the default engine) of the same reads, every hit
+    written: hit taxa and unique counts identical, all-counts within rtol
+    2e-5 / atol 2e-3, scores within the contract.  -> (join launches,
+    info, the join run's first batch)."""
+    from kasa_tpu_torch.match import join as J
+    corpus = {"index": index}
+    over = dict(over, num_of_beasts=ALL_HITS)
+    stem = tag.replace(" ", "_").replace("-", "")
+    outs = {}
+    for kind in ("turbo", "join"):
+        j = os.path.join(OUT, f"{stem}_{kind}.json")
+        p = os.path.join(OUT, f"{stem}_{kind}.csv") if kind == "join" \
+            else None
+        with FirstCall(J, "match_and_score") as first:
+            res, launches, info = drive(
+                f"{tag} ({kind})", inp, j, p,
+                PATH_KERNELS if kind == "turbo" else JOIN_KERNELS,
+                over=over if kind == "turbo" else dict(
+                    over, engine="join", coverage=True), corpus=corpus)
+        with open(j) as fh:
+            outs[kind] = (res, json.load(fh))
+        os.remove(j)
+    expect_only(tag, launches, JOIN_KERNELS)
+    if res[2] != n_reads:
+        fail(f"{tag}: {res[2]} reads identified, expected {n_reads}")
+    with open(p) as fh:
+        head = fh.readline()
+    if "Genome Coverage" not in head:
+        fail(f"{tag}: the profile has no coverage columns")
+    tiered_agree(f"{tag} join", outs["turbo"], outs["join"], RTOL, ATOL)
+    info["join_stages"] = {k: v for k, v in info["stages"].items()
+                           if k.startswith(("join/", "identify/"))}
+    info["batches"] = launches["join_match"]
+    log(f"{tag}: {info['batches']} batches; host stages "
+        + json.dumps(info["join_stages"]))
+    return launches, info, first.args
+
+
+def join_match_bytes(t, q, out):
+    """Least bytes K10 moves: the queries, the prefix entries, the
+    distinct index sectors of the search and the run_end entries it
+    reads, the grp_id cells of the matched levels, the grp_start cells
+    (g and g + 1 of the matched, entry 0 of the unmatched), the masks,
+    and the five (numK, M) outputs once."""
+    import torch
+    n, M, L, nk = t.n, q.shape[0], q.shape[1], t.num_k
+    pos, idx_sec, b, runs = search_sectors(t, q)
+    matched, g = out[0], out[1]
+    at = pos.clamp(max=n - 1)
+    gid, gst = [], []
+    for ki in range(nk):
+        m = matched[ki]
+        eq_at = m & (pos < n) & ((t.idx_limbs[at] & t.masks[ki])
+                                 == (q & t.masks[ki])).all(1)
+        e = torch.where(eq_at, pos, pos - 1)[m]
+        gid.append(ki * n + e)
+        gk = g[ki][m].long()
+        gst.append(ki * t.grp_start.shape[1] + torch.cat(
+            [gk, gk + 1, torch.zeros(1, dtype=torch.long, device=q.device)]))
+    cat = torch.cat
+    return (M * L * 4 + sector_bytes(cat([b, b + 1]), 4)
+            + 32 * int(idx_sec.numel()) + sector_bytes(runs, 4)
+            + sector_bytes(cat(gid), 4) + sector_bytes(cat(gst), 4)
+            + nk * L * 4 + nk * M * (1 + 4 + 4 + 4 + 1))
+
+
+def scatter_pairs(t, valid, T, start, read_ids):
+    """Every (occurrence, taxon) pair K11 adds -> (flat score cells,
+    float32 values, d_tax cells): the expansion, for the bound and for
+    the index_put_ yardstick."""
+    import torch
+    dev = read_ids.device
+    S = t.num_species
+    cells, vals, dcells = [], [], []
+    for ki in range(t.num_k):
+        idx = torch.nonzero(valid[ki])[:, 0]
+        Tv = T[ki][idx].long()
+        pair = torch.repeat_interleave(torch.arange(len(idx), device=dev),
+                                       Tv)
+        j = torch.arange(len(pair), device=dev) \
+            - (torch.cumsum(Tv, 0) - Tv)[pair]
+        dc = start[ki][idx].long()[pair] + j
+        tax = t.d_tax[ki][dc].long()
+        cells.append(read_ids[idx].long()[pair] * S + tax)
+        vals.append((t.weights[ki] * (1.0 / Tv.float()))[pair])
+        dcells.append(ki * t.d_tax.shape[1] + dc)
+    return torch.cat(cells), torch.cat(vals), torch.cat(dcells)
+
+
+def phase_kernels_join(t, batch, launches, suffix, what):
+    """K12, K10 and K11 on the first batch of a join run, in the engine's
+    order, each against its plain version (integers identical, scores
+    within the contract), timed with CUDA events after a warm-up, with
+    its bound and, where one exists, a PyTorch call as yardstick.
+    -> (kernel entries, the three kernels' ms per batch)."""
+    import numpy as np
+    import torch
+    from kasa_tpu_torch.match import join as J
+    q_np, r_np, R = batch[1], batch[2], batch[3]
+    d = torch.device(DEVICE)
+    q = torch.from_numpy(np.ascontiguousarray(q_np, np.int32)).to(d)
+    r = torch.from_numpy(np.ascontiguousarray(r_np, np.int32)).to(d)
+    M, L = q.shape
+    # K12
+    qs, rs = J.sort_queries(q, r, R)
+    pq, pr = J.sort_queries_plain(q, r)
+    same(f"query_sort{suffix}.limbs", qs, pq)
+    same(f"query_sort{suffix}.read_ids", rs, pr)
+    ms12 = time_ms(lambda: J.sort_queries(q, r, R), 10)
+    plain12 = time_ms(lambda: J.sort_queries_plain(q, r), 3)
+    lib12 = None
+    if L == 2:
+        keys = (q[:, 0].long() << 30) | q[:, 1].long()
+        lib12 = time_ms(lambda: torch.sort(keys, stable=True), 10)
+    # K10
+    got = J.join_match(t, qs)
+    want = J.join_match_plain(t, qs)
+    for name, a, b in zip(("matched", "g", "T", "start", "ok"), got, want):
+        same(f"join_match{suffix}.{name}", a, b)
+    ms10 = time_ms(lambda: J.join_match(t, qs), 10)
+    plain10 = time_ms(lambda: J.join_match_plain(t, qs), 3)
+    lib10 = None
+    if L == 2:
+        k64 = (t.idx_limbs[:, 0].long() << 30) | t.idx_limbs[:, 1].long()
+        q64 = (qs[:, 0].long() << 30) | qs[:, 1].long()
+        lib10 = time_ms(lambda: torch.searchsorted(k64, q64), 10)
+    # K11
+    matched, g, T, start, ok = want
+    valid = matched & ok
+    s1 = J.join_scatter(t, valid, T, start, rs, R)
+    s2 = J.join_scatter_plain(t, valid, T, start, rs, R)
+    same(f"join_scatter{suffix}.hit_cells", s1 > 0, s2 > 0)
+    err11 = close(f"join_scatter{suffix}.scores", s1, s2)
+    ms11 = time_ms(lambda: J.join_scatter(t, valid, T, start, rs, R), 10)
+    plain11 = time_ms(lambda: J.join_scatter_plain(t, valid, T, start, rs,
+                                                   R), 3)
+    cells, vals, dcells = scatter_pairs(t, valid, T, start, rs)
+    acc = torch.zeros(R * t.num_species, dtype=torch.float32, device=d)
+    lib11 = time_ms(lambda: acc.index_put_((cells,), vals, accumulate=True),
+                    10)
+    occ = torch.nonzero(valid.reshape(-1))[:, 0]
+    nk, S = t.num_k, t.num_species
+    bytes11 = (nk * M + 2 * sector_bytes(occ, 4)
+               + sector_bytes(occ % M, 4) + sector_bytes(dcells, 4)
+               + nk * 4 + R * S * 4)
+    torch.cuda.synchronize()
+    log(f"kernels join{suffix}: query_sort, join_match and join_scatter "
+        f"agree with their plain versions on the first batch of the {what} "
+        f"({R} reads, M={M:,} windows, L={L}, {nk} levels, n={t.n:,}, "
+        f"S={S}; valid occurrences {int(valid.sum()):,}, (occurrence, "
+        f"taxon) pairs {cells.numel():,}, largest T {int(T.max())})")
+    e = [kernel_entry(f"query_sort{suffix}",
+                      "kasa_tpu_torch/csrc/query_sort.cu",
+                      "kasa_tpu/match/join.py:225", launches["query_sort"],
+                      0.0, ms12, plain12, 2 * M * (L + 1) * 4, lib12,
+                      "torch.sort(stable=True) of the 60-bit keys"),
+         kernel_entry(f"join_match{suffix}",
+                      "kasa_tpu_torch/csrc/join_match.cu",
+                      "kasa_tpu/match/join.py:175", launches["join_match"],
+                      0.0, ms10, plain10, join_match_bytes(t, qs, want),
+                      lib10, "torch.searchsorted over the 60-bit keys"),
+         kernel_entry(f"join_scatter{suffix}",
+                      "kasa_tpu_torch/csrc/join_scatter.cu",
+                      "kasa_tpu/match/join.py:200", launches["join_scatter"],
+                      err11, ms11, plain11, bytes11, lib11,
+                      "index_put_(accumulate=True) of the expanded pairs")]
+    return e, ms12 + ms10 + ms11
+
+
+def phase_oocore(corpus):
+    """The per-batch engine over -m on the default corpus: 8,192 read
+    pairs under KASA_TPU_NO_TURBO with a memory budget of OOCORE_MEM
+    (index chunks of ~5.6 M entries), against the resident per-batch run
+    (-r) of the same pairs (integers identical, floats within the
+    contract); chunks, MB uploaded per batch, and K9 on every chunk held
+    to its plain version and timed.  -> (launches, info, kernel
+    entry)."""
+    import numpy as np
+    import torch
+    from kasa_tpu_torch.match import fast
+    from kasa_tpu_torch.match.oocore import TieredIndex, bytes_per_entry
+    from kasa_tpu_torch.match.pipeline import load_content_for_identify
+    pairs = []
+    for i, src in enumerate(corpus["pairs"]):
+        pairs.append(os.path.join(OUT, f"oocore_{i + 1}.fastq"))
+        with open(src, "rb") as f1, open(pairs[-1], "wb") as f2:
+            for _ in range(4 * OOCORE_PAIRS):
+                f2.write(f1.readline())
+    over = {"paired_end_1": pairs[0], "paired_end_2": pairs[1],
+            "memory_avail": OOCORE_MEM, "num_of_beasts": ALL_HITS,
+            "temp_path": OUT, "call_idx": 6}
+    # the chunk cache, built once per index before the timed run
+    t0 = time.perf_counter()
+    content = load_content_for_identify(corpus["index"] + "_content.txt")
+    TieredIndex(corpus["index"], content.tax_to_idx, 7, 12,
+                content.num_species,
+                max(int(OOCORE_MEM * 0.8) // bytes_per_entry(2, 6), 1 << 16),
+                "cpu", cache_dir=os.path.join(OUT, "oocache_torch_6"))
+    build_s = time.perf_counter() - t0
+    os.environ["KASA_TPU_NO_TURBO"] = "1"
+    outs = {}
+    try:
+        for kind in ("resident", "oocore"):
+            j = os.path.join(OUT, f"oocore_{kind}.json")
+            with FirstCall(TieredIndex, "classify") as first:
+                res, launches, info = drive(
+                    f"oocore ({kind})", "", j, None, CLASSIC_KERNELS,
+                    over=dict(over, ram=kind == "resident"), corpus=corpus,
+                    unit="pairs")
+            with open(j) as fh:
+                outs[kind] = (res, json.load(fh))
+            os.remove(j)
+    finally:
+        os.environ.pop("KASA_TPU_NO_TURBO", None)
+    disp = fast.LAST_DISPATCH
+    if not isinstance(disp, TieredIndex) or not 4 <= len(disp.chunks) <= 8:
+        fail(f"oocore: {type(disp).__name__}, expected 4-8 index chunks")
+    expect_only("oocore", launches, CLASSIC_KERNELS)
+    if launches["classic_classify"] != len(disp.chunks) * disp.batches:
+        fail(f"oocore: {launches['classic_classify']} K9 launches for "
+             f"{len(disp.chunks)} chunks x {disp.batches} batches")
+    if res[2] != OOCORE_PAIRS:
+        fail(f"oocore: {res[2]} pairs identified, expected {OOCORE_PAIRS}")
+    tiered_agree("oocore", outs["resident"], outs["oocore"], RTOL, ATOL)
+    info.update(chunks=len(disp.chunks), batches=disp.batches,
+                chunk_build_s=build_s,
+                uploaded_mb_per_batch=disp.uploaded_bytes / disp.batches
+                / 1e6,
+                oocore_stages={k: v for k, v in info["stages"].items()
+                               if k.startswith("oocore/")})
+    # K9 per chunk on the run's first batch (scatter layout)
+    _, q_np, r_np, R = first.args[:4]
+    d = torch.device(DEVICE)
+    q = torch.from_numpy(np.ascontiguousarray(q_np, np.int32)).to(d)
+    r = torch.from_numpy(np.ascontiguousarray(r_np, np.int32)).to(d)
+    v = torch.ones(q.shape[0], dtype=torch.bool, device=d)
+    chunk_ms, chunk_plain, chunk_bytes, err = [], [], 0, 0.0
+    for ci, t in enumerate(disp.device_tables()):
+        e, ms, plain = k9_against_plain(
+            t, q, r, v, R, 0, ".oocore", f"oocore run (chunk {ci} of "
+            f"{len(disp.chunks)}, n={t.n:,}, scatter layout)")
+        err = max(err, e)
+        chunk_ms.append(ms)
+        chunk_plain.append(plain)
+        chunk_bytes += classic_bytes(t, q, r, v, R)
+        del t
+    info["k9_ms_per_chunk"] = chunk_ms
+    log(f"oocore: {len(disp.chunks)} chunks ({disp.chunks[:2]} ...), "
+        f"chunk cache built in {build_s:.1f} s, {disp.batches} batches, "
+        f"{info['uploaded_mb_per_batch']:.1f} MB uploaded per batch; K9 "
+        f"ms per chunk {[round(x, 4) for x in chunk_ms]} (plain "
+        f"{[round(x, 4) for x in chunk_plain]}); timers "
+        + json.dumps({k: round(x, 4) for k, x in
+                      info["oocore_stages"].items()}))
+    entry = kernel_entry(
+        "classic_classify.oocore", "kasa_tpu_torch/csrc/classic_classify.cu",
+        "kasa_tpu/match/oocore.py:203", launches["classic_classify"], err,
+        sum(chunk_ms), sum(chunk_plain), chunk_bytes, None)
+    return launches, info, entry
+
+
 def run(preps, smi, t_all):
     import torch
     from kasa_tpu_torch import synth
@@ -2350,6 +2895,7 @@ def run(preps, smi, t_all):
     phase_golden()
     phase_golden_flags()
     launches_j = phase_golden_classic()
+    launches_cov = phase_golden_engines()
     forget_tables()
     wait_prep(preps, t_all, ("default",))
     corpus = phase_corpus()
@@ -2373,9 +2919,18 @@ def run(preps, smi, t_all):
     k_cl, steps["classic_default"] = phase_kernels_classic(
         ctab, mat, R, w, launches_c, "default k 7..12", "", launches_j)
     kern += k_cl
+    # the join engine (--coverage) and the per-batch engine over -m on
+    # the same index, while its classic tables sit in the RAM cache
+    launches_jn, info_jn, jbatch = phase_join(
+        "join", corpus["index"], corpus["smoke"], {}, synth.SMOKE_READS)
+    k_jn, steps["join"] = phase_kernels_join(
+        jbatch[0].tables, jbatch, launches_jn, "", "join run (L = 2)")
+    kern += k_jn
+    launches_oo, info_oo, k_oo = phase_oocore(corpus)
+    kern.append(k_oo)
     # one index on the card at a time: the next run's peak memory is its
     # own tables and batches
-    del disp, ctab
+    del disp, ctab, jbatch
     forget_tables()
     wait_prep(preps, t_all, ("bigS",))
     disp_s, big, launches_s, info_s, info_sm = phase_sparse()
@@ -2389,10 +2944,19 @@ def run(preps, smi, t_all):
         disp_w, corpus, launches_w["wide"], launches_w["wide --six -e"])
     steps.update(steps_w)
     kern += k_sparse + k_wide
+    wide_index = synth.generate_wide(log=log)["index"]
     _, cvt["wide"], _ = classic_vs_turbo(
-        "classic-vs-turbo wide", synth.generate_wide(log=log)["index"],
-        corpus["smoke"], {"lower_k": 20, "higher_k": 25}, synth.SMOKE_READS)
-    del disp_w
+        "classic-vs-turbo wide", wide_index, corpus["smoke"],
+        {"lower_k": 20, "higher_k": 25}, synth.SMOKE_READS)
+    # the join engine at L = 5 on the wide index (its classic tables of
+    # k 20..25 sit in the RAM cache)
+    launches_jw, info_jw, jbatch = phase_join(
+        "join wide", wide_index, corpus["warm"],
+        {"lower_k": 20, "higher_k": 25}, synth.WARM_READS)
+    k_jw, steps["join_wide"] = phase_kernels_join(
+        jbatch[0].tables, jbatch, launches_jw, ".L5", "join wide run")
+    kern += k_jw
+    del disp_w, jbatch
     forget_tables()
     # the classic engine at full width: the 128-bit corpus over 14 levels
     launches_cl, infos_cl, ctab = phase_classic(corpus)
@@ -2437,8 +3001,10 @@ def run(preps, smi, t_all):
                           steps["wide_six_e"]),
                          ("classic-vs-turbo default (classic)",
                           cvt["default"], steps["classic_default"]),
-                         ("classic", infos_cl["classic"], steps["classic"])):
-        nb = -(-inf["reads"] // R)
+                         ("classic", infos_cl["classic"], steps["classic"]),
+                         ("join", info_jn, steps["join"]),
+                         ("join wide", info_jw, steps["join_wide"])):
+        nb = inf["batches"] if "batches" in inf else -(-inf["reads"] // R)
         inf["busy_pct"] = 100.0 * ms * 1e-3 * nb / inf["seconds"]
         log(f"{tag}: the device is busy about {inf['busy_pct']:.2f} % of "
             f"the identify run ({nb} batch steps of {ms:.4f} ms in "
@@ -2460,6 +3026,10 @@ def run(preps, smi, t_all):
                    "tiered": {t: r[1] for t, r in runs.items()},
                    "launches_tiered": {t: r[0] for t, r in runs.items()},
                    "tiered_kernel_ms": tiered_ms,
+                   "launches_golden_coverage": launches_cov,
+                   "join": info_jn, "launches_join": launches_jn,
+                   "join_wide": info_jw, "launches_join_wide": launches_jw,
+                   "oocore": info_oo, "launches_oocore": launches_oo,
                    "kernels": kern, "step_ms": step_ms,
                    "step_ms_by_mode": steps, "six_e_kernel_ms": six_e_ms,
                    "sparse_kernel_ms": sparse_ms, "wide_kernel_ms": wide_ms,

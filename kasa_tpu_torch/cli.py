@@ -159,13 +159,10 @@ def parse_args(argv: list[str]) -> Config:
         elif p == "--visualize":
             cfg.visualize = True
         elif p == "--engine":
-            # kasa_tpu's engine choice: the port runs the turbo engine
-            # ("tpu"); the exact and join engines are later slices
             cfg.engine = nxt()
             cfg.engine_explicit = True
-            if cfg.engine != "tpu":
-                raise NotImplementedError(
-                    f"--engine {cfg.engine} is a later slice of the port")
+            if cfg.engine not in ("exact", "tpu", "join"):
+                raise RuntimeError("--engine must be exact, tpu or join")
         elif p == "--device":
             # port extension: cuda (default) or cpu (plain versions)
             cfg.device = nxt()

@@ -63,8 +63,8 @@ class Config:
     memory_avail: int = 5 * 1024 * 1024 * 1024  # -m (bytes); default 5GB (main.cpp:590)
     shrink_percentage: float = 0.0  # -g
     threshold: float = 0.0          # --threshold
-    # --engine is parsed for flag compatibility with kasa_tpu; the
-    # port has one engine (the CUDA turbo path)
+    # --engine: "tpu" (the default here, as on kasa_tpu's CLI), "join"
+    # or "exact" (match/pipeline.py)
     engine: str = "tpu"
     engine_explicit: bool = False
     device: str | None = None       # --device (port): None = cuda

@@ -17,11 +17,9 @@
 // per query decides every level, because k-prefix groups nest inside the
 // sorted order (the level-k group [a, b) of q holds lower_bound(q) in
 // [a, b], so a non-empty group shows q's prefix at pos or pos - 1, an
-// empty one at neither).  The lower bound: the dense 2^20-bucket prefix
-// table narrows limb 0 to one bucket, a bisect finds limb 0's lower
-// bound in it, and, when limb 0 is present, a bisect over limbs 1..L-1
-// inside that limb-0 run (run_end) finishes it.  Both bisects run until
-// lo == hi, so no fixed step count and no clamped gather enters.
+// empty one at neither).  The lower bound: common.cuh lower_bound_full
+// (prefix bucket, limb-0 bisect, then limbs 1..L-1 inside the limb-0
+// run, both bisects to convergence).
 //
 // Bound on the H100: memory latency, not bytes.  The function's own
 // bytes are the queries, the rows and group entries it touches and the
@@ -73,17 +71,6 @@ struct Params {
 };
 
 template <int L>
-__device__ __forceinline__ bool row_less(const int32_t* row,
-                                         const int32_t* q, int from) {
-#pragma unroll
-    for (int i = 0; i < L; ++i) {
-        if (i < from) continue;
-        if (row[i] != q[i]) return row[i] < q[i];
-    }
-    return false;
-}
-
-template <int L>
 __global__ void __launch_bounds__(kThreads)
 classic_kernel(Params p, int shared_counts) {
     extern __shared__ unsigned char smem[];
@@ -111,38 +98,10 @@ classic_kernel(Params p, int shared_counts) {
         int32_t q[L];
 #pragma unroll
         for (int i = 0; i < L; ++i) q[i] = p.q[m * L + i];
-        // the largest valid k: the first '^' at a position >= min_k - 1
-        // (the limb picked by unrolled selects: a runtime index into q
-        // would move it to local memory)
-        int kv = p.max_k;
-        for (int pos = p.min_k - 1; pos < p.max_k; ++pos) {
-            int32_t limb = q[0];
-#pragma unroll
-            for (int i = 1; i < L; ++i)
-                if (pos / 6 == i) limb = q[i];
-            if (((limb >> (5 * (5 - pos % 6))) & 31) == 30) {
-                kv = pos;
-                break;
-            }
-        }
+        const int kv = valid_level<L>(q, p.min_k, p.max_k);
         if (kv < p.min_k) continue;
-        // lower bound of limb 0 inside its prefix bucket
-        const unsigned b = min((unsigned)q[0] >> 10, (1u << 20) - 1u);
-        long long lo = p.prefix[b], hi = p.prefix[b + 1];
-        while (lo < hi) {
-            const long long mid = (lo + hi) >> 1;
-            if (p.idx[mid * L] < q[0]) lo = mid + 1; else hi = mid;
-        }
-        // limb 0 present: the full key's lower bound inside its run
-        if (lo < p.n && p.idx[lo * L] == q[0]) {
-            hi = p.run_end[lo];
-            while (lo < hi) {
-                const long long mid = (lo + hi) >> 1;
-                if (row_less<L>(p.idx + mid * L, q, 1)) lo = mid + 1;
-                else hi = mid;
-            }
-        }
-        const long long pos = lo;
+        const long long pos = lower_bound_full<L>(p.idx, p.prefix,
+                                                  p.run_end, p.n, q);
         int32_t at[L], pr[L];
 #pragma unroll
         for (int i = 0; i < L; ++i) {

@@ -1,4 +1,4 @@
-// Shared helpers of the turbo kernels (kasa_tpu_torch/csrc/*.cu).
+// Shared helpers of the kernels (kasa_tpu_torch/csrc/*.cu).
 //
 // Every kernel file exports plain C launchers: device pointers, sizes
 // and the CUDA stream come in as arguments, the launcher queues the
@@ -79,4 +79,61 @@ __device__ __forceinline__ void block_bitonic_sort(T* keys, int P) {
             __syncthreads();
         }
     }
+}
+
+// Row-wise index row < query over limbs from..L-1 (non-negative 30-bit
+// int32 limbs, compared as int32 as kasa_tpu/ops/search.py:16-26 does).
+template <int L>
+__device__ __forceinline__ bool row_less(const int32_t* row,
+                                         const int32_t* q, int from) {
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+        if (i < from) continue;
+        if (row[i] != q[i]) return row[i] < q[i];
+    }
+    return false;
+}
+
+// Lower bound in [0, n] of the full key q in the sorted (n, L) index,
+// through the classic tables (match/device.py StackedTables): the dense
+// 2^20-bucket prefix table narrows limb 0 to one bucket, a bisect finds
+// limb 0's lower bound in it, and, when limb 0 is present, a bisect over
+// limbs 1..L-1 inside that limb-0 run (run_end) finishes it.  Both
+// bisects run until lo == hi: no fixed step count, no clamped gather.
+template <int L>
+__device__ __forceinline__ long long lower_bound_full(
+        const int32_t* idx, const int32_t* prefix, const int32_t* run_end,
+        long long n, const int32_t* q) {
+    const unsigned b = min((unsigned)q[0] >> 10, (1u << 20) - 1u);
+    long long lo = prefix[b], hi = prefix[b + 1];
+    while (lo < hi) {
+        const long long mid = (lo + hi) >> 1;
+        if (idx[mid * L] < q[0]) lo = mid + 1; else hi = mid;
+    }
+    if (lo < n && idx[lo * L] == q[0]) {
+        hi = run_end[lo];
+        while (lo < hi) {
+            const long long mid = (lo + hi) >> 1;
+            if (row_less<L>(idx + mid * L, q, 1)) lo = mid + 1;
+            else hi = mid;
+        }
+    }
+    return lo;
+}
+
+// The largest k at which a window is valid: the first '^' (letter 30) at
+// a position >= min_k - 1 gives that position (valid k <= pos), none
+// gives max_k.  The limb is picked by unrolled selects: a runtime index
+// into q would move it to local memory.
+template <int L>
+__device__ __forceinline__ int valid_level(const int32_t* q, int min_k,
+                                           int max_k) {
+    for (int pos = min_k - 1; pos < max_k; ++pos) {
+        int32_t limb = q[0];
+#pragma unroll
+        for (int i = 1; i < L; ++i)
+            if (pos / 6 == i) limb = q[i];
+        if (((limb >> (5 * (5 - pos % 6))) & 31) == 30) return pos;
+    }
+    return max_k;
 }

@@ -10,8 +10,8 @@ Every wrapper checks dtype, shape, contiguity and device, allocates its
 outputs and scratch with torch.empty/torch.zeros, launches, adds one to
 its launch count, and raises if the launcher reports a CUDA error.
 Nothing here synchronises.  Nothing here runs on the CPU: the callers
-(core/encode.py, match/turbo.py, match/tiered.py, match/device.py) take
-the plain PyTorch versions for CPU tensors.
+(core/encode.py, match/turbo.py, match/tiered.py, match/device.py,
+match/join.py) take the plain PyTorch versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD = os.path.join(_DIR, "_build", "cuda")
 SOURCES = ("encode", "turbo_match", "turbo_reads", "turbo_multi", "dedup",
-           "sparse_fold", "tiered_route", "tiered_pass", "classic_classify")
+           "sparse_fold", "tiered_route", "tiered_pass", "classic_classify",
+           "join_match", "join_scatter", "query_sort")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -35,7 +36,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # call that launched (turbo_reads counts its pre and post entry points)
 COUNTS = {"encode": 0, "turbo_match": 0, "turbo_reads": 0,
           "turbo_multi": 0, "dedup": 0, "sparse_fold": 0, "tiered_route": 0,
-          "tiered_pass": 0, "classic_classify": 0}
+          "tiered_pass": 0, "classic_classify": 0, "join_match": 0,
+          "join_scatter": 0, "query_sort": 0}
 
 _libs: dict = {}
 
@@ -54,6 +56,9 @@ _ARGTYPES = {
     "kasa_tiered_route": [_P, _P, _L, _I, _I, _I, _I] + [_P] * 6,
     "kasa_tiered_pass": [_P] * 10 + [_L, _L] + [_I] * 11 + [_P] * 5,
     "kasa_classic_classify": [_P] * 11 + [_L] * 4 + [_I] * 8 + [_P] * 5,
+    "kasa_join_match": [_P] * 7 + [_L] * 3 + [_I] * 4 + [_P] * 6,
+    "kasa_join_scatter": [_P] * 6 + [_L] * 2 + [_I] * 2 + [_P] * 2,
+    "kasa_query_sort": [_P] * 7 + [_L, _I, _I, _P],
 }
 _LIB_OF = {"kasa_encode_windows": "encode",
            "kasa_turbo_match": "turbo_match",
@@ -64,7 +69,10 @@ _LIB_OF = {"kasa_encode_windows": "encode",
            "kasa_sparse_fold": "sparse_fold",
            "kasa_tiered_route": "tiered_route",
            "kasa_tiered_pass": "tiered_pass",
-           "kasa_classic_classify": "classic_classify"}
+           "kasa_classic_classify": "classic_classify",
+           "kasa_join_match": "join_match",
+           "kasa_join_scatter": "join_scatter",
+           "kasa_query_sort": "query_sort"}
 
 
 def reset_counts() -> None:
@@ -526,6 +534,19 @@ def tiered_pass(tabs, weights, qr, vbr, posr, lo: int, hi: int, skey, sflat,
 # ---------------------------------------------------------------------------
 # K9 classic_classify (csrc/classic_classify.cu)
 
+def _check_classic_tables(t, L, dev) -> None:
+    n, nk = t.n, t.num_k
+    _check(t.idx_limbs, "idx_limbs", torch.int32, (n, L), dev)
+    _check(t.grp_id, "grp_id", torch.int32, (nk, n), dev)
+    _check(t.grp_start, "grp_start", torch.int32, (nk, t.grp_start.shape[1]),
+           dev)
+    _check(t.d_tax, "d_tax", torch.int32, (nk, t.d_tax.shape[1]), dev)
+    _check(t.masks, "masks", torch.int32, (nk, L), dev)
+    _check(t.weights, "weights", torch.float32, (nk,), dev)
+    _check(t.run_end, "run_end", torch.int32, (n,), dev)
+    _check(t.prefix_tbl, "prefix_tbl", torch.int32, ((1 << 20) + 1,), dev)
+
+
 def classic_classify(t, q, read_ids, q_valid, num_reads: int, cap: int,
                      kmers_per_read: int):
     """-> (scores (R, S) f32, counts_all (numK, S) f32, counts_unique
@@ -538,15 +559,7 @@ def classic_classify(t, q, read_ids, q_valid, num_reads: int, cap: int,
     n, nk, S = t.n, t.num_k, t.num_species
     if not 2 <= L <= 5:
         raise ValueError(f"q: {L} limbs, the kernel takes 2..5")
-    _check(t.idx_limbs, "idx_limbs", torch.int32, (n, L), dev)
-    _check(t.grp_id, "grp_id", torch.int32, (nk, n), dev)
-    _check(t.grp_start, "grp_start", torch.int32, (nk, t.grp_start.shape[1]),
-           dev)
-    _check(t.d_tax, "d_tax", torch.int32, (nk, t.d_tax.shape[1]), dev)
-    _check(t.masks, "masks", torch.int32, (nk, L), dev)
-    _check(t.weights, "weights", torch.float32, (nk,), dev)
-    _check(t.run_end, "run_end", torch.int32, (n,), dev)
-    _check(t.prefix_tbl, "prefix_tbl", torch.int32, ((1 << 20) + 1,), dev)
+    _check_classic_tables(t, L, dev)
     _check(q, "q", torch.int32, (M, L), dev)
     _check(q_valid, "q_valid", torch.bool, (M,), dev)
     if kmers_per_read == 0:
@@ -568,3 +581,98 @@ def classic_classify(t, q, read_ids, q_valid, num_reads: int, cap: int,
             t.max_k, S, cap, kmers_per_read, sms, _ptr(scores),
             _ptr(counts_all), _ptr(counts_unique), _ptr(tail), _stream(dev))
     return scores.float(), counts_all, counts_unique, tail
+
+
+# ---------------------------------------------------------------------------
+# K10 join_match (csrc/join_match.cu)
+
+def join_match(t, q):
+    """-> (matched (numK, M) bool, g, T, start (numK, M) int32, ok
+    (numK, M) bool) for StackedTables t (match/join.py
+    join_match_plain)."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError("join_match: the kernel takes CUDA tensors")
+    M, L = q.shape
+    n, nk = t.n, t.num_k
+    if not 2 <= L <= 5:
+        raise ValueError(f"q: {L} limbs, the kernel takes 2..5")
+    if nk > 25:
+        raise ValueError(f"{nk} k levels: the kernel takes at most 25")
+    _check_classic_tables(t, L, dev)
+    _check(q, "q", torch.int32, (M, L), dev)
+    matched = torch.zeros((nk, M), dtype=torch.bool, device=dev)
+    g = torch.zeros((nk, M), dtype=torch.int32, device=dev)
+    T = torch.zeros_like(g)
+    start = torch.zeros_like(g)
+    ok = torch.zeros_like(matched)
+    if M == 0 or n == 0:
+        return matched, g, T, start, ok
+    _launch("kasa_join_match", "join_match", _ptr(t.idx_limbs),
+            _ptr(t.grp_id), _ptr(t.grp_start), _ptr(t.masks),
+            _ptr(t.run_end), _ptr(t.prefix_tbl), _ptr(q), n,
+            t.grp_start.shape[1], M, L, nk, t.min_k, t.max_k, _ptr(matched),
+            _ptr(g), _ptr(T), _ptr(start), _ptr(ok), _stream(dev))
+    return matched, g, T, start, ok
+
+
+# ---------------------------------------------------------------------------
+# K11 join_scatter (csrc/join_scatter.cu)
+
+def join_scatter(t, valid, T, start, read_ids, num_reads: int):
+    """-> (num_reads, S) float32 scores: every valid occurrence's w(k)/T
+    over its group's taxa (match/join.py join_scatter_plain)."""
+    dev = read_ids.device
+    if dev.type != "cuda":
+        raise ValueError("join_scatter: the kernel takes CUDA tensors")
+    M = read_ids.shape[0]
+    nk, S = t.num_k, t.num_species
+    _check(read_ids, "read_ids", torch.int32, (M,), dev)
+    _check(valid, "valid", torch.bool, (nk, M), dev)
+    _check(T, "T", torch.int32, (nk, M), dev)
+    _check(start, "start", torch.int32, (nk, M), dev)
+    _check(t.d_tax, "d_tax", torch.int32, (nk, t.d_tax.shape[1]), dev)
+    _check(t.weights, "weights", torch.float32, (nk,), dev)
+    # the score cells add in float64 and round to float32 once
+    scores = torch.zeros((num_reads, S), dtype=torch.float64, device=dev)
+    if M == 0 or num_reads == 0:
+        return scores.float()
+    _launch("kasa_join_scatter", "join_scatter", _ptr(valid), _ptr(T),
+            _ptr(start), _ptr(read_ids), _ptr(t.d_tax), _ptr(t.weights), M,
+            t.d_tax.shape[1], nk, S, _ptr(scores), _stream(dev))
+    return scores.float()
+
+
+# ---------------------------------------------------------------------------
+# K12 query_sort (csrc/query_sort.cu)
+
+SORT_TILE = 1024      # elements per block of one radix pass
+
+
+def query_sort(q, read_ids, rid_bits: int):
+    """-> (q, read_ids) sorted by (limbs..., read id) (match/join.py
+    sort_queries_plain): one 8-bit digit pass per byte of the read ids'
+    rid_bits low bits, then four per 30-bit limb, from the last limb to
+    the first."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError("query_sort: the kernel takes CUDA tensors")
+    M, L = q.shape
+    if not 1 <= L <= 5:
+        raise ValueError(f"q: {L} limbs, the kernel takes 1..5")
+    if not 0 <= rid_bits <= 31:
+        raise ValueError(f"rid_bits={rid_bits}: read ids are int32")
+    _check(q, "q", torch.int32, (M, L), dev)
+    _check(read_ids, "read_ids", torch.int32, (M,), dev)
+    if M == 0:
+        return q.clone(), read_ids.clone()
+    passes = -(-rid_bits // 8) + 4 * L
+    blocks = -(-M // SORT_TILE)
+    qa, qb = torch.empty_like(q), torch.empty_like(q)
+    ra, rb = torch.empty_like(read_ids), torch.empty_like(read_ids)
+    hist = torch.empty((256 * blocks + 256,), dtype=torch.int32, device=dev)
+    _launch("kasa_query_sort", "query_sort", _ptr(q), _ptr(read_ids),
+            _ptr(qa), _ptr(ra), _ptr(qb), _ptr(rb), _ptr(hist), M, L,
+            rid_bits, _stream(dev))
+    # pass p writes buffer a when p is even: the last pass, passes - 1
+    return (qa, ra) if passes % 2 else (qb, rb)

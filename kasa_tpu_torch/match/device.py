@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..core import kmer
+from ..ops.search import lower_bound_plain
 from .join import DeviceIndex, weight
 
 # the dense prefix table resolves the first four letters of limb 0
@@ -187,33 +188,6 @@ def _valid_levels(q: torch.Tensor, min_k: int, max_k: int) -> torch.Tensor:
                               * (kmer.LETTERS_PER_LIMB - 1 - j))) & 31
         kv = torch.where(letter == 30, torch.full_like(kv, p), kv)
     return kv
-
-
-def _lex_less(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Row-wise a < b over (M, L) limbs (non-negative 30-bit values)."""
-    less = torch.zeros(a.shape[0], dtype=torch.bool, device=a.device)
-    decided = torch.zeros_like(less)
-    for i in range(a.shape[1]):
-        less |= ~decided & (a[:, i] < b[:, i])
-        decided |= a[:, i] != b[:, i]
-    return less
-
-
-def lower_bound_plain(idx_limbs: torch.Tensor,
-                      q: torch.Tensor) -> torch.Tensor:
-    """(M,) int64 lower bound of each full query key in the sorted index,
-    by a fixed number of bisection steps over the whole index."""
-    from ..ops.search import num_steps_for
-    n = idx_limbs.shape[0]
-    lo = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
-    hi = torch.full_like(lo, n)
-    for _ in range(num_steps_for(n)):
-        mid = (lo + hi) >> 1
-        less = _lex_less(idx_limbs[mid.clamp(max=n - 1)], q)
-        open_ = lo < hi
-        lo = torch.where(open_ & less, mid + 1, lo)
-        hi = torch.where(open_ & ~less, mid, hi)
-    return lo
 
 
 def classify_batch_plain(t: StackedTables, q: torch.Tensor,

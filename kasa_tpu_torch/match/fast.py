@@ -292,8 +292,8 @@ def select_turbo_dispatch(cfg, index_path, limbs, taxids, content,
     returns None: the turbo structure does not apply, KASA_TPU_NO_TURBO
     is set, or the row pointers would wrap without a tiered path (the
     classic engine runs).  An over-budget index that tiered streaming
-    cannot take raises NotImplementedError (the multi-GPU mesh, a later
-    slice)."""
+    cannot take (128-bit, or min_k < 6) keeps resident tables, as
+    kasa_tpu does on one device (fast.py:342-351, 375-404)."""
     from .tiered import TMAX, chunk_entries_for
     from .turbo import (TurboRowOverflow, load_or_build_turbo,
                         turbo_supported)
@@ -318,12 +318,6 @@ def select_turbo_dispatch(cfg, index_path, limbs, taxids, content,
               f"chunks (T>{TMAX} groups on host)", flush=True)
         return _tiered(cfg, index_path, limbs, tax_rows, highest_k, budget,
                        device, S)
-    if over:
-        raise NotImplementedError(
-            f"turbo tables ({table_bytes >> 20} MiB) exceed the device "
-            f"budget ({budget >> 20} MiB) and tiered streaming takes 64-bit "
-            "indices only: sharding the tables over several cards is the "
-            "multi-GPU mesh, a later slice of the port")
     if not eligible_resident:
         raise FastPathUnavailable(
             "index too large for resident turbo and tiered streaming was "

@@ -1,18 +1,27 @@
-"""The identify pipeline (port of kasa_tpu/match/pipeline.py, its tpu
-engine): fastq/fasta(.gz) -> per-read output + profile.
+"""The identify pipeline (port of kasa_tpu/match/pipeline.py):
+fastq/fasta(.gz) -> per-read output + profile, through any of kasa_tpu's
+three engines (cfg.engine):
 
-The port covers kasa_tpu's CLI identify (--engine tpu): DNA in one,
-three or six frames, protein input (-z), a custom codon table (-a),
-unique k-mers per read (-e), paired-end input (-1/-2), --filter, a
-folder of inputs (identify_multiple), sloppy windows (-j) and
---coherence, on 64-bit, 128-bit or halved indices.  The fused path
-(match/fast.py) runs the turbo strategies or, where the turbo structure
-does not apply, the classic engine; -j, --coherence and the input the
-fused path declines (FastPathUnavailable: an empty input, reads above
-MAXLEN_CAP, paired-end input on the classic engine) run the per-batch
-engine below, as in kasa_tpu.  --coverage, --visualize and a per-batch
-run over the memory budget raise NotImplementedError naming the later
-slice; nothing falls back to the CPU.
+  tpu   (the default) the fused path (match/fast.py: the turbo
+        strategies or, where the turbo structure does not apply, the
+        classic engine); -j, --coherence, --visualize and the input the
+        fused path declines (FastPathUnavailable: an empty input, reads
+        above MAXLEN_CAP, paired-end input on the classic engine) run
+        the per-batch engine below (K9 per batch, match/engine.py), and
+        over the memory budget (-m) its chunk streaming
+        (match/oocore.py, K9 per index chunk); --coverage switches to
+        the join engine, as in kasa_tpu;
+  join  the per-batch join engine (match/join.py: K12, K10, K11 and the
+        host group statistics);
+  exact the per-batch host engine that reproduces the reference binary
+        bit for bit (match/exact.py; match/walk128.py for 128-bit
+        indices).
+
+Every engine encodes with K1 on the device.  DNA in one, three or six
+frames, protein input (-z), a custom codon table (-a), -e, paired-end
+input, --filter, a folder of inputs (identify_multiple), -j,
+--coherence, --coverage and --visualize, on 64-bit, 128-bit or halved
+indices.  Nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -78,23 +87,6 @@ def load_frequencies(index_path: str, num_species: int, max_k: int, min_k: int
     return freqs
 
 
-# flag -> the later slice of the port that brings it
-_UNSUPPORTED = (
-    ("coverage", "--coverage", "the join engine"),
-    ("visualize", "--visualize", "the join engine and the 128-bit walk"),
-)
-
-
-def check_supported(cfg: Config) -> None:
-    """Raise NotImplementedError for a configuration outside the ported
-    slices."""
-    for attr, what, later in _UNSUPPORTED:
-        if getattr(cfg, attr, None):
-            raise NotImplementedError(
-                f"{what} is not ported yet ({later}: a later slice of "
-                "kasa_tpu_torch)")
-
-
 def _output_names(cfg: Config, files: list, input_path: str,
                   out_file: str | None, profile_file: str | None):
     """Per-file outputs of a folder: <q><name><ending> and <p><name>.csv
@@ -134,6 +126,9 @@ def _load_index(cfg: Config, index_path: str):
     return limbs, taxids, highest_k, content, freqs, tax_rows
 
 
+ENGINES = ("tpu", "join", "exact")
+
+
 def identify(cfg: Config, index_path: str | None = None,
              input_path: str | None = None, out_file: str | None = None,
              profile_file: str | None = None, device=None):
@@ -147,16 +142,20 @@ def identify(cfg: Config, index_path: str | None = None,
     input_path = input_path if input_path is not None else cfg.input
     out_file = out_file if out_file is not None else cfg.read_to_taxa_file
     profile_file = profile_file if profile_file is not None else cfg.table_file
-    check_supported(cfg)
+    engine = cfg.engine or "tpu"
+    if engine not in ENGINES:
+        raise ValueError(f"engine {engine!r}: one of {', '.join(ENGINES)}")
 
     if input_path and os.path.isdir(input_path):
         from ..host import fastx
         files = fastx.gather_input_files(input_path)
         outs, profs = _output_names(cfg, files, input_path, out_file,
                                     profile_file)
-        if (len(files) > 1 and not cfg.filter and not cfg.paired_end_1
+        if (engine == "tpu" and len(files) > 1 and not cfg.filter
+                and not cfg.paired_end_1
                 and not (cfg.six_frames and not cfg.translated)
-                and not cfg.post_process and not cfg.sloppy):
+                and not cfg.post_process and not cfg.sloppy
+                and not cfg.visualize and not cfg.coverage):
             # packed multi-file path: one shared batch stream, per-file
             # output demux; with profiles the kernels split the count
             # matrices per file
@@ -177,7 +176,8 @@ def identify(cfg: Config, index_path: str | None = None,
 
     limbs, taxids, highest_k, content, freqs, tax_rows = \
         _load_index(cfg, index_path)
-    if not (cfg.post_process or cfg.sloppy):
+    if engine == "tpu" and not (cfg.post_process or cfg.sloppy
+                                or cfg.visualize or cfg.coverage):
         from .fast import FastPathUnavailable, fast_identify
         try:
             return fast_identify(cfg, index_path, input_path, out_file,
@@ -188,7 +188,7 @@ def identify(cfg: Config, index_path: str | None = None,
                   "tpu engine", flush=True)
     return _identify_per_batch(cfg, index_path, input_path, out_file,
                                profile_file, limbs, taxids, highest_k,
-                               content, freqs, tax_rows, dev)
+                               content, freqs, tax_rows, dev, engine)
 
 
 def encode_batch(batch, encoder, highest_k: int, protein: bool,
@@ -232,39 +232,154 @@ def encode_batch(batch, encoder, highest_k: int, protein: bool,
     return out
 
 
+def stable_sort_queries(q_limbs: np.ndarray, read_ids: np.ndarray):
+    """Host stable sort by k-mer (ties keep input order, which makes the
+    reference's std::unique -e semantics reproducible)."""
+    L = q_limbs.shape[1]
+    order = np.lexsort(tuple(q_limbs[:, i] for i in range(L - 1, -1, -1)))
+    return q_limbs[order], read_ids[order]
+
+
+def unique_consecutive(q_limbs: np.ndarray, read_ids: np.ndarray):
+    """-e: std::unique on (kmer, readID) over the sorted batch
+    (Compare.hpp:3166-3177) -- consecutive duplicates only."""
+    if len(read_ids) == 0:
+        return q_limbs, read_ids
+    keep = np.ones(len(read_ids), dtype=bool)
+    keep[1:] = ~(np.all(q_limbs[1:] == q_limbs[:-1], axis=1)
+                 & (read_ids[1:] == read_ids[:-1]))
+    return q_limbs[keep], read_ids[keep]
+
+
+def _u128_keys(limbs: np.ndarray) -> list:
+    """The k-mers as Python ints (the 128-bit walk's keys)."""
+    from ..core import kmer
+    hi, lo = kmer.limbs_to_u128_parts(limbs)
+    return [(int(h) << 64) | int(l) for h, l in zip(hi, lo)]
+
+
+def _exact_batch(cfg, idx_u64, limbs, tax_rows, q_limbs, read_ids,
+                 highest_k, R, S, score_rows):
+    """The exact engine on one batch (kasa_tpu pipeline.py:395-418) ->
+    (result, the sorted and -e deduped windows and read ids)."""
+    from ..core import kmer
+    from .exact import exact_identify_batch
+    from .walk128 import walk_identify_128
+    q_limbs, read_ids = stable_sort_queries(q_limbs, read_ids)
+    if cfg.unique:
+        q_limbs, read_ids = unique_consecutive(q_limbs, read_ids)
+    if highest_k <= 12:
+        res = exact_identify_batch(
+            idx_u64, tax_rows, kmer.limbs_to_u64(q_limbs), read_ids,
+            cfg.lower_k, cfg.higher_k, highest_k, R, S,
+            coverage=cfg.coverage, want_scores=score_rows)
+    else:
+        # the reference's 128-bit walk, uint64-truncated comparator and all
+        res = walk_identify_128(
+            _u128_keys(limbs), tax_rows, _u128_keys(q_limbs), read_ids,
+            cfg.lower_k, cfg.higher_k, highest_k, R, S,
+            coverage=cfg.coverage, want_scores=score_rows)
+    return res, q_limbs, read_ids
+
+
+def _matcher(cfg, engine, index_path, limbs, taxids, highest_k, content,
+             tax_rows, itype, dev):
+    """The per-batch engine's index for `engine`: TpuEngine (resident
+    classic tables), TieredIndex (chunk streaming over the memory budget,
+    kasa_tpu pipeline.py:334-350), JoinIndex, or None (exact)."""
+    min_k, max_k = cfg.lower_k, cfg.higher_k
+    S = content.num_species
+    if engine == "join":
+        from .join import load_join_index
+        with timers.stage("join/tables"):
+            return load_join_index(index_path, limbs, taxids,
+                                   content.tax_to_idx, highest_k, min_k,
+                                   max_k, S, dev, tax_rows)
+    if engine != "tpu":
+        return None
+    from .oocore import TieredIndex, bytes_per_entry
+    per_entry = bytes_per_entry(limbs.shape[1], max_k - min_k + 1)
+    table_bytes = per_entry * max(len(taxids), 1)
+    budget = int(cfg.memory_avail * 0.8)
+    if (not cfg.ram and table_bytes > budget
+            and itype == artifacts.INDEX_TYPE_64 and min_k >= 6):
+        chunk_entries = max(budget // per_entry, 1 << 16)
+        print(f"OUT: index tables ({table_bytes >> 20} MiB) exceed the "
+              f"memory budget; streaming {chunk_entries}-entry chunks",
+              flush=True)
+        with timers.stage("oocore/open"):
+            return TieredIndex(
+                index_path, content.tax_to_idx, min_k, max_k, S,
+                chunk_entries, dev,
+                cache_dir=(os.path.join(cfg.temp_path,
+                                        f"oocache_torch_{cfg.call_idx}")
+                           if cfg.temp_path else None))
+    from .engine import TpuEngine
+    return TpuEngine(limbs, taxids, content.tax_to_idx, highest_k, min_k,
+                     max_k, S, dev, tax_rows, index_path)
+
+
+def _visualize_batch(cfg, batch, vis, engine, q_limbs, read_ids, limbs,
+                     taxids, tax_rows, highest_k, R, S):
+    """--visualize (kasa_tpu pipeline.py:422-455, Compare.hpp:3330-3386):
+    the frame strings and the walk's matched k-mers accumulate across
+    batches (the reference never clears either) and print per batch."""
+    from ..core import kmer
+    from ..core.alphabet import apply_custom_codon_table, build_codon_lut
+    from . import visualize as vis_mod
+    from .walk128 import walk_identify_128
+    frames, matched = vis
+    lut = build_codon_lut()
+    if cfg.codon_table:
+        lut = apply_custom_codon_table(lut, cfg.codon_table, cfg.codon_id)
+    vis_mod.frame_strings(batch, highest_k, lut, frames,
+                          protein=cfg.translated)
+    if engine != "exact":
+        # the exact engine's windows come sorted (and -e deduped)
+        q_limbs, read_ids = stable_sort_queries(q_limbs, read_ids)
+    if highest_k <= 12:
+        ikeys = kmer.limbs_to_u64(limbs).tolist()
+        qkeys = kmer.limbs_to_u64(q_limbs).tolist()
+    else:
+        ikeys, qkeys = _u128_keys(limbs), _u128_keys(q_limbs)
+    walk_identify_128(ikeys, tax_rows, qkeys, read_ids, cfg.lower_k,
+                      cfg.higher_k, highest_k, R, S, want_scores=False,
+                      vis=matched, idx_raw_tax=np.asarray(taxids))
+    vis_mod.print_visualization(frames, matched)
+
+
 def _identify_per_batch(cfg: Config, index_path: str, input_path: str,
                         out_file, profile_file, limbs, taxids, highest_k,
-                        content, freqs, tax_rows, dev):
-    """The per-batch engine (kasa_tpu pipeline.py:269-520, its tpu
-    engine): memory-bounded batches of reads (single-end input through
-    the reference's chunked reader, which may split a read across
-    batches and carries its partial scores), each encoded by K1 and
-    classified by K9 (match/engine.py TpuEngine), ranked and written
-    per read; --coherence scores the reads' overlapping match runs."""
+                        content, freqs, tax_rows, dev, engine="tpu"):
+    """The per-batch engines (kasa_tpu pipeline.py:269-520):
+    memory-bounded batches of reads (single-end input through the
+    reference's chunked reader, which may split a read across batches
+    and carries its partial scores), each encoded by K1 and matched by
+    the engine -- tpu: K9 (match/engine.py TpuEngine, or per index chunk
+    over the memory budget, match/oocore.py); join: match/join.py;
+    exact: match/exact.py or the 128-bit walk -- then ranked and written
+    per read; --coherence scores the reads' overlapping match runs,
+    --visualize prints the walk's matches."""
     from ..core import kmer
     from ..core.encode import Encoder, custom_code_lut
     from ..host import fastx
     from ..host import output as out_mod
     from . import chunking
     from . import ingest as ingest_mod
-    from .engine import TpuEngine
+    from .join import match_and_score
 
     min_k, max_k = cfg.lower_k, cfg.higher_k
     num_k = max_k - min_k + 1
     S = content.num_species
     protein = cfg.translated
     entries, itype = artifacts.read_info(index_path)
-    # an index over the memory budget streams limb0-run-aligned chunks
-    # through kasa_tpu's oocore loop (pipeline.py:334-350)
-    table_bytes = (4 * limbs.shape[1] + num_k * 8 + 48) * max(len(taxids), 1)
-    if (not cfg.ram and table_bytes > int(cfg.memory_avail * 0.8)
-            and itype == artifacts.INDEX_TYPE_64 and min_k >= 6):
-        raise NotImplementedError(
-            f"index tables ({table_bytes >> 20} MiB) exceed the memory "
-            "budget: the per-batch engine's chunk streaming (kasa_tpu's "
-            "oocore) comes with the join engine, a later slice of the port")
     if cfg.post_process and highest_k > 12:
         raise RuntimeError("--coherence supports 64-bit indices only")
+    if engine == "tpu" and cfg.coverage:
+        # counts_total is a per-group-per-batch statistic the classic
+        # kernel does not keep: kasa_tpu runs the join engine
+        print("OUT: --coverage uses the join engine", flush=True)
+        engine = "join"
 
     builder = ingest_mod.BatchBuilder(highest_k, min_k, protein=protein,
                                       six_frames=cfg.six_frames,
@@ -289,10 +404,12 @@ def _identify_per_batch(cfg: Config, index_path: str, input_path: str,
 
     counts_all = np.zeros((num_k, S), dtype=np.float64)
     counts_unique = np.zeros((num_k, S), dtype=np.uint64)
+    counts_total = np.zeros((num_k, S), dtype=np.uint64)
     num_kmers_in_input = 0
     num_reads_sum = 0
     filtered_ids: list = []
     saved_scores = None   # partial scores of a read split across batches
+    vis = ([], [])        # --visualize: frame strings, matched k-mers
     writer = fh = None
     if out_file:
         # latin-1: codepoints 0-255 map to raw bytes 1:1 (the kraken
@@ -301,9 +418,10 @@ def _identify_per_batch(cfg: Config, index_path: str, input_path: str,
         writer = out_mod.ReadResultWriter(fh, cfg.output_format,
                                           num_of_beasts=cfg.num_of_beasts,
                                           coherence=cfg.post_process)
-    engine = TpuEngine(limbs, taxids, content.tax_to_idx, highest_k, min_k,
-                       max_k, S, dev, tax_rows, index_path)
-    idx_u64 = kmer.limbs_to_u64(limbs) if cfg.post_process else None
+    matcher = _matcher(cfg, engine, index_path, limbs, taxids, highest_k,
+                       content, tax_rows, itype, dev)
+    idx_u64 = kmer.limbs_to_u64(limbs) if highest_k <= 12 and (
+        cfg.post_process or engine == "exact") else None
 
     try:
         for batch in batches:
@@ -326,11 +444,26 @@ def _identify_per_batch(cfg: Config, index_path: str, input_path: str,
                 coh = coherence_scores(read_ids, enc[3], enc[2], mlens, R,
                                        cfg.six_frames)
             with timers.stage("identify/match"):
-                res = engine.classify(q_limbs, read_ids, R,
-                                      unique=cfg.unique)
+                if engine == "tpu":
+                    res = matcher.classify(q_limbs, read_ids, R,
+                                           unique=cfg.unique)
+                elif engine == "join":
+                    res = match_and_score(matcher, q_limbs, read_ids, R,
+                                          unique=cfg.unique,
+                                          coverage=cfg.coverage,
+                                          want_scores=score_rows)
+                else:
+                    res, q_limbs, read_ids = _exact_batch(
+                        cfg, idx_u64, limbs, tax_rows, q_limbs, read_ids,
+                        highest_k, R, S, score_rows)
             scores = res.scores
             counts_all += res.counts_all
             counts_unique += res.counts_unique
+            if cfg.coverage:
+                counts_total += res.counts_total
+            if cfg.visualize:
+                _visualize_batch(cfg, batch, vis, engine, q_limbs, read_ids,
+                                 limbs, taxids, tax_rows, highest_k, R, S)
             completed = R - 1 if batch.add_tail else R
             if score_rows:
                 with timers.stage("identify/score+output"):
@@ -388,17 +521,17 @@ def _identify_per_batch(cfg: Config, index_path: str, input_path: str,
 
     if profile_file:
         out_mod.write_profile(profile_file, content.organisms,
-                              content.idx_to_tax,
-                              counts_all, counts_unique, None, freqs,
+                              content.idx_to_tax, counts_all, counts_unique,
+                              counts_total if cfg.coverage else None, freqs,
                               num_kmers_in_input, num_reads_sum, min_k,
-                              max_k, cfg.num_frames, coverage=False)
+                              max_k, cfg.num_frames, coverage=cfg.coverage)
     if cfg.filter:
         write_filtered(cfg, input_path, filtered_ids)
     if cfg.verbose:
         timers.report()
     from . import fast
     fast.LAST_FALLBACK = (0, num_reads_sum)
-    fast.LAST_DISPATCH = engine.tables
+    fast.LAST_DISPATCH = getattr(matcher, "tables", matcher)
     return counts_all, counts_unique, num_reads_sum, num_kmers_in_input
 
 

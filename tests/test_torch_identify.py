@@ -46,7 +46,7 @@ def _run_jax(d, inp, overrides, out, prof):
     cfg.content_file = str(d / "exampleIndex_content.txt")
     for k, v in overrides.items():
         setattr(cfg, k, v)
-    cfg.engine = "tpu"
+    cfg.engine = overrides.get("engine", "tpu")
     identify(cfg, index_path=str(d / "exampleIndex"), input_path=inp,
              out_file=str(out), profile_file=str(prof))
 
@@ -142,74 +142,112 @@ def test_output_formats_match_jax_turbo(tmp_path, monkeypatch, index_dir,
             np.testing.assert_allclose(fy, fx, rtol=2e-5, atol=1e-4)
 
 
-UNSUPPORTED = [("coverage", True), ("visualize", True)]
+def test_visualize_agrees_with_jax(tmp_path, capsys, index_dir):
+    """--visualize on the first 5 reads of reads.fastq (the print grows
+    with the square of the input: all of it is 1.2 GB), on the default
+    engine (the per-batch engine) and on the join engine: the printed
+    frames, matches and scores are identical (host code over the same
+    windows), the per-read output and profile agree under the contract."""
+    src = tmp_path / "five.fastq"
+    src.write_text("".join(open(FIXTURES / "reads.fastq").readlines()[:20]))
+    for engine in ("tpu", "join"):
+        ov = {"visualize": True, "engine": engine}
+        capsys.readouterr()
+        _run_jax(index_dir, str(src), ov, tmp_path / "j.json",
+                 tmp_path / "j.csv")
+        want = capsys.readouterr().out
+        _run_port(index_dir, str(src), ov, tmp_path / "t.json",
+                  tmp_path / "t.csv")
+        got = capsys.readouterr().out
+        assert got == want and got.count("Scores: ") > 0
+        assert_identify_agrees(json.load(open(tmp_path / "j.json")),
+                               json.load(open(tmp_path / "t.json")),
+                               (tmp_path / "j.csv").read_text(),
+                               (tmp_path / "t.csv").read_text(), 6)
 
 
-@pytest.mark.parametrize("attr,value", UNSUPPORTED,
-                         ids=[a for a, _ in UNSUPPORTED])
-def test_unsupported_flags_raise(tmp_path, index_dir, attr, value):
-    """--coverage and --visualize come with the join engine, a later
-    slice (-j and --coherence run the per-batch classic engine:
-    tests/test_torch_classic_identify.py)."""
-    from kasa_tpu_torch.config import Config
-    from kasa_tpu_torch.match.pipeline import identify
-    cfg = Config()
-    setattr(cfg, attr, value)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        identify(cfg, index_path=str(index_dir / "exampleIndex"),
-                 input_path=str(FIXTURES / "reads.fastq"),
-                 out_file=str(tmp_path / "o.json"), device="cpu")
+def _over_budget_agree(tmp_path, index_dir, ov, capsys):
+    """kasa_tpu's run and the port's of reads.fastq under `ov` with a
+    1 MiB memory budget: both stream index chunks through the per-batch
+    engine (the same OUT: line), and the outputs agree under the
+    contract."""
+    src = str(FIXTURES / "reads.fastq") if "paired_end_1" not in ov else ""
+    ov = dict(ov, memory_avail=1 << 20)
+    capsys.readouterr()
+    _run_jax(index_dir, src, ov, tmp_path / "j.json", tmp_path / "j.csv")
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if "streaming" in ln]
+    res = _run_port(index_dir, src, ov, tmp_path / "t.json",
+                    tmp_path / "t.csv")
+    assert line and line[0] in capsys.readouterr().out.splitlines()
+    from kasa_tpu_torch.match import fast, oocore
+    assert isinstance(fast.LAST_DISPATCH, oocore.TieredIndex)
+    assert res[2] > 0
+    assert_identify_agrees(json.load(open(tmp_path / "j.json")),
+                           json.load(open(tmp_path / "t.json")),
+                           (tmp_path / "j.csv").read_text(),
+                           (tmp_path / "t.csv").read_text(), 6)
 
 
-def test_unsupported_inputs_raise(tmp_path, index_dir):
-    """-j takes the per-batch engine; over the memory budget (-m) that
-    engine streams index chunks in kasa_tpu (its oocore loop), which
-    comes with the join engine, a later slice.  (A 128-bit index over
-    more than six k levels, which this test held before, runs the
-    classic engine: tests/test_torch_classic_identify.py.)"""
-    from kasa_tpu_torch.config import Config
-    from kasa_tpu_torch.match.pipeline import identify
-    cfg = Config()
-    cfg.content_file = str(index_dir / "exampleIndex_content.txt")
-    cfg.sloppy = True
-    cfg.memory_avail = 1 << 20
-    with pytest.raises(NotImplementedError, match="later slice"):
-        identify(cfg, index_path=str(index_dir / "exampleIndex"),
-                 input_path=str(FIXTURES / "reads.fastq"),
-                 out_file=str(tmp_path / "o.json"), device="cpu")
+def test_sloppy_over_memory_budget_agrees_with_jax(tmp_path, index_dir,
+                                                   capsys):
+    """-j over the memory budget (-m): the per-batch engine streams index
+    chunks (oocore, K9 per chunk) in both packages."""
+    _over_budget_agree(tmp_path, index_dir, {"sloppy": True}, capsys)
 
 
-@pytest.mark.parametrize("case", ["tiered", "classic"])
-def test_other_strategies_raise(tmp_path, monkeypatch, index_dir, case):
-    """A 128-bit index over the device budget needs its tables sharded
-    over several cards (tiered streaming takes 64-bit indices only): the
-    multi-GPU mesh, a later slice.  The classic engine's per-batch loop
-    over the memory budget (paired-end input under KASA_TPU_NO_TURBO
-    with a small -m) needs kasa_tpu's oocore chunk streaming, a later
-    slice too.  (A 64-bit index over the budget streams tiered:
-    tests/test_torch_tiered.py; min_k * 5 < 24, which the classic case
-    held before, runs the classic engine:
-    tests/test_torch_classic_identify.py.)"""
-    from kasa_tpu_torch.config import Config
-    from kasa_tpu_torch.match.pipeline import identify
-    cfg = Config()
-    index = str(index_dir / "exampleIndex")
-    inp = str(FIXTURES / "reads.fastq")
-    if case == "tiered":
-        monkeypatch.setenv("KASA_DEVICE_BUDGET", "1")
-        cfg.content_file = str(GOLDEN / "exampleIndex_content.txt")
-        cfg.lower_k, cfg.higher_k = 20, 25
-        index = str(GOLDEN / "exampleIndex128")
+def test_paired_no_turbo_over_memory_budget_agrees_with_jax(
+        tmp_path, monkeypatch, index_dir, capsys):
+    """Paired-end input on the classic path (KASA_TPU_NO_TURBO) over the
+    memory budget: the per-batch engine's chunk streaming in both
+    packages (kasa_tpu routed there as its FastPathUnavailable does)."""
+    import kasa_tpu.match.fast as jf
+
+    def unavailable(*a, **k):
+        raise jf.FastPathUnavailable("per-batch engine")
+    monkeypatch.setattr(jf, "fast_identify", unavailable)
+    monkeypatch.setenv("KASA_TPU_NO_TURBO", "1")
+    _over_budget_agree(tmp_path, index_dir, {
+        "paired_end_1": str(FIXTURES / "reads_1.fastq"),
+        "paired_end_2": str(FIXTURES / "reads_2.fastq")}, capsys)
+
+
+@pytest.mark.parametrize("case", ["k25_20", "k10_5"])
+def test_over_budget_keeps_resident_tables(tmp_path, monkeypatch, index_dir,
+                                           case):
+    """An index over the device budget that tiered streaming cannot take
+    (128-bit, or min_k < 6) keeps resident turbo tables on one device,
+    as kasa_tpu does (fast.py:342-351, 375-404): under
+    KASA_DEVICE_BUDGET=1 the port writes kasa_tpu's output, the profile
+    byte-identical."""
+    from kasa_tpu_torch.match import fast
+    monkeypatch.setenv("KASA_DEVICE_BUDGET", "1")
+    monkeypatch.setenv("KASA_MESH_DP", "1")
+    if case == "k25_20":
+        # the 128-bit family under the name the helpers read
+        d = tmp_path / "idx128"
+        d.mkdir()
+        for suffix in ("", "_info.txt", "_f.txt", "_trie", "_trie.txt"):
+            shutil.copy(GOLDEN / ("exampleIndex128" + suffix),
+                        d / ("exampleIndex" + suffix))
+        shutil.copy(index_dir / "exampleIndex_content.txt",
+                    d / "exampleIndex_content.txt")
+        ov = {"lower_k": 20, "higher_k": 25}
     else:
-        monkeypatch.setenv("KASA_TPU_NO_TURBO", "1")
-        cfg.content_file = str(index_dir / "exampleIndex_content.txt")
-        cfg.paired_end_1 = str(FIXTURES / "reads_1.fastq")
-        cfg.paired_end_2 = str(FIXTURES / "reads_2.fastq")
-        cfg.memory_avail = 1 << 20
-        inp = ""
-    with pytest.raises(NotImplementedError, match="later slice"):
-        identify(cfg, index_path=index, input_path=inp,
-                 out_file=str(tmp_path / "o.json"), device="cpu")
+        d, ov = index_dir, {"lower_k": 5, "higher_k": 10}
+    # every hit written: tied scores may come out in another order
+    ov["num_of_beasts"] = 1000
+    src = str(FIXTURES / "reads.fastq")
+    _run_jax(d, src, ov, tmp_path / "j.json", tmp_path / "j.csv")
+    res = _run_port(d, src, ov, tmp_path / "t.json", tmp_path / "t.csv")
+    assert type(fast.LAST_DISPATCH).__name__ == "SingleTurboDispatch"
+    assert res[2] == 300
+    assert (tmp_path / "t.csv").read_bytes() == \
+        (tmp_path / "j.csv").read_bytes()
+    assert_identify_agrees(json.load(open(tmp_path / "j.json")),
+                           json.load(open(tmp_path / "t.json")),
+                           (tmp_path / "j.csv").read_text(),
+                           (tmp_path / "t.csv").read_text(), 6)
 
 
 def test_many_line_lengths_stay_under_the_slot_cap(tmp_path, monkeypatch,

@@ -1,5 +1,5 @@
 """The CUDA kernels of kasa_tpu_torch against their plain PyTorch
-versions, on the card: K1-K9, the per-file, counts-only, list,
+versions, on the card: K1-K12, the per-file, counts-only, list,
 additive and sloppy arms, and the five-limb arms of K1, K2 and K5.  CUDA kernels have no CPU mode: without a GPU
 these tests skip.  On a machine with one (and without JAX):
 
@@ -519,3 +519,59 @@ def test_sloppy_arm_kernel(cuda):
         want = E.sloppy_reduce_plain(
             E.encode_windows_plain(mat, lut, w, protein=protein), aas)
         assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.parametrize("highest_k,min_k,max_k", [
+    (12, 1, 12), (12, 7, 12), (25, 20, 25), (25, 12, 25)],
+    ids=["L2_k1_12", "L2_k7_12", "L5_k20_25", "L5_k12_25"])
+def test_join_kernels(cuda, highest_k, min_k, max_k):
+    """K12, K10 and K11 in the join engine's order against their plain
+    versions: the sort identical (both order by (limbs..., read id)),
+    every K10 output identical, K11's hit cells identical and its scores
+    within the contract."""
+    from test_torch_join import _index, _queries
+    from kasa_tpu_torch.match import join as J
+    from kasa_tpu_torch.match.device import StackedTables
+    S, R = 9, 300
+    limbs, taxids = _index(highest_k, 20_000, S, seed=highest_k + min_k)
+    t = StackedTables.build(J.DeviceIndex(
+        limbs, taxids, {i: i for i in range(S)}, highest_k, min_k, max_k,
+        S, cuda))
+    q, rid = _queries(limbs, highest_k, 30_000, R, seed=min_k)
+    q, rid = torch.from_numpy(q).to(cuda), torch.from_numpy(rid).to(cuda)
+    qs, rs = J.sort_queries(q, rid, R)
+    pq, pr = J.sort_queries_plain(q, rid)
+    torch.cuda.synchronize()
+    assert torch.equal(qs.cpu(), pq.cpu()) and torch.equal(rs.cpu(), pr.cpu())
+    got = J.join_match(t, qs)
+    want = J.join_match_plain(t, qs)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    matched, g, T, start, ok = want
+    valid = matched & ok
+    assert int(valid.sum()) > 0 and int((T > 1).sum()) > 0
+    s1 = J.join_scatter(t, valid, T, start, rs, R)
+    s2 = J.join_scatter_plain(t, valid, T, start, rs, R)
+    torch.cuda.synchronize()
+    assert torch.equal(s1 > 0, s2 > 0)
+    _close(s1, s2)
+
+
+@pytest.mark.parametrize("M,L,R", [(1, 2, 1), (1024, 2, 1025),
+                                   (70_001, 5, 8192), (300_000, 2, 65_536)])
+def test_query_sort_kernel(cuda, M, L, R):
+    """K12 on random 30-bit limbs (many equal windows) and read ids of
+    0..31 bits, at tile edges: identical to the plain stable sorts."""
+    from kasa_tpu_torch.match.join import sort_queries, sort_queries_plain
+    rng = np.random.default_rng(M)
+    q = rng.integers(0, 1 << 30, size=(M, L), dtype=np.int64)
+    q[:, 0] &= 0x3FFFF000
+    q[::3] = q[0]
+    q = torch.from_numpy(q.astype(np.int32)).to(cuda)
+    rid = torch.from_numpy(rng.integers(0, R, size=M).astype(np.int32)) \
+        .to(cuda)
+    got = sort_queries(q, rid, R)
+    want = sort_queries_plain(q, rid)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0].cpu())
+    assert torch.equal(got[1].cpu(), want[1].cpu())

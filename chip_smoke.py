@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""On-card smoke run of kasa_tpu_torch: the port's identify on one
-NVIDIA GPU, through its twelve CUDA kernels, checked against references.
+"""On-card smoke run of kasa_tpu_torch: the port's identify and index
+build on one NVIDIA GPU, through its thirteen CUDA kernels, checked
+against references.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -49,6 +50,16 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
            exact engine, the join engine's profiles, --visualize), else
            under the contract against the goldens, the port's CPU run or
            the run without a budget;
+  golden-long  fixtures/multi under --six (b.fasta's read: 9,144 slots,
+           K3's long arm) on the card, every output file byte-identical
+           to the port's CPU run;
+  build-golden  every golden index family of tests/test_modes_parity.py
+           and tests/test_golden_parity.py through the port's CLI on the
+           card, byte for byte: build (64-bit, --kH 25 through K13, -a,
+           -j, -z), shrink -s 1/2/3, half, update and generateCF (over a
+           taxonomy written from the golden content file), delete, merge;
+           the spill and --continue builds at highestK 12 and 25 against
+           the one-pass goldens;
   golden-flags  the same for --six, --one, -e, paired-end, -z (protIndex),
            a halved index, --filter (split files byte-identical) and
            identify_multiple on fixtures/multi, each with its kernels'
@@ -69,6 +80,13 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
            as 4 files of 16,384 through identify_multiple with profiles
            (summed per-file unique counts identical to the single-file
            run's, all-counts within rtol 2e-5 / atol 2e-3);
+  long     8,192 long reads (1-8 kbp) of the default corpus: the first
+           1,024, default and -e, and 8,192 pairs of 2 x 250 bp under
+           --six through identify (K3's long arm on every batch, K5's
+           under -e), each with the launch counts reset just before and
+           read just after; K3's and K5's long arms against their plain
+           versions on the batch of all 8,192, timed; the first 256 long
+           reads, default and -e, against the port's CPU run;
   budgets  multi slots and flagged reads of a --six, a paired and a
            paired --six batch at kasa_tpu's fixed budgets and at twice
            them, beside the worklist the drive loop gives each;
@@ -115,6 +133,13 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
            default and --six -e, with the same prints and sample checks;
            then the five-limb arms of K1, K2 and K5 against their plain
            versions on real batches, timed;
+  build-wide  the default corpus's 2,047 genomes as a FASTA built at -k
+           25 through the port's CLI (one K13 call over ~32.9 M entries)
+           and with a soft limit of 2^23 entries (K13 per run, the host
+           merge): byte-identical artifacts; the entries inside the
+           genomes equal the wide index; K13 on the consolidate input
+           against its plain version, timed beside torch.unique(dim=0);
+           the 64-bit build of the same genomes (no kernel), timed;
   join wide  the wide index at k 20..25: the 8,192 warm-up reads through
            the join engine against their turbo run, then K12, K10 and K11
            at L = 5 on its first batch;
@@ -1072,14 +1097,16 @@ def phase_full_flags(corpus, single_counts):
     return launches, infos
 
 
-def real_batch(corpus, six=False, highest_k=12, min_k=7, R=None):
-    """The first R (8,192) reads of the smoke set as the main path lays
-    them out for an index of highest_k and a k range from min_k (two
-    rows per read under --six).  -> (mat, R, w, lpr)."""
+def real_batch(corpus, six=False, highest_k=12, min_k=7, R=None,
+               path=None):
+    """The first R (8,192) reads of the smoke set (or of the fastq file
+    `path`) as the main path lays them out for an index of highest_k and
+    a k range from min_k (two rows per read under --six).
+    -> (mat, R, w, lpr)."""
     import numpy as np
     from kasa_tpu_torch.match.fast import BatchAssembler, READS_PER_BATCH
     from kasa_tpu_torch.native import load_fastx, sanitize_inplace
-    seq, so, _, _, _ = load_fastx(corpus["smoke"], True)
+    seq, so, _, _, _ = load_fastx(path or corpus["smoke"], True)
     sanitize_inplace(seq, False)
     R = R or READS_PER_BATCH
     asm = BatchAssembler(highest_k, min_k, six=six)
@@ -1522,6 +1549,7 @@ def phase_kernels_flags(disp, corpus, mat, R, w, launches_e):
     matp6, wpair6, _ = paired_batch(corpus, R, six=True)
     matp6_d = torch.from_numpy(matp6).to(dev)
     caf, cuf = acc_f()
+    mb6, eb6, wout6 = disp.budgets_for(4, wpair6)
     steps = {
         "six": time_ms(lambda: T.fused_turbo_acc(
             tt, mat6_d, lut, ca_t, cu_t, R, w6, cap, mb, eb,
@@ -1535,8 +1563,8 @@ def phase_kernels_flags(disp, corpus, mat, R, w, launches_e):
             tt, matp_d, lut, ca_t, cu_t, R, wpair, cap, mb, eb,
             lines_per_read=2), 10),
         "paired_six": time_ms(lambda: T.fused_turbo_acc(
-            tt, matp6_d, lut, ca_t, cu_t, R, wpair6, cap,
-            disp.multi_budget_for(4), eb, lines_per_read=4), 10),
+            tt, matp6_d, lut, ca_t, cu_t, R, wpair6, cap, mb6, eb6,
+            lines_per_read=4, wout=wout6), 10),
         "files4": time_ms(lambda: T.fused_turbo_acc(
             tt, mat_d, lut, caf, cuf, R, w, cap, mb, eb, file_of_read=fo),
             10),
@@ -1580,7 +1608,7 @@ def phase_budgets(disp, corpus, R):
         diag = T.turbo_multi(cp, mcnt, runs, tt, ca, 1 << 30, 1 << 30)[4]
         row = {"kpr": kpr, "multi_slots": int(diag[0]),
                "expansion_rows": int(diag[1]),
-               "drive_loop_multi_budget": disp.multi_budget_for(lpr)}
+               "drive_loop_budgets": disp.budgets_for(lpr, w)}
         for scale in (1, 2):
             mb, eb = disp.multi_budget * scale, disp.exp_budget * scale
             packed, ht, hk = T.fused_turbo_acc(
@@ -2888,6 +2916,456 @@ def phase_oocore(corpus):
     return launches, info, entry
 
 
+# ---------------------------------------------------------------------------
+# long read lines (K3's and K5's long arms), the index build (K13) and
+# the other CLI modes
+
+LONG_KERNELS = ("encode", "turbo_match", "turbo_reads", "turbo_reads.long",
+                "turbo_multi")
+LONG_CPU_READS = 256      # long reads held to the port's CPU run
+LONG_FALLBACK_PCT = 1.0   # most of the long reads the host may recompute
+
+
+def phase_golden_long():
+    """fixtures/multi under --six on the golden index: b.fasta's read has
+    9,144 slots, so every batch of it takes K3's long arm; each output
+    file of the card's run byte-identical to the port's CPU run."""
+    fix = os.path.join(HERE, "fixtures", "multi")
+    runs = {dev: golden_run("exampleIndex", fix, {"six_frames": True},
+                            "long_multi", dev)
+            for dev in ("cpu", DEVICE)}
+    expect_launched("golden-long multi --six", runs[DEVICE][0],
+                    LONG_KERNELS)
+    n = 0
+    for name in ("a", "b"):
+        # a folder's outputs are <out><name>.json and <profile><name>.csv
+        for i, ext in ((2, ".json"), (3, ".csv")):
+            same_file(f"golden-long multi --six {name}{ext}",
+                      runs[DEVICE][i] + name + ext,
+                      runs["cpu"][i] + name + ext)
+            n += 1
+    log(f"golden-long: fixtures/multi under --six, {n} output files "
+        "byte-identical to the port's CPU run; launches "
+        f"{runs[DEVICE][0]}")
+
+
+def phase_long(corpus):
+    """Long read lines on the default corpus: 8,192 single-end reads of
+    1-8 kbp (default and -e) and 8,192 pairs of 2 x 250 bp under --six
+    through identify, each with the launch counts reset just before and
+    read just after, and each with at most LONG_FALLBACK_PCT % of its
+    reads recomputed on the host; K3's and K5's long arms against their
+    plain versions on the batch of all 8,192 long reads, timed; the
+    first 256 long reads (default and -e) against the port's CPU run.
+    -> (kernel entries, launches, infos)."""
+    import numpy as np
+    import torch
+    from kasa_tpu_torch import synth
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.core import encode as E
+    from kasa_tpu_torch.core.alphabet import build_codon_code_lut
+    from kasa_tpu_torch.match import fast
+    from kasa_tpu_torch.match import turbo as T
+    from kasa_tpu_torch.match.pipeline import identify
+    d = os.path.join(HERE, ".synth_corpus", "long")
+    os.makedirs(d, exist_ok=True)
+    t0 = time.perf_counter()
+    lp = synth.long_reads(d, synth.LONG_READS, synth.LONG_PAIRS)
+    log(f"long: {synth.LONG_READS} reads of {synth.LONG_MIN}-"
+        f"{synth.LONG_MAX} bp and {synth.LONG_PAIRS} pairs of 2 x "
+        f"{synth.LONG_MATE} bp written in {time.perf_counter() - t0:.1f} s")
+
+    def head(n):
+        path = os.path.join(d, f"long_head{n}.fastq")
+        with open(lp["reads"], "rb") as src, open(path, "wb") as dst:
+            for _ in range(4 * n):
+                dst.write(src.readline())
+        return path
+    runs = {}
+    for tag, inp, over, extra, unit in (
+            ("long", lp["reads"], {}, (), "reads"),
+            ("long -e", lp["reads"], {"unique": True}, ("dedup.long",),
+             "reads"),
+            ("long pairs --six", "", {"six_frames": True,
+                                      "paired_end_1": lp["pairs"][0],
+                                      "paired_end_2": lp["pairs"][1]}, (),
+             "pairs")):
+        stem = os.path.join(OUT, tag.replace(" ", "_"))
+        (ca, cu, _, _), launches, info = drive(
+            tag, inp, stem + ".json", stem + ".csv", LONG_KERNELS + extra,
+            over, corpus=corpus, unit=unit)
+        if not (np.isfinite(ca).all() and cu.sum() > 0):
+            fail(f"{tag}: count matrices are not finite / empty")
+        if info["fallback_pct"] > LONG_FALLBACK_PCT:
+            fail(f"{tag}: {info['fallback_pct']:.2f} % of the reads were "
+                 f"recomputed on the host (at most {LONG_FALLBACK_PCT} %)")
+        runs[tag] = (launches, info)
+
+    # the long arms on the batch of all the long reads, on the tables of
+    # the last run
+    disp = fast.LAST_DISPATCH
+    mat, R, w, _ = real_batch(corpus, R=synth.LONG_READS, path=lp["reads"])
+    dev = torch.device(DEVICE)
+    lut = torch.from_numpy(build_codon_code_lut().astype(np.int32)).to(dev)
+    mat_d = torch.from_numpy(mat).to(dev)
+    tt = disp.tt if disp is not None and disp.tt.device.type == dev.type \
+        else None
+    if tt is None:
+        fail("long: no resident tables on the card after the runs")
+    q = E.encode_windows(mat_d, lut, w)
+    skey, mpay = T.turbo_match(q, tt, R, w)
+    SW = skey.shape[1]
+    got = T.turbo_reads_pre(skey, mpay)
+    want = T.turbo_reads_pre_plain(skey, mpay)
+    for name, a, b in zip(("ck", "cc", "runs", "mcnt", "cp"), got, want):
+        same(f"turbo_reads.long.{name}", a, b)
+    max_runs = int(want[2].max())
+    del got, want
+    # the batch's demand on the sizes that batch_budgets scales, and the
+    # flags of the batch step at the scaled sizes
+    mb, eb, wout = disp.budgets_for(1, w)
+    ca_l, cu_l = disp.new_acc()
+    packed = T.fused_turbo_acc(tt, mat_d, lut, ca_l, cu_l, R, w,
+                               disp.csr_cap(R), mb, eb, wout=wout)[0]
+    packed = packed.cpu().numpy()
+    hc, fl = packed[:R], packed[R:2 * R]
+    demand = {"multi_slots": int(packed[-4]),
+              "expansion_rows": int(packed[-3]), "max_runs": max_runs,
+              "hits_median": float(np.median(hc)), "hits_max": int(hc.max()),
+              "reads_over_WOUT": int((hc > T.WOUT).sum()),
+              "budgets": [mb, eb, wout],
+              "fixed_budgets": [T.MULTI_BUDGET, T.EXP_BUDGET, T.WOUT],
+              "count_flagged": int((fl & 1).sum()),
+              "list_flagged": int(((fl >> 1) & 1).sum())}
+    log("long budgets: " + json.dumps(demand))
+    del ca_l, cu_l, packed
+    ms = time_ms(lambda: T.turbo_reads_pre(skey, mpay), 5)
+    plain_ms = time_ms(lambda: T.turbo_reads_pre_plain(skey, mpay), 2)
+    nbytes = 3 * R * SW * 4 + 2 * R * T.CW * 4 + 2 * R * 4
+    k3 = kernel_entry("turbo_reads.long", "kasa_tpu_torch/csrc/turbo_reads.cu",
+                      "kasa_tpu/match/turbo.py:717",
+                      runs["long"][0]["turbo_reads.long"], 0.0, ms,
+                      plain_ms, nbytes, None)
+    log(f"kernel turbo_reads.long on a real batch: R={R}, SW={SW}, "
+        f"w={w}")
+    del skey, mpay
+    got = T.dedup_windows(q, R, w)
+    want = T.dedup_windows_plain(q, R, w)
+    same("dedup.long", got, want)
+    npois = int((want[:, 0] == T.POISON_LIMB).sum())
+    del got, want
+    keys = ((q[:, 0].long() << 30) | q[:, 1].long()).reshape(R, w)
+    ms = time_ms(lambda: T.dedup_windows(q, R, w), 5)
+    plain_ms = time_ms(lambda: T.dedup_windows_plain(q, R, w), 2)
+    lib_ms = time_ms(lambda: torch.sort(keys, dim=1), 5)
+    k5 = kernel_entry("dedup.long", "kasa_tpu_torch/csrc/dedup.cu",
+                      "kasa_tpu/match/turbo.py:128",
+                      runs["long -e"][0]["dedup.long"], 0.0, ms, plain_ms,
+                      2 * q.numel() * 4, lib_ms,
+                      "torch.sort of the (R, kpr) int64 keys")
+    log(f"kernel dedup.long on the same batch: {R * w} windows, {npois} "
+        "poisoned")
+    del q, keys, mat_d
+    torch.cuda.empty_cache()
+
+    # the first LONG_CPU_READS long reads on the card and on the CPU
+    sub = head(LONG_CPU_READS)
+    for unique in (False, True):
+        got = {}
+        for dev in (DEVICE, "cpu"):
+            cfg = Config()
+            cfg.num_of_beasts = ALL_HITS
+            cfg.unique = unique
+            stem = os.path.join(
+                OUT, f"long_head_{dev}{'_e' if unique else ''}")
+            res = identify(cfg, index_path=corpus["index"], input_path=sub,
+                           out_file=stem + ".json", profile_file=stem + ".csv",
+                           device=dev)
+            got[dev] = (res, stem)
+        if not np.array_equal(got[DEVICE][0][1], got["cpu"][0][1]):
+            fail("long: unique counts of the card and the CPU differ")
+        assert_identify_agrees(
+            json.load(open(got["cpu"][1] + ".json")),
+            json.load(open(got[DEVICE][1] + ".json")),
+            open(got["cpu"][1] + ".csv").read(),
+            open(got[DEVICE][1] + ".csv").read(), 6)
+        log(f"long: the first {LONG_CPU_READS} long reads"
+            f"{' under -e' if unique else ''} on the card agree with the "
+            "port's CPU run (unique counts identical, every hit)")
+
+    return [k3, k5], {t: r[0] for t, r in runs.items()}, \
+        {t: r[1] for t, r in runs.items()}
+
+
+GOLDEN_BUILDS = (
+    # tag, CLI arguments (G: tests/golden, F: fixtures, O: the output
+    # directory, T: the test taxonomy), golden, artifact suffixes
+    ("build", "build -c G/exampleIndex_content.txt -d O/x -i F/example.fasta",
+     "exampleIndex", None),
+    ("build --kH 25", "build -c G/exampleIndex_content.txt -d O/x "
+     "-i F/example.fasta --kH 25", "exampleIndex128", None),
+    ("build -a", "build -c G/exampleIndex_content.txt -d O/x "
+     "-i F/example.fasta -a O/gc.prt 1", "alphaIndex", None),
+    ("build -j", "build -c G/exampleIndex_content.txt -d O/x "
+     "-i F/example.fasta -j", "exampleIndexSloppy",
+     ("", "_taxOnly", "_info.txt", "_trie", "_trie.txt")),
+    ("build -z", "build -c G/protIndex_content.txt -d O/x "
+     "-i F/protein.fasta -z", "protIndex", None),
+    ("shrink -s 2", "shrink -s 2 -d G/exampleIndex -o O/x "
+     "-c G/exampleIndex_content.txt", "exampleIndex_s", None),
+    ("half", "half -d G/exampleIndex -o O/x -c G/exampleIndex_content.txt",
+     "exampleIndex_s", None),
+    ("shrink -s 1 -g 50", "shrink -s 1 -g 50 -d G/exampleIndex -o O/x "
+     "-c G/exampleIndex_content.txt", "exampleIndex_g50", None),
+    ("shrink -s 3", "shrink -s 3 -d G/exampleIndex -o O/x "
+     "-c G/exampleIndex_content.txt", "exampleIndex_ent", None),
+    ("update", "update -d G/exampleIndex -o O/x -i F/example2.fasta "
+     "-f T/acc2tax.txt -y T -u species", "exampleIndex_u",
+     ("", "_info.txt", "_trie", "_trie.txt", "_f.txt", "_content.txt")),
+    ("delete", "delete -d G/exampleIndex -o O/x -l G/delnodes_test.dmp "
+     "-c G/exampleIndex_content.txt", "exampleIndex_del", None),
+    ("merge", "merge --firstIndex G/exampleIndex --secondIndex G/index2 "
+     "-o O/x -c1 G/exampleIndex_content.txt -c2 G/index2_content.txt",
+     "index_merged", ("", "_trie", "_trie.txt", "_f.txt", "_content.txt")),
+    ("generateCF", "generateCF -c O/x -i F/example.fasta -f T/acc2tax.txt "
+     "-y T -u species", "exampleIndex_content.txt", ("",)),
+)
+ARTIFACTS = ("", "_info.txt", "_trie", "_trie.txt", "_f.txt")
+
+
+def cli(args):
+    """The port's CLI in this process (python -m kasa_tpu_torch args
+    --device DEVICE)."""
+    from kasa_tpu_torch.cli import main
+    rc = main(["kasa_tpu_torch", *args, "--device", DEVICE])
+    if rc != 0:
+        fail(f"python -m kasa_tpu_torch {' '.join(args)}: exit code {rc}")
+
+
+def phase_build_golden():
+    """Every golden index family of tests/test_modes_parity.py and
+    tests/test_golden_parity.py through the port's CLI on the card, byte
+    for byte (update and generateCF read a taxonomy written from the
+    golden content file, the custom alphabet NCBI's standard code), K13
+    launched by the 128-bit build and by nothing else; then the spill
+    (soft limit 10,000) and --continue builds at highestK 12 and 25
+    against the one-pass goldens.  -> the 128-bit build's launches."""
+    import shutil
+    import torch
+    from kasa_tpu_torch import kernels, synth
+    from kasa_tpu_torch.index import build as B
+    gold = os.path.join(HERE, "tests", "golden")
+    root = os.path.join(OUT, "build_golden")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    tax = synth.taxonomy_from_content(
+        os.path.join(gold, "exampleIndex_u_content.txt"),
+        os.path.join(root, "taxonomy"))
+    with open(os.path.join(root, "gc.prt"), "w") as fh:
+        fh.write(synth.STANDARD_GC_PRT)
+    t0 = time.perf_counter()
+    launches_128 = None
+    for i, (tag, line, golden, suffixes) in enumerate(GOLDEN_BUILDS):
+        o = os.path.join(root, f"m{i}")
+        os.makedirs(o)
+        where = {"G": gold, "F": os.path.join(HERE, "fixtures"), "O": o,
+                 "T": tax}
+        args = [where[a] if a in where else
+                where[a[0]] + a[1:] if a[:2] in ("G/", "F/", "O/", "T/")
+                else a for a in line.split()]
+        shutil.copy(os.path.join(root, "gc.prt"), o)
+        kernels.reset_counts()
+        cli(args)
+        torch.cuda.synchronize()
+        launches = dict(kernels.COUNTS)
+        want = {"sort_dedup"} if tag == "build --kH 25" else set()
+        if {k for k, v in launches.items() if v} != want:
+            fail(f"build-golden {tag}: launches {launches}")
+        if want:
+            launches_128 = launches
+        for s in suffixes or ARTIFACTS:
+            same_file(f"build-golden {tag}", os.path.join(o, "x") + s,
+                      os.path.join(gold, golden) + s)
+    log(f"build-golden: {len(GOLDEN_BUILDS)} CLI runs byte-identical to "
+        f"the goldens in {time.perf_counter() - t0:.1f} s; the 128-bit "
+        f"build launched {launches_128}")
+
+    fasta = os.path.join(HERE, "fixtures", "example.fasta")
+    content = os.path.join(gold, "exampleIndex_content.txt")
+    for hk, golden in ((12, "exampleIndex"), (25, "exampleIndex128")):
+        d = os.path.join(root, f"spill{hk}")
+        os.makedirs(d)
+        kernels.reset_counts()
+        B.build_index(fasta, content, os.path.join(d, "x"), highest_k=hk,
+                      soft_limit=10000, temp_dir=d, device=DEVICE)
+        spill_k13 = kernels.COUNTS["sort_dedup"]
+        for s in ARTIFACTS:
+            same_file(f"build-golden spill k{hk}", os.path.join(d, "x") + s,
+                      os.path.join(gold, golden) + s)
+        # --continue: a build that spilled and stopped before its merge
+        orig = B.KmerAccumulator.finalize
+
+        def stop(self):
+            self._spill()
+            raise KeyboardInterrupt
+        B.KmerAccumulator.finalize = stop
+        try:
+            B.build_index(fasta, content, os.path.join(d, "dead"),
+                          highest_k=hk, soft_limit=10000, temp_dir=d,
+                          call_idx=5, device=DEVICE)
+            fail("build-golden: the interrupted build did not stop")
+        except KeyboardInterrupt:
+            pass
+        finally:
+            B.KmerAccumulator.finalize = orig
+        B.build_index(fasta, content, os.path.join(d, "y"), highest_k=hk,
+                      temp_dir=d, continue_build=True, call_idx=5,
+                      device=DEVICE)
+        for s in ARTIFACTS:
+            same_file(f"build-golden --continue k{hk}",
+                      os.path.join(d, "y") + s,
+                      os.path.join(gold, golden) + s)
+        log(f"build-golden: the spill build (soft limit 10,000; K13 "
+            f"{spill_k13} launches) and the --continue build at highestK "
+            f"{hk} equal the one-pass golden")
+    return launches_128
+
+
+def phase_build_wide(corpus, wide):
+    """The index build at a size users build: the default corpus's 2,047
+    genomes as a FASTA of SYN<i> records with the corpus's content file,
+    built at -k 25 through the port's CLI (one K13 call over the ~32.9 M
+    entries) and again with a soft limit of 2^23 entries (K13 per run,
+    then the host merge): byte-identical artifacts; their entries
+    without the build's trailing marker letter equal synth.py's wide
+    index; K13 on the consolidate input held to its plain version and
+    timed beside torch.unique(dim=0) and its bound; the 64-bit build of
+    the same genomes (the native host path, no kernel).
+    -> (K13's kernel entry, info)."""
+    import shutil
+    import numpy as np
+    import torch
+    from kasa_tpu_torch import kernels, synth
+    from kasa_tpu_torch.core import kmer
+    from kasa_tpu_torch.index import artifacts
+    from kasa_tpu_torch.index import build as B
+    from kasa_tpu_torch.utils import timers
+    root = os.path.join(HERE, ".synth_corpus", "build_wide")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    fasta = synth.write_genomes_fasta(
+        os.path.join(root, "genomes.fasta"), synth.NUM_SPECIES,
+        synth.GENOME_LEN, synth.CORE_GENES)
+    content = corpus["index"] + "_content.txt"
+    log(f"build-wide: {synth.NUM_SPECIES} genomes of {synth.GENOME_LEN} bp "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    captured = {}
+    orig = B.sort_dedup_device
+
+    def capture(limbs, taxids, device):
+        captured.setdefault("input", (limbs.copy(), taxids.copy()))
+        return orig(limbs, taxids, device)
+    info = {}
+    B.sort_dedup_device = capture
+    try:
+        timers.reset()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        cli(["build", "-i", fasta, "-c", content, "-d",
+             os.path.join(root, "w25"), "--kH", "25", "-t", root, "-n",
+             str(os.cpu_count() or 1)])
+        torch.cuda.synchronize()
+        info["seconds_k25"] = time.perf_counter() - t0
+        info["launches_k25"] = dict(kernels.COUNTS)
+        info["stages_k25"] = {k: round(v, 4) for k, v in timers.report(
+            lambda *_: None).items() if k.startswith("build/")}
+    finally:
+        B.sort_dedup_device = orig
+    if info["launches_k25"]["sort_dedup"] != 1:
+        fail(f"build-wide: K13 launches {info['launches_k25']}")
+    n, _ = artifacts.read_info(os.path.join(root, "w25"))
+    info["entries"] = n
+    log(f"build-wide: -k 25 build of {n:,} entries in "
+        f"{info['seconds_k25']:.1f} s; stages {info['stages_k25']}; "
+        f"launches {info['launches_k25']}")
+
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    B.build_index(fasta, content, os.path.join(root, "s25"), highest_k=25,
+                  soft_limit=1 << 23, temp_dir=root, device=DEVICE,
+                  threads=os.cpu_count() or 1, turbo_sidecar=False)
+    info["seconds_k25_spill"] = time.perf_counter() - t0
+    info["launches_k25_spill"] = kernels.COUNTS["sort_dedup"]
+    for s in ARTIFACTS:
+        same_file("build-wide spill", os.path.join(root, "s25") + s,
+                  os.path.join(root, "w25") + s)
+    log(f"build-wide: the build with a soft limit of 2^23 entries "
+        f"({info['launches_k25_spill']} K13 launches, then the host merge) "
+        f"is byte-identical, {info['seconds_k25_spill']:.1f} s")
+
+    # synth.py's wide index holds the windows inside each genome; the
+    # build adds the windows over the trailing marker, whose last letter
+    # is '^' (code 30)
+    limbs, taxids, _, _ = artifacts.read_index(os.path.join(root, "w25"))
+    inside = kmer.letter_at(limbs, 24, 25) != 30
+    wl, wt, _, _ = artifacts.read_index(wide["index"])
+    if not (np.array_equal(limbs[inside], wl)
+            and np.array_equal(taxids[inside], wt)):
+        fail("build-wide: the build's entries inside the genomes differ "
+             "from synth.py's wide index")
+    log(f"build-wide: the {int(inside.sum()):,} entries inside the genomes "
+        f"equal synth.py's wide index; {int((~inside).sum()):,} marker "
+        "entries besides")
+    del limbs, taxids, wl, wt, inside
+
+    # K13 on the consolidate input
+    cl, ct = captured["input"]
+    q = torch.from_numpy(cl).to(DEVICE)
+    t = torch.from_numpy(ct.view(np.int32)).to(DEVICE)
+    N, L = q.shape
+    got = B.sort_dedup(q, t)
+    want = B.sort_dedup_plain(q, t)
+    same("sort_dedup.limbs", got[0], want[0])
+    same("sort_dedup.taxids", got[1], want[1])
+    nu = len(want[1])
+    del got, want
+    rows = torch.cat([q.long(), (t.long() & 0xFFFFFFFF)[:, None]], dim=1)
+    ms = time_ms(lambda: B.sort_dedup(q, t), 3)
+    plain_ms = time_ms(lambda: B.sort_dedup_plain(q, t), 2)
+    lib_ms = time_ms(lambda: torch.unique(rows, dim=0), 2)
+    del rows
+    entry = kernel_entry(
+        "sort_dedup", "kasa_tpu_torch/csrc/sort_dedup.cu",
+        "kasa_tpu/index/build.py:112", info["launches_k25"]["sort_dedup"],
+        0.0, ms, plain_ms, (N + nu) * 4 * (L + 1), lib_ms,
+        "torch.unique(dim=0) of the (N, L + 1) int64 rows")
+    log(f"kernel sort_dedup on the consolidate input: N={N:,}, L={L}, "
+        f"Nu={nu:,}")
+    info["k13"] = dict(N=N, L=L, Nu=nu)
+    del q, t, cl, ct, captured
+    torch.cuda.empty_cache()
+
+    # the same genomes as a 64-bit index: the native host path
+    timers.reset()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    cli(["build", "-i", fasta, "-c", content, "-d",
+         os.path.join(root, "w12"), "-t", root, "-n",
+         str(os.cpu_count() or 1), "--no-sidecar"])
+    info["seconds_k12"] = time.perf_counter() - t0
+    info["stages_k12"] = {k: round(v, 4) for k, v in timers.report(
+        lambda *_: None).items() if k.startswith("build/")}
+    if any(kernels.COUNTS.values()):
+        fail(f"build-wide k12: launched {kernels.COUNTS}")
+    log(f"build-wide: the 64-bit build of the same genomes "
+        f"({artifacts.read_info(os.path.join(root, 'w12'))[0]:,} entries, "
+        f"no kernel) in {info['seconds_k12']:.1f} s; stages "
+        f"{info['stages_k12']}")
+    shutil.rmtree(root, ignore_errors=True)
+    return entry, info
+
+
 def run(preps, smi, t_all):
     import torch
     from kasa_tpu_torch import synth
@@ -2896,6 +3374,8 @@ def run(preps, smi, t_all):
     phase_golden_flags()
     launches_j = phase_golden_classic()
     launches_cov = phase_golden_engines()
+    phase_golden_long()
+    launches_b = phase_build_golden()
     forget_tables()
     wait_prep(preps, t_all, ("default",))
     corpus = phase_corpus()
@@ -2910,6 +3390,9 @@ def run(preps, smi, t_all):
                                               launches_f["six_e"])
     kern.append(k5)
     budgets = phase_budgets(disp, corpus, R)
+    # long read lines on the same tables (K3's and K5's long arms)
+    k_long, launches_long, infos_long = phase_long(corpus)
+    kern += k_long
     # the classic engine against the turbo run of the same reads (the
     # turbo tables are still on the card), then K9 and the sloppy arm
     cvt = {}
@@ -2958,6 +3441,9 @@ def run(preps, smi, t_all):
     kern += k_jw
     del disp_w, jbatch
     forget_tables()
+    # the index build at the corpus's size (K13), against the wide index
+    k13, info_bw = phase_build_wide(corpus, synth.generate_wide(log=log))
+    kern.append(k13)
     # the classic engine at full width: the 128-bit corpus over 14 levels
     launches_cl, infos_cl, ctab = phase_classic(corpus)
     mat5, _, w5, _ = real_batch(corpus, highest_k=25, min_k=12)
@@ -3030,6 +3516,9 @@ def run(preps, smi, t_all):
                    "join": info_jn, "launches_join": launches_jn,
                    "join_wide": info_jw, "launches_join_wide": launches_jw,
                    "oocore": info_oo, "launches_oocore": launches_oo,
+                   "long": infos_long, "launches_long": launches_long,
+                   "build_wide": info_bw,
+                   "launches_build_golden_k25": launches_b,
                    "kernels": kern, "step_ms": step_ms,
                    "step_ms_by_mode": steps, "six_e_kernel_ms": six_e_ms,
                    "sparse_kernel_ms": sparse_ms, "wide_kernel_ms": wide_ms,

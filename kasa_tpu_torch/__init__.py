@@ -1,9 +1,9 @@
 """kasa_tpu_torch: the kASA-compatible classifier on PyTorch and CUDA.
 
-A port of kasa_tpu (JAX) to one NVIDIA H100.  The identify path keeps
-kasa_tpu's artifacts, tables and output bytes; its device work runs in
-hand-written CUDA kernels (csrc/, bound by kernels.py), each with a
-plain PyTorch version that the CPU tests run.
+A port of kasa_tpu (JAX) to one NVIDIA H100.  Every mode keeps kasa_tpu's
+artifacts, tables and output bytes; the device work of identify and of
+the index build runs in hand-written CUDA kernels (csrc/, bound by
+kernels.py), each with a plain PyTorch version that the CPU tests run.
 
 Entry points take ``device=None``, which means ``cuda``: without a CUDA
 device they raise instead of dropping to the CPU.  Pass

@@ -1,7 +1,8 @@
 """Command-line entry point (port of kasa_tpu/cli.py): the reference's flag
-surface, with the identify and identify_multiple modes.  Invoke as
-``python -m kasa_tpu_torch identify -d <index> -c <content> -i <reads>
--q <out> -p <profile> [--device cpu]``.
+surface and every kasa_tpu mode.  Invoke as ``python -m kasa_tpu_torch
+<mode> ...``, e.g. ``identify -d <index> -c <content> -i <reads> -q <out>
+-p <profile> [--device cpu]`` or ``build -i <fasta> -c <content> -d
+<index> [-k 25 1] [--device cpu]``.
 """
 
 from __future__ import annotations
@@ -12,10 +13,12 @@ import time
 from .config import Config, load_yaml_config
 
 USAGE = """kasa_tpu_torch -- kASA-compatible metagenomic classifier on CUDA
-Modes: identify, identify_multiple (the other kasa_tpu modes are later
-slices of the port)
+Modes: generateCF build identify identify_multiple update delete shrink
+       merge getFrequency redundancy trie half checkContentFile translate
+       test howmuchtaxids showVec transform fuckit
 Flags mirror the reference kASA binary (see README); --device cpu runs
-the plain PyTorch versions of the kernels."""
+the plain PyTorch versions of the kernels (identify, and the sort of a
+128-bit index's entries in build and update)."""
 
 
 def parse_args(argv: list[str]) -> Config:
@@ -167,7 +170,8 @@ def parse_args(argv: list[str]) -> Config:
             # port extension: cuda (default) or cpu (plain versions)
             cfg.device = nxt()
         elif p in ("--sidecar", "--no-sidecar"):
-            pass  # build-time flags of kasa_tpu, accepted
+            # build: write the identify tables' sidecar with the index
+            cfg.turbo_sidecar = p == "--sidecar"
         elif p in ("--debug", "--spaced"):
             pass  # dev flags accepted, no-op
         elif p == "--mask":
@@ -292,13 +296,100 @@ def main(argv: list[str] | None = None) -> int:
 
 
 def run_mode(cfg: Config):
-    if cfg.mode == "identify":
+    mode = cfg.mode
+    if mode == "generateCF":
+        from .index.content import generate_content_file
+        if not cfg.content_file:
+            raise RuntimeError("Please specify an output file with -c")
+        generate_content_file(cfg.input, cfg.content_file,
+                              acc2tax_path=cfg.acc_to_tax_files,
+                              taxonomy_path=cfg.taxonomy_path,
+                              tax_level=cfg.tax_level or "species",
+                              taxids_as_strings=cfg.taxids_as_strings,
+                              verbose=cfg.verbose,
+                              memory_bound=cfg.memory_avail // 2)
+    elif mode == "build":
+        from .index.build import build_index
+        from .index.content import generate_content_file
+        content = cfg.content_file
+        if not content:
+            content = cfg.db_out + "_content.txt"
+            generate_content_file(cfg.input, content,
+                                  acc2tax_path=cfg.acc_to_tax_files,
+                                  taxonomy_path=cfg.taxonomy_path,
+                                  tax_level=cfg.tax_level or "species",
+                                  taxids_as_strings=cfg.taxids_as_strings,
+                                  verbose=cfg.verbose,
+                                  memory_bound=cfg.memory_avail // 2)
+        highest_k = 25 if cfg.higher_k > 12 else 12
+        encoder = None
+        if cfg.codon_table:
+            from .core.encode import Encoder, custom_code_lut
+            encoder = Encoder(codon_code_lut=custom_code_lut(cfg),
+                              sloppy=cfg.sloppy, device="cpu")
+        build_index(cfg.input, content, cfg.db_out,
+                    highest_k=highest_k,
+                    six_frames=cfg.six_frames, one_frame=cfg.one_frame,
+                    protein=cfg.translated, sloppy=cfg.sloppy,
+                    shrink_percentage=cfg.shrink_percentage,
+                    temp_dir=cfg.temp_path or None, verbose=cfg.verbose,
+                    encoder=encoder, continue_build=cfg.continue_build,
+                    call_idx=cfg.call_idx, threads=cfg.threads,
+                    memory_bound=cfg.memory_avail,
+                    turbo_sidecar=cfg.turbo_sidecar, device=cfg.device)
+    elif mode == "identify":
         from .match.pipeline import identify
         identify(cfg, device=cfg.device)
-    elif cfg.mode == "identify_multiple":
+    elif mode == "identify_multiple":
         from .match.pipeline import identify_multiple
         identify_multiple(cfg, device=cfg.device)
+    elif mode == "update":
+        from .index.update import update_index
+        update_index(cfg)
+    elif mode == "delete":
+        from .index.update import delete_from_index
+        delete_from_index(cfg)
+    elif mode in ("shrink", "half"):
+        from .index.shrink import shrink_index
+        if mode == "half":
+            cfg.shrink_strategy = 2
+        shrink_index(cfg)
+    elif mode == "merge":
+        from .index.update import merge_indices
+        merge_indices(cfg)
+    elif mode == "getFrequency":
+        from .index.aux_modes import get_frequency
+        get_frequency(cfg)
+    elif mode == "trie":
+        from .index.aux_modes import rebuild_trie
+        rebuild_trie(cfg)
+    elif mode == "redundancy":
+        from .index.aux_modes import redundancy
+        redundancy(cfg)
+    elif mode == "checkContentFile":
+        from .index.aux_modes import check_content_file
+        check_content_file(cfg)
+    elif mode == "translate":
+        from .index.aux_modes import translate_file
+        translate_file(cfg)
+    elif mode == "test":
+        from .index.aux_modes import test_kmers
+        test_kmers(cfg, cfg.input)
+    elif mode == "howmuchtaxids":
+        from .index.aux_modes import how_much_taxids
+        how_much_taxids(cfg)
+    elif mode == "showVec":
+        from .index.aux_modes import show_vec
+        show_vec(cfg)
+    elif mode == "transform":
+        from .index.aux_modes import transform_index
+        transform_index(cfg)
+    elif mode == "fuckit":
+        from .index.aux_modes import fuckit_reencode
+        fuckit_reencode(cfg)
+    elif mode == "debug":
+        # the reference's unit tests are disabled in its source
+        # (main.cpp:1475-1486); ours live in tests/ -- point there.
+        print("OUT: run `python -m pytest tests/` for the test suite.")
     else:
-        raise NotImplementedError(
-            f"mode {cfg.mode!r} is a later slice of kasa_tpu_torch; the "
-            "port runs identify and identify_multiple")
+        raise RuntimeError(f"Unknown mode: {mode}. See --help.")

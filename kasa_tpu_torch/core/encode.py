@@ -202,10 +202,10 @@ def encode_windows(byte_mat: torch.Tensor, lut: torch.Tensor, w: int,
 
 
 class Encoder:
-    """Flat-buffer encoder of the per-batch engine (kasa_tpu
-    core/encode.py:203): a line buffer -> its (W, L) windows, through K1
-    on `device` (a CUDA device) or its plain version (the CPU), with the
-    sloppy fold under -j.  Returns host numpy arrays."""
+    """Flat-buffer encoder of the per-batch engine and the index build
+    (kasa_tpu core/encode.py:203): a line buffer -> its (W, L) windows,
+    through K1 on `device` (a CUDA device) or its plain version (the
+    CPU), with the sloppy fold under -j.  Returns host numpy arrays."""
 
     def __init__(self, codon_code_lut: np.ndarray | None = None,
                  sloppy: bool = False, device=None):
@@ -240,3 +240,13 @@ class Encoder:
     def encode_protein_buffer(self, buf: np.ndarray, highest_k: int,
                               reduce: bool | None = None) -> np.ndarray:
         return self._encode(buf, highest_k, True, reduce)
+
+    def reduce_windows(self, limbs: np.ndarray) -> np.ndarray:
+        """The sloppy fold of already-encoded (M, 2) windows, on the host
+        encoder of the index build (its window scan runs on the CPU)."""
+        if self.device.type != "cpu":
+            raise ValueError("reduce_windows: the build's encoder runs on "
+                             "the CPU")
+        win = torch.from_numpy(np.ascontiguousarray(limbs, np.int32))
+        return sloppy_reduce_plain(win, torch.from_numpy(aas_code_lut()))\
+            .numpy()

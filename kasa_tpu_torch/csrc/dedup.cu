@@ -20,8 +20,14 @@
 // equals the row before it.  The rows take P * 4L bytes of shared memory
 // (32 KB at L = 2, 80 KB at L = 5 for P = 4096): the wrapper caps P at
 // 4096 and the launcher raises the block's shared-memory limit past the
-// 48 KB default when a launch needs it.
-#include "common.cuh"
+// 48 KB default when a launch needs it.  Reads of more than 4096
+// windows (long read lines, -e under --six on long pairs) take the long
+// arm: every read's windows are sorted in global memory by radix.cuh's
+// seg_radix_sort (one block per read, four 8-bit digit passes per limb,
+// from the last limb to the first, into a scratch buffer and the
+// output), then one thread per window compares it with its predecessor
+// in the read and writes it, or POISON_LIMB, to the output.
+#include "radix.cuh"
 
 namespace {
 
@@ -94,7 +100,56 @@ int launch(const void* q, int R, int kpr, int P, int poison, void* out,
     return (int)cudaGetLastError();
 }
 
+// the long arm's last step: srt holds every read's windows sorted
+template <int L>
+__global__ void poison_dups_kernel(const int32_t* __restrict__ srt, int kpr,
+                                   long long M, int poison,
+                                   int32_t* __restrict__ out) {
+    const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (m >= M) return;
+    const int32_t* a = srt + m * L;
+    bool dup = m % kpr != 0;
+#pragma unroll
+    for (int l = 0; l < L; ++l) dup = dup && a[l] == a[l - L];
+#pragma unroll
+    for (int l = 0; l < L; ++l) out[m * L + l] = dup ? poison : a[l];
+}
+
+template <int L>
+int launch_long(const void* q, int R, int kpr, int poison, void* scratch,
+                void* out, cudaStream_t st) {
+    int cols[4 * kMaxLimbs], shifts[4 * kMaxLimbs], passes = 0;
+    for (int c = L - 1; c >= 0; --c)
+        for (int sh = 0; sh < 32; sh += 8) {
+            cols[passes] = c;
+            shifts[passes++] = sh;
+        }
+    // 4L passes, an even number: q -> out -> scratch -> ... -> scratch
+    const int32_t* srt = seg_radix_sort<L>(
+        (const int32_t*)q, (int32_t*)out, (int32_t*)scratch, R, kpr, cols,
+        shifts, passes, st);
+    const long long M = (long long)R * kpr;
+    poison_dups_kernel<L><<<(unsigned)((M + 255) / 256), 256, 0, st>>>(
+        srt, kpr, M, poison, (int32_t*)out);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int kasa_dedup_windows_long(const void* q, int R, int kpr, int L,
+                                       int poison, void* scratch, void* out,
+                                       void* stream) {
+    // scratch: (R * kpr, L) int32, the digit passes' second buffer
+    if (L < 2 || L > kMaxLimbs || kpr < 1) return (int)cudaErrorInvalidValue;
+    if (R <= 0) return (int)cudaGetLastError();
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (L) {
+        case 2: return launch_long<2>(q, R, kpr, poison, scratch, out, st);
+        case 3: return launch_long<3>(q, R, kpr, poison, scratch, out, st);
+        case 4: return launch_long<4>(q, R, kpr, poison, scratch, out, st);
+        default: return launch_long<5>(q, R, kpr, poison, scratch, out, st);
+    }
+}
 
 extern "C" int kasa_dedup_windows(const void* q, int R, int kpr, int L,
                                   int P, int poison, void* out,

@@ -34,7 +34,8 @@
 // Design: one block of 256 threads per read.  Dynamic shared memory:
 // a chunk of kChunk 64-bit keys (tax << 32 | position) and their values,
 // then the read's slot table (lane prefix, group row, value; 12 bytes a
-// slot, SW slots).  A lane finds its slot by a binary search of the lane
+// slot, SW slots; for SW above 4096, long read lines, the table lives in
+// a global scratch row of 3 SW + 1 int32 per read instead).  A lane finds its slot by a binary search of the lane
 // prefix.  Within a run the sum is taken serially in sorted order (the
 // list's partial sum first, then lanes in slot order): deterministic, in
 // another order than kasa_tpu's scatter-add, so floats agree within the
@@ -59,20 +60,22 @@ __global__ void sparse_fold_kernel(const int32_t* __restrict__ cp,
                                    const int32_t* __restrict__ d_tax4,
                                    const float* __restrict__ weights,
                                    FoldParams p,
+                                   int32_t* __restrict__ tab,
                                    int32_t* __restrict__ mk,
                                    float* __restrict__ mv,
                                    uint8_t* __restrict__ multi_of) {
     extern __shared__ unsigned long long keys[];        // kChunk
     float* vals = (float*)(keys + kChunk);              // kChunk
-    int32_t* pre = (int32_t*)(vals + kChunk);           // SW + 1
-    int32_t* srow = pre + p.SW + 1;                     // SW
-    float* sval = (float*)(srow + p.SW);                // SW
     __shared__ int32_t lt[kListMax], nt[kListMax];
     __shared__ float lv[kListMax], nv[kListMax];
     __shared__ long long scan_buf[kThreads];
     __shared__ int warp_sums[kWarps];
     const int tid = threadIdx.x;
     const long long r = blockIdx.x;
+    int32_t* pre = tab ? tab + r * (3LL * p.SW + 1)     // SW + 1
+                       : (int32_t*)(vals + kChunk);
+    int32_t* srow = pre + p.SW + 1;                     // SW
+    float* sval = (float*)(srow + p.SW);                // SW
     const int w1 = p.wm + 1;
     const int cnt = ofc[r] ? 0 : mcnt[r];
     const long long gmax = (long long)p.num_k * p.n - 1;
@@ -180,14 +183,15 @@ extern "C" int kasa_sparse_fold(const void* cp, const void* mcnt,
                                 const void* ofc, const void* grp2,
                                 const void* d_tax4, const void* weights,
                                 int R, int SW, int n, int num_k, int wm,
-                                int sent, void* mk, void* mv, void* multi_of,
-                                void* stream) {
+                                int sent, void* tab, void* mk, void* mv,
+                                void* multi_of, void* stream) {
+    // tab: null (the slot table in shared memory) or (R, 3 SW + 1) int32
     if (wm + 1 > kListMax || wm < 1 || SW < 1)
         return (int)cudaErrorInvalidValue;
     if (R <= 0) return (int)cudaGetLastError();
     const size_t smem = (size_t)kChunk * (sizeof(unsigned long long)
                                           + sizeof(float))
-                        + (size_t)(3 * SW + 1) * sizeof(int32_t);
+                        + (tab ? 0 : (size_t)(3 * SW + 1) * sizeof(int32_t));
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
             sparse_fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -198,7 +202,7 @@ extern "C" int kasa_sparse_fold(const void* cp, const void* mcnt,
     sparse_fold_kernel<<<R, kThreads, smem, (cudaStream_t)stream>>>(
         (const int32_t*)cp, (const int32_t*)mcnt, (const uint8_t*)ofc,
         (const int32_t*)grp2, (const int32_t*)d_tax4,
-        (const float*)weights, p, (int32_t*)mk, (float*)mv,
+        (const float*)weights, p, (int32_t*)tab, (int32_t*)mk, (float*)mv,
         (uint8_t*)multi_of);
     return (int)cudaGetLastError();
 }

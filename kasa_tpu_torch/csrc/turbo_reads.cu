@@ -44,19 +44,52 @@
 // read, which at P = 1024 sits below the card's memory time only when
 // many blocks are resident.
 //
-// Design: shared memory holds at most P = SW_CAP = 4096 int32 keys
-// (16 KB) and cw <= 4096 run ends, so a read line with more than 4096 slots
-// is refused by the Python wrapper; WM and WOUT must be <= 256.  The
-// serial parts (T1 taxon sums over the read's runs, read back from
-// global memory, and the two-list merge) run on one thread of the
-// block: simple, and short next to the sort.
-#include "common.cuh"
+// Design: the shared-memory arm holds P <= SW_CAP = 4096 int32 keys
+// (16 KB) and cw <= 4096 run ends.  post keeps a read's T1 list and its
+// multi list in shared memory while wout and wm are <= 256, and in a
+// global scratch row of 2 * (wout + wm) words per read above (a long
+// batch's lists, up to S taxa; the list arm's wm stays <= 256).  A batch
+// whose SW or cw exceeds 4096 (read lines above ~690 bp at six levels,
+// long read pairs, the additive arm's cw = SW) takes the long arm of
+// pre: every row's SW keys are sorted in global scratch by radix.cuh's
+// seg_radix_sort (one block per read, four 8-bit digit passes), then one
+// block per read finds the run starts and ends in the sorted row; a run
+// of rank rho < cw adds -start and end + 1 to its count cell, which
+// starts at 0, so the cell ends as the run's length with no run end kept
+// in shared memory.  The multi-payload compaction is the same in both
+// arms.  The serial parts of post (T1 taxon sums over the read's runs,
+// read back from global memory, and the two-list merge) run on one
+// thread of the block: simple, and short next to the sort.
+#include "radix.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kListMax = 256;
+
+// The multi payloads (>= 0) of read r to the front of its cp row, in
+// slot order, -1 after them; their number to mcnt[r].  Every thread of
+// the block calls it; nothing without mpay.
+__device__ void compact_payloads(const int32_t* __restrict__ mpay, int SW,
+                                 long long r, int32_t* __restrict__ mcnt,
+                                 int32_t* __restrict__ cp, int* warp_sums) {
+    if (mpay == nullptr) return;
+    const int tid = threadIdx.x;
+    const int32_t* mrow = mpay + r * SW;
+    int32_t* crow = cp + r * SW;
+    int moff = 0;
+    for (int t0 = 0; t0 < SW; t0 += kThreads) {
+        const int i = t0 + tid;
+        const int32_t v = i < SW ? mrow[i] : -1;
+        int tot;
+        const int rank = block_rank<kWarps>(v >= 0, warp_sums, &tot);
+        if (v >= 0) crow[moff + rank] = v;
+        moff += tot;
+    }
+    if (tid == 0) mcnt[r] = moff;
+    for (int i = moff + tid; i < SW; i += kThreads) crow[i] = -1;
+}
 
 __global__ void reads_pre_kernel(const int32_t* __restrict__ skey,
                                  const int32_t* __restrict__ mpay,
@@ -108,21 +141,58 @@ __global__ void reads_pre_kernel(const int32_t* __restrict__ skey,
         }
     }
 
-    // multi payloads to the row's front, in slot order
-    if (mpay == nullptr) return;
-    const int32_t* mrow = mpay + r * SW;
-    int32_t* crow = cp + r * SW;
-    int moff = 0;
+    compact_payloads(mpay, SW, r, mcnt, cp, warp_sums);
+}
+
+// the long arm: srt holds every row's SW keys sorted (seg_radix_sort);
+// the run ends and counts are read from there, and cw may exceed 4096
+__global__ void reads_pre_long_kernel(const int32_t* __restrict__ srt,
+                                      const int32_t* __restrict__ mpay,
+                                      int SW, int sent, int cw,
+                                      int32_t* __restrict__ ck,
+                                      int32_t* __restrict__ cc,
+                                      int32_t* __restrict__ runs,
+                                      int32_t* __restrict__ mcnt,
+                                      int32_t* __restrict__ cp) {
+    __shared__ int warp_sums[kWarps];
+    const int tid = threadIdx.x;
+    const long long r = blockIdx.x;
+    const int32_t* srow = srt + r * SW;
+    int32_t* ckr = ck + r * cw;
+    int32_t* ccr = cc + r * cw;
+    for (int rho = tid; rho < cw; rho += kThreads) {
+        ckr[rho] = sent;
+        ccr[rho] = 0;
+    }
+    __syncthreads();
+    // the keys are ascending with the sentinels last: runs tile the
+    // valid prefix, so the rho-th run start and the rho-th run end bound
+    // the same run
+    int offs = 0, offe = 0;
     for (int t0 = 0; t0 < SW; t0 += kThreads) {
         const int i = t0 + tid;
-        const int32_t v = i < SW ? mrow[i] : -1;
-        int tot;
-        const int rank = block_rank<kWarps>(v >= 0, warp_sums, &tot);
-        if (v >= 0) crow[moff + rank] = v;
-        moff += tot;
+        bool s = false, e = false;
+        int32_t key = sent;
+        if (i < SW) {
+            key = srow[i];
+            if (key != sent) {
+                s = i == 0 || srow[i - 1] != key;
+                e = i == SW - 1 || srow[i + 1] != key;
+            }
+        }
+        int ts, te;
+        const int rs = block_rank<kWarps>(s, warp_sums, &ts);
+        const int re = block_rank<kWarps>(e, warp_sums, &te);
+        if (s && offs + rs < cw) atomicAdd(&ccr[offs + rs], -i);
+        if (e && offe + re < cw) {
+            ckr[offe + re] = key;
+            atomicAdd(&ccr[offe + re], i + 1);
+        }
+        offs += ts;
+        offe += te;
     }
-    if (tid == 0) mcnt[r] = moff;
-    for (int i = moff + tid; i < SW; i += kThreads) crow[i] = -1;
+    if (tid == 0) runs[r] = offe;
+    compact_payloads(mpay, SW, r, mcnt, cp, warp_sums);
 }
 
 __global__ void reads_post_kernel(const int32_t* __restrict__ ck,
@@ -138,18 +208,31 @@ __global__ void reads_post_kernel(const int32_t* __restrict__ ck,
                                   int32_t* __restrict__ acc_cu,
                                   int S, int num_k, int cw, int sent,
                                   int wout, int wm, int additive,
+                                  int32_t* __restrict__ lscr,
                                   int32_t* __restrict__ ht,
                                   float* __restrict__ hk,
                                   int32_t* __restrict__ hc,
                                   int32_t* __restrict__ flags) {
-    __shared__ int32_t t1tax[kListMax];
-    __shared__ float t1val[kListMax];
-    __shared__ int32_t mk[kListMax];
-    __shared__ float mv[kListMax];
+    __shared__ int32_t s_t1tax[kListMax];
+    __shared__ float s_t1val[kListMax];
+    __shared__ int32_t s_mk[kListMax];
+    __shared__ float s_mv[kListMax];
     __shared__ int warp_sums[kWarps];
     __shared__ int s_nout;
     const int tid = threadIdx.x;
     const long long r = blockIdx.x;
+    // the two lists: in shared memory, or in the read's scratch row
+    int32_t* t1tax = s_t1tax;
+    float* t1val = s_t1val;
+    int32_t* mk = s_mk;
+    float* mv = s_mv;
+    if (lscr) {
+        int32_t* row = lscr + r * 2LL * (wout + wm);
+        t1tax = row;
+        t1val = (float*)(row + wout);
+        mk = row + 2 * wout;
+        mv = (float*)(row + 2 * wout + wm);
+    }
     const bool flagged = ofc[r] != 0;
     // a flagged read is recomputed whole on the host, except in the
     // additive arm, where the host only adds its big groups
@@ -335,6 +418,29 @@ extern "C" int kasa_turbo_reads_pre(const void* skey, const void* mpay,
     return (int)cudaGetLastError();
 }
 
+extern "C" int kasa_turbo_reads_pre_long(const void* skey,
+                                         const void* mpay, int R, int SW,
+                                         int sent, int cw, void* scr_a,
+                                         void* scr_b, void* ck, void* cc,
+                                         void* runs, void* mcnt, void* cp,
+                                         void* stream) {
+    // scr_a, scr_b: (R, SW) int32 scratch of the four digit passes
+    if (cw < 1 || SW < 1
+        || (mpay != nullptr && (mcnt == nullptr || cp == nullptr)))
+        return (int)cudaErrorInvalidValue;
+    if (R > 0) {
+        cudaStream_t st = (cudaStream_t)stream;
+        const int cols[4] = {0, 0, 0, 0}, shifts[4] = {0, 8, 16, 24};
+        const int32_t* srt = seg_radix_sort<1>(
+            (const int32_t*)skey, (int32_t*)scr_a, (int32_t*)scr_b, R, SW,
+            cols, shifts, 4, st);
+        reads_pre_long_kernel<<<R, kThreads, 0, st>>>(
+            srt, (const int32_t*)mpay, SW, sent, cw, (int32_t*)ck,
+            (int32_t*)cc, (int32_t*)runs, (int32_t*)mcnt, (int32_t*)cp);
+    }
+    return (int)cudaGetLastError();
+}
+
 extern "C" int kasa_turbo_reads_post(const void* ck, const void* cc,
                                      const void* ofc, const void* dm,
                                      const void* mlk, const void* mlv,
@@ -344,12 +450,13 @@ extern "C" int kasa_turbo_reads_post(const void* ck, const void* cc,
                                      const void* cadd, int R, int S,
                                      int num_k, int cw, int sent, int wout,
                                      int wm, int additive, int ncadd,
-                                     long long cap, void* ht, void* hk,
-                                     void* hc, void* flags, void* cum,
-                                     void* packed, void* stream) {
-    if (wout > kListMax || wm > kListMax
-        || (dm == nullptr && (mlk == nullptr || mlv == nullptr
-                              || mof == nullptr))
+                                     long long cap, void* lscr, void* ht,
+                                     void* hk, void* hc, void* flags,
+                                     void* cum, void* packed, void* stream) {
+    if (wout < 1 || wm < 1
+        || ((wout > kListMax || wm > kListMax) && lscr == nullptr)
+        || (dm == nullptr && (wm > kThreads || mlk == nullptr
+                              || mlv == nullptr || mof == nullptr))
         || (ncadd > 0 && cadd == nullptr))
         return (int)cudaErrorInvalidValue;
     if (R > 0) {
@@ -360,6 +467,7 @@ extern "C" int kasa_turbo_reads_post(const void* ck, const void* cc,
             (const uint8_t*)mof, (const float*)weights,
             (const int32_t*)file_of_read, (float*)acc_ca,
             (int32_t*)acc_cu, S, num_k, cw, sent, wout, wm, additive,
+            (wout > kListMax || wm > kListMax) ? (int32_t*)lscr : nullptr,
             (int32_t*)ht, (float*)hk, (int32_t*)hc, (int32_t*)flags);
         int32_t* tail = (int32_t*)packed + 2LL * R + 2LL * cap;
         pack_scan_kernel<<<1, kScanThreads, 0, st>>>(

@@ -1,7 +1,8 @@
 """Input format detection for FASTA/FASTQ (plain or gzip), the input
 files of a folder, the verbatim record reader of --filter, the record
 iterator of the per-batch engine (native loader, native/loader.cpp) and
-the binary opener of its chunked reader."""
+the binary opener of its chunked reader, and the text readers of the
+index build and the tools (iter_fasta, iter_fastq, first_sequence)."""
 
 from __future__ import annotations
 
@@ -40,12 +41,53 @@ def sniff_format(path: str) -> str:
     raise ValueError("Input does not start with @ or >.")
 
 
+def first_sequence(path: str) -> str:
+    """First sequence line, for alphabet auto-detection."""
+    with open_text(path) as fh:
+        fh.readline()
+        return fh.readline().strip()
+
+
 @dataclass
 class Record:
     name: str       # header without the leading > or @
     seq: str
     nlines: int = 1  # sequence lines (the reference's char counter
                      # includes one newline per line, Read.hpp:730-731)
+
+
+def iter_fasta(path: str) -> Iterator[Record]:
+    name = None
+    parts: list[str] = []
+    with open_text(path) as fh:
+        for line in fh:
+            line = line.rstrip("\n").rstrip("\r")
+            if not line:
+                continue
+            if line[0] == ">":
+                if name is not None:
+                    yield Record(name, "".join(parts), max(len(parts), 1))
+                name = line[1:]
+                parts = []
+            else:
+                parts.append(line)
+        if name is not None:
+            yield Record(name, "".join(parts), max(len(parts), 1))
+
+
+def iter_fastq(path: str) -> Iterator[Record]:
+    with open_text(path) as fh:
+        while True:
+            header = fh.readline()
+            if not header:
+                return
+            header = header.rstrip("\n").rstrip("\r")
+            if not header:
+                continue
+            seq = fh.readline().rstrip("\n").rstrip("\r")
+            fh.readline()   # +
+            fh.readline()   # quality
+            yield Record(header[1:], seq)
 
 
 def iter_records(path: str, fmt: str | None = None) -> Iterator[Record]:

@@ -1,6 +1,5 @@
 """On-disk index artifact family, byte-compatible with the reference
-(port of kasa_tpu/index/artifacts.py: the 64-bit, 128-bit and halved
-readers and the writers the synthetic corpora use).
+(port of kasa_tpu/index/artifacts.py).
 
 An index named ``<idx>`` consists of (SURVEY §5; reference README 462-479):
 
@@ -30,6 +29,7 @@ from ..core import kmer
 
 BLOCK_64 = 2101248
 BLOCK_128 = 2048000
+BLOCK_HALF = 2101248
 
 REC_64 = np.dtype([("kmer", "<u8"), ("taxid", "<u4")])
 # uint128_t is {uint64 LOWER, uint64 UPPER} on little-endian (uint128_t.hpp:74)
@@ -56,6 +56,16 @@ def write_info(path: str, n: int, itype: int = INDEX_TYPE_64):
         fh.write(str(n))
         if itype == INDEX_TYPE_128:
             fh.write("\n128")
+        elif itype == INDEX_TYPE_HALF:
+            fh.write("\n3")
+
+
+def _write_blocks(path: str, rec: np.ndarray, block: int) -> None:
+    """rec's bytes, zero-padded to whole stxxl blocks."""
+    nbytes = rec.nbytes
+    with open(path, "wb") as fh:
+        rec.tofile(fh)
+        fh.write(b"\x00" * (-(-max(nbytes, 1) // block) * block - nbytes))
 
 
 def write_index(path: str, limbs: np.ndarray, taxids: np.ndarray,
@@ -72,11 +82,42 @@ def write_index(path: str, limbs: np.ndarray, taxids: np.ndarray,
         rec["lo"], rec["hi"] = lo, hi
         block, itype = BLOCK_128, INDEX_TYPE_128
     rec["taxid"] = taxids.astype(np.uint32)
-    nbytes = rec.nbytes
-    with open(path, "wb") as fh:
-        rec.tofile(fh)
-        fh.write(b"\x00" * (-(-max(nbytes, 1) // block) * block - nbytes))
+    _write_blocks(path, rec, block)
     write_info(path, len(taxids), itype)
+
+
+def write_index_packed(path: str, keys: np.ndarray, taxids: np.ndarray):
+    """64-bit write_index from packed u64 keys (the build's native path
+    keeps its keys packed end to end)."""
+    rec = np.empty(len(taxids), dtype=REC_64)
+    rec["kmer"] = keys
+    rec["taxid"] = taxids.astype(np.uint32)
+    _write_blocks(path, rec, BLOCK_64)
+    write_info(path, len(taxids), INDEX_TYPE_64)
+
+
+def write_halved_index(path: str, suffixes: np.ndarray, taxidx: np.ndarray):
+    """Halved records (u32 suffix of the last six letters, u16 content
+    row) + info type 3."""
+    rec = np.empty(len(suffixes), dtype=REC_HALF)
+    rec["suffix"] = suffixes.astype(np.uint32)
+    rec["taxidx"] = taxidx.astype(np.uint16)
+    _write_blocks(path, rec, BLOCK_HALF)
+    write_info(path, len(suffixes), INDEX_TYPE_HALF)
+
+
+def write_tax_only(path: str, rows: np.ndarray):
+    """Sloppy-mode (-j) `<idx>_taxOnly`: u16 dense content row per index
+    entry, stxxl-block padded (taxaOnly typedef MetaHeader.h:142); the
+    index file itself is then replaced by a copy (Read.hpp:3134-3151)."""
+    rec = np.ascontiguousarray(rows, dtype="<u2")
+    _write_blocks(path + "_taxOnly", rec, BLOCK_64)
+    _write_blocks(path, rec, BLOCK_64)
+
+
+def read_tax_only(path: str) -> np.ndarray:
+    n, _ = read_info(path)
+    return np.fromfile(path + "_taxOnly", dtype="<u2", count=n)
 
 
 _READ_INDEX_CACHE: dict = {}
@@ -186,3 +227,16 @@ def write_frequency_file(path: str, content_entries, freq: np.ndarray):
             for v in row:
                 fh.write(f"\t{int(v)}")
             fh.write("\n")
+
+
+def read_frequency_file(path: str) -> tuple[list, np.ndarray]:
+    names, rows = [], []
+    with open(path + "_f.txt") as fh:
+        for line in fh:
+            line = line.rstrip("\n")
+            if not line:
+                continue
+            parts = line.split("\t")
+            names.append(parts[0])
+            rows.append([int(x) for x in parts[1:]])
+    return names, np.asarray(rows, dtype=np.uint64)

@@ -11,7 +11,8 @@ outputs and scratch with torch.empty/torch.zeros, launches, adds one to
 its launch count, and raises if the launcher reports a CUDA error.
 Nothing here synchronises.  Nothing here runs on the CPU: the callers
 (core/encode.py, match/turbo.py, match/tiered.py, match/device.py,
-match/join.py) take the plain PyTorch versions for CPU tensors.
+match/join.py, index/build.py) take the plain PyTorch versions for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -28,16 +29,19 @@ CSRC = os.path.join(_DIR, "csrc")
 BUILD = os.path.join(_DIR, "_build", "cuda")
 SOURCES = ("encode", "turbo_match", "turbo_reads", "turbo_multi", "dedup",
            "sparse_fold", "tiered_route", "tiered_pass", "classic_classify",
-           "join_match", "join_scatter", "query_sort")
+           "join_match", "join_scatter", "query_sort", "sort_dedup")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches per kernel since the last reset_counts(): one per wrapper
-# call that launched (turbo_reads counts its pre and post entry points)
+# call that launched (turbo_reads counts its pre and post entry points;
+# the long arms of K3 pre and K5 count apart, as "turbo_reads.long" and
+# "dedup.long")
 COUNTS = {"encode": 0, "turbo_match": 0, "turbo_reads": 0,
-          "turbo_multi": 0, "dedup": 0, "sparse_fold": 0, "tiered_route": 0,
+          "turbo_reads.long": 0, "turbo_multi": 0, "dedup": 0,
+          "dedup.long": 0, "sparse_fold": 0, "tiered_route": 0,
           "tiered_pass": 0, "classic_classify": 0, "join_match": 0,
-          "join_scatter": 0, "query_sort": 0}
+          "join_scatter": 0, "query_sort": 0, "sort_dedup": 0}
 
 _libs: dict = {}
 
@@ -48,31 +52,37 @@ _ARGTYPES = {
     "kasa_encode_windows": [_P, _P] + [_I] * 7 + [_P, _P, _P],
     "kasa_turbo_match": [_P] * 6 + [_L] + [_I] * 7 + [_P, _P, _P],
     "kasa_turbo_reads_pre": [_P, _P] + [_I] * 5 + [_P] * 6,
-    "kasa_turbo_reads_post": [_P] * 13 + [_I] * 9 + [_L] + [_P] * 7,
+    "kasa_turbo_reads_pre_long": [_P, _P] + [_I] * 4 + [_P] * 8,
+    "kasa_turbo_reads_post": [_P] * 13 + [_I] * 9 + [_L] + [_P] * 8,
     "kasa_turbo_multi": [_P] * 8 + [_I] * 8 + [_L, _I, _I] + [_P] * 14
                         + [_I, _P],
     "kasa_dedup_windows": [_P] + [_I] * 5 + [_P, _P],
-    "kasa_sparse_fold": [_P] * 6 + [_I] * 6 + [_P] * 4,
+    "kasa_dedup_windows_long": [_P] + [_I] * 4 + [_P] * 3,
+    "kasa_sparse_fold": [_P] * 6 + [_I] * 6 + [_P] * 5,
     "kasa_tiered_route": [_P, _P, _L, _I, _I, _I, _I] + [_P] * 6,
     "kasa_tiered_pass": [_P] * 10 + [_L, _L] + [_I] * 11 + [_P] * 5,
     "kasa_classic_classify": [_P] * 11 + [_L] * 4 + [_I] * 8 + [_P] * 5,
     "kasa_join_match": [_P] * 7 + [_L] * 3 + [_I] * 4 + [_P] * 6,
     "kasa_join_scatter": [_P] * 6 + [_L] * 2 + [_I] * 2 + [_P] * 2,
     "kasa_query_sort": [_P] * 7 + [_L, _I, _I, _P],
+    "kasa_sort_dedup": [_P] * 7 + [_L, _I] + [_P] * 4,
 }
 _LIB_OF = {"kasa_encode_windows": "encode",
            "kasa_turbo_match": "turbo_match",
            "kasa_turbo_reads_pre": "turbo_reads",
+           "kasa_turbo_reads_pre_long": "turbo_reads",
            "kasa_turbo_reads_post": "turbo_reads",
            "kasa_turbo_multi": "turbo_multi",
            "kasa_dedup_windows": "dedup",
+           "kasa_dedup_windows_long": "dedup",
            "kasa_sparse_fold": "sparse_fold",
            "kasa_tiered_route": "tiered_route",
            "kasa_tiered_pass": "tiered_pass",
            "kasa_classic_classify": "classic_classify",
            "kasa_join_match": "join_match",
            "kasa_join_scatter": "join_scatter",
-           "kasa_query_sort": "query_sort"}
+           "kasa_query_sort": "query_sort",
+           "kasa_sort_dedup": "sort_dedup"}
 
 
 def reset_counts() -> None:
@@ -97,7 +107,8 @@ def _stale(name: str) -> bool:
     so = _so(name)
     if not os.path.exists(so):
         return True
-    srcs = [os.path.join(CSRC, f"{name}.cu"), os.path.join(CSRC, "common.cuh")]
+    srcs = [os.path.join(CSRC, f"{name}.cu")] + [
+        os.path.join(CSRC, h) for h in os.listdir(CSRC) if h.endswith(".cuh")]
     return os.path.getmtime(so) < max(os.path.getmtime(s) for s in srcs)
 
 
@@ -261,17 +272,16 @@ def _pow2(n: int) -> int:
 def turbo_reads_pre(skey: torch.Tensor, mpay: torch.Tensor | None,
                     sent: int, cw: int):
     """Without mpay (the tiered finish) no multi payloads are compacted:
-    mcnt and cp come back None."""
+    mcnt and cp come back None.  A batch with SW or cw above SW_CAP takes
+    the long arm (counted as "turbo_reads.long"), which sorts the rows in
+    two (R, SW) int32 scratch buffers."""
     from .match.turbo import SW_CAP
     dev = skey.device
     if dev.type != "cuda":
         raise ValueError("turbo_reads_pre: the kernel takes CUDA tensors")
     R, SW = skey.shape
-    if SW > SW_CAP:
-        raise NotImplementedError(f"{SW} slots per read exceed the "
-                                  f"per-read kernel's cap of {SW_CAP}")
-    if not 1 <= cw <= SW_CAP:
-        raise ValueError(f"cw={cw}: the kernel keeps 1..{SW_CAP} runs")
+    if cw < 1:
+        raise ValueError(f"cw={cw}: the kernel keeps at least one run")
     _check(skey, "skey", torch.int32, (R, SW), dev)
     i32 = dict(dtype=torch.int32, device=dev)
     mcnt = cp = None
@@ -282,9 +292,16 @@ def turbo_reads_pre(skey: torch.Tensor, mpay: torch.Tensor | None,
     ck = torch.empty((R, cw), **i32)
     cc = torch.empty((R, cw), **i32)
     runs = torch.empty((R,), **i32)
-    _launch("kasa_turbo_reads_pre", "turbo_reads", _ptr(skey), _ptr(mpay),
-            R, SW, _pow2(SW), sent, cw, _ptr(ck), _ptr(cc), _ptr(runs),
-            _ptr(mcnt), _ptr(cp), _stream(dev))
+    if SW <= SW_CAP and cw <= SW_CAP:
+        _launch("kasa_turbo_reads_pre", "turbo_reads", _ptr(skey),
+                _ptr(mpay), R, SW, _pow2(SW), sent, cw, _ptr(ck), _ptr(cc),
+                _ptr(runs), _ptr(mcnt), _ptr(cp), _stream(dev))
+    else:
+        scr = torch.empty((2, R, SW), **i32)
+        _launch("kasa_turbo_reads_pre_long", "turbo_reads.long", _ptr(skey),
+                _ptr(mpay), R, SW, sent, cw, _ptr(scr[0]), _ptr(scr[1]),
+                _ptr(ck), _ptr(cc), _ptr(runs), _ptr(mcnt), _ptr(cp),
+                _stream(dev))
     return ck, cc, runs, mcnt, cp
 
 
@@ -341,12 +358,17 @@ def turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
     flags = torch.empty((R,), **i32)
     cum = torch.empty((R,), **i32)
     packed = torch.zeros((2 * R + 2 * csr_cap + 4,), **i32)
+    # lists wider than the kernel's shared arrays (256) sit in a scratch
+    # row of 2 * (wout + wm) words per read
+    lscr = torch.empty((R, 2 * (wout + wm)), **i32) \
+        if max(wout, wm) > 256 else None
     _launch("kasa_turbo_reads_post", "turbo_reads", _ptr(ck), _ptr(cc),
             _ptr(ofc), _ptr(dm), _ptr(mk), _ptr(mv), _ptr(mof), _ptr(weights),
             _ptr(file_of_read), _ptr(acc_ca), _ptr(acc_cu), _ptr(diag),
             _ptr(cadd), R, S, nk, cw, sent, wout, wm, int(additive),
-            0 if cadd is None else nk * S, csr_cap, _ptr(ht), _ptr(hk),
-            _ptr(hc), _ptr(flags), _ptr(cum), _ptr(packed), _stream(dev))
+            0 if cadd is None else nk * S, csr_cap, _ptr(lscr), _ptr(ht),
+            _ptr(hk), _ptr(hc), _ptr(flags), _ptr(cum), _ptr(packed),
+            _stream(dev))
     return packed, ht, hk
 
 
@@ -416,13 +438,16 @@ def dedup_windows(q: torch.Tensor, num_reads: int, kmers_per_read: int,
     _check(q, "q", torch.int32, (R * kpr, L), dev)
     from .match.turbo import DEDUP_CAP
     P = _pow2(kpr)
-    # one read's rows sit in shared memory: P * 4L bytes, 80 KB at most
-    if P > DEDUP_CAP:
-        raise NotImplementedError(f"{kpr} windows per read exceed the "
-                                  f"dedup kernel's cap of {DEDUP_CAP}")
     out = torch.empty_like(q)
-    _launch("kasa_dedup_windows", "dedup", _ptr(q), R, kpr, L, P, poison,
-            _ptr(out), _stream(dev))
+    # one read's rows sit in shared memory, P * 4L bytes, up to P = 4096
+    # windows; longer reads take the long arm (counted as "dedup.long")
+    if P <= DEDUP_CAP:
+        _launch("kasa_dedup_windows", "dedup", _ptr(q), R, kpr, L, P, poison,
+                _ptr(out), _stream(dev))
+    else:
+        scratch = torch.empty_like(q)
+        _launch("kasa_dedup_windows_long", "dedup.long", _ptr(q), R, kpr, L,
+                poison, _ptr(scratch), _ptr(out), _stream(dev))
     return out
 
 
@@ -441,13 +466,18 @@ def sparse_fold(cp, mcnt, ofc, tt, wm: int, sent: int):
     _check(mcnt, "mcnt", torch.int32, (R,), dev)
     _check(ofc, "ofc", torch.bool, (R,), dev)
     _check_tables(tt, dev)
+    from .match.turbo import SW_CAP
     mk = torch.empty((R, wm), dtype=torch.int32, device=dev)
     mv = torch.empty((R, wm), dtype=torch.float32, device=dev)
     multi_of = torch.empty((R,), dtype=torch.bool, device=dev)
+    # a read's slot table, 12 bytes a slot, sits in shared memory up to
+    # SW_CAP slots and in a global scratch row above
+    tab = (torch.empty((R, 3 * SW + 1), dtype=torch.int32, device=dev)
+           if SW > SW_CAP else None)
     _launch("kasa_sparse_fold", "sparse_fold", _ptr(cp), _ptr(mcnt),
             _ptr(ofc), _ptr(tt.grp2), _ptr(tt.d_tax4), _ptr(tt.weights), R,
-            SW, tt.n, tt.num_k, wm, sent, _ptr(mk), _ptr(mv), _ptr(multi_of),
-            _stream(dev))
+            SW, tt.n, tt.num_k, wm, sent, _ptr(tab), _ptr(mk), _ptr(mv),
+            _ptr(multi_of), _stream(dev))
     return mk, mv, multi_of
 
 
@@ -676,3 +706,37 @@ def query_sort(q, read_ids, rid_bits: int):
             rid_bits, _stream(dev))
     # pass p writes buffer a when p is even: the last pass, passes - 1
     return (qa, ra) if passes % 2 else (qb, rb)
+
+
+# ---------------------------------------------------------------------------
+# K13 sort_dedup (csrc/sort_dedup.cu)
+
+def sort_dedup(limbs: torch.Tensor, taxids: torch.Tensor):
+    """-> (q_out (N, L), t_out (N,), nu 0-d) int32: the rows sorted by
+    (limbs..., taxid as uint32) with exact duplicates dropped in the first
+    nu rows of q_out and t_out (index/build.py sort_dedup_plain).  taxids
+    carries uint32 values as an int32 bit pattern."""
+    dev = limbs.device
+    if dev.type != "cuda":
+        raise ValueError("sort_dedup: the kernel takes CUDA tensors")
+    N, L = limbs.shape
+    if not 2 <= L <= 5:
+        raise ValueError(f"limbs: {L} limbs, the kernel takes 2..5")
+    if N >= 1 << 31:
+        raise ValueError(f"{N} rows: the kernel takes fewer than 2^31")
+    _check(limbs, "limbs", torch.int32, (N, L), dev)
+    _check(taxids, "taxids", torch.int32, (N,), dev)
+    nu = torch.zeros((), dtype=torch.int32, device=dev)
+    if N == 0:
+        return limbs.clone(), taxids.clone(), nu
+    blocks = -(-N // SORT_TILE)
+    scr_q = torch.empty((2, N, L), dtype=torch.int32, device=dev)
+    scr_t = torch.empty((2, N), dtype=torch.int32, device=dev)
+    hist = torch.empty((256 * blocks + 256,), dtype=torch.int32, device=dev)
+    q_out = torch.empty_like(limbs)
+    t_out = torch.empty_like(taxids)
+    _launch("kasa_sort_dedup", "sort_dedup", _ptr(limbs), _ptr(taxids),
+            _ptr(scr_q[0]), _ptr(scr_t[0]), _ptr(scr_q[1]), _ptr(scr_t[1]),
+            _ptr(hist), N, L, _ptr(q_out), _ptr(t_out), _ptr(nu),
+            _stream(dev))
+    return q_out, t_out, nu

@@ -239,14 +239,20 @@ class SingleTurboDispatch(TurboDispatchBase):
         self.multi_budget = MULTI_BUDGET
         self.exp_budget = EXP_BUDGET
 
-    def multi_budget_for(self, lines_per_read: int) -> int:
-        """The multi worklist of a batch: kasa_tpu's MULTI_BUDGET per two
-        lines of a read.  On the synthetic corpus a batch of reads of
-        two lines (--six, or pairs) needs ~55 % of it, while pairs under
-        --six (four lines) need more than all of it, which would send
-        every read of the batch to the host recompute (chip_smoke.py's
-        budgets phase prints both)."""
-        return self.multi_budget * -(-lines_per_read // 2)
+    def budgets_for(self, lines_per_read: int, w: int) -> tuple:
+        """(multi budget, expansion budget, hit-list width) of a batch of
+        w windows a line: kasa_tpu's MULTI_BUDGET, EXP_BUDGET and WOUT
+        for each BUDGET_SLOTS slots of a read (turbo.batch_budgets).  On
+        the synthetic corpus a batch of reads of two 150 bp lines (--six,
+        or pairs) needs ~55 % of the multi budget and pairs under --six
+        need twice that (chip_smoke.py's budgets phase prints both); a
+        batch of 1-8 kbp reads needs ~1,200 multi slots a read and lists
+        of up to ~650 taxa, so kasa_tpu's fixed sizes would send every
+        one of its reads to the host recompute."""
+        from .turbo import batch_budgets
+        num_k, num_species = self._acc_shape
+        return batch_budgets(w * lines_per_read * num_k, num_species,
+                             self.multi_budget, self.exp_budget)
 
     def dispatch(self, mat: np.ndarray, lut, acc_ca, acc_cu, rows_pad: int,
                  w: int, cap: int, file_of_read: np.ndarray | None = None,
@@ -259,10 +265,10 @@ class SingleTurboDispatch(TurboDispatchBase):
         mat_d = torch.from_numpy(mat).to(self.device)
         fo = None if file_of_read is None \
             else torch.from_numpy(file_of_read).to(self.device)
+        mb, eb, wout = self.budgets_for(mode.get("lines_per_read", 1), w)
         packed, ht, hk = fused_turbo_acc(
-            self.tt, mat_d, lut, acc_ca, acc_cu, rows_pad, w, cap,
-            self.multi_budget_for(mode.get("lines_per_read", 1)),
-            self.exp_budget, file_of_read=fo, **mode)
+            self.tt, mat_d, lut, acc_ca, acc_cu, rows_pad, w, cap, mb, eb,
+            file_of_read=fo, wout=wout, **mode)
         return self._to_host([packed]), ht, hk
 
 
@@ -370,15 +376,6 @@ def _check_input(seqs: list, lens: np.ndarray, protein: bool) -> None:
         sanitize_inplace(seq, protein)
 
 
-def _check_slot_cap(lens: np.ndarray, asm: BatchAssembler, lpr: int,
-                    num_k: int) -> None:
-    """Refuse a read whose lines exceed K3's slot cap (the turbo paths):
-    no batch's bucket is longer than the longest read's."""
-    from .turbo import check_slot_cap
-    check_slot_cap(asm.window_target(_len_bucket(
-        int(lens.max()) + asm.marker_len, asm.min_line)) * lpr, num_k)
-
-
 def fast_identify(cfg, index_path: str, input_path: str,
                   out_file: str | None, profile_file: str | None,
                   content, freqs, limbs, taxids, highest_k: int,
@@ -429,7 +426,6 @@ def fast_identify(cfg, index_path: str, input_path: str,
         return _fast_identify_classic(
             cfg, tables, asm, seq, seq_off, name_blob, name_off, rep_lens,
             R_total, out_file, profile_file, content, freqs, input_path)
-    _check_slot_cap(all_lens, asm, lpr, cfg.num_k)
     return _fast_identify_turbo(
         cfg, disp, asm, lpr, [(m[0], m[1]) for m in mates], name_blob,
         name_off, rep_lens, R_total, out_file, profile_file, content, freqs,
@@ -491,12 +487,14 @@ def _fast_identify_classic(cfg, tables, asm, seq, seq_off, name_blob,
     """Classic drive loop (kasa_tpu fast.py:500-618): one fused_classify
     per READS_PER_BATCH reads; while the host ranks and writes batch i,
     batch i + 1 runs on the device.  Per-batch float32 counts are summed
-    in float64 on the host."""
+    in float64 on the host.  -e dedups each read's windows on the device
+    (K5, at any length up to MAXLEN_CAP), where kasa_tpu's fused classic
+    branch ignores -e; the result is its per-batch engine's, which dedups
+    on the host."""
     from ..core.alphabet import build_codon_code_lut
     from ..core.encode import custom_code_lut
     from ..host import output as out_mod
     from ..native import NativeRanker
-    from .turbo import DEDUP_CAP
 
     highest_k = asm.highest_k
     min_k, max_k = cfg.lower_k, cfg.higher_k
@@ -505,14 +503,6 @@ def _fast_identify_classic(cfg, tables, asm, seq, seq_off, name_blob,
     protein = cfg.translated
     lpr = 2 if asm.six else 1
     lens = np.diff(seq_off)[:R_total]
-    if cfg.unique:
-        kpr = asm.window_target(_len_bucket(
-            int(lens.max()) + asm.marker_len, asm.min_line)) * lpr
-        if kpr > DEDUP_CAP:
-            raise NotImplementedError(
-                f"-e on reads of {kpr} windows: the dedup kernel (K5) takes "
-                f"{DEDUP_CAP} windows per read (long reads are a later "
-                "slice of the port)")
     device = tables.device
     lut_np = custom_code_lut(cfg)
     lut = torch.from_numpy(np.asarray(
@@ -674,7 +664,6 @@ def fast_identify_multi(cfg, index_path: str, files: list, out_files: list,
                                  highest_k, tax_rows, device)
     if disp is None:
         raise FastPathUnavailable("turbo structure unavailable")
-    _check_slot_cap(lens, asm, 1, cfg.num_k)
     if profile_files and disp.additive_fixup:
         raise NotImplementedError(
             "identify_multiple with profiles on an index over the device "

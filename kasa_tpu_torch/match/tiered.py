@@ -53,8 +53,8 @@ from ..core import kmer
 from ..utils import timers
 from .fast import TurboDispatchBase, device_table_budget
 from .join import build_group_table, weight
-from .turbo import I32_MAX, LIMB_BITS, SENT, turbo_reads_post, \
-    turbo_reads_pre
+from .turbo import I32_MAX, LIMB_BITS, SENT, batch_budgets, \
+    turbo_reads_post, turbo_reads_pre
 
 TMAX = 30                   # device-handled taxa per group (the 5-bit
                             # tpack clamp makes 31 = "big")
@@ -338,8 +338,10 @@ def tiered_finish(skey, sflat, cflat, big, weights, acc_ca, acc_cu,
     every (tax, k) run kept (cw = SW, no multi payloads), post's additive
     arm (counts of flagged reads kept, the batch's multi counts cflat
     added, lists from the dense (R, S) rows with WM = min(S, 256), flag
-    bit0 = big, bit1 = rebuild).  acc_ca/acc_cu take the counts in place.
-    -> (packed (2R + 2*csr_cap + 4,) int32, ht, hk (R, WOUT))."""
+    bit0 = big, bit1 = rebuild; both lists widened for a long batch as
+    batch_budgets widens the resident path's).  acc_ca/acc_cu take the
+    counts in place.
+    -> (packed (2R + 2*csr_cap + 4,) int32, ht, hk (R, wout))."""
     R = num_reads
     num_k = acc_ca.shape[0]
     S = acc_ca.shape[1]
@@ -347,10 +349,11 @@ def tiered_finish(skey, sflat, cflat, big, weights, acc_ca, acc_cu,
     ck, cc, _, _, _ = turbo_reads_pre(skey[:R * kmers_per_read].view(R, SW),
                                       None, cw=SW)
     diag = torch.zeros(2, dtype=torch.int32, device=skey.device)
+    wout = batch_budgets(SW, S)[2]
     return turbo_reads_post(ck, cc, big[:R] > 0, sflat[:R * S].view(R, S),
                             weights, acc_ca, acc_cu, diag, csr_cap,
-                            wm=min(S, 256), additive=True,
-                            cadd=cflat[:num_k * S])
+                            wm=max(min(S, 256), wout), additive=True,
+                            cadd=cflat[:num_k * S], wout=wout)
 
 
 # ---------------------------------------------------------------------------

@@ -97,12 +97,31 @@ I32_MAX = np.int32(2**31 - 1)
 # shared memory, so the keys stay int32 with one sentinel for every S
 # (the key order, and so every output, is the same).
 SENT = int(I32_MAX)
-# K3 holds a read's SW = W * numK slot keys in shared memory, padded to
-# a power of two: 4096 int32 keys (16 KB) is the cap.  A 150 bp read
-# needs 846 (W = 141, numK = 6); a line with more slots raises.
+# K3 sorts a read's SW = W * numK slot keys in shared memory, padded to
+# a power of two, up to 4096 int32 keys (16 KB; a 150 bp read needs 846,
+# W = 141, numK = 6); a batch with more slots per read takes its long
+# arm, which sorts in global memory.  K5 and K6 switch the same way.
 SW_CAP = 4096
-# K5 sorts one read's windows in shared memory: 4096 windows at most
 DEDUP_CAP = 4096
+# slots per read that one MULTI_BUDGET, EXP_BUDGET and WOUT serve: two
+# 150 bp lines at six levels (2 x 141 windows x 6).  The drive loop
+# scales all three by a batch's slots per read over this (batch_budgets),
+# so that long read lines and pairs under --six do not overflow them and
+# go to the host recompute.
+BUDGET_SLOTS = 1692
+
+
+def batch_budgets(slots_per_read: int, num_species: int,
+                  multi_budget: int = MULTI_BUDGET,
+                  exp_budget: int = EXP_BUDGET) -> tuple[int, int, int]:
+    """-> (multi budget, expansion budget, hit-list width) of a batch
+    with slots_per_read slots per read: the budgets times
+    ceil(slots_per_read / BUDGET_SLOTS) (at least once), the list width
+    WOUT times as much but no wider than the num_species taxa a list can
+    hold (and never below WOUT)."""
+    scale = max(1, -(-slots_per_read // BUDGET_SLOTS))
+    return (multi_budget * scale, exp_budget * scale,
+            max(WOUT, min(WOUT * scale, num_species)))
 
 
 def _num_steps(n: int) -> int:
@@ -830,9 +849,9 @@ def _segment_sums(keys, vals):
 def turbo_reads_post_plain(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
                            csr_cap: int, file_of_read=None, mlist=None, *,
                            wm: int = WM, additive: bool = False,
-                           cadd=None):
+                           cadd=None, wout: int = WOUT):
     """T1 fold into the count accumulators (in place), per-read hit
-    lists (T1 taxa + the read's first wm multi taxa, merged, first WOUT
+    lists (T1 taxa + the read's first wm multi taxa, merged, first wout
     kept), flags, and the packed int32 readback:
     [hc (R) | flags (R) | CSR (tax, ksum bits) * csr_cap | mtot, eused,
     sum hc, flagged reads].  The multi taxa come from dm, the (R, S)
@@ -845,9 +864,9 @@ def turbo_reads_post_plain(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
     host recomputes it whole.  The additive arm (the tiered finish) keeps
     its counts and scores instead (the host only adds its big groups),
     and adds cadd, the batch's (numK * S,) multi counts, to acc_ca.
-    Flag bit0 is ofc, bit1 the list rebuild (ofc, more than WOUT T1
-    taxa, more than wm multi taxa, or more than WOUT merged).
-    -> (packed, ht (R, WOUT), hk (R, WOUT))."""
+    Flag bit0 is ofc, bit1 the list rebuild (ofc, more than wout T1
+    taxa, more than wm multi taxa, or more than wout merged).
+    -> (packed, ht (R, wout), hk (R, wout))."""
     R = ck.shape[0]
     S = acc_ca.shape[-1]
     dev = ck.device
@@ -885,20 +904,27 @@ def turbo_reads_post_plain(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
     else:
         mk2, mv2, multi_of = mlist
 
-    allk = torch.cat([ok1[:, :WOUT], mk2], dim=1)
-    allv = torch.cat([os1[:, :WOUT], mv2], dim=1)
+    allk = torch.cat([ok1[:, :wout], mk2], dim=1)
+    allv = torch.cat([os1[:, :wout], mv2], dim=1)
     k3, p3 = torch.sort(allk, dim=1, stable=True)
     v3 = torch.gather(allv, 1, p3)
     v3 = torch.where(k3 != SENT, v3, torch.zeros_like(v3))
     hk3, hs3, ntax = _segment_sums(k3, v3)
-    ofl = ofc | (ntax1 > WOUT) | multi_of | (ntax > WOUT)
-    ht = hk3[:, :WOUT].contiguous()
-    hk = hs3[:, :WOUT].contiguous()
-    hc = ntax.clamp(max=WOUT).to(torch.int32)
+    if hk3.shape[1] < wout:
+        # the lists are wout wide even where the merged rows are narrower
+        pad = wout - hk3.shape[1]
+        hk3 = torch.cat([hk3, torch.full((R, pad), SENT, dtype=hk3.dtype,
+                                         device=dev)], dim=1)
+        hs3 = torch.cat([hs3, torch.zeros((R, pad), dtype=hs3.dtype,
+                                          device=dev)], dim=1)
+    ofl = ofc | (ntax1 > wout) | multi_of | (ntax > wout)
+    ht = hk3[:, :wout].contiguous()
+    hk = hs3[:, :wout].contiguous()
+    hc = ntax.clamp(max=wout).to(torch.int32)
     flags = ofc.to(torch.int32) | (ofl.to(torch.int32) << 1)
 
     cum = torch.cumsum(hc, 0) - hc
-    iw = torch.arange(WOUT, dtype=torch.int32, device=dev)
+    iw = torch.arange(wout, dtype=torch.int32, device=dev)
     dest = cum[:, None] + iw[None, :]
     ok = (iw[None, :] < hc[:, None]) & (dest < csr_cap)
     dest = torch.where(ok, dest, torch.full_like(dest, csr_cap)).long()
@@ -914,16 +940,17 @@ def turbo_reads_post_plain(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
 
 def turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
                      csr_cap: int, file_of_read=None, mlist=None, *,
-                     wm: int = WM, additive: bool = False, cadd=None):
+                     wm: int = WM, additive: bool = False, cadd=None,
+                     wout: int = WOUT):
     """K3 (post) wrapper."""
     if ck.device.type == "cpu":
         return turbo_reads_post_plain(ck, cc, ofc, dm, weights, acc_ca,
                                       acc_cu, diag, csr_cap, file_of_read,
                                       mlist, wm=wm, additive=additive,
-                                      cadd=cadd)
+                                      cadd=cadd, wout=wout)
     from .. import kernels
     return kernels.turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca,
-                                    acc_cu, diag, csr_cap, SENT, WOUT, wm,
+                                    acc_cu, diag, csr_cap, SENT, wout, wm,
                                     file_of_read, mlist, additive=additive,
                                     cadd=cadd)
 
@@ -978,25 +1005,14 @@ def dedup_windows_np(q: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # the batch step (kasa_tpu turbo.py:1175 fused_turbo_acc)
 
-def check_slot_cap(kmers_per_read: int, num_k: int) -> None:
-    """Raise for a read (all its lines) whose slots exceed K3's
-    shared-memory cap."""
-    sw = kmers_per_read * num_k
-    if sw > SW_CAP:
-        raise NotImplementedError(
-            f"a read of {kmers_per_read} windows x {num_k} k levels has "
-            f"{sw} slots, above the per-read kernel's cap of {SW_CAP} "
-            "(long reads and long read pairs are a later slice of the "
-            "port)")
-
-
 def fused_turbo_acc(tt: TurboTables, byte_mat: torch.Tensor,
                     lut: torch.Tensor, acc_ca: torch.Tensor,
                     acc_cu: torch.Tensor, num_reads: int, w_per_line: int,
                     csr_cap: int, multi_budget: int | None = None,
                     exp_budget: int | None = None, *, protein: bool = False,
                     one_frame: bool = False, lines_per_read: int = 1,
-                    unique: bool = False, file_of_read=None):
+                    unique: bool = False, file_of_read=None,
+                    wout: int = WOUT):
     """One batch: (rows, maxlen) uint8 read matrix, lines_per_read rows
     per read -> packed readback.
 
@@ -1007,31 +1023,32 @@ def fused_turbo_acc(tt: TurboTables, byte_mat: torch.Tensor,
     fused_turbo_files).  unique (-e) dedups each read's windows (K5)
     before the search.  Returns (packed, hit_tax, hit_ksum): packed
     (2R + 2*csr_cap + 4,) int32 as in kasa_tpu; hit_tax/hit_ksum the
-    dense (R, WOUT) lists the decode reads when the CSR overflows
-    csr_cap."""
+    dense (R, wout) lists the decode reads when the CSR overflows
+    csr_cap (kasa_tpu's lists are WOUT wide; batch_budgets widens a
+    long batch's)."""
     from ..core.encode import encode_windows
     kpr = w_per_line * lines_per_read
-    check_slot_cap(kpr, tt.num_k)
     q = encode_windows(byte_mat, lut, w_per_line, protein, one_frame,
                        tt.highest_k)
     if unique:
         q = dedup_windows(q, num_reads, kpr)
     return turbo_core(tt, q, num_reads, kpr, acc_ca, acc_cu, csr_cap,
-                      multi_budget, exp_budget, file_of_read)
+                      multi_budget, exp_budget, file_of_read, wout)
 
 
 def turbo_core(tt: TurboTables, q: torch.Tensor, num_reads: int,
                kmers_per_read: int, acc_ca: torch.Tensor,
                acc_cu: torch.Tensor, csr_cap: int,
                multi_budget: int | None = None,
-               exp_budget: int | None = None, file_of_read=None):
+               exp_budget: int | None = None, file_of_read=None,
+               wout: int = WOUT):
     """The classify step on (R * kpr, L) int32 windows in read-major
     layout (kasa_tpu's _turbo_core plus the packed tail): K2, K3 (pre),
     K4, then the dense fold (the two hot-set products) or, for more than
     SPARSE_FOLD_S species without a hot tier, the sparse fold (K4's
-    counts-only arm and K6), then K3 (post)."""
+    counts-only arm and K6), then K3 (post).  The dense fold lists up to
+    wout multi taxa a read, the sparse fold K6's WM."""
     sparse = tt.hotmask.shape[0] <= 1 and tt.num_species > SPARSE_FOLD_S
-    check_slot_cap(kmers_per_read, tt.num_k)
     mb = int(multi_budget or MULTI_BUDGET)
     eb = int(exp_budget or EXP_BUDGET)
     skey, mpay = turbo_match(q, tt, num_reads, kmers_per_read)
@@ -1041,13 +1058,84 @@ def turbo_core(tt: TurboTables, q: torch.Tensor, num_reads: int,
     if sparse:
         mlist = sparse_fold(cp, mcnt, ofc, tt)
         return turbo_reads_post(ck, cc, ofc, None, tt.weights, acc_ca,
-                                acc_cu, diag, csr_cap, file_of_read, mlist)
+                                acc_cu, diag, csr_cap, file_of_read, mlist,
+                                wout=wout)
     # hot-set products against the 0/1 membership mask (kasa_tpu leaves
     # them to an XLA dot); TF32 is off (kasa_tpu_torch/__init__.py)
     dm.addmm_(a3w, tt.hotmask)
     acc_ca.view(-1, tt.num_species).addmm_(a3c, tt.hotmask)
     return turbo_reads_post(ck, cc, ofc, dm, tt.weights, acc_ca, acc_cu,
-                            diag, csr_cap, file_of_read)
+                            diag, csr_cap, file_of_read, wm=wout, wout=wout)
+
+
+# ---------------------------------------------------------------------------
+# kasa_tpu's standalone entry points over the same step (turbo.py:1011,
+# 1027, 1142): no count accumulators to carry, the outputs unpacked
+
+def turbo_classify(tt: TurboTables, q: torch.Tensor, num_reads: int,
+                   kmers_per_read: int, multi_budget: int | None = None,
+                   exp_budget: int | None = None):
+    """kasa_tpu's turbo_classify: the step on (R * kpr, L) encoded
+    windows -> (hit_tax (R, WOUT) int32, hit_ksum (R, WOUT) f32,
+    hit_count (R,) int32, counts_all (numK, S) f32, counts_unique
+    (numK, S) int32, oflow_flag (R,) bool, oflow_lists (R,) bool)."""
+    R, S = num_reads, tt.num_species
+    acc_ca = torch.zeros((tt.num_k, S), dtype=torch.float32,
+                         device=q.device)
+    acc_cu = torch.zeros((tt.num_k, S), dtype=torch.int32, device=q.device)
+    packed, ht, hk = turbo_core(tt, q, R, kmers_per_read, acc_ca, acc_cu,
+                                R * WOUT, multi_budget, exp_budget)
+    flags = packed[R:2 * R]
+    return (ht, hk, packed[:R], acc_ca, acc_cu, (flags & 1) > 0,
+            (flags & 2) > 0)
+
+
+def fused_turbo(tt: TurboTables, byte_mat: torch.Tensor, lut: torch.Tensor,
+                num_reads: int, w_per_line: int, *, protein: bool = False,
+                one_frame: bool = False, lines_per_read: int = 1):
+    """kasa_tpu's fused_turbo: a (rows, maxlen) uint8 read matrix through
+    K1 and turbo_classify."""
+    from ..core.encode import encode_windows
+    q = encode_windows(byte_mat, lut, w_per_line, protein, one_frame,
+                       tt.highest_k)
+    return turbo_classify(tt, q, num_reads, w_per_line * lines_per_read)
+
+
+# the stages fused_turbo_probe can stop after; kasa_tpu's other stage
+# names ("search", "slots", "wsort1", "wsort2", "bands") fall inside one
+# kernel here (K2, K4)
+PROBE_STAGES = ("encode", "t1sort", "fold")
+
+
+def fused_turbo_probe(tt: TurboTables, byte_mat: torch.Tensor,
+                      lut: torch.Tensor, num_reads: int, w_per_line: int,
+                      probe: str | None, *, protein: bool = False,
+                      one_frame: bool = False, lines_per_read: int = 1):
+    """kasa_tpu's fused_turbo_probe, for profiling: fused_turbo stopped
+    after stage `probe`, returning one float checksum of it, the same
+    number kasa_tpu's gives: "encode" the int32 sum of the windows,
+    "t1sort" the T == 1 slots plus their runs (after K2 and K3 pre),
+    "fold" the sum of both count matrices; None runs the whole step and
+    sums the hit counts, counts_all and the hit scores."""
+    from ..core.encode import encode_windows
+    if probe is not None and probe not in PROBE_STAGES:
+        raise ValueError(f"probe {probe!r}: the port stops after "
+                         f"{PROBE_STAGES} or None")
+    q = encode_windows(byte_mat, lut, w_per_line, protein, one_frame,
+                       tt.highest_k)
+    kpr = w_per_line * lines_per_read
+    if probe == "encode":
+        wrapped = q.to(torch.int64).sum().item() & 0xFFFFFFFF
+        return float(np.float32(np.uint32(wrapped).view(np.int32)))
+    if probe == "t1sort":
+        skey, mpay = turbo_match(q, tt, num_reads, kpr)
+        _, _, runs, _, _ = turbo_reads_pre(skey, mpay)
+        n1 = int((skey != SENT).sum()) + int(runs.sum())
+        return float(np.float32(n1))
+    ht, hk, hc, ca, cu, _, _ = turbo_classify(tt, q, num_reads, kpr)
+    if probe == "fold":
+        return float(ca.sum() + cu.sum().to(torch.float32))
+    return float(hc.sum().to(torch.float32) + ca.sum() + hk.sum())
 
 
 # ---------------------------------------------------------------------------

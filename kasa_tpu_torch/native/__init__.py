@@ -1,7 +1,9 @@
 """ctypes bindings for the host C++ code (loader.cpp, writer.cpp,
-sortidx.cpp): fastx parsing, sanitizing, the dense and sparse
-rank+format writers, the (key, tax) record sort and the byte size of the
-reference's taxid map (the per-batch engine's memory ledger).
+sortidx.cpp, buildenc.cpp): fastx parsing, sanitizing, the dense and
+sparse rank+format writers, the (key, tax) record sort and its
+duplicate drop, the byte size of the reference's taxid map (the
+per-batch engine's memory ledger), and the index build's window scan,
+key unpacking and frequency count.
 
 The shared library is built lazily with g++ on first use into
 ``kasa_tpu_torch/_build/`` (listed in .gitignore).  The build writes a
@@ -19,8 +21,8 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD = os.path.join(os.path.dirname(_DIR), "_build")
-_SRCS = [os.path.join(_DIR, "loader.cpp"), os.path.join(_DIR, "writer.cpp"),
-         os.path.join(_DIR, "sortidx.cpp")]
+_SRCS = [os.path.join(_DIR, f) for f in ("loader.cpp", "writer.cpp",
+                                          "sortidx.cpp", "buildenc.cpp")]
 _SO = os.path.join(_BUILD, "libkasa_host.so")
 _lib = None
 _tried = False
@@ -73,6 +75,24 @@ def get_lib():
         lib.kasa_sort_kmer_tax.argtypes = [
             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int]
+        lib.kasa_unpack_keys.restype = None
+        lib.kasa_unpack_keys.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_int]
+        lib.kasa_sort_kmer_tax_dedup.restype = None
+        lib.kasa_sort_kmer_tax_dedup.argtypes = [
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int64)]
+        lib.kasa_encode_dna.restype = ctypes.c_int64
+        lib.kasa_encode_dna.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.kasa_frequencies.restype = None
+        lib.kasa_frequencies.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_int]
         lib.kasa_umap_bytes.restype = ctypes.c_int64
         lib.kasa_umap_bytes.argtypes = [ctypes.c_void_p, ctypes.c_int64]
         lib.kasa_rank_format.restype = ctypes.c_void_p
@@ -274,3 +294,73 @@ def umap_bytes(keys) -> int:
     arr = np.ascontiguousarray(keys, dtype=np.uint32)
     return int(lib.kasa_umap_bytes(arr.ctypes.data_as(ctypes.c_void_p),
                                    len(arr)))
+
+
+def _need_lib():
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("the native host library (g++ and zlib) is "
+                           "unavailable")
+    return lib
+
+
+def encode_dna_keys(seq: np.ndarray, lut: np.ndarray, highest_k: int,
+                    frames: int = 3) -> np.ndarray:
+    """The build's window scan (buildenc.cpp, the reference's dnaTokMers):
+    sanitized bytes with the marker appended -> packed u64 keys of all
+    VALID windows, frame-major."""
+    lib = _need_lib()
+    seq = np.ascontiguousarray(seq, np.uint8)
+    lut = np.ascontiguousarray(lut, np.int32)
+    w = len(seq) - 3 * highest_k + 1
+    if w <= 0:
+        return np.zeros(0, np.uint64)
+    out = np.empty(w, np.uint64)
+    n = lib.kasa_encode_dna(_vp(seq), len(seq), _vp(lut), highest_k, frames,
+                            _vp(out))
+    return out[:n]
+
+
+def frequencies_native(keys: np.ndarray, rows: np.ndarray, num_cols: int,
+                       S: int, nthreads: int = 2) -> np.ndarray:
+    """The GetFrequencyK counting pass over packed keys: (S, num_cols)
+    uint64 counts of valid letters per content row."""
+    lib = _need_lib()
+    keys = np.ascontiguousarray(keys, np.uint64)
+    rows = np.ascontiguousarray(rows, np.int32)
+    freq = np.zeros((S, num_cols), np.uint64)
+    # each worker owns a private (S, num_cols) u64 accumulator; cap the
+    # thread count so the combined footprint stays ~<= 1 GiB
+    per_thread = max(int(S) * int(num_cols) * 8, 1)
+    nthreads = max(1, min(int(nthreads), (1 << 30) // per_thread))
+    lib.kasa_frequencies(_vp(keys), _vp(rows), len(keys), num_cols, S,
+                         _vp(freq), nthreads)
+    return freq
+
+
+def unpack_keys(keys: np.ndarray, nthreads: int = 2) -> np.ndarray:
+    """u64 packed keys -> (n, 2) int32 limbs."""
+    lib = _need_lib()
+    keys = np.ascontiguousarray(keys, np.uint64)
+    out = np.empty((len(keys), 2), np.int32)
+    lib.kasa_unpack_keys(_vp(keys), len(keys), _vp(out),
+                         max(int(nthreads), 1))
+    return out
+
+
+def sort_dedup_kmer_tax(keys: np.ndarray, tax: np.ndarray,
+                        key_bits: int = 60, nthreads: int = 2) -> int:
+    """In-place (key, tax) sort of u64 keys and u32 taxids and the drop of
+    exact duplicates (sortidx.cpp); returns the count kept, the valid
+    prefix of both arrays."""
+    lib = _need_lib()
+    if (keys.dtype != np.uint64 or tax.dtype != np.uint32
+            or not keys.flags.c_contiguous or not tax.flags.c_contiguous
+            or len(keys) != len(tax)):
+        raise ValueError("sort_dedup_kmer_tax: contiguous uint64 keys and "
+                         "uint32 taxids of one length")
+    out_n = ctypes.c_int64(len(keys))
+    lib.kasa_sort_kmer_tax_dedup(len(keys), _vp(keys), _vp(tax),
+                                 int(key_bits), max(int(nthreads), 1),
+                                 ctypes.byref(out_n))
+    return int(out_n.value)

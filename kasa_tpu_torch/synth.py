@@ -34,8 +34,16 @@ Two large-index variants, each in its own directory:
     25 (five limbs per k-mer, ~32.6 M entries).  The default corpus's
     reads serve it: they come from the same genomes.
 
+``long_reads`` writes long read lines from the default corpus's genomes:
+single-end reads of 1-8 kbp and 2 x 250 bp pairs.
 ``protein_reads`` writes seeded protein reads cut from a protein fasta
 (the golden protein reads of tests/golden match nothing).
+``taxonomy_from_content`` writes a taxonomy and an acc2tax file under
+which generateCF reproduces a content file, and ``STANDARD_GC_PRT`` is
+NCBI's standard genetic code (table 1) in gc.prt layout: the inputs of
+the golden index modes that read the reference's taxonomy or codon
+table.  ``write_genomes_fasta`` writes a corpus's genomes as the FASTA
+``build`` reads.
 
 ``python -m kasa_tpu_torch.synth [default] [bigS] [wide]`` builds the
 named corpora and, with ``--tables``, the turbo-table sidecar each is
@@ -73,6 +81,10 @@ BIG_GENOME_LEN = 8_000
 BIG_CORE_GENES = 625
 BIG_CORE_PER_GENOME = 1
 WIDE_K = 25
+LONG_READS = 8_192      # one batch of long single-end reads
+LONG_MIN, LONG_MAX = 1_000, 8_000
+LONG_PAIRS = 8_192
+LONG_MATE = 250
 
 _DNA = np.frombuffer(b"ACGT", np.uint8)
 
@@ -127,30 +139,9 @@ def _index_from_genomes(genomes, highest_k=12):
     return np.ascontiguousarray(limbs[keep]), taxids[keep]
 
 
-def compute_frequencies(limbs: np.ndarray, taxids: np.ndarray, entries,
-                        highest_k: int, lowest_k: int = 1) -> np.ndarray:
-    """Per-taxon k-mer validity counts (GetFrequencyK, kASA.hpp:449-575;
-    kasa_tpu/index/build.py:544).  Column j counts entries whose j-th
-    letter from the right is not '^'; j = 0 is k = highestK."""
-    from .core import kmer
-    from .match.join import map_tax_rows
-    max_num_k = highest_k - lowest_k + 1
-    tax_to_row = {0: 0}
-    for i, e in enumerate(entries, start=1):
-        tax_to_row[int(e.taxid)] = i
-    rows = map_tax_rows(taxids, tax_to_row).astype(np.int64) \
-        if len(taxids) else np.zeros(0, dtype=np.int64)
-    S = len(entries) + 1
-    freq = np.zeros((S, max_num_k), dtype=np.uint64)
-    for j in range(max_num_k):
-        letters = kmer.letter_at(limbs, highest_k - 1 - j, highest_k)
-        if len(rows):
-            freq[:, j] = np.bincount(rows[letters != 30], minlength=S)[:S]
-    return freq
-
-
 def _write_artifacts(index, limbs, taxids, num_species, highest_k=12):
     from .index import artifacts
+    from .index.build import compute_frequencies
     from .index.content import ContentEntry, write_content_file
     entries = [ContentEntry(name=f"Synthetic species {i}", taxid=str(i),
                             lowest_taxids=[str(i)], accessions=[f"SYN{i}"])
@@ -159,7 +150,8 @@ def _write_artifacts(index, limbs, taxids, num_species, highest_k=12):
     artifacts.write_index(index, limbs, taxids, highest_k)
     prefixes, counts = artifacts.trie_from_sorted_prefixes(limbs[:, 0])
     artifacts.write_trie(index, prefixes, counts)
-    freq = compute_frequencies(limbs, taxids, entries, highest_k, 1)
+    freq = compute_frequencies(limbs, taxids, entries, highest_k, 1,
+                               threads=os.cpu_count() or 1)
     artifacts.write_frequency_file(index, entries, freq)
 
 
@@ -180,21 +172,22 @@ def _emit(fh, rng, genomes, n, tag):
         fh.write(b"\n")
 
 
-def _emit_pairs(fh1, fh2, rng, genomes, n):
+def _emit_pairs(fh1, fh2, rng, genomes, n, read_len=READ_LEN,
+                insert=(INSERT_MIN, INSERT_MAX)):
     """n read pairs, both mates from one fragment (see the module
     docstring); the mates share a name, as paired fastq files do."""
     from .core.alphabet import build_revcomp_lut
     revcomp = build_revcomp_lut()
-    qual = b"I" * READ_LEN
+    qual = b"I" * read_len
     gsel = rng.integers(0, len(genomes), size=n)
     for i in range(n):
         g = genomes[gsel[i]]
-        ins = int(rng.integers(INSERT_MIN, INSERT_MAX + 1))
+        ins = int(rng.integers(insert[0], insert[1] + 1))
         off = int(rng.integers(0, len(g) - ins))
         frag = g[off:off + ins]
-        for fh, mate in ((fh1, frag[:READ_LEN].copy()),
-                         (fh2, revcomp[frag[ins - READ_LEN:]][::-1].copy())):
-            err = np.nonzero(rng.random(READ_LEN) < ERR_RATE)[0]
+        for fh, mate in ((fh1, frag[:read_len].copy()),
+                         (fh2, revcomp[frag[ins - read_len:]][::-1].copy())):
+            err = np.nonzero(rng.random(read_len) < ERR_RATE)[0]
             if len(err):
                 mate[err] = _DNA[rng.integers(0, 4, size=len(err))]
             fh.write(b"@p_%d src%d\n" % (i, gsel[i] + 1))
@@ -202,6 +195,36 @@ def _emit_pairs(fh1, fh2, rng, genomes, n):
             fh.write(b"\n+\n")
             fh.write(qual)
             fh.write(b"\n")
+
+
+def long_reads(directory: str, n: int = LONG_READS, n_pairs: int = LONG_PAIRS,
+               seed: int = SEED + 7) -> dict:
+    """Long read lines from the corpus's genomes (the same seed gives the
+    same genomes): n single-end reads of LONG_MIN..LONG_MAX bp (uniform
+    lengths, 0.5 % substitutions) and n_pairs pairs of 2 x LONG_MATE bp
+    mates (inserts of 500..800 bp), as fastq files in `directory`.
+    -> their paths."""
+    out = dict(reads=os.path.join(directory, "long_reads.fastq"),
+               pairs=[os.path.join(directory, f"long_pairs_{m}.fastq")
+                      for m in (1, 2)])
+    genomes = _gen_genomes(np.random.default_rng(SEED), NUM_SPECIES,
+                           GENOME_LEN, CORE_GENES)
+    rng = np.random.default_rng(seed)
+    gsel = rng.integers(0, len(genomes), size=n)
+    lens = rng.integers(LONG_MIN, LONG_MAX + 1, size=n)
+    with open(out["reads"], "wb") as fh:
+        for i in range(n):
+            g = genomes[gsel[i]]
+            off = int(rng.integers(0, len(g) - lens[i]))
+            r = g[off:off + lens[i]].copy()
+            err = np.nonzero(rng.random(len(r)) < ERR_RATE)[0]
+            r[err] = _DNA[rng.integers(0, 4, size=len(err))]
+            fh.write(b"@l_%d src%d\n%s\n+\n%s\n"
+                     % (i, gsel[i] + 1, r.tobytes(), b"I" * len(r)))
+    with open(out["pairs"][0], "wb") as fh1, \
+            open(out["pairs"][1], "wb") as fh2:
+        _emit_pairs(fh1, fh2, rng, genomes, n_pairs, LONG_MATE, (500, 800))
+    return out
 
 
 def protein_reads(fasta: str, out_path: str, n: int = 80,
@@ -230,6 +253,65 @@ def protein_reads(fasta: str, out_path: str, n: int = 80,
     with open(out_path, "w") as fh:
         fh.write("".join(out))
     return out_path
+
+
+# NCBI's standard genetic code as the reference's gc.prt lists it; read
+# through -a <file> 1, it differs from the built-in alphabet in TGA
+STANDARD_GC_PRT = """--**************************************************************
+Genetic-code-table ::= {
+ {
+  name "Standard" ,
+  name "SGC0" ,
+  id 1 ,
+  ncbieaa  "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG",
+  sncbieaa "---M------**--*----M---------------M----------------------------"
+  -- Base1  TTTTTTTTTTTTTTTTCCCCCCCCCCCCCCCCAAAAAAAAAAAAAAAAGGGGGGGGGGGGGGGG
+  -- Base2  TTTTCCCCAAAAGGGGTTTTCCCCAAAAGGGGTTTTCCCCAAAAGGGGTTTTCCCCAAAAGGGG
+  -- Base3  TCAGTCAGTCAGTCAGTCAGTCAGTCAGTCAGTCAGTCAGTCAGTCAGTCAGTCAGTCAGTCAG
+ }
+}
+"""
+
+
+def taxonomy_from_content(content: str, directory: str) -> str:
+    """Write names.dmp, nodes.dmp and acc2tax.txt into `directory` such
+    that generateCF at the species level (-y directory -f
+    directory/acc2tax.txt -u species) gives back `content`'s rows: every
+    taxid a species under the root, named as the row names it, each
+    accession mapped to its row's taxid.  The rows of headers without an
+    accession (EWAN_<n>, dummy taxids) need no entry.  -> directory."""
+    os.makedirs(directory, exist_ok=True)
+    names, nodes, acc = [], [], []
+    with open(content) as fh:
+        for line in fh:
+            name, taxid, _, accs = line.rstrip("\n").split("\t")[:4]
+            if name.startswith("EWAN_"):
+                continue
+            names.append(f"{taxid}\t|\t{name}\t|\t\t|\tscientific name\t|\n")
+            nodes.append(f"{taxid}\t|\t1\t|\tspecies\t|\n")
+            acc += [f"{a}\t{taxid}\n" for a in accs.split(";") if a]
+    for fname, rows in (("names.dmp", names), ("nodes.dmp", nodes),
+                        ("acc2tax.txt", acc)):
+        with open(os.path.join(directory, fname), "w") as fh:
+            fh.write("".join(rows))
+    return directory
+
+
+def write_genomes_fasta(path: str, num_species: int = NUM_SPECIES,
+                        genome_len: int = GENOME_LEN,
+                        core_genes: int = CORE_GENES,
+                        seed: int = SEED) -> str:
+    """The corpus's genomes (the same seed gives the same genomes as
+    generate and generate_wide) as FASTA records named SYN<i>, the
+    accessions of the corpus's content file, 70 bases a line."""
+    genomes = _gen_genomes(np.random.default_rng(seed), num_species,
+                           genome_len, core_genes)
+    with open(path, "wb") as fh:
+        for g, dna in enumerate(genomes, start=1):
+            fh.write(b">SYN%d\n" % g)
+            for o in range(0, len(dna), 70):
+                fh.write(dna[o:o + 70].tobytes() + b"\n")
+    return path
 
 
 def paths(directory: str = DIR) -> dict:

@@ -261,29 +261,27 @@ def test_folder_under_six_runs_per_file(tmp_path, monkeypatch, index_dir):
             (tmp_path / f"tp_m{m}.csv").read_text(), 6)
 
 
-def test_long_read_pairs_raise_under_six(tmp_path, index_dir):
-    """2x150 bp pairs under --six fit K3's slot cap (4 lines x 141
-    windows x 6 levels = 3,384 slots); 2x250 bp pairs do not and raise
-    naming the long-read slice before any output is written."""
-    from kasa_tpu_torch.config import Config
-    from kasa_tpu_torch.match import turbo as PT
-    from kasa_tpu_torch.match.pipeline import identify
-    PT.check_slot_cap(4 * 141, 6)
-    rng = np.random.default_rng(250)
+def test_long_read_pairs_raise_under_six(tmp_path, monkeypatch, index_dir):
+    """2x250 bp pairs under --six: 4 lines x 237 windows x 6 levels =
+    5,688 slots per read, more than K3's shared-memory arm sorts (2x150 bp
+    pairs have 3,384); they classify as kasa_tpu classifies them."""
+    from test_torch_long import genome_reads
+    monkeypatch.setenv("KASA_MESH_DP", "1")
+    names = [f"p{i}" for i in range(3)]
     for m in (1, 2):
-        (tmp_path / f"long_{m}.fasta").write_text("".join(
-            f">p{i}/{m}\n{''.join(rng.choice(list('ACGT'), size=250))}\n"
-            for i in range(3)))
-    cfg = Config()
-    cfg.content_file = str(index_dir / "exampleIndex_content.txt")
-    cfg.six_frames = True
-    cfg.paired_end_1 = str(tmp_path / "long_1.fasta")
-    cfg.paired_end_2 = str(tmp_path / "long_2.fasta")
-    with pytest.raises(NotImplementedError, match="long read"):
-        identify(cfg, index_path=str(index_dir / "exampleIndex"),
-                 input_path="", out_file=str(tmp_path / "o.json"),
-                 device="cpu")
-    assert not (tmp_path / "o.json").exists()
+        genome_reads(tmp_path / f"long_{m}.fasta", [250] * 3, 250 + m, names)
+    ov = {"six_frames": True,
+          "paired_end_1": str(tmp_path / "long_1.fasta"),
+          "paired_end_2": str(tmp_path / "long_2.fasta")}
+    _run_jax(index_dir, "exampleIndex", "", ov, tmp_path / "j.json",
+             tmp_path / "j.csv", tmp_path)
+    got = _run_port(index_dir, "exampleIndex", "", ov, tmp_path / "o.json",
+                    tmp_path / "o.csv", tmp_path)
+    assert got[2] == 3 and got[1].sum() > 0
+    assert_identify_agrees(json.load(open(tmp_path / "j.json")),
+                           json.load(open(tmp_path / "o.json")),
+                           (tmp_path / "j.csv").read_text(),
+                           (tmp_path / "o.csv").read_text(), 6)
 
 
 # ---------------------------------------------------------------------------
@@ -426,13 +424,17 @@ def test_encode_modes_match_jax(protein, one_frame, maxlen):
         j_read_windows(mat[:2], lut, 12, protein, one_frame, w))
 
 
-@pytest.mark.parametrize("lines_per_read,factor", [(1, 1), (2, 1), (4, 2)])
-def test_multi_budget_per_two_lines(lines_per_read, factor):
-    """The drive loop keeps kasa_tpu's MULTI_BUDGET for reads of one or
-    two lines and gives one per two lines beyond (pairs under --six)."""
+@pytest.mark.parametrize("lines_per_read,w,factor,wout", [
+    (1, 141, 1, 160), (2, 141, 1, 160), (4, 141, 2, 320),
+    (1, 7981, 29, 2047), (1, 700, 3, 480)])
+def test_multi_budget_per_two_lines(lines_per_read, w, factor, wout):
+    """The drive loop keeps kasa_tpu's MULTI_BUDGET, EXP_BUDGET and WOUT
+    for reads of one or two 150 bp lines (141 windows) and scales them
+    by the read's slots over two such lines beyond: pairs under --six,
+    and long lines (7,981 windows: an 8 kbp read), whose hit lists are
+    capped at the index's S = 2,047 taxa."""
     from types import SimpleNamespace
     from kasa_tpu_torch.match import fast, turbo
-    disp = fast.SingleTurboDispatch(SimpleNamespace(device="cpu"), 6, 10)
-    assert disp.multi_budget_for(lines_per_read) \
-        == factor * turbo.MULTI_BUDGET
-    assert disp.exp_budget == turbo.EXP_BUDGET
+    disp = fast.SingleTurboDispatch(SimpleNamespace(device="cpu"), 6, 2047)
+    assert disp.budgets_for(lines_per_read, w) == (
+        factor * turbo.MULTI_BUDGET, factor * turbo.EXP_BUDGET, wout)

@@ -1,7 +1,9 @@
 """The CUDA kernels of kasa_tpu_torch against their plain PyTorch
-versions, on the card: K1-K12, the per-file, counts-only, list,
-additive and sloppy arms, and the five-limb arms of K1, K2 and K5.  CUDA kernels have no CPU mode: without a GPU
-these tests skip.  On a machine with one (and without JAX):
+versions, on the card: K1-K13, the per-file, counts-only, list,
+additive and sloppy arms, the five-limb arms of K1, K2 and K5, and the
+long arms (K3 pre and K5 above 4,096 slots or windows per read, K6's
+slot table in global memory).  CUDA kernels have no CPU mode: without a
+GPU these tests skip.  On a machine with one (and without JAX):
 
     python3 -m pytest --noconftest -q -m cuda tests/test_torch_kernels.py
 """
@@ -475,6 +477,54 @@ def test_additive_finish_kernel(cuda, tmp_path):
         assert bool((flags & 2).any())
 
 
+@pytest.mark.parametrize("wout", [300, 2000])
+def test_reads_post_wide_lists(cuda, wout):
+    """K3 post with hit lists wider than its shared arrays (a long batch's,
+    turbo.batch_budgets): T1 runs and dense multi rows of up to ~1,000
+    taxa a read against the plain version; with lists as wide as the
+    S = 2,000 taxa only the count-flagged reads are flagged for lists."""
+    from kasa_tpu_torch.match import turbo as PT
+    rng = np.random.default_rng(wout)
+    R, S, nk, cw = 24, 2000, 6, 160
+    ck = np.full((R, cw), PT.SENT, np.int32)
+    cc = np.zeros((R, cw), np.int32)
+    for r in range(R):
+        n = int(rng.integers(0, 2 * cw))
+        keys = np.unique(rng.integers(0, S, n) * 8
+                         + rng.integers(0, nk, n))[:cw]
+        ck[r, :len(keys)] = keys
+        cc[r, :len(keys)] = rng.integers(1, 50, len(keys))
+    dens = rng.random((R, 1)) * 0.5
+    dm = np.where(rng.random((R, S)) < dens, rng.random((R, S)), 0.0)
+    ofc = rng.random(R) < 0.15
+    args = [torch.from_numpy(x).to(cuda) for x in
+            (ck, cc, ofc, dm.astype(np.float32))]
+    w = torch.rand(nk).to(cuda)
+    for cap in (4 * R, R * wout):
+        outs = []
+        for fn in (PT.turbo_reads_post, PT.turbo_reads_post_plain):
+            ca = torch.zeros((nk, S), device=cuda)
+            cu = torch.zeros((nk, S), dtype=torch.int32, device=cuda)
+            p = fn(*args, w, ca, cu, torch.zeros(2, dtype=torch.int32,
+                                                 device=cuda), cap,
+                   wm=wout, wout=wout)
+            outs.append([t.cpu() for t in (*p, ca, cu)])
+        (p1, ht1, hk1, ca1, cu1), (p2, ht2, hk2, ca2, cu2) = outs
+        ints = torch.ones(p1.numel(), dtype=torch.bool)
+        ints[2 * R + 1:2 * R + 2 * cap:2] = False
+        assert torch.equal(p1[ints], p2[ints])
+        assert torch.equal(ht1, ht2) and torch.equal(cu1, cu2)
+        _close(p1[~ints].view(torch.float32), p2[~ints].view(torch.float32))
+        _close(hk1, hk2)
+        _close(ca1, ca2)
+        ofl = (p2[R:2 * R] & 2) > 0
+        if wout >= S:
+            assert torch.equal(ofl, torch.from_numpy(ofc))
+        else:
+            assert bool((ofl & ~torch.from_numpy(ofc)).any())
+        assert int(p2[:R].max()) > 256
+
+
 @pytest.mark.parametrize("highest_k,min_k,max_k,S,kpr", [
     (12, 4, 12, 64, 0), (12, 4, 12, 64, 32), (25, 12, 25, 64, 0),
     (25, 12, 25, 64, 32), (25, 12, 25, 4000, 32), (25, 1, 6, 64, 0)],
@@ -575,3 +625,147 @@ def test_query_sort_kernel(cuda, M, L, R):
     torch.cuda.synchronize()
     assert torch.equal(got[0].cpu(), want[0].cpu())
     assert torch.equal(got[1].cpu(), want[1].cpu())
+
+
+# ---------------------------------------------------------------------------
+# long read lines: the long arms of K3 (pre) and K5, K6's global table
+
+@pytest.mark.parametrize("L,kpr", [(2, 4097), (2, 9000), (5, 5000)])
+def test_dedup_kernel_long_arm(cuda, L, kpr):
+    """K5 above 4,096 windows per read: the global-memory sort, the same
+    sorted layout and poisoned duplicates as the plain version."""
+    from kasa_tpu_torch import kernels
+    from kasa_tpu_torch.match import turbo as PT
+    rng = np.random.default_rng(kpr + L)
+    R = 6
+    q = rng.integers(0, 1 << 30, size=(R * kpr, L), dtype=np.int32)
+    q[:, 0] &= 0x3F
+    src = rng.integers(0, R * kpr, size=R * kpr // 3)
+    q[(src // kpr) * kpr + rng.integers(0, kpr, size=len(src))] = q[src]
+    qd = torch.from_numpy(q).to(cuda)
+    n = kernels.COUNTS["dedup.long"]
+    got = PT.dedup_windows(qd, R, kpr)
+    assert kernels.COUNTS["dedup.long"] == n + 1
+    want = PT.dedup_windows_plain(qd, R, kpr)
+    assert torch.equal(got.cpu(), want.cpu())
+    assert int((want == PT.POISON_LIMB).all(dim=1).sum()) > 0
+
+
+@pytest.mark.parametrize("SW,cw", [(4097, 160), (30_000, 160),
+                                   (5000, 5000), (4000, 4500)],
+                         ids=["just_over", "long", "additive", "cw_over"])
+def test_turbo_reads_pre_long_arm(cuda, SW, cw):
+    """K3 pre's long arm: slot keys of few taxa (long runs) with
+    sentinels and multi payloads between them; cw = SW is the tiered
+    finish's additive arm (every run kept, no payloads)."""
+    from kasa_tpu_torch import kernels
+    from kasa_tpu_torch.match import turbo as PT
+    rng = np.random.default_rng(SW + cw)
+    R = 12
+    keys = (rng.integers(0, 300, size=(R, SW)) * 8
+            + rng.integers(0, 6, size=(R, SW))).astype(np.int32)
+    keys[rng.random((R, SW)) < 0.3] = PT.SENT
+    keys[0] = PT.SENT
+    keys[1] = 7
+    mpay = np.where(rng.random((R, SW)) < 0.2,
+                    rng.integers(0, 1 << 20, size=(R, SW)), -1)
+    skey = torch.from_numpy(keys).to(cuda)
+    mp = None if cw == SW else torch.from_numpy(mpay.astype(np.int32)) \
+        .to(cuda)
+    n = kernels.COUNTS["turbo_reads.long"]
+    got = PT.turbo_reads_pre(skey, mp, cw)
+    assert kernels.COUNTS["turbo_reads.long"] == n + 1
+    want = PT.turbo_reads_pre_plain(skey, mp, cw)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a.cpu(), b.cpu())
+    assert int(want[2].max()) > min(cw, 160)
+
+
+def test_long_batch_step(cuda):
+    """The whole batch step (K2, K3 pre's long arm, K4, the dense fold,
+    K3 post) on reads of 700 windows x 6 levels (4,200 slots) against the
+    plain step on the same tables."""
+    from kasa_tpu_torch import kernels
+    from kasa_tpu_torch.match import turbo as PT
+    from test_turbo import _index_with_tiers, S
+    limbs, taxids, hot = _index_with_tiers()
+    arrays, meta = PT.build_tables_np(limbs, taxids.astype(np.int32), 12, 7,
+                                      12, S)
+    rng = np.random.default_rng(700)
+    R, kpr = 16, 700
+    q = limbs[rng.integers(0, len(taxids), size=R * kpr)].copy()
+    outs = []
+    kernels.reset_counts()
+    for dev in (cuda, torch.device("cpu")):
+        tt = PT.tables_from_numpy(arrays, meta, dev)
+        ca = torch.zeros((6, S), device=dev)
+        cu = torch.zeros((6, S), dtype=torch.int32, device=dev)
+        p, ht, hk = PT.turbo_core(tt, torch.from_numpy(q).to(dev), R, kpr,
+                                  ca, cu, 160 * R)
+        outs.append([t.cpu() for t in (p, ht, hk, ca, cu)])
+    assert kernels.COUNTS["turbo_reads.long"] == 1
+    (p1, ht1, hk1, ca1, cu1), (p2, ht2, hk2, ca2, cu2) = outs
+    ints = torch.ones(p1.numel(), dtype=torch.bool)
+    ints[2 * R + 1:2 * R + 2 * 160 * R:2] = False
+    assert torch.equal(p1[ints], p2[ints])
+    assert torch.equal(ht1, ht2) and torch.equal(cu1, cu2)
+    _close(hk1, hk2)
+    _close(ca1, ca2)
+    assert int(p2[:R].sum()) > 0
+
+
+def test_sparse_fold_global_table(cuda, monkeypatch):
+    """K6 with more than 4,096 slots per read: the slot table in global
+    scratch instead of shared memory."""
+    from kasa_tpu_torch.match import turbo as PT
+    from test_turbo import _index_with_tiers, S
+    monkeypatch.setattr(PT, "SPARSE_FOLD_S", 8)
+    limbs, taxids, hot = _index_with_tiers()
+    arrays, meta = PT.build_tables_np(limbs, taxids.astype(np.int32), 12, 7,
+                                      12, S)
+    tt = PT.tables_from_numpy(arrays, meta, cuda)
+    rng = np.random.default_rng(800)
+    R, kpr = 8, 800
+    q = torch.from_numpy(limbs[rng.integers(0, len(taxids),
+                                            size=R * kpr)]).to(cuda)
+    skey, mpay = PT.turbo_match_plain(q, tt, R, kpr)
+    _, _, runs, mcnt, cp = PT.turbo_reads_pre_plain(skey, mpay)
+    ca = torch.zeros((6, S), device=cuda)
+    ofc = PT.turbo_multi_plain(cp, mcnt, runs, tt, ca, PT.MULTI_BUDGET,
+                               PT.EXP_BUDGET, counts_only=True)[0]
+    assert cp.shape[1] > PT.SW_CAP and int(mcnt.max()) > 0
+    f1 = PT.sparse_fold(cp, mcnt, ofc, tt)
+    f2 = PT.sparse_fold_plain(cp, mcnt, ofc, tt)
+    assert torch.equal(f1[0].cpu(), f2[0].cpu())
+    assert torch.equal(f1[2].cpu(), f2[2].cpu())
+    _close(f1[1], f2[1])
+
+
+# ---------------------------------------------------------------------------
+# K13 sort_dedup
+
+@pytest.mark.parametrize("N,L", [(1, 2), (5000, 2), (1025, 5),
+                                 (1 << 20, 5), (3_000_001, 2)])
+def test_sort_dedup_kernel(cuda, N, L):
+    """K13 on 30-bit limbs with many exact duplicates, rows equal in all
+    limbs but one, and taxids at and above 2^31: identical to the plain
+    version (the result is unique, so any correct sort gives it)."""
+    from kasa_tpu_torch import kernels
+    from kasa_tpu_torch.index.build import sort_dedup, sort_dedup_plain
+    rng = np.random.default_rng(N + L)
+    base = rng.integers(0, 1 << 30, size=(max(N // 4, 1), L), dtype=np.int32)
+    limbs = base[rng.integers(0, len(base), N)].copy()
+    limbs[rng.random(N) < 0.1, L - 1] ^= 1
+    tax = rng.choice(np.array([1, 7, 2**31 - 1, 2**31, 2**32 - 1],
+                              np.uint64), N).astype(np.uint32).view(np.int32)
+    q = torch.from_numpy(limbs).to(cuda)
+    t = torch.from_numpy(tax).to(cuda)
+    n = kernels.COUNTS["sort_dedup"]
+    got = sort_dedup(q, t)
+    assert kernels.COUNTS["sort_dedup"] == n + 1
+    want = sort_dedup_plain(q, t)
+    assert torch.equal(got[0].cpu(), want[0].cpu())
+    assert torch.equal(got[1].cpu(), want[1].cpu())
+    assert len(want[1]) <= N

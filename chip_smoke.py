@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """On-card smoke run of kasa_tpu_torch: the port's identify and index
-build on one NVIDIA GPU, through its thirteen CUDA kernels, checked
+build on one NVIDIA GPU, through its fourteen CUDA kernels, checked
 against references.
 
     python3 chip_smoke.py          # from the root of a checkout
@@ -119,6 +119,25 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
            against the resident per-batch run (-r): chunks, batches, MB
            uploaded per batch, K9 per chunk on the first batch against its
            plain version, timed;
+  mesh     the turbo mesh (parallel/) on the default corpus (the ranks
+           of the first ip = 2 run build the shards' sidecars): the
+           65,536 smoke reads through the CLI on two ranks that share the
+           card over gloo (parallel/launch.py), at (dp, ip) = (1, 2) and
+           (2, 1) and, unforced, under KASA_DEVICE_BUDGET = 0.6 x the
+           tables (the mesh shards them over ip = 2), each with every hit
+           written and held to the single-card run under the contract,
+           each rank's launch counts from its own process (K4's split and
+           K14 launched); on a real 8,192-read batch at (1, 2): K4's split
+           against its plain version and against both shards' cut flags
+           ORed by hand, the mesh step and its collectives timed, K14 on
+           the gathered lists against its plain version, timed on rank 0
+           alone; the classic meshes (broadcast and routed K9 on two
+           shards) against the single K9 run; a world of one over NCCL
+           (MeshTurboDispatch at (1, 1)) against the single-card run;
+           with four cards, also the CLI on four ranks over NCCL, one card
+           each, at (dp, ip) = (2, 2) and (1, 4), held to the single-card
+           run (on one card this logs that it was skipped).  Rates of two
+           ranks on one card are not multi-GPU rates;
   sparse   the 10,001-species corpus (~80 M entries, no hot tier: the
            sparse fold): tables, a warm-up, 65,536 reads through identify
            (K6 launched on every batch, beside K4's counts-only arm and
@@ -134,10 +153,11 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
            then the five-limb arms of K1, K2 and K5 against their plain
            versions on real batches, timed;
   build-wide  the default corpus's 2,047 genomes as a FASTA built at -k
-           25 through the port's CLI (one K13 call over ~32.9 M entries)
-           and with a soft limit of 2^23 entries (K13 per run, the host
-           merge): byte-identical artifacts; the entries inside the
-           genomes equal the wide index; K13 on the consolidate input
+           25 through the port's CLI (one K13 call over ~32.9 M entries);
+           the first 512 genomes built with a soft limit of 2^21 entries
+           (K13 per run, the host merge) and in one pass: byte-identical
+           artifacts; the full build's entries inside the genomes equal
+           the wide index; K13 on the consolidate input
            against its plain version, timed beside torch.unique(dim=0);
            the 64-bit build of the same genomes (no kernel), timed;
   join wide  the wide index at k 20..25: the 8,192 warm-up reads through
@@ -170,7 +190,13 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
            each chunk's keys (K8) as yardsticks.
 
 Prints the card's name and power limit, a JSON line of the kernels and
-their new arms, and last the line {"ok": true, "device": {...}}.  Longer
+their new arms, and last the line {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --cards  # on a machine with four cards
+
+runs only build, the default corpus, its single-card run and the mesh
+over four cards (the cards entry of the mesh phase), and prints the
+card line and the ok line.  Longer
 logs and the full-size outputs go to .synth_corpus/out/.  Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -194,8 +220,13 @@ def fail(msg):
     sys.exit(1)
 
 
+T_START = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """One line of the run's log, stamped with the seconds since the
+    script started."""
+    print(f"[{time.perf_counter() - T_START:7.1f}] {msg}", flush=True)
 
 
 def smi_line():
@@ -1634,7 +1665,7 @@ TIERED_BUDGET = 256 << 20
 TIERED_PREP = ("default", "bigS")
 
 
-def start_prep():
+def start_prep(names=PREP):
     """Generate the three corpora and build their turbo-table sidecars
     (and the tiered chunk caches of TIERED_BUDGET) in three host
     processes started together (python -m kasa_tpu_torch.synth <name>
@@ -1642,7 +1673,7 @@ def start_prep():
     logging to .synth_corpus/out/prep_<name>.log."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     procs = {}
-    for name in PREP:
+    for name in names:
         path = os.path.join(OUT, f"prep_{name}.log")
         fh = open(path, "w")
         tiered = (["--tiered", str(TIERED_BUDGET)] if name in TIERED_PREP
@@ -3231,12 +3262,17 @@ def phase_build_golden():
     return launches_128
 
 
+SPILL_GENOMES = 512      # build-wide's spill build: ~8.2 M windows
+SPILL_LIMIT = 1 << 21    # entries per spill: four K13 calls
+
+
 def phase_build_wide(corpus, wide):
     """The index build at a size users build: the default corpus's 2,047
     genomes as a FASTA of SYN<i> records with the corpus's content file,
     built at -k 25 through the port's CLI (one K13 call over the ~32.9 M
-    entries) and again with a soft limit of 2^23 entries (K13 per run,
-    then the host merge): byte-identical artifacts; their entries
+    entries); the first SPILL_GENOMES genomes built with a soft limit of
+    SPILL_LIMIT entries (K13 per run, then the host merge) and in one
+    pass: byte-identical artifacts; the full build's entries
     without the build's trailing marker letter equal synth.py's wide
     index; K13 on the consolidate input held to its plain version and
     timed beside torch.unique(dim=0) and its bound; the 64-bit build of
@@ -3290,19 +3326,28 @@ def phase_build_wide(corpus, wide):
         f"{info['seconds_k25']:.1f} s; stages {info['stages_k25']}; "
         f"launches {info['launches_k25']}")
 
+    # the spill build on the first SPILL_GENOMES genomes (its host merge
+    # of 32.7 M rows alone took ~50 s): four spills, byte-identical to
+    # the one-pass build of the same genomes
+    sub = synth.write_genomes_fasta(
+        os.path.join(root, "sub.fasta"), SPILL_GENOMES, synth.GENOME_LEN,
+        synth.CORE_GENES)
+    common = dict(highest_k=25, temp_dir=root, device=DEVICE,
+                  threads=os.cpu_count() or 1, turbo_sidecar=False)
+    B.build_index(sub, content, os.path.join(root, "o25"), **common)
     kernels.reset_counts()
     t0 = time.perf_counter()
-    B.build_index(fasta, content, os.path.join(root, "s25"), highest_k=25,
-                  soft_limit=1 << 23, temp_dir=root, device=DEVICE,
-                  threads=os.cpu_count() or 1, turbo_sidecar=False)
+    B.build_index(sub, content, os.path.join(root, "s25"),
+                  soft_limit=SPILL_LIMIT, **common)
     info["seconds_k25_spill"] = time.perf_counter() - t0
     info["launches_k25_spill"] = kernels.COUNTS["sort_dedup"]
     for s in ARTIFACTS:
         same_file("build-wide spill", os.path.join(root, "s25") + s,
-                  os.path.join(root, "w25") + s)
-    log(f"build-wide: the build with a soft limit of 2^23 entries "
-        f"({info['launches_k25_spill']} K13 launches, then the host merge) "
-        f"is byte-identical, {info['seconds_k25_spill']:.1f} s")
+                  os.path.join(root, "o25") + s)
+    log(f"build-wide: the build of {SPILL_GENOMES} genomes with a soft "
+        f"limit of {SPILL_LIMIT:,} entries ({info['launches_k25_spill']} "
+        f"K13 launches, then the host merge) is byte-identical to their "
+        f"one-pass build, {info['seconds_k25_spill']:.1f} s")
 
     # synth.py's wide index holds the windows inside each genome; the
     # build adds the windows over the trailing marker, whose last letter
@@ -3366,9 +3411,464 @@ def phase_build_wide(corpus, wide):
     return entry, info
 
 
+# ---------------------------------------------------------------------------
+# the mesh (parallel/): ranks that share the one card over gloo, and a
+# world of one over NCCL
+
+MESH_WORLD = 2           # ranks on the one card
+MESH_IP = 2
+MESH_KERNELS = ("encode", "turbo_match", "turbo_reads", "turbo_multi",
+                "mesh_merge")
+MESH_RATE_NOTE = ("two ranks sharing one H100 over gloo; not a multi-GPU "
+                  "rate")
+
+
+def _mesh_collectives(rec, batches):
+    """ms per batch of each mesh/* host timer of a rank (gloo collectives
+    return when they are done, so a timer spans the whole collective)."""
+    return {k: 1e3 * v / batches for k, v in rec["timers"].items()
+            if k.startswith("mesh/")}
+
+
+def probe_cuda_gather():
+    """Whether the process group's backend takes CUDA tensors in
+    all_gather_into_tensor (gloo's answer depends on the PyTorch build):
+    "ok" or the error's first line."""
+    import torch
+    from kasa_tpu_torch.parallel import dist as D
+    n = D.world_size()
+    t = torch.full((4,), D.rank(), dtype=torch.int32, device=DEVICE)
+    out = torch.empty((n * 4,), dtype=torch.int32, device=DEVICE)
+    try:
+        D._all_gather(out, t)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return str(e).splitlines()[0] if str(e) else type(e).__name__
+    want = torch.arange(n, device=DEVICE, dtype=torch.int32)
+    return "ok" if bool((out.view(n, 4)[:, 0] == want).all()) \
+        else "wrong values"
+
+
+def identify_files_agree(tag, ref, got, num_k=6):
+    """Two identify runs' json and profile files under the contract,
+    fast at 65,536 reads with every hit written: records that are equal
+    byte for byte pass; only the others are parsed and their taxa and
+    k-mer scores compared.  -> the number of records that differ in
+    bytes."""
+    sep = b"\n},\n{"
+    with open(ref[0], "rb") as fa, open(got[0], "rb") as fb:
+        ra, rb = fa.read().split(sep), fb.read().split(sep)
+    if len(ra) != len(rb):
+        fail(f"{tag}: {len(rb)} reads written, reference {len(ra)}")
+
+    def record(chunks, i):
+        # the first record opens the array ("[" "{"), the last closes it
+        c = chunks[i].strip()
+        if i == 0:
+            c = c[1:].strip()[1:]
+        if i == len(chunks) - 1:
+            c = c[:-1].rstrip()[:-1]
+        return json.loads(b"{" + c + b"}")
+    differ = [i for i, (x, y) in enumerate(zip(ra, rb)) if x != y]
+    json_agrees([record(ra, i) for i in differ],
+                [record(rb, i) for i in differ])
+    with open(ref[1]) as pa, open(got[1]) as pb:
+        assert_identify_agrees([], [], pa.read(), pb.read(), num_k)
+    return len(differ)
+
+
+def mesh_cli(tag, corpus, env, dp, ip, ref, world=MESH_WORLD,
+             backend="gloo", note=MESH_RATE_NOTE, timeout=1800.0):
+    """The CLI identify of the smoke reads on `world` ranks, every hit
+    written; each rank's launch counts start at 0 in its own process and
+    come back with its record.  Held to the single-card run `ref`."""
+    import re
+    from kasa_tpu_torch import synth
+    from kasa_tpu_torch.parallel.launch import run_cli
+    stem = os.path.join(OUT, f"mesh_{tag}")
+    out_j, out_p = stem + ".json", stem + ".csv"
+    t0 = time.perf_counter()
+    recs = run_cli(world, ["identify", "-d", corpus["index"], "-i",
+                           corpus["smoke"], "-q", out_j, "-p", out_p, "-b",
+                           str(ALL_HITS)], env=env, out_dir=stem + "_ranks",
+                   timeout=timeout)
+    dt = time.perf_counter() - t0
+    with open(recs[0]["log"]) as fh:
+        text = fh.read()
+    if any(r["result"] != 0 for r in recs):
+        fail(f"mesh {tag}: exit codes {[r['result'] for r in recs]}:\n"
+             f"{text[-3000:]}")
+    want = (f"turbo mesh active: dp={dp} x ip={ip} over {world} ranks, "
+            f"{backend}")
+    if want not in text:
+        fail(f"mesh {tag}: no '{want}' in rank 0's log:\n{text[-2000:]}")
+    for r, rec in enumerate(recs):
+        expect_launched(f"mesh {tag} rank {r}", rec["counts"],
+                        MESH_KERNELS + (("turbo_multi.split",) if ip > 1
+                                        else ()))
+    ndiff = identify_files_agree(f"mesh {tag}", ref, (out_j, out_p))
+    os.remove(out_j)
+    nb = -(-synth.SMOKE_READS // 8192)
+    coll = [_mesh_collectives(rec, nb) for rec in recs]
+    stages = {k: round(v, 3) for k, v in recs[0]["timers"].items()
+              if k.startswith(("fast/", "turbo/", "mesh/"))}
+    # rank 0's mode time ("OUT: Time:"), index load and tables included
+    t_mode = float(re.findall(r"OUT: Time: ([0-9.]+) s", text)[-1])
+    log(f"mesh {tag}: {synth.SMOKE_READS} reads in {dt:.3f} s (process "
+        f"start to exit) = {synth.SMOKE_READS / dt:.1f} reads/s; identify "
+        f"on rank 0 {t_mode:.3f} s (index and tables loaded) = "
+        f"{synth.SMOKE_READS / t_mode:.1f} reads/s ({note}); "
+        f"agrees with "
+        f"the single-card run ({ndiff} reads' records differ in bytes, "
+        f"within the contract); rank 0 launches {recs[0]['counts']}")
+    log(f"mesh {tag}: collectives, ms per batch, by rank: "
+        f"{json.dumps(coll)}; rank 0 stage seconds {json.dumps(stages)}")
+    return recs[0]["counts"], dict(seconds=dt, identify_seconds=t_mode,
+                                   collectives_ms=coll, stages=stages)
+
+
+MESH_CARDS = 4
+
+
+def phase_mesh_cards(corpus, ref):
+    """The CLI on MESH_CARDS ranks over NCCL, one card each, at (dp, ip)
+    = (2, 2) and (1, 4), held to the single-card run `ref`.  On a machine
+    with fewer cards it logs that it was skipped.  -> {tag: (rank 0's
+    launches, info)}."""
+    import torch
+    n = torch.cuda.device_count()
+    if n < MESH_CARDS:
+        log(f"mesh cards: skipped: {n} card(s) here; the NCCL mesh of "
+            f"{MESH_CARDS} ranks runs on a machine with {MESH_CARDS} cards "
+            "(python3 chip_smoke.py --cards)")
+        return {}
+    note = f"{MESH_CARDS} ranks on {MESH_CARDS} cards over NCCL"
+    return {f"cards {dp}x{ip}": mesh_cli(
+        f"cards_{dp}x{ip}", corpus,
+        {"KASA_MESH_DP": str(dp), "KASA_MESH_IP": str(ip)}, dp, ip, ref,
+        world=MESH_CARDS, backend="nccl", note=note, timeout=300.0)
+        for dp, ip in ((2, 2), (1, 4))}
+
+
+def run_cards(preps, smi, t_all):
+    """--cards: build, the default corpus, its single-card run and the
+    mesh over four cards."""
+    from kasa_tpu_torch import synth
+    phase_build()
+    wait_prep(preps, t_all, ("default",))
+    corpus = phase_corpus()
+    ref = (os.path.join(OUT, "mesh_single.json"),
+           os.path.join(OUT, "mesh_single.csv"))
+    _, _, info_1 = drive("mesh single card", corpus["smoke"], *ref,
+                         PATH_KERNELS, over={"num_of_beasts": ALL_HITS},
+                         corpus=corpus)
+    cards = phase_mesh_cards(corpus, ref)
+    if not cards:
+        fail(f"--cards needs {MESH_CARDS} cards")
+    with open(os.path.join(OUT, "chip_smoke_cards.json"), "w") as fh:
+        json.dump({"card": smi, "single": info_1, "reads": synth.SMOKE_READS,
+                   "cards": {t: {"launches": c, "info": i}
+                             for t, (c, i) in cards.items()}}, fh, indent=1)
+
+
+def _mesh_batch(smoke, R):
+    import numpy as np
+    import torch
+    from kasa_tpu_torch.core import encode as E
+    from kasa_tpu_torch.core.alphabet import build_codon_code_lut
+    mat, R, w, _ = real_batch({"smoke": smoke}, R=R)
+    mat_d = torch.from_numpy(mat).to(DEVICE)
+    lut = torch.from_numpy(build_codon_code_lut().astype(np.int32)).to(DEVICE)
+    return mat_d, lut, w, E.encode_windows(mat_d, lut, w)
+
+
+# K4's split on the mesh phase's batch runs with an expansion budget of
+# 1/64 of EXP_BUDGET: at the full budget a shard flags no read of it
+MESH_SPLIT_EB = 1 << 13
+
+
+def mesh_kernels_rank(index, smoke, R, R_classic):
+    """One of two ranks at (dp, ip) = (1, 2) on a real batch: K4's split
+    (at MESH_SPLIT_EB) against its plain version and against the OR of
+    both shards' cut flags; the mesh step timed; K14 on the batch's
+    gathered lists against its plain version, timed on rank 0 alone;
+    then the classic meshes (classic_mesh)."""
+    import torch
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.match import turbo as T
+    from kasa_tpu_torch.match.pipeline import _load_index
+    from kasa_tpu_torch.parallel import dist as D
+    from kasa_tpu_torch.parallel import turbo_mesh as TM
+    from kasa_tpu_torch.utils import timers
+    mesh = D.make_identify_mesh(ip=MESH_IP, dp=1)
+    out = {"probe": probe_cuda_gather(), "backend": D.dist.get_backend()}
+    limbs, _, hk, content, _, tax_rows = _load_index(Config(), index)
+    S = content.num_species
+    st = TM.ShardedTurboTables.build(limbs, tax_rows, hk, 7, 12, S, MESH_IP,
+                                     mesh.ip_index, DEVICE, None, index)
+    del limbs, tax_rows
+    tt = st.shard
+    mat_d, lut, w, q = _mesh_batch(smoke, R)
+    mb, eb, wout = T.batch_budgets(w * tt.num_k, S)
+    cap = T.CSR_CAP_FACTOR * R
+    skey, mpay = T.turbo_match(q, tt, R, w)
+    ck, cc, runs, mcnt, cp = T.turbo_reads_pre(skey, mpay)
+    cut = {}
+
+    def reduce(f):
+        cut[len(cut)] = f.clone()
+        return D.or_over(mesh.ip_group, f)
+    acc = [torch.zeros((tt.num_k, S), device=DEVICE) for _ in range(2)]
+    mk = T.turbo_multi(cp, mcnt, runs, tt, acc[0], mb, MESH_SPLIT_EB,
+                       flag_reduce=reduce)
+    mp_ = T.turbo_multi_plain(cp, mcnt, runs, tt, acc[1], mb, MESH_SPLIT_EB,
+                              flag_reduce=reduce)
+    both = D.gather_over(mesh.ip_group, cut[0].to(torch.uint8)).bool()
+    out["k4"] = dict(
+        same=bool(torch.equal(mk[0], mp_[0]) and torch.equal(cut[0], cut[1])
+                  and torch.equal(mk[4], mp_[4])),
+        by_hand=bool(torch.equal(mk[0], both.any(dim=0))),
+        err=max(float((a - b).abs().max()) for a, b in
+                zip(mk[1:4] + (acc[0],), mp_[1:4] + (acc[1],))),
+        local=int(cut[0].sum()), merged=int(mk[0].sum()),
+        other=int(both.sum()) - int(cut[0].sum()))
+    # the step as the drive loop queues it, on rank 0's clock (it waits
+    # for rank 1 inside the collectives)
+    ca = torch.zeros((tt.num_k, S), device=DEVICE)
+    cu = torch.zeros((tt.num_k, S), dtype=torch.int32, device=DEVICE)
+
+    def step():
+        return TM.turbo_mesh_step(st, mesh, mat_d, lut, ca, cu, R, w, cap,
+                                  mb, eb, wout)
+    step()
+    timers.reset()
+    out["step_ms"] = time_ms(step, 5)
+    out["collectives_ms"] = {k: 1e3 * v / 6 for k, v in timers._ACC.items()}
+    # K14 on this batch's gathered lists
+    packed_s, ht, hkl = T.turbo_core(
+        tt, q, R, w, ca, cu, cap, mb, eb, wout=wout,
+        flag_reduce=lambda f: D.or_over(mesh.ip_group, f))
+    fl = packed_s[R:2 * R]
+    ofc = (fl & 1) > 0
+    ofl = D.or_over(mesh.ip_group, (fl & 2) > 0)
+    hts = D.gather_over(mesh.ip_group, ht)
+    hks = D.gather_over(mesh.ip_group, hkl)
+    args = (hts, hks, ofc.contiguous(), ofl.contiguous(), cap)
+    D.dist.barrier()
+    if mesh.rank == 0:
+        kp, kt, kv = TM.mesh_merge(*args)
+        pp, pt, pv = TM.mesh_merge_plain(*args)
+        ints = torch.ones(kp.numel(), dtype=torch.bool, device=DEVICE)
+        ints[2 * R + 1:2 * R + 2 * cap:2] = False
+        out["k14"] = dict(
+            same=bool(torch.equal(kp[ints], pp[ints])
+                      and torch.equal(kt, pt)),
+            err=max(float((kv - pv).abs().max()),
+                    float((kp[~ints].view(torch.float32)
+                           - pp[~ints].view(torch.float32)).abs().max())),
+            ms=time_ms(lambda: TM.mesh_merge(*args), 20),
+            plain_ms=time_ms(lambda: TM.mesh_merge_plain(*args), 5),
+            bytes=(hts.numel() * 8 + 2 * R + kp.numel() * 4
+                   + kt.numel() * 8),
+            ip=MESH_IP, R=R, wout=wout, hits=int(kp[-2]),
+            flagged=int(kp[-1]))
+    D.dist.barrier()
+    del st, tt, ca, cu, hts, hks
+    out["classic"] = classic_mesh(mesh, index, smoke, R_classic)
+    return out
+
+
+def classic_mesh(mesh, index, smoke, R):
+    """K9 on this rank's ip shard of the classic tables, over the
+    broadcast and the host-routed windows of a real batch
+    (parallel/mesh.py)."""
+    import numpy as np
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.match.pipeline import _load_index
+    from kasa_tpu_torch.parallel import mesh as PM
+    limbs, taxids, hk, content, _, _ = _load_index(Config(), index)
+    S = content.num_species
+    si = PM.ShardedIndex.build(limbs, taxids, content.tax_to_idx, hk, 7, 12,
+                               S, MESH_IP, mesh.ip_index, DEVICE)
+    del limbs, taxids
+    _, _, w, q = _mesh_batch(smoke, R)
+    q = q.cpu().numpy()
+    m = len(q)
+    rid = (np.arange(m) // w).astype(np.int32)
+    valid = np.ones(m, bool)
+    run_b, _ = PM.make_sharded_classifier(si, mesh, R, m)
+    sb = run_b(q[None], rid[None], valid[None])
+    blocks = PM.route_queries(si, q, rid, valid, 1, m)
+    if blocks[3]:
+        raise RuntimeError(f"{blocks[3]} routed windows dropped")
+    run_r, _ = PM.make_routed_classifier(si, mesh, R, m)
+    sr = run_r(*blocks[:3])
+    return ([t.cpu().numpy() for t in sb], [t.cpu().numpy() for t in sr],
+            [int(x) for x in np.bincount(
+                np.searchsorted(si.shard_lo, q[:, 0], "right") - 1,
+                minlength=MESH_IP)])
+
+
+def nccl_one_rank(index, smoke, out_j, out_p):
+    """A world of one over NCCL: one all_reduce and one all_gather, then
+    the identify through MeshTurboDispatch at (dp, ip) = (1, 1)."""
+    import torch
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.match import fast
+    from kasa_tpu_torch.match.pipeline import identify
+    from kasa_tpu_torch.parallel import dist as D
+    t = torch.arange(4, dtype=torch.float32, device=DEVICE)
+    D.dist.all_reduce(t)
+    out = {"backend": D.dist.get_backend(), "all_reduce": t.tolist(),
+           "probe": probe_cuda_gather()}
+    fast.mesh_shape = lambda *a: (1, 1)
+    cfg = Config()
+    cfg.num_of_beasts = ALL_HITS
+    identify(cfg, index_path=index, input_path=smoke, out_file=out_j,
+             profile_file=out_p, device=DEVICE)
+    out["dispatch"] = type(fast.LAST_DISPATCH).__name__
+    return out
+
+
+def phase_mesh(corpus):
+    """The turbo mesh through the CLI on two ranks that share the card
+    over gloo, at (dp, ip) = (1, 2) and (2, 1) and over a budget that
+    only half the tables fit; K4's split and K14 on a real batch; the
+    classic meshes at ip = 2 against the single K9 run; a world of one
+    over NCCL against the single-card run.  -> (kernel entries, launches,
+    info)."""
+    import numpy as np
+    import torch
+    from kasa_tpu_torch import synth
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.match import fast
+    from kasa_tpu_torch.match.device import classify_batch, \
+        load_or_build_classic
+    from kasa_tpu_torch.match.pipeline import _load_index
+    from kasa_tpu_torch.parallel.launch import run_ranks
+    t0 = time.perf_counter()
+    ref = (os.path.join(OUT, "mesh_single.json"),
+           os.path.join(OUT, "mesh_single.csv"))
+    _, _, info_1 = drive("mesh single card", corpus["smoke"], *ref,
+                         PATH_KERNELS, over={"num_of_beasts": ALL_HITS},
+                         corpus=corpus)
+    tables_b = table_bytes(fast.LAST_DISPATCH.tt)
+    launches, info = {}, {"single": info_1}
+    ta = time.perf_counter()
+    for tag, env, dp, ip in (
+            ("1x2", {"KASA_MESH_DP": "1", "KASA_MESH_IP": "2"}, 1, 2),
+            ("2x1", {"KASA_MESH_DP": "2", "KASA_MESH_IP": "1"}, 2, 1),
+            ("over-budget", {"KASA_DEVICE_BUDGET": str(int(0.6 * tables_b))},
+             1, 2)):
+        launches[tag], info[tag] = mesh_cli(tag, corpus, env, dp, ip, ref)
+    t1 = time.perf_counter()
+    R = 8192
+    rec = run_ranks(MESH_WORLD, "chip_smoke:mesh_kernels_rank",
+                    (corpus["index"], corpus["smoke"], R, 1024),
+                    out_dir=os.path.join(OUT, "mesh_kernels"))
+    t2 = time.perf_counter()
+    r0, r1 = rec[0]["result"], rec[1]["result"]
+    for r in (r0, r1):
+        if not (r["k4"]["same"] and r["k4"]["by_hand"]) \
+                or r["k4"]["err"] > ATOL:
+            fail(f"mesh: K4's split disagrees: {r['k4']}")
+    if r0["k4"]["merged"] <= max(r0["k4"]["local"], r1["k4"]["local"]):
+        fail(f"mesh: the split's OR took in no other shard's flag: "
+             f"{r0['k4']} {r1['k4']}")
+    k14 = r0["k14"]
+    if not k14["same"] or k14["err"] > ATOL:
+        fail(f"mesh: K14 disagrees with its plain version: {k14}")
+    log(f"mesh: gloo all_gather of CUDA tensors: {r0['probe']}; K4 split "
+        f"on a {R}-read batch at an expansion budget of {MESH_SPLIT_EB} "
+        f"rows: rank 0 cut {r0['k4']['local']} flags, rank 1 "
+        f"{r1['k4']['local']}, both expanded under the OR "
+        f"({r0['k4']['merged']}), equal to the flags ORed by hand and to "
+        f"the plain split (max abs {max(r0['k4']['err'], r1['k4']['err'])})")
+    log(f"mesh: step {r0['step_ms']:.4f} ms per {R}-read batch at (1, 2) "
+        f"on rank 0's clock ({MESH_RATE_NOTE}); collectives ms per step: "
+        f"{json.dumps(r0['collectives_ms'])}")
+    entry = kernel_entry(
+        "mesh_merge", "kasa_tpu_torch/csrc/mesh_merge.cu",
+        "kasa_tpu/parallel/turbo_mesh.py:230", launches["1x2"]["mesh_merge"],
+        k14["err"], k14["ms"], k14["plain_ms"], k14["bytes"], None)
+    log(f"mesh: K14 on the batch's gathered lists (ip {k14['ip']}, wout "
+        f"{k14['wout']}, {k14['hits']} hits, {k14['flagged']} flagged "
+        "reads); no single PyTorch call computes the merge")
+
+    # the classic meshes at ip = 2 against the single K9 run (the
+    # default corpus's classic tables are in the RAM cache)
+    sb, sr, owners = r0["classic"]
+    cfg = Config()
+    limbs, taxids, hk, content, _, tax_rows = _load_index(cfg,
+                                                          corpus["index"])
+    ctab = load_or_build_classic(corpus["index"], limbs, taxids,
+                                 content.tax_to_idx, hk, 7, 12,
+                                 content.num_species, DEVICE, tax_rows)
+    del limbs, taxids, tax_rows
+    _, _, w, q = _mesh_batch(corpus["smoke"], 1024)
+    rid = (torch.arange(q.shape[0], device=DEVICE) // w).to(torch.int32)
+    one = classify_batch(ctab, q, rid, torch.ones(q.shape[0], dtype=torch.bool,
+                                                  device=DEVICE), 1024, 16)
+    one = [torch.as_tensor(t).cpu().numpy() for t in one]
+    for name, got in (("broadcast", sb), ("routed", sr)):
+        if not np.array_equal(got[2][0], one[2]) or \
+                int(got[3].sum()) != int(one[3]):
+            fail(f"mesh classic {name}: counts differ from the single K9 run")
+        for a, b in ((got[0][0], one[0]), (got[1][0], one[1])):
+            np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
+    launches["classic"] = rec[0]["counts"]
+    if not rec[0]["counts"]["classic_classify"]:
+        fail("mesh classic: K9 was not launched on rank 0")
+    log(f"mesh classic: broadcast and routed K9 on 2 shards of the classic "
+        f"tables agree with the single K9 run on {q.shape[0]} windows of "
+        f"1,024 reads (windows routed per shard {owners}); rank 0 launches "
+        f"{rec[0]['counts']['classic_classify']}")
+    del ctab
+    t3 = time.perf_counter()
+
+    # a world of one over NCCL
+    stem = os.path.join(OUT, "mesh_nccl")
+    tn = time.perf_counter()
+    nc = run_ranks(1, "chip_smoke:nccl_one_rank",
+                   (corpus["index"], corpus["smoke"], stem + ".json",
+                    stem + ".csv"), out_dir=stem + "_rank")
+    dt = time.perf_counter() - tn
+    res = nc[0]["result"]
+    if res["backend"] != "nccl" or res["dispatch"] != "MeshTurboDispatch":
+        fail(f"mesh nccl: {res}")
+    expect_launched("mesh nccl", nc[0]["counts"], MESH_KERNELS)
+    ndiff = identify_files_agree("mesh nccl", ref,
+                                 (stem + ".json", stem + ".csv"))
+    os.remove(stem + ".json")
+    launches["nccl"] = nc[0]["counts"]
+    info["nccl"] = dict(seconds=dt, **res)
+    log(f"mesh nccl: a world of one over NCCL (all_reduce "
+        f"{res['all_reduce']}, all_gather {res['probe']}) ran the "
+        f"{synth.SMOKE_READS} smoke reads through MeshTurboDispatch at (1, 1) "
+        f"in {dt:.3f} s (process start to exit) and agrees with the "
+        f"single-card run ({ndiff} reads' records differ in bytes); "
+        f"launches {nc[0]['counts']}")
+    t4 = time.perf_counter()
+    cards = phase_mesh_cards(corpus, ref)
+    os.remove(ref[0])
+    for tag, (counts, inf) in cards.items():
+        launches[tag], info[tag] = counts, inf
+    info["kernels_rank0"] = {k: v for k, v in r0.items() if k != "classic"}
+    log(f"mesh: seconds: single card {ta - t0:.1f}, the three CLI runs "
+        f"and their checks {t1 - ta:.1f}, kernel and classic ranks "
+        f"{t2 - t1:.1f}, classic reference {t3 - t2:.1f}, nccl and its "
+        f"check {t4 - t3:.1f}, four cards {time.perf_counter() - t4:.1f}; "
+        f"phase {time.perf_counter() - t0:.1f}")
+    return [entry], launches, info
+
+
 def run(preps, smi, t_all):
     import torch
     from kasa_tpu_torch import synth
+
+    def mark(name):
+        log(f"chip_smoke: {name} done {time.perf_counter() - t_all:.1f} s "
+            "after the start")
     phase_build()
     phase_golden()
     phase_golden_flags()
@@ -3376,6 +3876,7 @@ def run(preps, smi, t_all):
     launches_cov = phase_golden_engines()
     phase_golden_long()
     launches_b = phase_build_golden()
+    mark("golden phases")
     forget_tables()
     wait_prep(preps, t_all, ("default",))
     corpus = phase_corpus()
@@ -3390,9 +3891,11 @@ def run(preps, smi, t_all):
                                               launches_f["six_e"])
     kern.append(k5)
     budgets = phase_budgets(disp, corpus, R)
+    mark("full, flags, kernels")
     # long read lines on the same tables (K3's and K5's long arms)
     k_long, launches_long, infos_long = phase_long(corpus)
     kern += k_long
+    mark("long")
     # the classic engine against the turbo run of the same reads (the
     # turbo tables are still on the card), then K9 and the sloppy arm
     cvt = {}
@@ -3411,6 +3914,11 @@ def run(preps, smi, t_all):
     kern += k_jn
     launches_oo, info_oo, k_oo = phase_oocore(corpus)
     kern.append(k_oo)
+    mark("classic-vs-turbo, join, oocore")
+    # the mesh on the default corpus
+    k_mesh, launches_mesh, info_mesh = phase_mesh(corpus)
+    kern += k_mesh
+    mark("mesh")
     # one index on the card at a time: the next run's peak memory is its
     # own tables and batches
     del disp, ctab, jbatch
@@ -3427,6 +3935,7 @@ def run(preps, smi, t_all):
         disp_w, corpus, launches_w["wide"], launches_w["wide --six -e"])
     steps.update(steps_w)
     kern += k_sparse + k_wide
+    mark("sparse, wide")
     wide_index = synth.generate_wide(log=log)["index"]
     _, cvt["wide"], _ = classic_vs_turbo(
         "classic-vs-turbo wide", wide_index, corpus["smoke"],
@@ -3444,6 +3953,7 @@ def run(preps, smi, t_all):
     # the index build at the corpus's size (K13), against the wide index
     k13, info_bw = phase_build_wide(corpus, synth.generate_wide(log=log))
     kern.append(k13)
+    mark("join wide, build-wide")
     # the classic engine at full width: the 128-bit corpus over 14 levels
     launches_cl, infos_cl, ctab = phase_classic(corpus)
     mat5, _, w5, _ = real_batch(corpus, highest_k=25, min_k=12)
@@ -3451,6 +3961,7 @@ def run(preps, smi, t_all):
         ctab, mat5, R, w5, launches_cl["classic"], "128-bit k 12..25", ".L5")
     kern += k_cl5 + phase_kernels_per_batch(ctab, corpus["pairs"],
                                             launches_cl["classic pairs"])
+    mark("classic")
     del ctab
     forget_tables()
     # the tiered path: the runs, then each kernel on a batch of each run
@@ -3517,6 +4028,7 @@ def run(preps, smi, t_all):
                    "join_wide": info_jw, "launches_join_wide": launches_jw,
                    "oocore": info_oo, "launches_oocore": launches_oo,
                    "long": infos_long, "launches_long": launches_long,
+                   "mesh": info_mesh, "launches_mesh": launches_mesh,
                    "build_wide": info_bw,
                    "launches_build_golden_k25": launches_b,
                    "kernels": kern, "step_ms": step_ms,
@@ -3541,15 +4053,21 @@ def main():
     t_all = time.perf_counter()
     smi = smi_line()
     log(smi)
-    preps = start_prep()
+    cards = sys.argv[1:] == ["--cards"]
+    if sys.argv[1:] and not cards:
+        fail(f"unknown arguments {sys.argv[1:]}: none, or --cards")
+    preps = start_prep(("default",) if cards else PREP)
     try:
-        kern = run(preps, smi, t_all)
+        kern = None if cards else run(preps, smi, t_all)
+        if cards:
+            run_cards(preps, smi, t_all)
     finally:
         stop_prep(preps)
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_all:.1f} s")
     print(smi)
-    print(json.dumps({"kernels": kern}))
+    if kern is not None:
+        print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

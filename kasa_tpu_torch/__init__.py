@@ -1,6 +1,7 @@
 """kasa_tpu_torch: the kASA-compatible classifier on PyTorch and CUDA.
 
-A port of kasa_tpu (JAX) to one NVIDIA H100.  Every mode keeps kasa_tpu's
+A port of kasa_tpu (JAX) to NVIDIA H100s: one card, or a mesh of cards
+with one process each (parallel/).  Every mode keeps kasa_tpu's
 artifacts, tables and output bytes; the device work of identify and of
 the index build runs in hand-written CUDA kernels (csrc/, bound by
 kernels.py), each with a plain PyTorch version that the CPU tests run.

@@ -7,6 +7,8 @@ surface and every kasa_tpu mode.  Invoke as ``python -m kasa_tpu_torch
 
 from __future__ import annotations
 
+import contextlib
+import os
 import sys
 import time
 
@@ -280,13 +282,36 @@ def config_from_yaml(params: dict) -> Config:
     return cfg
 
 
+# the modes that may run the turbo mesh, on every rank of a
+# multi-process run; rank 0 alone runs the others
+MESH_MODES = ("identify", "identify_multiple")
+
+
 def main(argv: list[str] | None = None) -> int:
+    """Under torchrun (or parallel/launch.py) every rank runs this: it
+    joins the process group first (parallel/dist.py init_distributed);
+    ranks other than 0 print nothing to stdout and write no file."""
     argv = argv if argv is not None else sys.argv
     try:
         cfg = parse_args(argv)
-        t0 = time.time()
-        run_mode(cfg)
-        print(f"OUT: Time: {time.time() - t0} s")
+        from .parallel import dist as pdist
+        joined = not pdist.dist.is_initialized()
+        multi = pdist.init_distributed(cfg.device)
+        try:
+            if cfg.mode not in MESH_MODES:
+                pdist.writer_only()
+            quiet = multi and not pdist.is_writer()
+            with open(os.devnull, "w") as null, \
+                    contextlib.redirect_stdout(null if quiet
+                                               else sys.stdout):
+                t0 = time.time()
+                run_mode(cfg)
+                print(f"OUT: Time: {time.time() - t0} s")
+        except pdist.NotWriter:
+            pass
+        finally:
+            if joined:
+                pdist.shutdown()
         return 0
     except SystemExit as e:
         return int(e.code or 0)

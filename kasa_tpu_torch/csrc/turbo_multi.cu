@@ -44,6 +44,14 @@
 // slot gathers ceil(T/4) 16-byte taxa rows and issues 2T float atomics
 // on the 64 MB score rows (L2-resident); the worklist itself is small.
 //
+// Split entry points (the mesh, parallel/turbo_mesh.py): kasa_turbo_multi
+// queues all four; kasa_turbo_multi_cut queues scan, slots and cut, and
+// kasa_turbo_multi_expand the expansion alone, after the caller has ORed
+// the cut's flags over the index shards (kasa_tpu's flag_reduce,
+// turbo.py:768-769).  The split expansion also recounts the expansion
+// rows used (diag[1]) under those flags, one atomic per admitted slot;
+// the cut's count is the shard's own.
+//
 // Design: simple first.  The two single-block kernels walk at most B
 // worklist slots and R reads with 1024 threads; the expansion gives a
 // warp to a slot so a group's taxa rows load coalesced.
@@ -196,9 +204,9 @@ __global__ void multi_expand_kernel(const int32_t* __restrict__ wl_row0,
                                     const uint8_t* __restrict__ ofc,
                                     const int32_t* __restrict__ d_tax4,
                                     const float* __restrict__ weights,
-                                    const int32_t* __restrict__ diag,
+                                    int32_t* __restrict__ diag,
                                     const int32_t* __restrict__ file_of_read,
-                                    MultiParams p,
+                                    MultiParams p, int count_used,
                                     float* __restrict__ acc_ca,
                                     float* __restrict__ dm,
                                     float* __restrict__ a3w,
@@ -218,6 +226,7 @@ __global__ void multi_expand_kernel(const int32_t* __restrict__ wl_row0,
         const long long fk = (file_of_read ? (long long)file_of_read[r]
                                              * p.num_k : 0) + ki;
         if (row0 > 0) {
+            if (count_used && lane == 0) atomicAdd(&diag[1], (T + 3) >> 2);
             const float inv = 1.0f / (float)T;
             const float wv = weights[ki] * inv;
             const int lanes = ((T + 3) >> 2) * 4;
@@ -239,9 +248,9 @@ __global__ void multi_expand_kernel(const int32_t* __restrict__ wl_row0,
     }
 }
 
-}  // namespace
+enum { kCut = 1, kExpand = 2, kCountUsed = 4 };
 
-extern "C" int kasa_turbo_multi(
+int launch_multi(int parts,
         const void* cp, const void* mcnt, const void* runs,
         const void* grp2, const void* d_tax4, const void* t_hot,
         const void* weights, const void* file_of_read, int R, int SW, int n,
@@ -254,25 +263,62 @@ extern "C" int kasa_turbo_multi(
     if (R <= 0) return (int)cudaGetLastError();
     cudaStream_t st = (cudaStream_t)stream;
     MultiParams p{R, SW, n, num_k, S, H, DR, B, cw, hist_n, EB};
-    multi_scan_kernel<<<1, kScanThreads, 0, st>>>(
-        (const int32_t*)mcnt, R, (int32_t*)read_base, (int32_t*)diag);
-    multi_slots_kernel<<<R, 128, 0, st>>>(
-        (const int32_t*)cp, (const int32_t*)mcnt,
-        (const int32_t*)read_base, (const int32_t*)grp2,
-        (const int4*)d_tax4, (const int32_t*)t_hot, p,
-        (int32_t*)wl_row0, (int32_t*)wl_T, (int32_t*)wl_ridki,
-        (int32_t*)hist);
-    multi_cut_kernel<<<1, kScanThreads, 0, st>>>(
-        (const int32_t*)mcnt, (const int32_t*)runs,
-        (const int32_t*)read_base, (const int32_t*)wl_row0,
-        (const int32_t*)wl_T, (const int32_t*)hist, p, (int32_t*)r_cnt,
-        (int32_t*)r_rows, (uint8_t*)r_big, (uint8_t*)ofc, (int32_t*)diag);
-    multi_expand_kernel<<<expand_blocks, 256, 0, st>>>(
-        (const int32_t*)wl_row0, (const int32_t*)wl_T,
-        (const int32_t*)wl_ridki, (const uint8_t*)ofc,
-        (const int32_t*)d_tax4, (const float*)weights,
-        (const int32_t*)diag, (const int32_t*)file_of_read, p,
-        (float*)acc_ca, (float*)dm, (float*)a3w,
-        (float*)a3c);
+    if (parts & kCut) {
+        multi_scan_kernel<<<1, kScanThreads, 0, st>>>(
+            (const int32_t*)mcnt, R, (int32_t*)read_base, (int32_t*)diag);
+        multi_slots_kernel<<<R, 128, 0, st>>>(
+            (const int32_t*)cp, (const int32_t*)mcnt,
+            (const int32_t*)read_base, (const int32_t*)grp2,
+            (const int4*)d_tax4, (const int32_t*)t_hot, p,
+            (int32_t*)wl_row0, (int32_t*)wl_T, (int32_t*)wl_ridki,
+            (int32_t*)hist);
+        multi_cut_kernel<<<1, kScanThreads, 0, st>>>(
+            (const int32_t*)mcnt, (const int32_t*)runs,
+            (const int32_t*)read_base, (const int32_t*)wl_row0,
+            (const int32_t*)wl_T, (const int32_t*)hist, p, (int32_t*)r_cnt,
+            (int32_t*)r_rows, (uint8_t*)r_big, (uint8_t*)ofc,
+            (int32_t*)diag);
+    }
+    if (parts & kExpand) {
+        const int count_used = (parts & kCountUsed) != 0;
+        if (count_used)
+            cudaMemsetAsync((int32_t*)diag + 1, 0, sizeof(int32_t), st);
+        multi_expand_kernel<<<expand_blocks, 256, 0, st>>>(
+            (const int32_t*)wl_row0, (const int32_t*)wl_T,
+            (const int32_t*)wl_ridki, (const uint8_t*)ofc,
+            (const int32_t*)d_tax4, (const float*)weights,
+            (int32_t*)diag, (const int32_t*)file_of_read, p, count_used,
+            (float*)acc_ca, (float*)dm, (float*)a3w,
+            (float*)a3c);
+    }
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#define KASA_MULTI_PARAMS \
+        const void* cp, const void* mcnt, const void* runs, \
+        const void* grp2, const void* d_tax4, const void* t_hot, \
+        const void* weights, const void* file_of_read, int R, int SW, \
+        int n, int num_k, int S, int H, int DR, int B, long long EB, \
+        int cw, int hist_n, void* read_base, void* wl_row0, void* wl_T, \
+        void* wl_ridki, void* hist, void* r_cnt, void* r_rows, \
+        void* r_big, void* ofc, void* diag, void* acc_ca, void* dm, \
+        void* a3w, void* a3c, int expand_blocks, void* stream
+#define KASA_MULTI_ARGS \
+        cp, mcnt, runs, grp2, d_tax4, t_hot, weights, file_of_read, R, SW, \
+        n, num_k, S, H, DR, B, EB, cw, hist_n, read_base, wl_row0, wl_T, \
+        wl_ridki, hist, r_cnt, r_rows, r_big, ofc, diag, acc_ca, dm, a3w, \
+        a3c, expand_blocks, stream
+
+extern "C" int kasa_turbo_multi(KASA_MULTI_PARAMS) {
+    return launch_multi(kCut | kExpand, KASA_MULTI_ARGS);
+}
+
+extern "C" int kasa_turbo_multi_cut(KASA_MULTI_PARAMS) {
+    return launch_multi(kCut, KASA_MULTI_ARGS);
+}
+
+extern "C" int kasa_turbo_multi_expand(KASA_MULTI_PARAMS) {
+    return launch_multi(kExpand | kCountUsed, KASA_MULTI_ARGS);
 }

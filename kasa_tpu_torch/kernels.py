@@ -29,33 +29,39 @@ CSRC = os.path.join(_DIR, "csrc")
 BUILD = os.path.join(_DIR, "_build", "cuda")
 SOURCES = ("encode", "turbo_match", "turbo_reads", "turbo_multi", "dedup",
            "sparse_fold", "tiered_route", "tiered_pass", "classic_classify",
-           "join_match", "join_scatter", "query_sort", "sort_dedup")
+           "join_match", "join_scatter", "query_sort", "sort_dedup",
+           "mesh_merge")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches per kernel since the last reset_counts(): one per wrapper
 # call that launched (turbo_reads counts its pre and post entry points;
 # the long arms of K3 pre and K5 count apart, as "turbo_reads.long" and
-# "dedup.long")
+# "dedup.long"; K4 split for the mesh counts its cut as "turbo_multi"
+# and its expansion as "turbo_multi.split"; K14's long arm as
+# "mesh_merge.long")
 COUNTS = {"encode": 0, "turbo_match": 0, "turbo_reads": 0,
-          "turbo_reads.long": 0, "turbo_multi": 0, "dedup": 0,
-          "dedup.long": 0, "sparse_fold": 0, "tiered_route": 0,
+          "turbo_reads.long": 0, "turbo_multi": 0, "turbo_multi.split": 0,
+          "dedup": 0, "dedup.long": 0, "sparse_fold": 0, "tiered_route": 0,
           "tiered_pass": 0, "classic_classify": 0, "join_match": 0,
-          "join_scatter": 0, "query_sort": 0, "sort_dedup": 0}
+          "join_scatter": 0, "query_sort": 0, "sort_dedup": 0,
+          "mesh_merge": 0, "mesh_merge.long": 0}
 
 _libs: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_MULTI = [_P] * 8 + [_I] * 8 + [_L, _I, _I] + [_P] * 14 + [_I, _P]
 _ARGTYPES = {
     "kasa_encode_windows": [_P, _P] + [_I] * 7 + [_P, _P, _P],
     "kasa_turbo_match": [_P] * 6 + [_L] + [_I] * 7 + [_P, _P, _P],
     "kasa_turbo_reads_pre": [_P, _P] + [_I] * 5 + [_P] * 6,
     "kasa_turbo_reads_pre_long": [_P, _P] + [_I] * 4 + [_P] * 8,
     "kasa_turbo_reads_post": [_P] * 13 + [_I] * 9 + [_L] + [_P] * 8,
-    "kasa_turbo_multi": [_P] * 8 + [_I] * 8 + [_L, _I, _I] + [_P] * 14
-                        + [_I, _P],
+    "kasa_turbo_multi": _MULTI,
+    "kasa_turbo_multi_cut": _MULTI,
+    "kasa_turbo_multi_expand": _MULTI,
     "kasa_dedup_windows": [_P] + [_I] * 5 + [_P, _P],
     "kasa_dedup_windows_long": [_P] + [_I] * 4 + [_P] * 3,
     "kasa_sparse_fold": [_P] * 6 + [_I] * 6 + [_P] * 5,
@@ -66,6 +72,7 @@ _ARGTYPES = {
     "kasa_join_scatter": [_P] * 6 + [_L] * 2 + [_I] * 2 + [_P] * 2,
     "kasa_query_sort": [_P] * 7 + [_L, _I, _I, _P],
     "kasa_sort_dedup": [_P] * 7 + [_L, _I] + [_P] * 4,
+    "kasa_mesh_merge": [_P] * 4 + [_I] * 4 + [_L] + [_P] * 7,
 }
 _LIB_OF = {"kasa_encode_windows": "encode",
            "kasa_turbo_match": "turbo_match",
@@ -73,6 +80,8 @@ _LIB_OF = {"kasa_encode_windows": "encode",
            "kasa_turbo_reads_pre_long": "turbo_reads",
            "kasa_turbo_reads_post": "turbo_reads",
            "kasa_turbo_multi": "turbo_multi",
+           "kasa_turbo_multi_cut": "turbo_multi",
+           "kasa_turbo_multi_expand": "turbo_multi",
            "kasa_dedup_windows": "dedup",
            "kasa_dedup_windows_long": "dedup",
            "kasa_sparse_fold": "sparse_fold",
@@ -82,7 +91,8 @@ _LIB_OF = {"kasa_encode_windows": "encode",
            "kasa_join_match": "join_match",
            "kasa_join_scatter": "join_scatter",
            "kasa_query_sort": "query_sort",
-           "kasa_sort_dedup": "sort_dedup"}
+           "kasa_sort_dedup": "sort_dedup",
+           "kasa_mesh_merge": "mesh_merge"}
 
 
 def reset_counts() -> None:
@@ -377,9 +387,11 @@ def turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
 
 def turbo_multi(cp, mcnt, runs, tt, acc_ca, multi_budget: int,
                 exp_budget: int, cw: int, sent: int, file_of_read=None,
-                counts_only: bool = False):
+                counts_only: bool = False, flag_reduce=None):
     """counts_only (the sparse regime): no (R, S) score rows and no hot
-    credits are allocated or written; dm, a3w and a3c come back None."""
+    credits are allocated or written; dm, a3w and a3c come back None.
+    flag_reduce (the mesh): the cut and the expansion launch apart, and
+    the flags between them are replaced by flag_reduce(flags)."""
     dev = cp.device
     if dev.type != "cuda":
         raise ValueError("turbo_multi: the kernel takes CUDA tensors")
@@ -411,16 +423,20 @@ def turbo_multi(cp, mcnt, runs, tt, acc_ca, multi_budget: int,
         a3w = torch.zeros((R, H), **f32)
         a3c = torch.zeros((F * nk, H), **f32)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    _launch("kasa_turbo_multi", "turbo_multi", _ptr(cp), _ptr(mcnt),
-            _ptr(runs), _ptr(tt.grp2), _ptr(tt.d_tax4), _ptr(tt.t_hot),
-            _ptr(tt.weights),
-            _ptr(file_of_read),
+    args = (_ptr(cp), _ptr(mcnt), _ptr(runs), _ptr(tt.grp2), _ptr(tt.d_tax4),
+            _ptr(tt.t_hot), _ptr(tt.weights), _ptr(file_of_read),
             R, SW, tt.n, nk, S, H, tt.d_tax4.shape[0], B,
             int(exp_budget), cw, hist_n, _ptr(read_base), _ptr(wl[0]),
             _ptr(wl[1]), _ptr(wl[2]), _ptr(hist), _ptr(r_cnt),
             _ptr(r_rows), _ptr(r_big), _ptr(ofc), _ptr(diag),
             _ptr(acc_ca), _ptr(dm), _ptr(a3w), _ptr(a3c), sms * 8,
             _stream(dev))
+    if flag_reduce is None:
+        _launch("kasa_turbo_multi", "turbo_multi", *args)
+        return ofc, dm, a3w, a3c, diag
+    _launch("kasa_turbo_multi_cut", "turbo_multi", *args)
+    ofc.copy_(flag_reduce(ofc))
+    _launch("kasa_turbo_multi_expand", "turbo_multi.split", *args)
     return ofc, dm, a3w, a3c, diag
 
 
@@ -740,3 +756,44 @@ def sort_dedup(limbs: torch.Tensor, taxids: torch.Tensor):
             _ptr(hist), N, L, _ptr(q_out), _ptr(t_out), _ptr(nu),
             _stream(dev))
     return q_out, t_out, nu
+
+
+# ---------------------------------------------------------------------------
+# K14 mesh_merge (csrc/mesh_merge.cu)
+
+# pairs per read that K14 sorts in shared memory (64-bit keys, 32 KB); a
+# read with more takes the long arm (global scratch, segmented radix)
+MERGE_SHORT_CAP = 4096
+
+
+def mesh_merge(hts: torch.Tensor, hks: torch.Tensor, ofc: torch.Tensor,
+               ofl: torch.Tensor, cap: int):
+    """-> (packed (2R + 2 cap + 2,) int32, ht_m (R, wout) int32, hk_m
+    (R, wout) f32): the (ip, R, wout) shard lists merged per read and
+    CSR-packed (parallel/turbo_mesh.py mesh_merge_plain)."""
+    dev = hts.device
+    if dev.type != "cuda":
+        raise ValueError("mesh_merge: the kernel takes CUDA tensors")
+    ip, R, wout = hts.shape
+    _check(hts, "hts", torch.int32, (ip, R, wout), dev)
+    _check(hks, "hks", torch.float32, (ip, R, wout), dev)
+    _check(ofc, "ofc", torch.bool, (R,), dev)
+    _check(ofl, "ofl", torch.bool, (R,), dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    packed = torch.zeros((2 * R + 2 * cap + 2,), **i32)
+    ht_m = torch.empty((R, wout), **i32)
+    hk_m = torch.empty((R, wout), dtype=torch.float32, device=dev)
+    cum = torch.empty((R,), **i32)
+    P = _pow2(ip * wout)
+    if P <= MERGE_SHORT_CAP:
+        _launch("kasa_mesh_merge", "mesh_merge", _ptr(hts), _ptr(hks),
+                _ptr(ofc), _ptr(ofl), ip, R, wout, P, cap, None, None,
+                _ptr(cum), _ptr(ht_m), _ptr(hk_m), _ptr(packed),
+                _stream(dev))
+    else:
+        scr = torch.empty((2, R * ip * wout * 2), **i32)
+        _launch("kasa_mesh_merge", "mesh_merge.long", _ptr(hts), _ptr(hks),
+                _ptr(ofc), _ptr(ofl), ip, R, wout, 0, cap, _ptr(scr[0]),
+                _ptr(scr[1]), _ptr(cum), _ptr(ht_m), _ptr(hk_m),
+                _ptr(packed), _stream(dev))
+    return packed, ht_m, hk_m

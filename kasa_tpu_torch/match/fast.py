@@ -1,5 +1,6 @@
-"""Throughput identify pipeline (port of kasa_tpu/match/fast.py, one
-device).
+"""Throughput identify pipeline (port of kasa_tpu/match/fast.py): one
+device, or every rank of a process group on the turbo mesh
+(parallel/turbo_mesh.py, chosen here by select_turbo_dispatch).
 
 native file parse -> vectorized padded read matrix -> one turbo batch
 step on the device per batch (resident tables: match/turbo.py
@@ -185,9 +186,12 @@ def _len_bucket(n: int, minimum: int, step: int = 16) -> int:
 class TurboDispatchBase:
     """What the drive loop needs of every dispatch strategy besides
     dispatch(): the device count accumulators, the CSR capacity, the
-    asynchronous readback and its decode."""
+    asynchronous readback and its decode.  `writer`: this process
+    decodes and writes (every rank of a mesh dispatches; rank 0
+    writes)."""
 
     additive_fixup = False
+    writer = True
 
     def __init__(self, device: torch.device, num_k: int, num_species: int):
         self.device = device
@@ -210,6 +214,9 @@ class TurboDispatchBase:
 
     def csr_cap(self, rows_pad: int) -> int:
         return CSR_CAP_FACTOR * rows_pad
+
+    def round_rows(self, rows_pad: int) -> int:
+        return rows_pad
 
     def _to_host(self, tensors):
         return _to_host(tensors, self.device)
@@ -288,18 +295,39 @@ def _tiered(cfg, index_path, limbs, tax_rows, highest_k, budget, device,
                        if cfg.temp_path else None))
 
 
+def mesh_shape(world: int, min_ip: int, min_k: int,
+               num_limbs: int) -> tuple[int, int] | None:
+    """(dp, ip) of the turbo mesh, or None for one device (kasa_tpu
+    fast.py:797-816): KASA_MESH_IP / KASA_MESH_DP force a shape, ip
+    defaults to min_ip and dp to world // ip; no mesh when dp * ip <= 1
+    or above the world (the ranks stand for kasa_tpu's devices), below
+    min_k 6 or for tables of more than two limbs."""
+    ip = int(os.environ.get("KASA_MESH_IP", 0) or 0) or max(min_ip, 1)
+    dp = int(os.environ.get("KASA_MESH_DP", 0) or 0) or max(world // ip, 1)
+    if dp * ip <= 1 or dp * ip > world or min_k < 6 or num_limbs != 2:
+        return None
+    return dp, ip
+
+
 def select_turbo_dispatch(cfg, index_path, limbs, taxids, content,
                           highest_k, tax_rows, device: torch.device):
     """The dispatch strategy for this index on `device` (kasa_tpu
-    fast.py:299, single-device arm): resident turbo tables when they fit
-    the device budget (or -r); else, for a 64-bit index over at most six
-    k levels from min_k >= 6, tiered chunk streaming (also when the
-    resident tables' int32 row pointers would wrap).  None where kasa_tpu
-    returns None: the turbo structure does not apply, KASA_TPU_NO_TURBO
-    is set, or the row pointers would wrap without a tiered path (the
-    classic engine runs).  An over-budget index that tiered streaming
-    cannot take (128-bit, or min_k < 6) keeps resident tables, as
-    kasa_tpu does on one device (fast.py:342-351, 375-404)."""
+    fast.py:299): resident turbo tables when they fit the device budget
+    (or -r); over the budget, a 64-bit index over at most six k levels
+    from min_k >= 6 first shards over the mesh's "ip" when 1/ip of the
+    tables fits (the smallest such ip up to the world size), else takes
+    tiered chunk streaming (also when the resident tables' int32 row
+    pointers would wrap); a forced mesh (KASA_MESH_IP / KASA_MESH_DP)
+    never streams.  The mesh (parallel/turbo_mesh.py) runs whenever the
+    process group has more than one rank or a shape is forced
+    (mesh_shape).  None where kasa_tpu returns None: the turbo structure
+    does not apply, KASA_TPU_NO_TURBO is set, or the row pointers would
+    wrap without a tiered path (the classic engine runs).  An
+    over-budget index that neither the mesh nor tiered streaming can
+    take keeps resident tables, as kasa_tpu does (fast.py:342-351,
+    375-404).  In a multi-process run, a rank other than 0 whose route
+    is not the mesh raises NotWriter (parallel/dist.py writer_only)."""
+    from ..parallel import dist as pdist
     from .tiered import TMAX, chunk_entries_for
     from .turbo import (TurboRowOverflow, load_or_build_turbo,
                         turbo_supported)
@@ -313,11 +341,34 @@ def select_turbo_dispatch(cfg, index_path, limbs, taxids, content,
                        and min_k >= 6 and S < (1 << 24))
     if not (eligible_resident or eligible_tiered) \
             or os.environ.get("KASA_TPU_NO_TURBO"):
+        pdist.writer_only()
         return None
+    world = pdist.world_size()
     budget = device_table_budget(cfg, device)
+    if world > 1:
+        # every rank takes the same route: the smallest rank's budget
+        # (ranks that share a card see different free memory); on the
+        # rank's device, which NCCL needs
+        b = torch.tensor([budget], dtype=torch.int64, device=device)
+        torch.distributed.all_reduce(b, op=torch.distributed.ReduceOp.MIN)
+        budget = int(b.item())
     table_bytes = bytes_per_entry_resident(num_k, num_limbs) * max(n_idx, 1)
     over = not cfg.ram and table_bytes > budget
-    if eligible_tiered and over:
+    min_ip = 1
+    if over and min_k >= 6:
+        while min_ip < world and table_bytes // min_ip > budget:
+            min_ip <<= 1
+        if table_bytes // min_ip > budget or min_ip > world or min_ip == 1:
+            min_ip = 0          # sharding cannot fit: tiered
+    mesh_forced = max(int(os.environ.get("KASA_MESH_IP", "0") or 0),
+                      int(os.environ.get("KASA_MESH_DP", "0") or 0)) > 1
+    shape = mesh_shape(world, max(min_ip, 1), min_k, num_limbs) \
+        if eligible_resident else None
+    tiered = eligible_tiered and over \
+        and (min_ip == 0 or not eligible_resident) and not mesh_forced
+    if shape is None or tiered:
+        pdist.writer_only()
+    if tiered:
         print(f"OUT: turbo tables ({table_bytes >> 20} MiB) exceed the "
               "memory budget; tiered turbo streams "
               f"{chunk_entries_for(budget, num_k)}-entry "
@@ -327,7 +378,10 @@ def select_turbo_dispatch(cfg, index_path, limbs, taxids, content,
     if not eligible_resident:
         raise FastPathUnavailable(
             "index too large for resident turbo and tiered streaming was "
-            "excluded (-r)")
+            "excluded (-r or mesh override)")
+    if shape is not None and shape[1] > 1:
+        return make_mesh_dispatch(cfg, index_path, limbs, tax_rows,
+                                  highest_k, S, device, *shape)
     try:
         content_token = os.stat(cfg.content_file
                                 or index_path + "_content.txt").st_mtime_ns
@@ -340,13 +394,45 @@ def select_turbo_dispatch(cfg, index_path, limbs, taxids, content,
     except TurboRowOverflow as e:
         # multi-heavy index: the resident tables' int32 row pointers
         # would wrap; the tiered chunks' tables stay int32-safe
+        pdist.writer_only()
         if not eligible_tiered:
             print(f"OUT: {e}; using the classic engine", flush=True)
             return None
         print(f"OUT: {e}; streaming tiered turbo instead", flush=True)
         return _tiered(cfg, index_path, limbs, tax_rows, highest_k, budget,
                        device, S)
+    if shape is not None:
+        return make_mesh_dispatch(cfg, index_path, limbs, tax_rows,
+                                  highest_k, S, device, *shape, whole=tt)
     return SingleTurboDispatch(tt, num_k, S)
+
+
+def make_mesh_dispatch(cfg, index_path, limbs, tax_rows, highest_k: int,
+                       num_species: int, device, dp: int, ip: int,
+                       whole=None):
+    """The turbo mesh over every rank (kasa_tpu fast.py:797
+    make_turbo_dispatch's mesh arm): each rank builds its ip shard's
+    tables (at ip = 1 the whole index's, `whole`), rank 0 also holds the
+    whole index's host tables for the exact recompute."""
+    from ..parallel.dist import make_identify_mesh
+    from ..parallel.turbo_mesh import (MeshTurboDispatch,
+                                       ShardedTurboTables,
+                                       whole_host_tables)
+    mesh = make_identify_mesh(ip=ip, dp=dp)
+    min_k, max_k = cfg.lower_k, cfg.higher_k
+    if whole is not None:
+        st = ShardedTurboTables(whole, 0, 1, np.array([0, len(tax_rows)]),
+                                whole)
+    else:
+        host = whole_host_tables(index_path, limbs, tax_rows, highest_k,
+                                 min_k, max_k, num_species) \
+            if mesh.rank == 0 else None
+        st = ShardedTurboTables.build(limbs, tax_rows, highest_k, min_k,
+                                      max_k, num_species, ip, mesh.ip_index,
+                                      device, host, index_path)
+    if mesh.rank == 0:
+        print(f"OUT: turbo mesh active: {mesh.describe()}", flush=True)
+    return MeshTurboDispatch(st, mesh)
 
 
 def _parse(path: str):
@@ -726,8 +812,18 @@ def _fast_identify_turbo(cfg, disp, asm, lpr, mate_views, name_blob,
     mode = dict(protein=protein, one_frame=cfg.one_frame,
                 lines_per_read=lpr, unique=cfg.unique)
 
+    per_file_counts = segments is not None \
+        and any(seg["profile"] for seg in segments)
+    if not disp.writer:
+        # a mesh rank other than 0 dispatches its dp blocks and joins
+        # every collective (with rank 0's count slabs); rank 0 alone
+        # recomputes, ranks and writes
+        out_file = profile_file = None
+        for seg in segments or ():
+            seg["out"] = seg["profile"] = None
+
     ranker = None
-    if out_file or cfg.filter:
+    if disp.writer and (out_file or cfg.filter):
         ranker = NativeRanker(
             content.idx_to_tax, content.organisms, freqs[:, 0],
             min_k, max_k, highest_k, protein, cfg.num_frames,
@@ -737,8 +833,6 @@ def _fast_identify_turbo(cfg, disp, asm, lpr, mate_views, name_blob,
         if not ranker.ok:
             raise RuntimeError("the native ranker is unavailable")
 
-    per_file_counts = segments is not None \
-        and any(seg["profile"] for seg in segments)
     # with per-file counts every file has its own (numK, S) slab, on the
     # device and on the host
     acc_lead = (len(segments),) if per_file_counts else ()
@@ -922,7 +1016,7 @@ def _fast_identify_turbo(cfg, disp, asm, lpr, mate_views, name_blob,
                                      .astype(np.int64))
                     nk += int(asm.true_counts(blens).sum())
                 maxlen = _len_bucket(line_target, asm.min_line)
-                rows_pad = _bucket(r1 - r0, 512)
+                rows_pad = disp.round_rows(_bucket(r1 - r0, 512))
                 mat = asm.assemble_multi(blobs, offs_list, maxlen, rows_pad)
             if sin_flush >= COUNT_FLUSH:
                 flush_counts()
@@ -979,7 +1073,7 @@ def _fast_identify_turbo(cfg, disp, asm, lpr, mate_views, name_blob,
             num_kmers_in_input, R_total, min_k, max_k, cfg.num_frames,
             coverage=False)
 
-    if cfg.filter:
+    if cfg.filter and ranker is not None:
         from .pipeline import write_filtered
         write_filtered(cfg, input_path, filtered_ids)
 

@@ -359,7 +359,10 @@ def _identify_per_batch(cfg: Config, index_path: str, input_path: str,
     over the memory budget, match/oocore.py); join: match/join.py;
     exact: match/exact.py or the 128-bit walk -- then ranked and written
     per read; --coherence scores the reads' overlapping match runs,
-    --visualize prints the walk's matches."""
+    --visualize prints the walk's matches.  In a multi-process run only
+    rank 0 runs them (no mesh arm): another rank raises NotWriter."""
+    from ..parallel.dist import writer_only
+    writer_only()
     from ..core import kmer
     from ..core.encode import Encoder, custom_code_lut
     from ..host import fastx

@@ -632,7 +632,8 @@ def turbo_reads_pre(skey: torch.Tensor, mpay: torch.Tensor | None,
 
 def turbo_multi_plain(cp, mcnt, runs, tt: TurboTables, acc_ca,
                       multi_budget: int, exp_budget: int,
-                      file_of_read=None, counts_only: bool = False):
+                      file_of_read=None, counts_only: bool = False,
+                      flag_reduce=None):
     """The batch's multi slots in read-major worklist order (at most
     B = min(multi_budget, R*SW) of them): exact T from the group header
     or the hot-set table; cold slots sorted stably by T and admitted
@@ -644,6 +645,9 @@ def turbo_multi_plain(cp, mcnt, runs, tt: TurboTables, acc_ca,
     read r counts in slab file_of_read[r] (kasa_tpu's fused_turbo_files).
     counts_only (the sparse regime, kasa_tpu's cflat at turbo.py:871-880)
     adds to acc_ca only: dm, a3w and a3c come back None.
+    flag_reduce (the mesh, kasa_tpu turbo.py:768-769): called on the
+    per-read flags after the cut and before anything is counted; its
+    result (the flags ORed over the index shards) masks the expansion.
 
     -> ofc (R,) bool, dm (R, S) f32, a3w (R, H) f32, a3c (F*numK, H) f32,
        diag (2,) int32 [multi slots, expansion rows used]."""
@@ -689,6 +693,8 @@ def turbo_multi_plain(cp, mcnt, runs, tt: TurboTables, acc_ca,
     ofc = of_i | (runs > CW)
     if batch_of:
         ofc = ofc | (mcnt > 0)
+    if flag_reduce is not None:
+        ofc = flag_reduce(ofc)
     ok_slot = fits & ~ofc[rid_s]
     eused = int(rows_per[ok_slot].sum())
 
@@ -736,15 +742,17 @@ def turbo_multi_plain(cp, mcnt, runs, tt: TurboTables, acc_ca,
 
 def turbo_multi(cp, mcnt, runs, tt: TurboTables, acc_ca,
                 multi_budget: int, exp_budget: int, file_of_read=None,
-                counts_only: bool = False):
-    """K4 wrapper."""
+                counts_only: bool = False, flag_reduce=None):
+    """K4 wrapper.  With flag_reduce the kernel runs split: the cut, then
+    flag_reduce on its flags, then the expansion under the result."""
     if cp.device.type == "cpu":
         return turbo_multi_plain(cp, mcnt, runs, tt, acc_ca, multi_budget,
-                                 exp_budget, file_of_read, counts_only)
+                                 exp_budget, file_of_read, counts_only,
+                                 flag_reduce)
     from .. import kernels
     return kernels.turbo_multi(cp, mcnt, runs, tt, acc_ca, multi_budget,
                                exp_budget, CW, SENT, file_of_read,
-                               counts_only)
+                               counts_only, flag_reduce)
 
 
 # ---------------------------------------------------------------------------
@@ -1041,20 +1049,23 @@ def turbo_core(tt: TurboTables, q: torch.Tensor, num_reads: int,
                acc_cu: torch.Tensor, csr_cap: int,
                multi_budget: int | None = None,
                exp_budget: int | None = None, file_of_read=None,
-               wout: int = WOUT):
+               wout: int = WOUT, flag_reduce=None):
     """The classify step on (R * kpr, L) int32 windows in read-major
     layout (kasa_tpu's _turbo_core plus the packed tail): K2, K3 (pre),
     K4, then the dense fold (the two hot-set products) or, for more than
     SPARSE_FOLD_S species without a hot tier, the sparse fold (K4's
     counts-only arm and K6), then K3 (post).  The dense fold lists up to
-    wout multi taxa a read, the sparse fold K6's WM."""
+    wout multi taxa a read, the sparse fold K6's WM.  flag_reduce (the
+    mesh) makes K4's count-overflow flags global before anything is
+    counted: K4 expands, K6 folds and K3 post counts under them."""
     sparse = tt.hotmask.shape[0] <= 1 and tt.num_species > SPARSE_FOLD_S
     mb = int(multi_budget or MULTI_BUDGET)
     eb = int(exp_budget or EXP_BUDGET)
     skey, mpay = turbo_match(q, tt, num_reads, kmers_per_read)
     ck, cc, runs, mcnt, cp = turbo_reads_pre(skey, mpay)
     ofc, dm, a3w, a3c, diag = turbo_multi(cp, mcnt, runs, tt, acc_ca, mb, eb,
-                                          file_of_read, counts_only=sparse)
+                                          file_of_read, counts_only=sparse,
+                                          flag_reduce=flag_reduce)
     if sparse:
         mlist = sparse_fold(cp, mcnt, ofc, tt)
         return turbo_reads_post(ck, cc, ofc, None, tt.weights, acc_ca,
@@ -1309,10 +1320,11 @@ def load_turbo_np(path: str, limbs: np.ndarray,
 def load_or_build_turbo(index_path: str, limbs: np.ndarray,
                         tax_rows: np.ndarray, highest_k: int, min_k: int,
                         max_k: int, num_species: int, device,
-                        content_token=None) -> TurboTables:
+                        content_token=None, tag: str = "") -> TurboTables:
     """Process + disk cached turbo tables for an on-disk index: the
-    sidecar `<index>.turbo_<minK>_<maxK>.npz.tabs` is read when fresh,
-    else the tables are built and the sidecar written.
+    sidecar `<index>.turbo_<minK>_<maxK><tag>.npz.tabs` is read when
+    fresh, else the tables are built and the sidecar written.  A mesh
+    shard passes its slice of the index and a tag naming the shard.
 
     content_token: a stamp of the content file (its mtime_ns): with it,
     repeat calls hit the RAM cache without re-CRCing the tax-row
@@ -1323,7 +1335,7 @@ def load_or_build_turbo(index_path: str, limbs: np.ndarray,
         try:
             fast_key = (os.path.abspath(index_path),
                         os.path.getmtime(index_path), min_k, max_k,
-                        num_species, "tok", content_token, str(device))
+                        num_species, "tok", content_token, str(device), tag)
         except OSError:
             fast_key = None
         if fast_key in _TT_RAM_CACHE:
@@ -1333,7 +1345,7 @@ def load_or_build_turbo(index_path: str, limbs: np.ndarray,
     key = None
     try:
         key = (os.path.abspath(index_path), os.path.getmtime(index_path),
-               min_k, max_k, num_species, tax_crc, str(device))
+               min_k, max_k, num_species, tax_crc, str(device), tag)
     except OSError:
         pass
     if key is not None and key in _TT_RAM_CACHE:
@@ -1341,7 +1353,7 @@ def load_or_build_turbo(index_path: str, limbs: np.ndarray,
             _TT_RAM_CACHE[fast_key] = _TT_RAM_CACHE[key]
         return _TT_RAM_CACHE[key]
     got = None
-    cache_path = f"{index_path}.turbo_{min_k}_{max_k}.npz"
+    cache_path = f"{index_path}.turbo_{min_k}_{max_k}{tag}.npz"
     meta_path = os.path.join(cache_path + ".tabs", "meta.json")
     fresh = (os.path.exists(meta_path)
              and os.path.getmtime(meta_path) >= os.path.getmtime(index_path))

@@ -2,8 +2,8 @@
 versions, on the card: K1-K13, the per-file, counts-only, list,
 additive and sloppy arms, the five-limb arms of K1, K2 and K5, and the
 long arms (K3 pre and K5 above 4,096 slots or windows per read, K6's
-slot table in global memory).  CUDA kernels have no CPU mode: without a
-GPU these tests skip.  On a machine with one (and without JAX):
+slot table in global memory), K4 split for the mesh and K14 mesh_merge.
+CUDA kernels have no CPU mode: without a GPU these tests skip.  On a machine with one (and without JAX):
 
     python3 -m pytest --noconftest -q -m cuda tests/test_torch_kernels.py
 """
@@ -769,3 +769,86 @@ def test_sort_dedup_kernel(cuda, N, L):
     assert torch.equal(got[0].cpu(), want[0].cpu())
     assert torch.equal(got[1].cpu(), want[1].cpu())
     assert len(want[1]) <= N
+
+
+@pytest.mark.parametrize("budget_drop", [False, True])
+def test_turbo_multi_split_kernel(cuda, budget_drop):
+    """K4 split (the mesh's flag_reduce between its cut and expansion)
+    against the plain version's split, with a reduce that ORs in every
+    fifth read as another shard would; flag_reduce=None stays the fused
+    launch."""
+    from kasa_tpu_torch import kernels
+    from kasa_tpu_torch.match import turbo as PT
+    arrays, meta, q_np, R, kpr, eb = _tiers(budget_drop)
+    tt = PT.tables_from_numpy(arrays, meta, cuda)
+    q = torch.from_numpy(q_np).to(cuda)
+    S, nk = meta["num_species"], 6
+    skey, mpay = PT.turbo_match_plain(q, tt, R, kpr)
+    ck, cc, runs, mcnt, cp = PT.turbo_reads_pre_plain(skey, mpay)
+    extra = torch.zeros(R, dtype=torch.bool, device=cuda)
+    extra[::5] = True
+    seen = []
+
+    def reduce(f):
+        seen.append(f.clone())
+        return f | extra
+    ca1 = torch.zeros((nk, S), device=cuda)
+    ca2 = torch.zeros((nk, S), device=cuda)
+    kernels.reset_counts()
+    m1 = PT.turbo_multi(cp, mcnt, runs, tt, ca1, PT.MULTI_BUDGET,
+                        eb or PT.EXP_BUDGET, flag_reduce=reduce)
+    assert kernels.COUNTS["turbo_multi"] == 1
+    assert kernels.COUNTS["turbo_multi.split"] == 1
+    m2 = PT.turbo_multi_plain(cp, mcnt, runs, tt, ca2, PT.MULTI_BUDGET,
+                              eb or PT.EXP_BUDGET, flag_reduce=reduce)
+    assert torch.equal(seen[0].cpu(), seen[1].cpu())    # the cut's flags
+    assert torch.equal(m1[0].cpu(), m2[0].cpu())
+    assert torch.equal(m1[4].cpu(), m2[4].cpu())
+    for a, b in zip(m1[1:4], m2[1:4]):
+        _close(a, b)
+    _close(ca1, ca2)
+    assert bool((m1[1][extra] == 0).all())
+    ca3 = torch.zeros((nk, S), device=cuda)
+    m3 = PT.turbo_multi(cp, mcnt, runs, tt, ca3, PT.MULTI_BUDGET,
+                        eb or PT.EXP_BUDGET)
+    assert kernels.COUNTS["turbo_multi.split"] == 1
+    assert torch.equal(m3[0].cpu(), seen[0].cpu())
+
+
+def _shard_lists(ip, R, wout, seed):
+    rng = np.random.default_rng(seed)
+    hts = np.full((ip, R, wout), 2 ** 31 - 1, np.int32)
+    hks = np.zeros((ip, R, wout), np.float32)
+    for s in range(ip):
+        n = rng.integers(0, wout + 1, size=R)
+        for r in range(R):
+            taxa = np.sort(rng.choice(3 * wout, size=n[r], replace=False))
+            hts[s, r, :n[r]] = taxa
+            hks[s, r, :n[r]] = rng.random(n[r]).astype(np.float32) * 3
+    return hts, hks, rng.random(R) < 0.1, rng.random(R) < 0.1
+
+
+@pytest.mark.parametrize("ip,R,wout,cap", [
+    (2, 100, 160, 64_000), (4, 33, 20, 200), (8, 40, 640, 50_000),
+    (3, 1000, 160, 400_000)])
+def test_mesh_merge_kernel(cuda, ip, R, wout, cap):
+    """K14 against its plain version: shared taxa, empty slots, reads
+    over wout taxa, a CSR that overflows (cap 200), and the long arm
+    (8 x 640 pairs a read, sorted in global memory)."""
+    from kasa_tpu_torch import kernels
+    from kasa_tpu_torch.parallel.turbo_mesh import (mesh_merge,
+                                                    mesh_merge_plain)
+    hts, hks, ofc, ofl = _shard_lists(ip, R, wout, ip * R)
+    args = [torch.from_numpy(a) for a in (hts, hks, ofc, ofl | ofc)]
+    kernels.reset_counts()
+    got = mesh_merge(*(a.to(cuda) for a in args), cap)
+    long = ip * wout > kernels.MERGE_SHORT_CAP
+    assert kernels.COUNTS["mesh_merge.long" if long else "mesh_merge"] == 1
+    want = mesh_merge_plain(*args, cap)
+    p1, p2 = got[0].cpu(), want[0]
+    ints = torch.ones(p1.numel(), dtype=torch.bool)
+    ints[2 * R + 1:2 * R + 2 * cap:2] = False
+    assert torch.equal(p1[ints], p2[ints])
+    _close(p1[~ints].view(torch.float32), p2[~ints].view(torch.float32))
+    assert torch.equal(got[1].cpu(), want[1])
+    _close(got[2], want[2])

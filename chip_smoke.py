@@ -83,10 +83,11 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
   long     8,192 long reads (1-8 kbp) of the default corpus: the first
            1,024, default and -e, and 8,192 pairs of 2 x 250 bp under
            --six through identify (K3's long arm on every batch, K5's
-           under -e), each with the launch counts reset just before and
-           read just after; K3's and K5's long arms against their plain
-           versions on the batch of all 8,192, timed; the first 256 long
-           reads, default and -e, against the port's CPU run;
+           shared-memory arm under -e), each with the launch counts reset
+           just before and read just after; K3's and K5's long arms
+           against their plain versions on the batch of all 8,192, timed
+           beside torch.sort (K5); the first 256 long reads, default and
+           -e, against the port's CPU run;
   budgets  multi slots and flagged reads of a --six, a paired and a
            paired --six batch at kasa_tpu's fixed budgets and at twice
            them, beside the worklist the drive loop gives each;
@@ -111,9 +112,11 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
            written; hit taxa and unique counts identical, all-counts
            within rtol 2e-5 / atol 2e-3, scores within the contract):
            reads/s, the join/* and identify/* host stages, the device's
-           busy share; then K12, K10 and K11 on the run's first batch
-           against their plain versions, timed, with torch.sort,
-           torch.searchsorted and index_put_ as yardsticks;
+           busy share; then K12 (as the path calls it, the batch's read
+           ids ascending, and its read-id arm; each stage timed), K10
+           and K11 on the run's first batch against their plain versions,
+           timed, with torch.sort, torch.searchsorted and index_put_ as
+           yardsticks;
   oocore   8,192 read pairs of the default corpus under KASA_TPU_NO_TURBO
            with a 700 MiB -m (6 index chunks, their cache built first)
            against the resident per-batch run (-r): chunks, batches, MB
@@ -151,7 +154,10 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
            five-limb entries) at k 20..25: the 65,536 smoke reads,
            default and --six -e, with the same prints and sample checks;
            then the five-limb arms of K1, K2 and K5 against their plain
-           versions on real batches, timed;
+           versions on real batches, timed; the first 256 long reads
+           under --six -e (~16,000 windows of five limbs a read: K5's
+           global arm), and that arm against its plain version on
+           synthetic batches above the shared-memory capacity, timed;
   build-wide  the default corpus's 2,047 genomes as a FASTA built at -k
            25 through the port's CLI (one K13 call over ~32.9 M entries);
            the first 512 genomes built with a soft limit of 2^21 entries
@@ -2780,7 +2786,8 @@ def phase_kernels_join(t, batch, launches, suffix, what):
     order, each against its plain version (integers identical, scores
     within the contract), timed with CUDA events after a warm-up, with
     its bound and, where one exists, a PyTorch call as yardstick.
-    -> (kernel entries, the three kernels' ms per batch)."""
+    -> (kernel entries, the three kernels' ms per batch, K12's read-id
+    arm and stage times)."""
     import numpy as np
     import torch
     from kasa_tpu_torch.match import join as J
@@ -2789,17 +2796,32 @@ def phase_kernels_join(t, batch, launches, suffix, what):
     q = torch.from_numpy(np.ascontiguousarray(q_np, np.int32)).to(d)
     r = torch.from_numpy(np.ascontiguousarray(r_np, np.int32)).to(d)
     M, L = q.shape
-    # K12
-    qs, rs = J.sort_queries(q, r, R)
+    # K12 as the join path calls it (the batch's read ids ascend: the
+    # limbs alone), then its read-id arm on the same batch; the plain
+    # version sorts by (limbs, read id) in both
+    qs, rs = J.sort_queries(q, r, R, ids_ascending=True)
     pq, pr = J.sort_queries_plain(q, r)
     same(f"query_sort{suffix}.limbs", qs, pq)
     same(f"query_sort{suffix}.read_ids", rs, pr)
-    ms12 = time_ms(lambda: J.sort_queries(q, r, R), 10)
+    q2, r2 = J.sort_queries(q, r, R)
+    same(f"query_sort{suffix}.rid_arm.limbs", q2, pq)
+    same(f"query_sort{suffix}.rid_arm.read_ids", r2, pr)
+    del q2, r2
+    ms12 = time_ms(lambda: J.sort_queries(q, r, R, ids_ascending=True), 10)
+    rid_bits = max(R - 1, 0).bit_length()
+    k12 = {"ms_rid_arm": time_ms(lambda: J.sort_queries(q, r, R), 10),
+           "rid_bits": rid_bits,
+           "stages_ms": k12_stages(q, r, 0),
+           "stages_ms_rid_arm": k12_stages(q, r, rid_bits)}
     plain12 = time_ms(lambda: J.sort_queries_plain(q, r), 3)
     lib12 = None
     if L == 2:
         keys = (q[:, 0].long() << 30) | q[:, 1].long()
         lib12 = time_ms(lambda: torch.sort(keys, stable=True), 10)
+    log(f"kernel query_sort{suffix}: the read-id arm ({rid_bits} bits) "
+        f"{k12['ms_rid_arm']:.4f} ms; stage ms (histogram and scan, then "
+        f"each pass): ids ascending {k12['stages_ms']}, read-id arm "
+        f"{k12['stages_ms_rid_arm']}")
     # K10
     got = J.join_match(t, qs)
     want = J.join_match_plain(t, qs)
@@ -2852,7 +2874,22 @@ def phase_kernels_join(t, batch, launches, suffix, what):
                       "kasa_tpu/match/join.py:200", launches["join_scatter"],
                       err11, ms11, plain11, bytes11, lib11,
                       "index_put_(accumulate=True) of the expanded pairs")]
-    return e, ms12 + ms10 + ms11
+    return e, ms12 + ms10 + ms11, k12
+
+
+def k12_stages(q, r, rid_bits):
+    """K12's stage times on (q, r) over rid_bits bits of the read ids, in
+    ms: the memset, histogram and scan launches, then each digit pass
+    (CUDA events between the launches; the second of two calls)."""
+    import torch
+    from kasa_tpu_torch import kernels
+    passes, _ = kernels.query_sort_plan(q.shape[0], q.shape[1], rid_bits)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(passes + 2)]
+    for _ in range(2):
+        kernels.query_sort(q, r, rid_bits, marks=marks)
+        torch.cuda.synchronize()
+    return [round(marks[i].elapsed_time(marks[i + 1]), 4)
+            for i in range(passes + 1)]
 
 
 def phase_oocore(corpus):
@@ -3126,6 +3163,103 @@ def phase_long(corpus):
 
     return [k3, k5], {t: r[0] for t, r in runs.items()}, \
         {t: r[1] for t, r in runs.items()}
+
+
+def phase_dedup_global(wide_index):
+    """K5's global arm, for reads too long for the shared-memory arm: the
+    first LONG_CPU_READS long reads under --six -e on the wide index at k
+    20..25 (about 16,000 windows of five limbs a read) through identify,
+    the launch counts reset just before and read just after; then the
+    arm against its plain version on that run's batch (the same reads as
+    the main path lays them out, encoded at L = 5), timed; and on
+    synthetic batches above the shared-memory capacity (256 reads of
+    12,000 windows at L = 5, of 20,000 at L = 2, logged), beside
+    torch.sort of the (R, kpr) 60-bit keys at L = 2.
+    -> (the real batch's kernel entry, info)."""
+    import numpy as np
+    import torch
+    from kasa_tpu_torch import kernels
+    from kasa_tpu_torch.core import encode as E
+    from kasa_tpu_torch.core.alphabet import build_codon_code_lut
+    from kasa_tpu_torch.match import turbo as T
+    tag = "wide long --six -e"
+    sub = os.path.join(HERE, ".synth_corpus", "long",
+                       f"long_head{LONG_CPU_READS}.fastq")
+    stem = os.path.join(OUT, "wide_long_six_e")
+    (ca, cu, nreads, _), launches, info = drive(
+        tag, sub, stem + ".json", stem + ".csv",
+        LONG_KERNELS + ("dedup.global",),
+        over={"lower_k": 20, "higher_k": 25, "six_frames": True,
+              "unique": True}, corpus={"index": wide_index})
+    if nreads != LONG_CPU_READS or not np.isfinite(ca).all() \
+            or cu.sum() <= 0:
+        fail(f"{tag}: wrong read count or empty / non-finite counts")
+    if launches["dedup.long"] or launches["dedup"]:
+        fail(f"{tag}: K5 took another arm: {launches}")
+    dev = torch.device(DEVICE)
+
+    def arm(kpr, L):
+        got = kernels.dedup_arm(kpr, kernels.dedup_long_max(L, dev))
+        if got != "global":
+            fail(f"dedup.global: {kpr} windows at L = {L} take the {got} "
+                 "arm")
+
+    # the run's batch: its reads, both frames' rows a read, at L = 5
+    mat, R, w, lpr = real_batch(None, six=True, highest_k=25, min_k=20,
+                                R=LONG_CPU_READS, path=sub)
+    lut = torch.from_numpy(build_codon_code_lut().astype(np.int32)).to(dev)
+    mat_d = torch.from_numpy(mat).to(dev)
+    q = E.encode_windows(mat_d, lut, w, highest_k=25)
+    kpr, L = w * lpr, q.shape[1]
+    arm(kpr, L)
+    want = T.dedup_windows_plain(q, R, kpr)
+    same("dedup.global", T.dedup_windows(q, R, kpr), want)
+    npois = int((want[:, 0] == T.POISON_LIMB).sum())
+    del want
+    ms = time_ms(lambda: T.dedup_windows(q, R, kpr), 5)
+    plain_ms = time_ms(lambda: T.dedup_windows_plain(q, R, kpr), 2)
+    entry = kernel_entry("dedup.global", "kasa_tpu_torch/csrc/dedup.cu",
+                         "kasa_tpu/match/turbo.py:128",
+                         launches["dedup.global"], 0.0, ms, plain_ms,
+                         2 * q.numel() * 4, None)
+    log(f"kernel dedup.global on the run's batch: R={R}, kpr={kpr}, "
+        f"L={L}, {npois} poisoned (no single PyTorch call sorts "
+        "five-limb rows per read)")
+    info["batch"] = dict(R=R, kpr=kpr, L=L, ms=ms, plain_ms=plain_ms)
+    del q, mat_d
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(20261017)
+    info["synthetic"] = {}
+    for R, kpr, L in ((256, 20_000, 2), (256, 12_000, 5)):
+        arm(kpr, L)
+        q = rng.integers(1 << 24, 1 << 30, size=(R * kpr, L),
+                         dtype=np.int32)
+        src = rng.integers(0, R * kpr, size=R * kpr // 10)
+        q[(src // kpr) * kpr + rng.integers(0, kpr, size=len(src))] = q[src]
+        q = torch.from_numpy(q).to(dev)
+        same(f"dedup.global L={L}", T.dedup_windows(q, R, kpr),
+             T.dedup_windows_plain(q, R, kpr))
+        ms = time_ms(lambda: T.dedup_windows(q, R, kpr), 5)
+        plain_ms = time_ms(lambda: T.dedup_windows_plain(q, R, kpr), 2)
+        lib_ms = None
+        if L == 2:
+            keys = ((q[:, 0].long() << 30) | q[:, 1].long()).reshape(R, kpr)
+            lib_ms = time_ms(lambda: torch.sort(keys, dim=1), 5)
+            del keys
+        info["synthetic"][f"L{L}"] = dict(R=R, kpr=kpr, ms=ms,
+                                          plain_ms=plain_ms, lib_ms=lib_ms)
+        log(f"kernel dedup.global on a synthetic batch ({R} x {kpr}, "
+            f"L = {L}): {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+            f"{2 * q.numel() * 4 / HBM_BYTES_PER_S * 1e3:.4f} ms"
+            + (f"; torch.sort of the (R, kpr) int64 keys {lib_ms:.4f} ms"
+               if lib_ms is not None else "") + ")")
+        del q
+        torch.cuda.empty_cache()
+    log(f"{tag}: K5's global arm launched {launches['dedup.global']} "
+        "times; on the run's batch and on synthetic batches above the "
+        "shared-memory capacity it agrees with its plain version")
+    return entry, info
 
 
 GOLDEN_BUILDS = (
@@ -3909,7 +4043,7 @@ def run(preps, smi, t_all):
     # the same index, while its classic tables sit in the RAM cache
     launches_jn, info_jn, jbatch = phase_join(
         "join", corpus["index"], corpus["smoke"], {}, synth.SMOKE_READS)
-    k_jn, steps["join"] = phase_kernels_join(
+    k_jn, steps["join"], info_jn["k12"] = phase_kernels_join(
         jbatch[0].tables, jbatch, launches_jn, "", "join run (L = 2)")
     kern += k_jn
     launches_oo, info_oo, k_oo = phase_oocore(corpus)
@@ -3935,6 +4069,9 @@ def run(preps, smi, t_all):
         disp_w, corpus, launches_w["wide"], launches_w["wide --six -e"])
     steps.update(steps_w)
     kern += k_sparse + k_wide
+    # K5's global arm: long reads under --six -e on the wide tables
+    k5g, info_k5g = phase_dedup_global(synth.generate_wide(log=log)["index"])
+    kern.append(k5g)
     mark("sparse, wide")
     wide_index = synth.generate_wide(log=log)["index"]
     _, cvt["wide"], _ = classic_vs_turbo(
@@ -3945,7 +4082,7 @@ def run(preps, smi, t_all):
     launches_jw, info_jw, jbatch = phase_join(
         "join wide", wide_index, corpus["warm"],
         {"lower_k": 20, "higher_k": 25}, synth.WARM_READS)
-    k_jw, steps["join_wide"] = phase_kernels_join(
+    k_jw, steps["join_wide"], info_jw["k12"] = phase_kernels_join(
         jbatch[0].tables, jbatch, launches_jw, ".L5", "join wide run")
     kern += k_jw
     del disp_w, jbatch
@@ -4028,6 +4165,7 @@ def run(preps, smi, t_all):
                    "join_wide": info_jw, "launches_join_wide": launches_jw,
                    "oocore": info_oo, "launches_oocore": launches_oo,
                    "long": infos_long, "launches_long": launches_long,
+                   "dedup_global": info_k5g,
                    "mesh": info_mesh, "launches_mesh": launches_mesh,
                    "build_wide": info_bw,
                    "launches_build_golden_k25": launches_b,

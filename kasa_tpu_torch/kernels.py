@@ -36,16 +36,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # launches per kernel since the last reset_counts(): one per wrapper
 # call that launched (turbo_reads counts its pre and post entry points;
-# the long arms of K3 pre and K5 count apart, as "turbo_reads.long" and
-# "dedup.long"; K4 split for the mesh counts its cut as "turbo_multi"
-# and its expansion as "turbo_multi.split"; K14's long arm as
-# "mesh_merge.long")
+# the long arms of K3 pre and K5 count apart, as "turbo_reads.long",
+# "dedup.long" (shared memory) and "dedup.global"; K4 split for the mesh
+# counts its cut as "turbo_multi" and its expansion as
+# "turbo_multi.split"; K14's long arm as "mesh_merge.long")
 COUNTS = {"encode": 0, "turbo_match": 0, "turbo_reads": 0,
           "turbo_reads.long": 0, "turbo_multi": 0, "turbo_multi.split": 0,
-          "dedup": 0, "dedup.long": 0, "sparse_fold": 0, "tiered_route": 0,
-          "tiered_pass": 0, "classic_classify": 0, "join_match": 0,
-          "join_scatter": 0, "query_sort": 0, "sort_dedup": 0,
-          "mesh_merge": 0, "mesh_merge.long": 0}
+          "dedup": 0, "dedup.long": 0, "dedup.global": 0, "sparse_fold": 0,
+          "tiered_route": 0, "tiered_pass": 0, "classic_classify": 0,
+          "join_match": 0, "join_scatter": 0, "query_sort": 0,
+          "sort_dedup": 0, "mesh_merge": 0, "mesh_merge.long": 0}
 
 _libs: dict = {}
 
@@ -63,15 +63,19 @@ _ARGTYPES = {
     "kasa_turbo_multi_cut": _MULTI,
     "kasa_turbo_multi_expand": _MULTI,
     "kasa_dedup_windows": [_P] + [_I] * 5 + [_P, _P],
-    "kasa_dedup_windows_long": [_P] + [_I] * 4 + [_P] * 3,
+    "kasa_dedup_windows_long": [_P] + [_I] * 4 + [_P] * 2,
+    "kasa_dedup_windows_global": [_P] + [_I] * 4 + [_P] * 3,
+    "kasa_dedup_long_max_kpr": [_I, _I],
     "kasa_sparse_fold": [_P] * 6 + [_I] * 6 + [_P] * 5,
     "kasa_tiered_route": [_P, _P, _L, _I, _I, _I, _I] + [_P] * 6,
     "kasa_tiered_pass": [_P] * 10 + [_L, _L] + [_I] * 11 + [_P] * 5,
     "kasa_classic_classify": [_P] * 11 + [_L] * 4 + [_I] * 8 + [_P] * 5,
     "kasa_join_match": [_P] * 7 + [_L] * 3 + [_I] * 4 + [_P] * 6,
     "kasa_join_scatter": [_P] * 6 + [_L] * 2 + [_I] * 2 + [_P] * 2,
-    "kasa_query_sort": [_P] * 7 + [_L, _I, _I, _P],
+    "kasa_query_sort": [_P] * 7 + [_L, _I, _I, _P, _P],
+    "kasa_query_sort_plan": [_L, _I, _I, _P],
     "kasa_sort_dedup": [_P] * 7 + [_L, _I] + [_P] * 4,
+    "kasa_sort_dedup_plan": [_L, _I, _P],
     "kasa_mesh_merge": [_P] * 4 + [_I] * 4 + [_L] + [_P] * 7,
 }
 _LIB_OF = {"kasa_encode_windows": "encode",
@@ -84,6 +88,8 @@ _LIB_OF = {"kasa_encode_windows": "encode",
            "kasa_turbo_multi_expand": "turbo_multi",
            "kasa_dedup_windows": "dedup",
            "kasa_dedup_windows_long": "dedup",
+           "kasa_dedup_windows_global": "dedup",
+           "kasa_dedup_long_max_kpr": "dedup",
            "kasa_sparse_fold": "sparse_fold",
            "kasa_tiered_route": "tiered_route",
            "kasa_tiered_pass": "tiered_pass",
@@ -91,7 +97,9 @@ _LIB_OF = {"kasa_encode_windows": "encode",
            "kasa_join_match": "join_match",
            "kasa_join_scatter": "join_scatter",
            "kasa_query_sort": "query_sort",
+           "kasa_query_sort_plan": "query_sort",
            "kasa_sort_dedup": "sort_dedup",
+           "kasa_sort_dedup_plan": "sort_dedup",
            "kasa_mesh_merge": "mesh_merge"}
 
 
@@ -185,6 +193,14 @@ def _launch(sym: str, counter: str, *args) -> None:
     COUNTS[counter] += 1
     if rc != 0:
         raise RuntimeError(f"{sym}: CUDA error {rc}")
+
+
+def _sort_plan(sym: str, *args) -> tuple[int, int]:
+    """-> (digit passes, int32 words of scratch) of a radix sort, from
+    the library's own digit width and tile (csrc/radix.cuh)."""
+    words = ctypes.c_longlong(0)
+    passes = _fn(sym)(*args, ctypes.byref(words))
+    return passes, words.value
 
 
 def _stream(device) -> int:
@@ -443,6 +459,31 @@ def turbo_multi(cp, mcnt, runs, tt, acc_ca, multi_budget: int,
 # ---------------------------------------------------------------------------
 # K5 dedup (csrc/dedup.cu)
 
+def dedup_long_max(L: int, device: torch.device) -> int:
+    """The most windows a read may have for K5's shared-memory arm at L
+    limbs on the card `device`: what one block's opt-in shared memory
+    holds of rows and indices beside the kernel's fixed part (dedup.cu
+    kasa_dedup_long_max_kpr)."""
+    idx = torch.cuda.current_device() if device.index is None \
+        else device.index
+    n = _fn("kasa_dedup_long_max_kpr")(L, idx)
+    if n < 0:
+        raise RuntimeError(f"kasa_dedup_long_max_kpr: CUDA error {-n}")
+    return n
+
+
+def dedup_arm(kpr: int, long_max: int) -> str:
+    """K5's arm for reads of kpr windows: "short" (a bitonic sort of up
+    to DEDUP_CAP windows in shared memory), "long" (radix passes over the
+    read's rows in shared memory, up to long_max windows:
+    dedup_long_max) or "global" (segmented radix passes in global
+    memory)."""
+    from .match.turbo import DEDUP_CAP
+    if _pow2(kpr) <= DEDUP_CAP:
+        return "short"
+    return "long" if kpr <= long_max else "global"
+
+
 def dedup_windows(q: torch.Tensor, num_reads: int, kmers_per_read: int,
                   poison: int) -> torch.Tensor:
     dev = q.device
@@ -452,18 +493,18 @@ def dedup_windows(q: torch.Tensor, num_reads: int, kmers_per_read: int,
     if not 2 <= L <= 5:
         raise ValueError(f"q: {L} limbs, the kernel takes 2..5")
     _check(q, "q", torch.int32, (R * kpr, L), dev)
-    from .match.turbo import DEDUP_CAP
-    P = _pow2(kpr)
     out = torch.empty_like(q)
-    # one read's rows sit in shared memory, P * 4L bytes, up to P = 4096
-    # windows; longer reads take the long arm (counted as "dedup.long")
-    if P <= DEDUP_CAP:
-        _launch("kasa_dedup_windows", "dedup", _ptr(q), R, kpr, L, P, poison,
-                _ptr(out), _stream(dev))
+    arm = dedup_arm(kpr, dedup_long_max(L, dev))
+    if arm == "short":
+        _launch("kasa_dedup_windows", "dedup", _ptr(q), R, kpr, L,
+                _pow2(kpr), poison, _ptr(out), _stream(dev))
+    elif arm == "long":
+        _launch("kasa_dedup_windows_long", "dedup.long", _ptr(q), R, kpr, L,
+                poison, _ptr(out), _stream(dev))
     else:
         scratch = torch.empty_like(q)
-        _launch("kasa_dedup_windows_long", "dedup.long", _ptr(q), R, kpr, L,
-                poison, _ptr(scratch), _ptr(out), _stream(dev))
+        _launch("kasa_dedup_windows_global", "dedup.global", _ptr(q), R, kpr,
+                L, poison, _ptr(scratch), _ptr(out), _stream(dev))
     return out
 
 
@@ -692,14 +733,19 @@ def join_scatter(t, valid, T, start, read_ids, num_reads: int):
 # ---------------------------------------------------------------------------
 # K12 query_sort (csrc/query_sort.cu)
 
-SORT_TILE = 1024      # elements per block of one radix pass
+def query_sort_plan(M: int, L: int, rid_bits: int) -> tuple[int, int]:
+    """-> (digit passes, int32 scratch words) of K12 on (M, L) rows."""
+    return _sort_plan("kasa_query_sort_plan", M, L, rid_bits)
 
 
-def query_sort(q, read_ids, rid_bits: int):
-    """-> (q, read_ids) sorted by (limbs..., read id) (match/join.py
-    sort_queries_plain): one 8-bit digit pass per byte of the read ids'
-    rid_bits low bits, then four per 30-bit limb, from the last limb to
-    the first."""
+def query_sort(q, read_ids, rid_bits: int, marks=None):
+    """-> (q, read_ids) sorted stably by (limbs..., the read ids' low
+    rid_bits bits) (match/join.py sort_queries_plain, for ids below
+    2^rid_bits): the one-sweep radix passes over the read ids' digits,
+    then each 30-bit limb's, from the last limb to the first.  marks:
+    None, or passes + 2 torch.cuda.Events, recorded before the histogram
+    launch, after the digit starts and after each pass (chip_smoke.py
+    times the stages with them)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError("query_sort: the kernel takes CUDA tensors")
@@ -712,14 +758,21 @@ def query_sort(q, read_ids, rid_bits: int):
     _check(read_ids, "read_ids", torch.int32, (M,), dev)
     if M == 0:
         return q.clone(), read_ids.clone()
-    passes = -(-rid_bits // 8) + 4 * L
-    blocks = -(-M // SORT_TILE)
+    passes, words = query_sort_plan(M, L, rid_bits)
+    handles = None
+    if marks is not None:
+        if len(marks) != passes + 2:
+            raise ValueError(f"{len(marks)} marks for {passes} passes")
+        for ev in marks:
+            ev.record()           # creates the event
+        handles = (ctypes.c_void_p * len(marks))(
+            *[ev.cuda_event for ev in marks])
     qa, qb = torch.empty_like(q), torch.empty_like(q)
     ra, rb = torch.empty_like(read_ids), torch.empty_like(read_ids)
-    hist = torch.empty((256 * blocks + 256,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((words,), dtype=torch.int32, device=dev)
     _launch("kasa_query_sort", "query_sort", _ptr(q), _ptr(read_ids),
-            _ptr(qa), _ptr(ra), _ptr(qb), _ptr(rb), _ptr(hist), M, L,
-            rid_bits, _stream(dev))
+            _ptr(qa), _ptr(ra), _ptr(qb), _ptr(rb), _ptr(scratch), M, L,
+            rid_bits, _stream(dev), handles)
     # pass p writes buffer a when p is even: the last pass, passes - 1
     return (qa, ra) if passes % 2 else (qb, rb)
 
@@ -745,10 +798,10 @@ def sort_dedup(limbs: torch.Tensor, taxids: torch.Tensor):
     nu = torch.zeros((), dtype=torch.int32, device=dev)
     if N == 0:
         return limbs.clone(), taxids.clone(), nu
-    blocks = -(-N // SORT_TILE)
+    _, words = _sort_plan("kasa_sort_dedup_plan", N, L)
     scr_q = torch.empty((2, N, L), dtype=torch.int32, device=dev)
     scr_t = torch.empty((2, N), dtype=torch.int32, device=dev)
-    hist = torch.empty((256 * blocks + 256,), dtype=torch.int32, device=dev)
+    hist = torch.empty((words,), dtype=torch.int32, device=dev)
     q_out = torch.empty_like(limbs)
     t_out = torch.empty_like(taxids)
     _launch("kasa_sort_dedup", "sort_dedup", _ptr(limbs), _ptr(taxids),

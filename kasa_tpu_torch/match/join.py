@@ -207,16 +207,20 @@ def sort_queries_plain(q: torch.Tensor, read_ids: torch.Tensor):
     return q[order], read_ids[order]
 
 
-def sort_queries(q: torch.Tensor, read_ids: torch.Tensor, num_reads: int):
+def sort_queries(q: torch.Tensor, read_ids: torch.Tensor, num_reads: int,
+                 ids_ascending: bool = False):
     """K12 wrapper (kasa_tpu join.py:225): (M, L) int32 windows and (M,)
     int32 read ids in [0, num_reads) -> both sorted by (limbs...,
     read id).  kasa_tpu's lax.sort orders by the limbs only, so its read
-    ids among equal windows come in an unspecified order."""
+    ids among equal windows come in an unspecified order.  When the ids
+    already ascend (ids_ascending: a batch as encode_batch lays it out,
+    its lines in order), the kernel sorts stably by the limbs alone,
+    which keeps that order."""
     if q.device.type == "cpu":
         return sort_queries_plain(q, read_ids)
     from .. import kernels
-    return kernels.query_sort(q, read_ids, max(num_reads - 1, 0)
-                              .bit_length())
+    rid_bits = 0 if ids_ascending else max(num_reads - 1, 0).bit_length()
+    return kernels.query_sort(q, read_ids, rid_bits)
 
 
 def _check_match(t, q):
@@ -335,9 +339,13 @@ def match_and_score(ji: JoinIndex, q_limbs: np.ndarray,
         return res
     d = t.device
     with timers.stage("join/sort"):
+        rid = np.ascontiguousarray(read_ids, np.int32)
+        # encode_batch's read ids ascend (one id per line, lines in
+        # order): K12 then sorts by the limbs alone
+        ascending = bool((rid[1:] >= rid[:-1]).all())
         q = torch.from_numpy(np.ascontiguousarray(q_limbs, np.int32)).to(d)
-        r = torch.from_numpy(np.ascontiguousarray(read_ids, np.int32)).to(d)
-        q, r = sort_queries(q, r, num_reads)
+        r = torch.from_numpy(rid).to(d)
+        q, r = sort_queries(q, r, num_reads, ids_ascending=ascending)
         if unique:
             # -e: duplicate (kmer, readID) pairs dropped on the host, as
             # in kasa_tpu (join.py:263-277); the order stays (limbs...,

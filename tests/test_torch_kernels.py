@@ -1,8 +1,10 @@
 """The CUDA kernels of kasa_tpu_torch against their plain PyTorch
 versions, on the card: K1-K13, the per-file, counts-only, list,
-additive and sloppy arms, the five-limb arms of K1, K2 and K5, and the
-long arms (K3 pre and K5 above 4,096 slots or windows per read, K6's
-slot table in global memory), K4 split for the mesh and K14 mesh_merge.
+additive and sloppy arms, the five-limb arms of K1, K2 and K5, the long
+arms (K3 pre and K5 above 4,096 slots or windows per read, K5's in
+shared memory and, past its capacity, in global memory; K6's slot table
+in global memory), K12's ascending-id arm, K4 split for the mesh and
+K14 mesh_merge.
 CUDA kernels have no CPU mode: without a GPU these tests skip.  On a machine with one (and without JAX):
 
     python3 -m pytest --noconftest -q -m cuda tests/test_torch_kernels.py
@@ -627,26 +629,97 @@ def test_query_sort_kernel(cuda, M, L, R):
     assert torch.equal(got[1].cpu(), want[1].cpu())
 
 
+def _sweep_tile(L):
+    """Rows per tile of the one-sweep passes (csrc/radix.cuh sweep_tile)."""
+    return 256 * min(12, 48 // (L + 1))
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("size", ["one", "tile-1", "tile", "tile+1", "many",
+                                  "equal"])
+def test_query_sort_ascending_ids_kernel(cuda, size, L):
+    """K12 as the join path calls it, sort_queries(..., ids_ascending=True):
+    a stable sort by the limbs alone over read ids that ascend, identical
+    to the plain (limbs, read id) sort at M = 1, at a tile's edges, over
+    many tiles, and with every key equal (each tile's look-back then
+    waits on one digit of every earlier tile)."""
+    from kasa_tpu_torch import kernels
+    from kasa_tpu_torch.match.join import sort_queries, sort_queries_plain
+    tile = _sweep_tile(L)
+    M = {"one": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+         "many": 37 * tile + 5, "equal": 37 * tile + 5}[size]
+    rng = np.random.default_rng(M + L)
+    q = rng.integers(0, 1 << 30, size=(M, L), dtype=np.int64)
+    q[:, 0] &= 0x3FFFF000
+    q[::3] = q[0]
+    if size == "equal":
+        q[:] = q[0]
+    R = max(M // 100, 1)
+    rid = np.sort(rng.integers(0, R, size=M)).astype(np.int32)
+    qd = torch.from_numpy(q.astype(np.int32)).to(cuda)
+    rd = torch.from_numpy(rid).to(cuda)
+    n = kernels.COUNTS["query_sort"]
+    got = sort_queries(qd, rd, R, ids_ascending=True)
+    assert kernels.COUNTS["query_sort"] == n + 1
+    want = sort_queries_plain(qd, rd)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0].cpu())
+    assert torch.equal(got[1].cpu(), want[1].cpu())
+
+
 # ---------------------------------------------------------------------------
 # long read lines: the long arms of K3 (pre) and K5, K6's global table
 
-@pytest.mark.parametrize("L,kpr", [(2, 4097), (2, 9000), (5, 5000)])
-def test_dedup_kernel_long_arm(cuda, L, kpr):
-    """K5 above 4,096 windows per read: the global-memory sort, the same
-    sorted layout and poisoned duplicates as the plain version."""
-    from kasa_tpu_torch import kernels
-    from kasa_tpu_torch.match import turbo as PT
-    rng = np.random.default_rng(kpr + L)
-    R = 6
+def _dup_windows(R, kpr, L, seed):
+    """(R * kpr, L) int32 windows with few distinct first limbs and a
+    third of them copies of others in the same read."""
+    rng = np.random.default_rng(seed)
     q = rng.integers(0, 1 << 30, size=(R * kpr, L), dtype=np.int32)
     q[:, 0] &= 0x3F
     src = rng.integers(0, R * kpr, size=R * kpr // 3)
     q[(src // kpr) * kpr + rng.integers(0, kpr, size=len(src))] = q[src]
-    qd = torch.from_numpy(q).to(cuda)
+    return q
+
+
+@pytest.mark.parametrize("L,kpr", [(2, 4097), (2, 9000), (5, 5000)])
+def test_dedup_kernel_long_arm(cuda, L, kpr):
+    """K5 above 4,096 windows per read: the shared-memory radix arm, the
+    same sorted layout and poisoned duplicates as the plain version."""
+    from kasa_tpu_torch import kernels
+    from kasa_tpu_torch.match import turbo as PT
+    R = 6
+    qd = torch.from_numpy(_dup_windows(R, kpr, L, kpr + L)).to(cuda)
     n = kernels.COUNTS["dedup.long"]
     got = PT.dedup_windows(qd, R, kpr)
     assert kernels.COUNTS["dedup.long"] == n + 1
     want = PT.dedup_windows_plain(qd, R, kpr)
+    assert torch.equal(got.cpu(), want.cpu())
+    assert int((want == PT.POISON_LIMB).all(dim=1).sum()) > 0
+
+
+@pytest.mark.parametrize("L,edge", [(2, "first"), (2, "last"), (2, "over"),
+                                    (5, "first"), (5, "last"), (5, "over")])
+def test_dedup_kernel_arms(cuda, L, edge):
+    """K5 at the edges of its shared-memory arm: 4,097 windows a read, the
+    last kpr whose rows and indices fit one block
+    (kernels.dedup_long_max), and one more, which takes the global arm;
+    each launch counted under its own arm only, each identical to the
+    plain version."""
+    from kasa_tpu_torch import kernels
+    from kasa_tpu_torch.match import turbo as PT
+    last = kernels.dedup_long_max(L, cuda)
+    assert PT.DEDUP_CAP < last < 65_535
+    kpr = {"first": PT.DEDUP_CAP + 1, "last": last, "over": last + 1}[edge]
+    arm = "dedup.global" if edge == "over" else "dedup.long"
+    R = 3
+    qd = torch.from_numpy(_dup_windows(R, kpr, L, kpr)).to(cuda)
+    before = dict(kernels.COUNTS)
+    got = PT.dedup_windows(qd, R, kpr)
+    moved = {k: v - before[k] for k, v in kernels.COUNTS.items()
+             if v != before[k]}
+    assert moved == {arm: 1}
+    want = PT.dedup_windows_plain(qd, R, kpr)
+    torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want.cpu())
     assert int((want == PT.POISON_LIMB).all(dim=1).sum()) > 0
 

@@ -719,7 +719,9 @@ def classic_bytes(t, q, read_ids, valid, R):
     the prefix entries, the distinct sectors of the index that its
     search reads (search_sectors) and of run_end, the grp_id, grp_start
     and d_tax cells of the matched groups, the masks and weights, and
-    the outputs once (the (R, S) score rows, the two count tables)."""
+    the outputs once (the (R, S) score rows, the two count tables).
+    -> (bytes, the (window, level, taxon) adds: the sum of T over the
+    matched (window, level) pairs)."""
     import torch
     from kasa_tpu_torch.match.device import _valid_levels
     n, L, nk, S = t.n, q.shape[1], t.num_k, t.num_species
@@ -733,6 +735,7 @@ def classic_bytes(t, q, read_ids, valid, R):
     at = t.idx_limbs[pos.clamp(max=n - 1)]
     pr = t.idx_limbs[(pos - 1).clamp(min=0)]
     gid, gst, dtx = [], [], []
+    adds = 0
     for ki in range(nk):
         m = t.masks[ki]
         qm = qa & m
@@ -743,6 +746,7 @@ def classic_bytes(t, q, read_ids, valid, R):
         g = t.grp_id[ki][e].long()
         ts = t.grp_start[ki][g].long()
         T = t.grp_start[ki][g + 1].long() - ts
+        adds += int(T.sum())
         gid.append(torch.unique(ki * n + e))
         gst.append(torch.unique(ki * t.grp_start.shape[1]
                                 + torch.cat([g, g + 1])))
@@ -756,14 +760,31 @@ def classic_bytes(t, q, read_ids, valid, R):
             + 32 * int(idx_sec.numel())
             + sector_bytes(runs, 4) + sector_bytes(cat(gid), 4)
             + sector_bytes(cat(gst), 4) + sector_bytes(cat(dtx), 4)
-            + nk * (L + 1) * 4 + R * S * 4 + 2 * nk * S * 4 + 4)
+            + nk * (L + 1) * 4 + R * S * 4 + 2 * nk * S * 4 + 4), adds
 
 
-def k9_against_plain(tables, q, read_ids, valid, R, kpr, suffix, what):
+K9_ARMS = ("classic_classify", "classic_classify.global")
+
+
+def k9_launches(tag, counts):
+    """K9's launches on a path of this script, every one on its local
+    arm: each path hands K9 the uniform layout or read ids that ascend
+    (the global arm takes the others, and rows above the card's shared
+    memory; phase_kernels_per_batch holds it to its plain version)."""
+    if counts["classic_classify.global"]:
+        fail(f"{tag}: K9's global arm ran {counts['classic_classify.global']}"
+             " times on a path whose read ids ascend")
+    return counts["classic_classify"]
+
+
+def k9_against_plain(tables, q, read_ids, valid, R, kpr, suffix, what,
+                     arm="classic_classify"):
     """K9 on one batch against its plain version (hit cells, unique
     counts and tail_pairs identical, floats within the contract), then
-    both timed.  -> (max abs err, ms, plain ms)."""
+    both timed; fails unless the batch took the arm `arm` (its counter).
+    -> (max abs err, ms, plain ms, bytes of its bound)."""
     import torch
+    from kasa_tpu_torch import kernels
     from kasa_tpu_torch.match import device as D
     from kasa_tpu_torch.match.engine import CAP
 
@@ -773,7 +794,11 @@ def k9_against_plain(tables, q, read_ids, valid, R, kpr, suffix, what):
     def plain():
         return D.classify_batch_plain(tables, q, read_ids, valid, R, CAP,
                                       kpr)
+    before = {a: kernels.COUNTS[a] for a in K9_ARMS}
     got, want = k9(), plain()
+    took = [a for a in K9_ARMS if kernels.COUNTS[a] > before[a]]
+    if took != [arm]:
+        fail(f"{arm}{suffix}: the batch took K9's arm {took}")
     same(f"classic_classify{suffix}.hit_cells", got[0] > 0, want[0] > 0)
     same(f"classic_classify{suffix}.counts_unique", got[2], want[2])
     if int(got[3]) != want[3]:
@@ -782,12 +807,16 @@ def k9_against_plain(tables, q, read_ids, valid, R, kpr, suffix, what):
     err = max(close(f"classic_classify{suffix}.scores", got[0], want[0]),
               close(f"classic_classify{suffix}.counts_all", got[1], want[1]))
     torch.cuda.synchronize()
-    log(f"kernels classic: classic_classify agrees with its plain version "
-        f"on a {R}-read batch of the {what} (M={q.shape[0]:,} windows, "
-        f"{int(valid.sum()):,} valid, L={q.shape[1]}, {tables.num_k} "
-        f"levels, n={tables.n:,}, S={tables.num_species}, hit cells "
-        f"{int((want[0] > 0).sum()):,}, tail_pairs {want[3]:,})")
-    return err, time_ms(k9, 10), time_ms(plain, 3)
+    nbytes, adds = classic_bytes(tables, q, read_ids, valid, R)
+    ms = time_ms(k9, 10)
+    log(f"kernels classic: classic_classify{suffix} agrees with its plain "
+        f"version on a {R}-read batch of the {what} (M={q.shape[0]:,} "
+        f"windows, {int(valid.sum()):,} valid, L={q.shape[1]}, "
+        f"{tables.num_k} levels, n={tables.n:,}, S={tables.num_species}, "
+        f"hit cells {int((want[0] > 0).sum()):,}, tail_pairs {want[3]:,}); "
+        f"arm {arm}, (window, level, taxon) adds {adds:,}, "
+        f"{1e6 * ms / q.shape[0]:.4f} ns a window")
+    return err, ms, time_ms(plain, 3), nbytes
 
 
 def phase_kernels_classic(tables, mat, R, w, launches, tag, suffix,
@@ -808,8 +837,8 @@ def phase_kernels_classic(tables, mat, R, w, launches, tag, suffix,
     mat_d = torch.from_numpy(mat).to(dev)
     q = E.encode_windows(mat_d, lut, w, highest_k=hk)
     valid = torch.ones(q.shape[0], dtype=torch.bool, device=dev)
-    err, ms, plain_ms = k9_against_plain(tables, q, None, valid, R, w,
-                                         suffix, f"{tag} run (uniform layout)")
+    err, ms, plain_ms, nbytes = k9_against_plain(
+        tables, q, None, valid, R, w, suffix, f"{tag} run (uniform layout)")
     lib_ms = None
     if q.shape[1] == 2:
         keys64 = (tables.idx_limbs[:, 0].long() << 30) \
@@ -821,9 +850,9 @@ def phase_kernels_classic(tables, mat, R, w, launches, tag, suffix,
         f"{tag} run (K1, K9, the zeroed score rows)")
     out = [kernel_entry(
         f"classic_classify{suffix}", "kasa_tpu_torch/csrc/classic_classify.cu",
-        "kasa_tpu/match/device.py:156", launches["classic_classify"], err,
-        ms, plain_ms, classic_bytes(tables, q, None, valid, R), lib_ms,
-        "torch.searchsorted over the 60-bit keys")]
+        "kasa_tpu/match/device.py:156",
+        k9_launches(f"classic_classify{suffix}", launches), err, ms,
+        plain_ms, nbytes, lib_ms, "torch.searchsorted over the 60-bit keys")]
     if sloppy_launches is not None:
         aas = torch.from_numpy(E.aas_code_lut()).to(dev)
         qs = E.encode_windows(mat_d, lut, w, aas_lut=aas)
@@ -846,7 +875,9 @@ def phase_kernels_per_batch(tables, pairs, launches):
     as _identify_per_batch builds it: K1 on the (1, n) line buffer
     against its plain version, then K9 in the layout TpuEngine gives the
     batch (the scatter layout: S > DENSE_MAX_S) against its plain
-    version, each timed.  -> kernel entries."""
+    version, each timed; then K9's global arm on the same windows in key
+    order (as -e's dedup hands them), held to its plain version and
+    timed, off every path this script drives.  -> kernel entries."""
     import numpy as np
     import torch
     from kasa_tpu_torch.config import Config
@@ -888,18 +919,30 @@ def phase_kernels_per_batch(tables, pairs, launches):
     if r is None:
         fail("per-batch: the pairs batch took the uniform layout, "
              "expected the scatter layout")
-    q, r, v = (torch.from_numpy(a).to(DEVICE) for a in (q, r, v))
-    err9, ms9, plain9 = k9_against_plain(
-        tables, q, r, v, R, kpr, ".scatter",
+    order = np.lexsort(q.T[::-1])
+    qd, rd, vd = (torch.from_numpy(a).to(DEVICE) for a in (q, r, v))
+    err9, ms9, plain9, bytes9 = k9_against_plain(
+        tables, qd, rd, vd, R, kpr, ".scatter",
         "classic pairs run (per-batch engine, scatter layout)")
+    qd, rd, vd = (torch.from_numpy(np.ascontiguousarray(a[order])).to(DEVICE)
+                  for a in (q, r, v))
+    errg, msg, plaing, _ = k9_against_plain(
+        tables, qd, rd, vd, R, kpr, ".scatter",
+        "classic pairs run, its windows in key order", "classic_classify.global")
+    log(f"kernels classic: classic_classify.global (the global arm, on no "
+        f"path of this script) on the pairs batch in key order: {msg:.4f} ms "
+        f"(plain version {plaing:.4f} ms, max abs err {errg}) against the "
+        f"local arm's {ms9:.4f} ms on the batch in read order")
+    del qd, rd, vd
     return [kernel_entry(
         "encode.flat", "kasa_tpu_torch/csrc/encode.cu",
         "kasa_tpu/core/encode.py:70", launches["encode"], err1, ms1, plain1,
         len(buf) + q1.numel() * 4, None),
         kernel_entry(
         "classic_classify.scatter", "kasa_tpu_torch/csrc/classic_classify.cu",
-        "kasa_tpu/match/device.py:156", launches["classic_classify"], err9,
-        ms9, plain9, classic_bytes(tables, q, r, v, R), None)]
+        "kasa_tpu/match/device.py:156",
+        k9_launches("classic_classify.scatter", launches), err9, ms9,
+        plain9, bytes9, None)]
 
 
 def classic_vs_turbo(tag, index, reads, over, n_reads):
@@ -2078,7 +2121,8 @@ def phase_kernels_wide(disp, corpus, launches, launches_e):
 # ---------------------------------------------------------------------------
 # the tiered beyond-resident path (a device budget below the tables)
 
-TIERED_KERNELS = ("encode", "tiered_route", "tiered_pass", "turbo_reads")
+TIERED_KERNELS = ("encode", "tiered_route", "tiered_pass.prefix",
+                  "tiered_pass", "turbo_reads")
 ALL_HITS = 100_000      # -b: write every hit (reads tie at the third best)
 
 
@@ -2219,7 +2263,7 @@ def pass_bytes(tabs, qr, vbr, posr, lo, hi, disp, R):
     add to (read and written), the big flags."""
     import torch
     from kasa_tpu_torch.match.tiered import TMAX
-    rowdat, mstart, mrow, moff, d_tax4 = tabs
+    rowdat, mstart, mrow, moff, d_tax4 = tabs[:5]
     n, mp, dr = rowdat.shape[0], mstart.shape[0], d_tax4.shape[0]
     q, vb, ps = qr[lo:hi], vbr[lo:hi], posr[lo:hi].long()
     lo_, hi_ = torch.zeros_like(ps), torch.full_like(ps, n)
@@ -2294,9 +2338,12 @@ def phase_kernels_tiered(disp, mat, R, w, lpr, unique, launches, tag,
                          suffix=""):
     """K7, K8 (every chunk) and K3's additive arm against their plain
     versions on one real batch of a tiered run, timed, with their bounds
-    and yardsticks.  -> (kernel entries, ms by kernel)."""
+    and yardsticks; K8 with the chunks' prefix tables, which each upload
+    builds (TieredTurboDispatch._tables).  -> (kernel entries, ms by
+    kernel)."""
     import numpy as np
     import torch
+    from kasa_tpu_torch import kernels as K
     from kasa_tpu_torch.core import encode as E
     from kasa_tpu_torch.core.alphabet import build_codon_code_lut
     from kasa_tpu_torch.match import tiered as TI
@@ -2319,6 +2366,10 @@ def phase_kernels_tiered(disp, mat, R, w, lpr, unique, launches, tag,
     cuts_h = cuts.tolist()
     ranges = [(c, e) for c, e in zip(cuts_h, cuts_h[1:] + [M])]
     tabs = [disp._tables(ci) for ci in range(len(disp.chunks))]
+    # K8's prefix tables, the last of each chunk's device tables
+    for ci, t in enumerate(tabs):
+        same(f"tiered_pass.prefix (chunk {ci})", t[5],
+             TI.tiered_prefix_plain(t[0]))
 
     def state():
         return (torch.full((M + 1, nk), T.SENT, dtype=torch.int32,
@@ -2327,16 +2378,17 @@ def phase_kernels_tiered(disp, mat, R, w, lpr, unique, launches, tag,
                 torch.zeros(nk * S + 1, device=dev),
                 torch.zeros(R + 1, dtype=torch.int32, device=dev))
 
-    def passes(fn, st):
+    def passes(fn, st, vb=vbr):
         for ci, (a, b) in enumerate(ranges):
             if b > a:
-                fn(tabs[ci], disp.weights, qr, vbr, posr, a, b, *st,
+                fn(tabs[ci], disp.weights, qr, vb, posr, a, b, *st,
                    disp.num_steps, disp.msteps, disp.masks, disp.full, S,
                    kpr)
         return st
+
     # K8
-    sk, sp = passes(TI.tiered_pass, state()), passes(TI.tiered_pass_plain,
-                                                     state())
+    k8 = TI.tiered_pass
+    sk, sp = passes(k8, state()), passes(TI.tiered_pass_plain, state())
     same("tiered_pass.skey", sk[0], sp[0])
     same("tiered_pass.big", sk[3], sp[3])
     err8 = max(close("tiered_pass.sflat", sk[1], sp[1]),
@@ -2383,9 +2435,29 @@ def phase_kernels_tiered(disp, mat, R, w, lpr, unique, launches, tag,
     ca_t, cu_t = acc()
     ms = {"tiered_route": time_ms(lambda: TI.tiered_route(
               q, l0, disp.min_k, disp.max_k), 20),
-          "tiered_pass": time_ms(lambda: passes(TI.tiered_pass, st), 10),
+          "tiered_pass": time_ms(lambda: passes(k8, st), 10),
           "turbo_reads.additive": time_ms(lambda: TI.tiered_finish(
               *sp, disp.weights, ca_t, cu_t, R, kpr, cap), 10)}
+    # K8's search alone: no validity bit set, so no level matches and
+    # nothing expands
+    no_level = torch.zeros_like(vbr)
+    search_ms = time_ms(lambda: passes(k8, state(), no_level), 10)
+    log(f"kernel tiered_pass{suffix}: search (prefix table, bisect, the two "
+        f"rows) {search_ms:.4f} ms, levels and expansion "
+        f"{ms['tiered_pass'] - search_ms:.4f} ms of {ms['tiered_pass']:.4f}"
+        f" ms over {len(ranges)} chunks")
+    ms["tiered_pass.prefix"] = time_ms(
+        lambda: [K.tiered_prefix(t[0]) for t in tabs], 10)
+    plain_pfx = time_ms(lambda: [TI.tiered_prefix_plain(t[0]) for t in tabs],
+                        10)
+    # the one torch.searchsorted of tiered_prefix_plain: every bucket's
+    # first key over each chunk's limb 0
+    limb0 = [t[0][:, 0].long().contiguous() for t in tabs]
+    bucket_keys = [int(t[5][-2]) + (torch.arange(
+        (1 << TI.PREFIX_BITS) + 1, dtype=torch.int64, device=dev)
+        << int(t[5][-1])) for t in tabs]
+    lib_pfx = time_ms(lambda: [torch.searchsorted(x, k) for x, k in
+                               zip(limb0, bucket_keys)], 10)
     plain = {"tiered_route": time_ms(lambda: TI.tiered_route_plain(
                  q, l0, disp.min_k, disp.max_k), 3),
              "tiered_pass": time_ms(lambda: passes(TI.tiered_pass_plain, st),
@@ -2413,7 +2485,11 @@ def phase_kernels_tiered(disp, mat, R, w, lpr, unique, launches, tag,
             10)
     t1 = ck[ck != T.SENT]
     t1_cells = (t1 & 7).long() * S + (t1 >> 3).long()
+    plain["tiered_pass.prefix"] = plain_pfx
     nbytes = {
+        # the tables written, and the rows where each bucket starts
+        "tiered_pass.prefix": sum(4 * t[5].numel() + sector_bytes(
+            t[5][:-2][t[5][:-2] < t[0].shape[0]].long(), 16) for t in tabs),
         "tiered_route": M * 8 + M * 16 + l0.numel() * 4 * 2,
         "tiered_pass": sum(pass_bytes(tabs[ci], qr, vbr, posr, a, b, disp, R)
                            for ci, (a, b) in enumerate(ranges) if b > a),
@@ -2434,15 +2510,20 @@ def phase_kernels_tiered(disp, mat, R, w, lpr, unique, launches, tag,
                            "keys"),
            "turbo_reads.additive": ("turbo_reads",
                                     "kasa_tpu/match/tiered.py:354", None,
-                                    "")}
+                                    ""),
+           "tiered_pass.prefix": ("tiered_pass",
+                                  "kasa_tpu/match/tiered.py:201", lib_pfx,
+                                  "torch.searchsorted of the bucket starts")}
     entries = []
-    for name in ("tiered_route", "tiered_pass", "turbo_reads.additive"):
+    for name in ("tiered_route", "tiered_pass.prefix", "tiered_pass",
+                 "turbo_reads.additive"):
         f, rep, lib, note = src[name]
-        err = {"tiered_route": 0.0, "tiered_pass": err8,
-               "turbo_reads.additive": err3}[name]
+        err = {"tiered_route": 0.0, "tiered_pass.prefix": 0.0,
+               "tiered_pass": err8, "turbo_reads.additive": err3}[name]
+        counter = name if name == "tiered_pass.prefix" else f
         entries.append(kernel_entry(
             name + suffix, f"kasa_tpu_torch/csrc/{f}.cu", rep,
-            launches[f], err, ms[name], plain[name], nbytes[name], lib,
+            launches[counter], err, ms[name], plain[name], nbytes[name], lib,
             note))
     log(f"step {tag}: K1 + K7 + K8 over {len(ranges)} chunks + K3 additive "
         f"{step_ms:.4f} ms per {R}-read batch with every chunk on the "
@@ -2657,8 +2738,8 @@ def phase_golden_engines():
         if not isinstance(disp, TieredIndex):
             fail(f"{t}: the run did not stream index chunks")
         expect_only(t, got[0], CLASSIC_KERNELS)
-        if got[0]["classic_classify"] != len(disp.chunks) * disp.batches:
-            fail(f"{t}: {got[0]['classic_classify']} K9 launches for "
+        if k9_launches(t, got[0]) != len(disp.chunks) * disp.batches:
+            fail(f"{t}: {k9_launches(t, got[0])} K9 launches for "
                  f"{len(disp.chunks)} chunks x {disp.batches} batches")
         same_file(t, got[3], ref[3])
         json_file_agrees(t, ref[2], got[2])
@@ -2859,6 +2940,10 @@ def phase_kernels_join(t, batch, launches, suffix, what):
         f"({R} reads, M={M:,} windows, L={L}, {nk} levels, n={t.n:,}, "
         f"S={S}; valid occurrences {int(valid.sum()):,}, (occurrence, "
         f"taxon) pairs {cells.numel():,}, largest T {int(T.max())})")
+    log(f"yardstick for K9: join_match + join_scatter{suffix} "
+        f"{1e6 * (ms10 + ms11) / M:.4f} ns a window, with query_sort "
+        f"{1e6 * (ms12 + ms10 + ms11) / M:.4f} ns ({M:,} windows sorted "
+        "by key)")
     e = [kernel_entry(f"query_sort{suffix}",
                       "kasa_tpu_torch/csrc/query_sort.cu",
                       "kasa_tpu/match/join.py:225", launches["query_sort"],
@@ -2941,8 +3026,8 @@ def phase_oocore(corpus):
     if not isinstance(disp, TieredIndex) or not 4 <= len(disp.chunks) <= 8:
         fail(f"oocore: {type(disp).__name__}, expected 4-8 index chunks")
     expect_only("oocore", launches, CLASSIC_KERNELS)
-    if launches["classic_classify"] != len(disp.chunks) * disp.batches:
-        fail(f"oocore: {launches['classic_classify']} K9 launches for "
+    if k9_launches("oocore", launches) != len(disp.chunks) * disp.batches:
+        fail(f"oocore: {k9_launches('oocore', launches)} K9 launches for "
              f"{len(disp.chunks)} chunks x {disp.batches} batches")
     if res[2] != OOCORE_PAIRS:
         fail(f"oocore: {res[2]} pairs identified, expected {OOCORE_PAIRS}")
@@ -2961,13 +3046,13 @@ def phase_oocore(corpus):
     v = torch.ones(q.shape[0], dtype=torch.bool, device=d)
     chunk_ms, chunk_plain, chunk_bytes, err = [], [], 0, 0.0
     for ci, t in enumerate(disp.device_tables()):
-        e, ms, plain = k9_against_plain(
+        e, ms, plain, nbytes = k9_against_plain(
             t, q, r, v, R, 0, ".oocore", f"oocore run (chunk {ci} of "
             f"{len(disp.chunks)}, n={t.n:,}, scatter layout)")
         err = max(err, e)
         chunk_ms.append(ms)
         chunk_plain.append(plain)
-        chunk_bytes += classic_bytes(t, q, r, v, R)
+        chunk_bytes += nbytes
         del t
     info["k9_ms_per_chunk"] = chunk_ms
     log(f"oocore: {len(disp.chunks)} chunks ({disp.chunks[:2]} ...), "
@@ -2979,7 +3064,7 @@ def phase_oocore(corpus):
                       info["oocore_stages"].items()}))
     entry = kernel_entry(
         "classic_classify.oocore", "kasa_tpu_torch/csrc/classic_classify.cu",
-        "kasa_tpu/match/oocore.py:203", launches["classic_classify"], err,
+        "kasa_tpu/match/oocore.py:203", k9_launches("oocore", launches), err,
         sum(chunk_ms), sum(chunk_plain), chunk_bytes, None)
     return launches, info, entry
 
@@ -3875,9 +3960,9 @@ def phase_mesh(corpus):
     import torch
     from kasa_tpu_torch import synth
     from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.match import device as D
     from kasa_tpu_torch.match import fast
-    from kasa_tpu_torch.match.device import classify_batch, \
-        load_or_build_classic
+    from kasa_tpu_torch.match.device import load_or_build_classic
     from kasa_tpu_torch.match.pipeline import _load_index
     from kasa_tpu_torch.parallel.launch import run_ranks
     t0 = time.perf_counter()
@@ -3941,8 +4026,11 @@ def phase_mesh(corpus):
     del limbs, taxids, tax_rows
     _, _, w, q = _mesh_batch(corpus["smoke"], 1024)
     rid = (torch.arange(q.shape[0], device=DEVICE) // w).to(torch.int32)
-    one = classify_batch(ctab, q, rid, torch.ones(q.shape[0], dtype=torch.bool,
-                                                  device=DEVICE), 1024, 16)
+    valid = torch.ones(q.shape[0], dtype=torch.bool, device=DEVICE)
+    # the single run: K9 held to its plain version on the local arm
+    k9_against_plain(ctab, q, rid, valid, 1024, 0, ".mesh",
+                     "mesh batch (scatter layout, all the tables)")
+    one = D.classify_batch(ctab, q, rid, valid, 1024, 16)
     one = [torch.as_tensor(t).cpu().numpy() for t in one]
     for name, got in (("broadcast", sb), ("routed", sr)):
         if not np.array_equal(got[2][0], one[2]) or \
@@ -3951,12 +4039,13 @@ def phase_mesh(corpus):
         for a, b in ((got[0][0], one[0]), (got[1][0], one[1])):
             np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
     launches["classic"] = rec[0]["counts"]
-    if not rec[0]["counts"]["classic_classify"]:
+    if not k9_launches("mesh classic", rec[0]["counts"]):
         fail("mesh classic: K9 was not launched on rank 0")
     log(f"mesh classic: broadcast and routed K9 on 2 shards of the classic "
-        f"tables agree with the single K9 run on {q.shape[0]} windows of "
+        f"tables agree with the single K9 run (itself held to its plain "
+        f"version) on {q.shape[0]} windows of "
         f"1,024 reads (windows routed per shard {owners}); rank 0 launches "
-        f"{rec[0]['counts']['classic_classify']}")
+        + json.dumps({a: rec[0]["counts"][a] for a in K9_ARMS}))
     del ctab
     t3 = time.perf_counter()
 

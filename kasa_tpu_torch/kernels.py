@@ -39,11 +39,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the long arms of K3 pre and K5 count apart, as "turbo_reads.long",
 # "dedup.long" (shared memory) and "dedup.global"; K4 split for the mesh
 # counts its cut as "turbo_multi" and its expansion as
-# "turbo_multi.split"; K14's long arm as "mesh_merge.long")
+# "turbo_multi.split"; K14's long arm as "mesh_merge.long"; K8's prefix
+# tables as "tiered_pass.prefix"; K9's global arm as
+# "classic_classify.global")
 COUNTS = {"encode": 0, "turbo_match": 0, "turbo_reads": 0,
           "turbo_reads.long": 0, "turbo_multi": 0, "turbo_multi.split": 0,
           "dedup": 0, "dedup.long": 0, "dedup.global": 0, "sparse_fold": 0,
-          "tiered_route": 0, "tiered_pass": 0, "classic_classify": 0,
+          "tiered_route": 0, "tiered_pass": 0, "tiered_pass.prefix": 0,
+          "classic_classify": 0, "classic_classify.global": 0,
           "join_match": 0, "join_scatter": 0, "query_sort": 0,
           "sort_dedup": 0, "mesh_merge": 0, "mesh_merge.long": 0}
 
@@ -68,8 +71,10 @@ _ARGTYPES = {
     "kasa_dedup_long_max_kpr": [_I, _I],
     "kasa_sparse_fold": [_P] * 6 + [_I] * 6 + [_P] * 5,
     "kasa_tiered_route": [_P, _P, _L, _I, _I, _I, _I] + [_P] * 6,
-    "kasa_tiered_pass": [_P] * 10 + [_L, _L] + [_I] * 11 + [_P] * 5,
-    "kasa_classic_classify": [_P] * 11 + [_L] * 4 + [_I] * 8 + [_P] * 5,
+    "kasa_tiered_pass": [_P] * 11 + [_L, _L] + [_I] * 11 + [_P] * 5,
+    "kasa_tiered_prefix": [_P, _I, _P, _P],
+    "kasa_classic_classify": [_P] * 11 + [_L] * 4 + [_I] * 10 + [_P] * 6,
+    "kasa_classic_smem_budget": [_I],
     "kasa_join_match": [_P] * 7 + [_L] * 3 + [_I] * 4 + [_P] * 6,
     "kasa_join_scatter": [_P] * 6 + [_L] * 2 + [_I] * 2 + [_P] * 2,
     "kasa_query_sort": [_P] * 7 + [_L, _I, _I, _P, _P],
@@ -93,7 +98,9 @@ _LIB_OF = {"kasa_encode_windows": "encode",
            "kasa_sparse_fold": "sparse_fold",
            "kasa_tiered_route": "tiered_route",
            "kasa_tiered_pass": "tiered_pass",
+           "kasa_tiered_prefix": "tiered_pass",
            "kasa_classic_classify": "classic_classify",
+           "kasa_classic_smem_budget": "classic_classify",
            "kasa_join_match": "join_match",
            "kasa_join_scatter": "join_scatter",
            "kasa_query_sort": "query_sort",
@@ -205,6 +212,11 @@ def _sort_plan(sym: str, *args) -> tuple[int, int]:
 
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _device_index(device: torch.device) -> int:
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -464,9 +476,7 @@ def dedup_long_max(L: int, device: torch.device) -> int:
     limbs on the card `device`: what one block's opt-in shared memory
     holds of rows and indices beside the kernel's fixed part (dedup.cu
     kasa_dedup_long_max_kpr)."""
-    idx = torch.cuda.current_device() if device.index is None \
-        else device.index
-    n = _fn("kasa_dedup_long_max_kpr")(L, idx)
+    n = _fn("kasa_dedup_long_max_kpr")(L, _device_index(device))
     if n < 0:
         raise RuntimeError(f"kasa_dedup_long_max_kpr: CUDA error {-n}")
     return n
@@ -572,12 +582,35 @@ def tiered_route(q: torch.Tensor, chunk_limb0: torch.Tensor, min_k: int,
 # ---------------------------------------------------------------------------
 # K8 tiered_pass (csrc/tiered_pass.cu)
 
+TIERED_PREFIX_ENTRIES = (1 << 20) + 3
+
+
+def tiered_prefix(rowdat: torch.Tensor) -> torch.Tensor:
+    """-> the (2^20 + 3,) int32 prefix table of a chunk's (n, 4) rowdat:
+    where each of 2^20 limb-0 buckets over the chunk's own span starts,
+    then the span's base and shift (match/tiered.py
+    tiered_prefix_plain)."""
+    dev = rowdat.device
+    if dev.type != "cuda":
+        raise ValueError("tiered_prefix: the kernel takes CUDA tensors")
+    _check(rowdat, "rowdat", torch.int32, (rowdat.shape[0], 4), dev)
+    pfx = torch.empty((TIERED_PREFIX_ENTRIES,), dtype=torch.int32,
+                      device=dev)
+    _launch("kasa_tiered_prefix", "tiered_pass.prefix", _ptr(rowdat),
+            rowdat.shape[0], _ptr(pfx), _stream(dev))
+    return pfx
+
+
 def tiered_pass(tabs, weights, qr, vbr, posr, lo: int, hi: int, skey, sflat,
                 cflat, big, num_steps: int, msteps: int, masks, full,
                 num_species: int, kmers_per_read: int, tmax: int) -> None:
     """Adds the routed windows [lo, hi) of one chunk to skey, sflat,
-    cflat and big in place (match/tiered.py tiered_pass_plain)."""
-    rowdat, mstart, mrow, moff, d_tax4 = tabs
+    cflat and big in place (match/tiered.py tiered_pass_plain).  tabs:
+    the chunk's five tables and its tiered_prefix table.  The search from
+    the table gives the fixed bisect's pos only when num_steps reaches
+    the chunk's bit length, as kasa_tpu's step count for the padded chunk
+    does."""
+    rowdat, mstart, mrow, moff, d_tax4, prefix = tabs
     dev = qr.device
     if dev.type != "cuda":
         raise ValueError("tiered_pass: the kernel takes CUDA tensors")
@@ -610,10 +643,14 @@ def tiered_pass(tabs, weights, qr, vbr, posr, lo: int, hi: int, skey, sflat,
         raise ValueError(f"window range [{lo}, {hi}) outside 0..{M}")
     if nk > 6:
         raise ValueError(f"{nk} k levels: tpack holds six")
+    if num_steps < rowdat.shape[0].bit_length():
+        raise ValueError(f"{num_steps} bisect steps do not cover a chunk of "
+                         f"{rowdat.shape[0]} rows")
+    _check(prefix, "prefix", torch.int32, (TIERED_PREFIX_ENTRIES,), dev)
     _launch("kasa_tiered_pass", "tiered_pass", _ptr(rowdat), _ptr(mstart),
             _ptr(mrow), _ptr(moff), _ptr(d_tax4), _ptr(weights),
-            _ptr(masks), _ptr(qr), _ptr(vbr), _ptr(posr), lo, hi,
-            rowdat.shape[0], mp, d_tax4.shape[0], nk, num_steps,
+            _ptr(masks), _ptr(qr), _ptr(vbr), _ptr(posr), _ptr(prefix), lo,
+            hi, rowdat.shape[0], mp, d_tax4.shape[0], nk, num_steps,
             msteps, int(full[0]), int(full[1]), S, kmers_per_read, tmax,
             _ptr(skey), _ptr(sflat), _ptr(cflat), _ptr(big), _stream(dev))
 
@@ -634,11 +671,39 @@ def _check_classic_tables(t, L, dev) -> None:
     _check(t.prefix_tbl, "prefix_tbl", torch.int32, ((1 << 20) + 1,), dev)
 
 
+def classic_smem_budget(device: torch.device) -> int:
+    """The shared memory a block of K9 may fill on the card `device`
+    (classic_classify.cu kasa_classic_smem_budget)."""
+    n = _fn("kasa_classic_smem_budget")(_device_index(device))
+    if n < 0:
+        raise RuntimeError(f"kasa_classic_smem_budget: CUDA error {-n}")
+    return n
+
+
+def classic_arm(S: int, ascending: bool, budget: int) -> str:
+    """K9's arm for a batch: "local" (one block per read, its float64
+    score row of 8 * S bytes in shared memory) where each read's windows
+    form one run (the uniform layout, or read ids that ascend: ids_ascend)
+    and the row fits the block's shared-memory budget
+    (classic_smem_budget); else "global" (one thread per window, the rows
+    in device memory)."""
+    return "local" if ascending and 8 * S <= budget else "global"
+
+
+def ids_ascend(read_ids: torch.Tensor) -> bool:
+    """The scatter layout's read ids do not decrease, so each read's
+    windows form one run (one reduction where the ids lie, then a
+    sync)."""
+    return bool((read_ids[1:] >= read_ids[:-1]).all())
+
+
 def classic_classify(t, q, read_ids, q_valid, num_reads: int, cap: int,
                      kmers_per_read: int):
     """-> (scores (R, S) f32, counts_all (numK, S) f32, counts_unique
     (numK, S) int32, tail_pairs 0-d int32) for StackedTables t
-    (match/device.py classify_batch_plain)."""
+    (match/device.py classify_batch_plain).  The arm from classic_arm,
+    the scatter layout's ids checked here (ids_ascend), counted as
+    "classic_classify" or "classic_classify.global"."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError("classic_classify: the kernel takes CUDA tensors")
@@ -651,23 +716,34 @@ def classic_classify(t, q, read_ids, q_valid, num_reads: int, cap: int,
     _check(q_valid, "q_valid", torch.bool, (M,), dev)
     if kmers_per_read == 0:
         _check(read_ids, "read_ids", torch.int32, (M,), dev)
-    # the score cells add in float64 and round to float32 once
-    # (csrc/classic_classify.cu)
-    scores = torch.zeros((num_reads, S), dtype=torch.float64, device=dev)
     counts_all = torch.zeros((nk, S), dtype=torch.float32, device=dev)
     counts_unique = torch.zeros((nk, S), dtype=torch.int32, device=dev)
     tail = torch.zeros((), dtype=torch.int32, device=dev)
     if M == 0 or n == 0:
-        return scores.float(), counts_all, counts_unique, tail
+        return (torch.zeros((num_reads, S), dtype=torch.float32, device=dev),
+                counts_all, counts_unique, tail)
+    local = classic_arm(S, kmers_per_read > 0 or ids_ascend(read_ids),
+                        classic_smem_budget(dev)) == "local"
+    # the local arm writes every row once; the global arm's rows add in
+    # float64 and round to float32 once (csrc/classic_classify.cu)
+    scores = (torch.empty((num_reads, S), dtype=torch.float32, device=dev)
+              if local else
+              torch.zeros((num_reads, S), dtype=torch.float64, device=dev))
+    seg = (torch.empty((num_reads + 1,), dtype=torch.int64, device=dev)
+           if local and kmers_per_read == 0 else None)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    _launch("kasa_classic_classify", "classic_classify", _ptr(t.idx_limbs),
-            _ptr(t.grp_id), _ptr(t.grp_start), _ptr(t.d_tax), _ptr(t.masks),
-            _ptr(t.weights), _ptr(t.run_end), _ptr(t.prefix_tbl), _ptr(q),
+    _launch("kasa_classic_classify",
+            "classic_classify" if local else "classic_classify.global",
+            _ptr(t.idx_limbs), _ptr(t.grp_id), _ptr(t.grp_start),
+            _ptr(t.d_tax), _ptr(t.masks), _ptr(t.weights), _ptr(t.run_end),
+            _ptr(t.prefix_tbl), _ptr(q),
             _ptr(read_ids if kmers_per_read == 0 else None), _ptr(q_valid),
             n, t.grp_start.shape[1], t.d_tax.shape[1], M, L, nk, t.min_k,
-            t.max_k, S, cap, kmers_per_read, sms, _ptr(scores),
-            _ptr(counts_all), _ptr(counts_unique), _ptr(tail), _stream(dev))
-    return scores.float(), counts_all, counts_unique, tail
+            t.max_k, S, cap, kmers_per_read, num_reads, int(local), sms,
+            _ptr(seg), _ptr(scores), _ptr(counts_all),
+            _ptr(counts_unique), _ptr(tail), _stream(dev))
+    return (scores if local else scores.float()), counts_all, \
+        counts_unique, tail
 
 
 # ---------------------------------------------------------------------------

@@ -258,8 +258,8 @@ def classify_batch(t: StackedTables, q: torch.Tensor,
                    read_ids: torch.Tensor | None, q_valid: torch.Tensor,
                    num_reads: int, cap: int = 16, kmers_per_read: int = 0):
     """K9 wrapper: the CUDA kernel on a CUDA tensor, else the plain
-    version.  tail_pairs comes back a 0-d int32 tensor from the kernel
-    (nothing synchronises), an int from the plain version."""
+    version.  tail_pairs comes back a 0-d int32 tensor from the kernel,
+    an int from the plain version."""
     if q.device.type == "cpu":
         return classify_batch_plain(t, q, read_ids, q_valid, num_reads,
                                     cap, kmers_per_read)
@@ -285,7 +285,9 @@ def run_classify(tables: StackedTables, q_limbs: np.ndarray,
     L = tables.idx_limbs.shape[1]
     q = np.zeros((m_pad, L), np.int32)
     q[:m] = q_limbs
-    r = np.zeros((m_pad,), np.int32)
+    # the pad rows take the last read id, so that the ids ascend (K9's
+    # local arm)
+    r = np.full((m_pad,), read_ids[-1] if m else 0, np.int32)
     r[:m] = read_ids
     v = np.zeros((m_pad,), bool)
     v[:m] = True

@@ -228,7 +228,7 @@ def tiered_pass_plain(tabs, weights, qr, vbr, posr, lo: int, hi: int,
     hits), the msteps bisect over the level's slice of mstart with its
     act guard and mp-1 clamps.  A lane expands its own group's
     ceil(T/4) taxa rows only."""
-    rowdat, mstart, mrow_t, moff, d_tax4 = tabs
+    rowdat, mstart, mrow_t, moff, d_tax4 = tabs[:5]
     S = num_species
     dev = qr.device
     n = rowdat.shape[0]
@@ -314,11 +314,37 @@ def tiered_pass_plain(tabs, weights, qr, vbr, posr, lo: int, hi: int,
     big[rid[big_hit]] = 1
 
 
+PREFIX_BITS = 20
+
+
+def tiered_prefix_plain(rowdat: torch.Tensor) -> torch.Tensor:
+    """Plain version of K8's prefix table (kernels.tiered_prefix), for a
+    chunk's (n, 4) rowdat whose pad rows hold INT32_MAX: 2^20 buckets of
+    limb 0 from base (the first row's) in steps of 2^shift, the least
+    shift that puts the last real row in the last bucket or below; entry
+    b of 2^20 + 1 the first row whose limb 0 is >= base + (b << shift),
+    then base and shift."""
+    x = rowdat[:, 0].long().contiguous()
+    nreal = int(torch.searchsorted(x, torch.tensor(1 << 30,
+                                                   device=x.device)))
+    base = int(x[0]) if nreal else 0
+    span = int(x[nreal - 1]) - base if nreal else 0
+    shift = 0
+    while (span >> shift) >= (1 << PREFIX_BITS):
+        shift += 1
+    keys = base + (torch.arange((1 << PREFIX_BITS) + 1, dtype=torch.int64,
+                                device=x.device) << shift)
+    starts = torch.searchsorted(x, keys).to(torch.int32)
+    return torch.cat([starts, torch.tensor([base, shift], dtype=torch.int32,
+                                           device=x.device)])
+
+
 def tiered_pass(tabs, weights, qr, vbr, posr, lo: int, hi: int, skey, sflat,
                 cflat, big, num_steps: int, msteps: int, masks, full,
                 num_species: int, kmers_per_read: int):
-    """K8 wrapper (masks: the (numK, 2) int32 level masks of
-    level_masks, full: the two full-key masks)."""
+    """K8 wrapper (tabs: a chunk's TIERED_FIELDS, on the card followed by
+    its prefix table, kernels.tiered_prefix; masks: the (numK, 2) int32
+    level masks of level_masks, full: the two full-key masks)."""
     if qr.device.type == "cpu":
         return tiered_pass_plain(tabs, weights, qr, vbr, posr, lo, hi, skey,
                                  sflat, cflat, big, num_steps, msteps, masks,
@@ -465,6 +491,9 @@ class TieredTurboDispatch(TurboDispatchBase):
             memory_avail = 4 << 30
         self._per_chunk_dev = (self.chunk_pad * 16 + self.mpad * 8
                                + self.drpad * 16)
+        if self.device.type == "cuda":
+            # K8's prefix table, kept with the chunk
+            self._per_chunk_dev += 4 * ((1 << PREFIX_BITS) + 3)
         self._dev_budget = 0.6 * device_table_budget(_B, self.device)
         self._dev_cache_n = min(
             int(self._dev_budget // max(self._per_chunk_dev, 1)),
@@ -545,8 +574,10 @@ class TieredTurboDispatch(TurboDispatchBase):
             fh.write(stamp)
 
     def _tables(self, ci):
-        """Chunk ci's tables on the device: from the device cache, else
-        uploaded from the host-RAM copy or the npz file."""
+        """Chunk ci's tables on the device, on the card followed by K8's
+        prefix table (kernels.tiered_prefix, built once per upload): from
+        the device cache, else uploaded from the host-RAM copy or the npz
+        file."""
         tabs = self._dev_chunks.get(ci)
         if tabs is not None:
             return tabs
@@ -559,6 +590,9 @@ class TieredTurboDispatch(TurboDispatchBase):
                 self._ram_chunks[ci] = zc
         tabs = tuple(torch.from_numpy(zc[f]).to(self.device)
                      for f in TIERED_FIELDS)
+        if self.device.type == "cuda":
+            from .. import kernels
+            tabs += (kernels.tiered_prefix(tabs[0]),)
         if dev_keep:
             self._dev_chunks[ci] = tabs
         else:

@@ -196,10 +196,14 @@ def make_routed_classifier(si: ShardedIndex, mesh, num_reads_per_dp: int,
 
     def run(q, rid, valid):
         d, i = mesh.dp_index, mesh.ip_index
+        v = np.asarray(valid)[d, i]
+        r = np.asarray(rid)[d, i]
+        # the block's pad cells after its windows take the last window's
+        # read id, so that the ids ascend and K9 takes its local arm
+        r = np.where(v, r, np.maximum.accumulate(r))
         return _classify_over_ip(
             si, mesh, _on(np.asarray(q)[d, i], dev, torch.int32),
-            _on(np.asarray(rid)[d, i], dev, torch.int32),
-            _on(np.asarray(valid)[d, i], dev, torch.bool),
+            _on(r, dev, torch.int32), _on(v, dev, torch.bool),
             num_reads_per_dp, cap)
 
     return run, si.tables

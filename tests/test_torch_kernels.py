@@ -373,13 +373,29 @@ def _tier_chunks(tmp_path):
     return disp, np.ascontiguousarray(q), R, kpr, S
 
 
-def test_tiered_pass_kernel(cuda, tmp_path):
+@pytest.mark.parametrize("case", ["chunks", "short_steps",
+                                  "above_every_row"])
+def test_tiered_pass_kernel(cuda, tmp_path, case):
     """K8 over every chunk against the plain version, on the windows K7
     routed: the T1 keys and big flags identical, the score rows and
-    counts within the contract (atomics add in another order)."""
+    counts within the contract (atomics add in another order); the
+    search from the chunk's prefix table (built by K8's own kernel, held
+    to tiered_prefix_plain), one launch a chunk; windows above every row
+    of the unpadded chunk, where the fixed bisect ends at n + 1; and a
+    step count one short of the chunk's bit length refused."""
+    from kasa_tpu_torch import kernels
     from kasa_tpu_torch.match import tiered as TI
     disp, q_np, R, kpr, S = _tier_chunks(tmp_path)
     nk = 6
+    steps = disp.num_steps
+    sizes = [b - a for a, b in disp.chunks]
+    if case == "above_every_row":
+        # the last window of every read above the last key of the largest
+        # chunk, which has no pad row, and routed to it
+        last = int(disp.key64[disp.chunks[sizes.index(max(sizes))][1] - 1])
+        assert last & ((1 << 30) - 1) < (1 << 30) - 1
+        q_np[kpr - 1::kpr, 0] = last >> 30
+        q_np[kpr - 1::kpr, 1] = (1 << 30) - 1
     q = torch.from_numpy(q_np).to(cuda)
     l0 = disp.chunk_limb0.to(cuda)
     qr, vbr, posr, cuts = TI.tiered_route(q, l0, 7, 12)
@@ -392,22 +408,35 @@ def test_tiered_pass_kernel(cuda, tmp_path):
            torch.zeros(R + 1, dtype=torch.int32, device=cuda))
           for _ in range(2)]
     ends = cuts.tolist()[1:] + [m]
+    kernels.reset_counts()
     for ci in range(len(disp.chunks)):
         with np.load(disp._chunk_file(ci)) as z:
             tabs = tuple(torch.from_numpy(z[f]).to(cuda)
                          for f in TI.TIERED_FIELDS)
+        pfx = kernels.tiered_prefix(tabs[0])
+        assert torch.equal(pfx.cpu(), TI.tiered_prefix_plain(tabs[0]).cpu())
+        tabs += (pfx,)
         lo, hi = int(cuts[ci]), ends[ci]
-        TI.tiered_pass(tabs, w, qr, vbr, posr, lo, hi, *st[0],
-                       disp.num_steps, disp.msteps, masks, disp.full, S,
-                       kpr)
-        TI.tiered_pass_plain(tabs, w, qr, vbr, posr, lo, hi, *st[1],
-                             disp.num_steps, disp.msteps, masks,
-                             disp.full, S, kpr)
+        if case == "short_steps":
+            with pytest.raises(ValueError, match="do not cover"):
+                TI.tiered_pass(tabs, w, qr, vbr, posr, lo, hi, *st[0],
+                               steps - 1, disp.msteps, masks, disp.full, S,
+                               kpr)
+        TI.tiered_pass(tabs, w, qr, vbr, posr, lo, hi, *st[0], steps,
+                       disp.msteps, masks, disp.full, S, kpr)
+        TI.tiered_pass_plain(tabs, w, qr, vbr, posr, lo, hi, *st[1], steps,
+                             disp.msteps, masks, disp.full, S, kpr)
         assert torch.equal(st[0][0].cpu(), st[1][0].cpu())
         assert torch.equal(st[0][3].cpu(), st[1][3].cpu())
         _close(st[0][1], st[1][1])
         _close(st[0][2], st[1][2])
+    n = disp.chunk_pad
+    chunks = len(disp.chunks)
+    assert kernels.COUNTS["tiered_pass"] == chunks
+    assert kernels.COUNTS["tiered_pass.prefix"] == chunks
     assert int(st[1][3].sum()) > 0 and int((st[1][1] > 0).sum()) > 80
+    if case == "above_every_row":
+        assert max(sizes) == n
 
 
 def test_additive_finish_kernel(cuda, tmp_path):
@@ -527,29 +556,95 @@ def test_reads_post_wide_lists(cuda, wout):
         assert int(p2[:R].max()) > 256
 
 
-@pytest.mark.parametrize("highest_k,min_k,max_k,S,kpr", [
-    (12, 4, 12, 64, 0), (12, 4, 12, 64, 32), (25, 12, 25, 64, 0),
-    (25, 12, 25, 64, 32), (25, 12, 25, 4000, 32), (25, 1, 6, 64, 0)],
+def _classic_case(case, limbs, taxids, highest_k, M, R, S, kpr):
+    """The windows, read ids, flags and read count of one K9 case."""
+    from test_torch_classic import _queries
+    from kasa_tpu_torch.kernels import ids_ascend
+    q, rid, valid, _ = _queries(limbs, highest_k, M, R, seed=S)
+    if case == "one_taxon":
+        # every window of read r drawn from the entries of one taxon of
+        # the heavy groups (repeated limbs)
+        rng = np.random.default_rng(5)
+        dup = np.zeros(len(limbs), bool)
+        same_next = np.all(limbs[1:] == limbs[:-1], axis=1)
+        dup[1:] |= same_next
+        dup[:-1] |= same_next
+        taxa = np.unique(taxids[dup])
+        for r in range(R):
+            rows = np.nonzero(taxids == taxa[r % len(taxa)])[0]
+            q[r * kpr:(r + 1) * kpr] = limbs[rng.choice(rows, size=kpr)]
+        valid[:] = True
+    elif case == "ascending":
+        # ids ascend with gaps: odd reads and the last read have no window
+        rid = rid * 2
+        R = 2 * R + 1
+    elif case == "split_run":
+        # read 0's second half moved to the end: two runs of read 0
+        half = (M // R) // 2
+        order = np.r_[np.arange(half), np.arange(M // R, M),
+                      np.arange(half, M // R)]
+        q, rid, valid = q[order], rid[order], valid[order]
+    elif case == "shuffled":
+        order = np.random.default_rng(6).permutation(M)
+        q, rid, valid = q[order], rid[order], valid[order]
+    return q, rid, valid, R, kpr == 0 and ids_ascend(torch.from_numpy(rid))
+
+
+@pytest.mark.parametrize("highest_k,min_k,max_k,S,kpr,case", [
+    (12, 4, 12, 64, 0, ""), (12, 4, 12, 64, 32, ""), (25, 12, 25, 64, 0, ""),
+    (25, 12, 25, 64, 32, ""), (25, 12, 25, 4000, 32, ""),
+    (25, 1, 6, 64, 0, ""), (12, 7, 12, 64, 64, "one_taxon"),
+    (25, 12, 25, 64, 0, "ascending"), (25, 1, 25, 64, 32, ""),
+    (25, 1, 25, 64, 0, "ascending"), (12, 7, 12, "cap", 32, ""),
+    (12, 7, 12, "cap+1", 32, ""), (12, 7, 12, "cap", 0, "ascending"),
+    (12, 7, 12, 64, 0, "split_run"), (12, 7, 12, 64, 0, "shuffled"),
+    (25, 12, 25, 4000, 0, "shuffled")],
     ids=["L2_scatter", "L2_uniform", "L5_scatter", "L5_uniform",
-         "L5_global_counts", "L5_k1_6"])
-def test_classic_classify_kernel(cuda, highest_k, min_k, max_k, S, kpr):
+         "L5_global_counts", "L5_k1_6", "one_taxon_reads",
+         "L5_14_levels_ascending", "L5_25_levels_uniform",
+         "L5_25_levels_ascending", "S_at_row_capacity",
+         "S_above_row_capacity", "S_at_row_capacity_ascending",
+         "read_split_over_two_runs", "ids_shuffled",
+         "L5_global_arm_global_counts"])
+def test_classic_classify_kernel(cuda, highest_k, min_k, max_k, S, kpr,
+                                 case):
     """K9 against its plain version: identical hit cells, counts_unique
-    and tail_pairs, floats within the contract; in both layouts, with the
-    per-block shared counts (8 * numK * S bytes fit) and without them."""
-    from test_torch_classic import _index, _queries
+    and tail_pairs, floats within the contract; each case asserts the
+    arm it takes (kernels.classic_arm on the ids, which the wrapper
+    checks itself; its own counter): the local arm, its counts in device
+    memory, for the uniform layout and read ids that ascend (with reads
+    of no window), up to S at the shared-row capacity; the global arm for
+    ids that do not ascend (a read in two runs, shuffled windows), one
+    species above the capacity, with and without the per-block shared
+    counts (8 * numK * S bytes fit or not: L5_global_arm_global_counts
+    does not)."""
+    from test_torch_classic import _index
+    from kasa_tpu_torch import kernels
     from kasa_tpu_torch.match.device import (StackedTables, classify_batch,
                                              classify_batch_plain)
     from kasa_tpu_torch.match.join import DeviceIndex
+    budget = kernels.classic_smem_budget(cuda)
+    if isinstance(S, str):
+        S = budget // 8 + (S == "cap+1")
     limbs, taxids = _index(highest_k, 20_000, S, seed=highest_k + min_k)
     t = StackedTables.build(DeviceIndex(
         limbs, taxids, {i: i for i in range(S)}, highest_k, min_k, max_k,
         S, cuda))
-    R, M = 128, 4096
-    q, rid, valid, _ = _queries(limbs, highest_k, M, R, seed=S)
+    R = 64 if case == "one_taxon" else 128
+    M = R * kpr if case == "one_taxon" else 4096
+    q, rid, valid, R, ascending = _classic_case(case, limbs, taxids,
+                                                highest_k, M, R, S, kpr)
     q, rid, valid = (torch.from_numpy(a).to(cuda) for a in (q, rid, valid))
+    want_arm = kernels.classic_arm(S, kpr > 0 or ascending, budget)
+    assert want_arm == ("global" if case in ("split_run", "shuffled")
+                        or S > budget // 8 else "local")
+    kernels.reset_counts()
     s1, ca1, cu1, t1 = classify_batch(t, q, rid, valid, R, 2, kpr)
     s2, ca2, cu2, t2 = classify_batch_plain(t, q, rid, valid, R, 2, kpr)
     torch.cuda.synchronize()
+    assert kernels.COUNTS["classic_classify"] == (want_arm == "local")
+    assert kernels.COUNTS["classic_classify.global"] == (want_arm
+                                                         == "global")
     assert torch.equal(s1 > 0, s2 > 0) and int(cu2.sum()) > 0
     _close(s1, s2)
     _close(ca1, ca2)

@@ -1714,7 +1714,7 @@ TIERED_BUDGET = 256 << 20
 TIERED_PREP = ("default", "bigS")
 
 
-def start_prep(names=PREP):
+def start_prep(names=PREP, tiered=True):
     """Generate the three corpora and build their turbo-table sidecars
     (and the tiered chunk caches of TIERED_BUDGET) in three host
     processes started together (python -m kasa_tpu_torch.synth <name>
@@ -1725,11 +1725,11 @@ def start_prep(names=PREP):
     for name in names:
         path = os.path.join(OUT, f"prep_{name}.log")
         fh = open(path, "w")
-        tiered = (["--tiered", str(TIERED_BUDGET)] if name in TIERED_PREP
-                  else [])
+        extra = (["--tiered", str(TIERED_BUDGET)]
+                 if tiered and name in TIERED_PREP else [])
         procs[name] = (subprocess.Popen(
             [sys.executable, "-m", "kasa_tpu_torch.synth", name, "--tables",
-             *tiered], cwd=HERE, stdout=fh, stderr=subprocess.STDOUT,
+             *extra], cwd=HERE, stdout=fh, stderr=subprocess.STDOUT,
             env=env), fh, path)
     return procs
 
@@ -3769,6 +3769,206 @@ def phase_mesh_cards(corpus, ref):
         for dp, ip in ((2, 2), (1, 4))}
 
 
+# ---------------------------------------------------------------------------
+# stage splits of K3 and K4 (and K7's arms): in the full run's kernel
+# phases, and alone under --stages
+
+STAGE_REPS = 10
+K4_STAGES = ("scan", "slots", "cut", "expand")
+
+
+def slot_stats(skey):
+    """How many of each row's SW slot keys are real (not the sentinel)."""
+    import torch
+    from kasa_tpu_torch.match import turbo as T
+    n = (skey != T.SENT).sum(dim=1).float()
+    return {"SW": skey.shape[1], "real_min": int(n.min()),
+            "real_median": float(n.median()), "real_max": int(n.max()),
+            "sentinel_pct": 100.0 * (1.0 - float(n.mean()) / skey.shape[1])}
+
+
+def k4_stages(cp, mcnt, runs, tt, acc_ca, mb, eb, counts_only=False,
+              reps=STAGE_REPS):
+    """K4's four launches timed apart (CUDA events between them, the
+    mean of reps calls after one warm-up call) -> {stage: ms}."""
+    import torch
+    from kasa_tpu_torch import kernels as K
+    from kasa_tpu_torch.match import turbo as T
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(K.MULTI_MARKS)]
+    tot = [0.0] * len(K4_STAGES)
+    for rep in range(reps + 1):
+        K.turbo_multi(cp, mcnt, runs, tt, acc_ca, mb, eb, T.CW, T.SENT,
+                      counts_only=counts_only, marks=marks)
+        torch.cuda.synchronize()
+        if rep:
+            for i in range(len(K4_STAGES)):
+                tot[i] += marks[i].elapsed_time(marks[i + 1])
+    return {n: t / reps for n, t in zip(K4_STAGES, tot)}
+
+
+def turbo_stages(tag, tt, mat, R, w, mb, eb, cap, wout=None, lpr=1):
+    """K3 pre, K4's four stages and K3 post timed apart on one real batch
+    as the main path runs it, with the share of sentinel slot keys ->
+    {name: ms or stats}."""
+    import numpy as np
+    import torch
+    from kasa_tpu_torch.core import encode as E
+    from kasa_tpu_torch.core.alphabet import build_codon_code_lut
+    from kasa_tpu_torch.match import turbo as T
+    dev = torch.device(DEVICE)
+    wout = wout or T.WOUT
+    nk, S = tt.num_k, tt.num_species
+    sparse = tt.hotmask.shape[0] <= 1 and S > T.SPARSE_FOLD_S
+    lut = torch.from_numpy(build_codon_code_lut().astype(np.int32)).to(dev)
+    q = E.encode_windows(torch.from_numpy(mat).to(dev), lut, w)
+    skey, mpay = T.turbo_match(q, tt, R, w * lpr)
+    del q
+    out = {"slots": slot_stats(skey)}
+    out["pre"] = time_ms(lambda: T.turbo_reads_pre(skey, mpay), STAGE_REPS)
+    ck, cc, runs, mcnt, cp = T.turbo_reads_pre(skey, mpay)
+    del skey, mpay
+    ca = torch.zeros((nk, S), device=dev)
+    cu = torch.zeros((nk, S), dtype=torch.int32, device=dev)
+    out["k4"] = k4_stages(cp, mcnt, runs, tt, ca, mb, eb, sparse)
+    out["k4_total"] = time_ms(lambda: T.turbo_multi(
+        cp, mcnt, runs, tt, ca, mb, eb, counts_only=sparse), STAGE_REPS)
+    ofc, dm, a3w, _, diag = T.turbo_multi(cp, mcnt, runs, tt, ca, mb, eb,
+                                          counts_only=sparse)
+    if sparse:
+        ml = T.sparse_fold(cp, mcnt, ofc, tt)
+        out["post"] = time_ms(lambda: T.turbo_reads_post(
+            ck, cc, ofc, None, tt.weights, ca, cu, diag, cap, mlist=ml,
+            wout=wout), STAGE_REPS)
+    else:
+        dm.addmm_(a3w, tt.hotmask)
+        out["post"] = time_ms(lambda: T.turbo_reads_post(
+            ck, cc, ofc, dm, tt.weights, ca, cu, diag, cap, wm=wout,
+            wout=wout), STAGE_REPS)
+    mtot, eused = (int(x) for x in diag.tolist())
+    out["multi_slots"], out["expansion_rows"] = mtot, eused
+    out["flagged"] = int(ofc.sum())
+    log(f"stages {tag} (R={R}, S={S}): " + json.dumps(out))
+    return out
+
+
+def additive_stages(tt, mat, R, w, cap):
+    """K3's additive arm (pre with cw = SW and no payloads, post additive
+    with the dense rows and a (numK * S) count vector) on a real batch of
+    R reads searched in the resident tables: the tiered finish's shapes
+    (its T1 keys sit where K8 writes them) -> {pre, post: ms}."""
+    import numpy as np
+    import torch
+    from kasa_tpu_torch.core import encode as E
+    from kasa_tpu_torch.core.alphabet import build_codon_code_lut
+    from kasa_tpu_torch.match import turbo as T
+    dev = torch.device(DEVICE)
+    nk, S = tt.num_k, tt.num_species
+    lut = torch.from_numpy(build_codon_code_lut().astype(np.int32)).to(dev)
+    q = E.encode_windows(torch.from_numpy(mat).to(dev), lut, w)
+    skey, mpay = T.turbo_match(q, tt, R, w)
+    SW = skey.shape[1]
+    ck0, cc0, runs, mcnt, cp = T.turbo_reads_pre(skey, mpay)
+    ca = torch.zeros((nk, S), device=dev)
+    cu = torch.zeros((nk, S), dtype=torch.int32, device=dev)
+    ofc, dm, _, _, _ = T.turbo_multi(cp, mcnt, runs, tt, ca, 1 << 30,
+                                     1 << 30)
+    del ck0, cc0, cp, mpay, q
+    out = {"slots": slot_stats(skey)}
+    out["pre"] = time_ms(lambda: T.turbo_reads_pre(skey, None, cw=SW),
+                         STAGE_REPS)
+    ck, cc = T.turbo_reads_pre(skey, None, cw=SW)[:2]
+    zero2 = torch.zeros(2, dtype=torch.int32, device=dev)
+    cadd = torch.rand(nk * S, device=dev)
+    out["post"] = time_ms(lambda: T.turbo_reads_post(
+        ck, cc, ofc, dm, tt.weights, ca, cu, zero2, cap, wm=min(S, 256),
+        additive=True, cadd=cadd), STAGE_REPS)
+    log(f"stages additive (R={R}, SW={SW}, S={S}): " + json.dumps(out))
+    return out
+
+
+def route_chunks(q, C):
+    """C distinct sorted chunk starts over the limb 0 of windows q: the
+    first limb 0 of C equal slices of the sorted keys, as a chunk plan
+    over an index of those windows would place them."""
+    import torch
+    l0 = torch.unique(q[:, 0])
+    pick = torch.linspace(0, l0.numel() - 1, C, device=q.device).long()
+    return torch.unique(l0[pick]).to(torch.int32)
+
+
+def route_stages(mat, R, w):
+    """K7's arms on a real batch's windows over synthetic chunk plans:
+    C = 11,999 (the shared arm's last) and 20,000 (the global arm), each
+    against its plain version, timed -> {C: ms}."""
+    import numpy as np
+    import torch
+    from kasa_tpu_torch import kernels as K
+    from kasa_tpu_torch.core import encode as E
+    from kasa_tpu_torch.core.alphabet import build_codon_code_lut
+    from kasa_tpu_torch.match import tiered as TI
+    dev = torch.device(DEVICE)
+    lut = torch.from_numpy(build_codon_code_lut().astype(np.int32)).to(dev)
+    q = E.encode_windows(torch.from_numpy(mat).to(dev), lut, w)
+    out = {}
+    for C, arm in ((11_999, "tiered_route"), (20_000, "tiered_route.global")):
+        l0 = route_chunks(q, C)
+        K.reset_counts()
+        got = TI.tiered_route(q, l0, 7, 12)
+        if K.COUNTS[arm] != 1:
+            fail(f"tiered_route at C={l0.numel()}: arm {arm} not launched")
+        want = TI.tiered_route_plain(q, l0, 7, 12)
+        for nm, a, b in zip(("qr", "vbr", "posr", "cuts"), got, want):
+            same(f"{arm}.{nm} (C={l0.numel()})", a, b)
+        out[l0.numel()] = {
+            "arm": arm, "M": q.shape[0],
+            "ms": time_ms(lambda: TI.tiered_route(q, l0, 7, 12), 10),
+            "plain_ms": time_ms(lambda: TI.tiered_route_plain(q, l0, 7, 12),
+                                3)}
+    log("stages tiered_route: " + json.dumps(out))
+    return out
+
+
+def run_stages(preps, smi, t_all):
+    """--stages: build, then the stage splits of K3, K4 and K7 on the
+    default corpus (the default batch, the long batch, a 32,768-read
+    additive batch and synthetic chunk plans) and on the 10,001-species
+    corpus (the sparse batch)."""
+    from kasa_tpu_torch import synth
+    from kasa_tpu_torch.match import fast
+    phase_build()
+    wait_prep(preps, t_all, ("default",))
+    corpus = phase_corpus()
+    disp = warm_up("stages default", corpus["index"], corpus["warm"])
+    tt = disp.tt
+    out = {"card": smi}
+    mat, R, w, _ = real_batch(corpus)
+    out["default"] = turbo_stages("default", tt, mat, R, w,
+                                  disp.multi_budget, disp.exp_budget,
+                                  disp.csr_cap(R))
+    d = os.path.join(HERE, ".synth_corpus", "long")
+    os.makedirs(d, exist_ok=True)
+    lp = synth.long_reads(d, synth.LONG_READS, synth.LONG_PAIRS)
+    mat, R, w, _ = real_batch(corpus, R=synth.LONG_READS, path=lp["reads"])
+    mb, eb, wout = disp.budgets_for(1, w)
+    out["long"] = turbo_stages("long", tt, mat, R, w, mb, eb,
+                               disp.csr_cap(R), wout=wout)
+    mat, R, w, _ = real_batch(corpus, R=4 * fast.READS_PER_BATCH)
+    out["additive"] = additive_stages(tt, mat, R, w, disp.csr_cap(R))
+    out["route"] = route_stages(mat, R, w)
+    del disp, tt
+    forget_tables()
+    wait_prep(preps, t_all, ("bigS",))
+    big = synth.generate_big_s(log=log)
+    disp = warm_up("stages sparse", big["index"], big["warm"])
+    mat, R, w, _ = real_batch(big)
+    out["sparse"] = turbo_stages("sparse", disp.tt, mat, R, w,
+                                 disp.multi_budget, disp.exp_budget,
+                                 disp.csr_cap(R))
+    with open(os.path.join(OUT, "chip_smoke_stages.json"), "w") as fh:
+        json.dump(out, fh, indent=1)
+
+
 def run_cards(preps, smi, t_all):
     """--cards: build, the default corpus, its single-card run and the
     mesh over four cards."""
@@ -4281,13 +4481,19 @@ def main():
     smi = smi_line()
     log(smi)
     cards = sys.argv[1:] == ["--cards"]
-    if sys.argv[1:] and not cards:
-        fail(f"unknown arguments {sys.argv[1:]}: none, or --cards")
-    preps = start_prep(("default",) if cards else PREP)
+    stages = sys.argv[1:] == ["--stages"]
+    if sys.argv[1:] and not (cards or stages):
+        fail(f"unknown arguments {sys.argv[1:]}: none, --cards or "
+             "--stages")
+    preps = start_prep(("default",) if cards else
+                       ("default", "bigS") if stages else PREP,
+                       tiered=not stages)
     try:
-        kern = None if cards else run(preps, smi, t_all)
+        kern = None if cards or stages else run(preps, smi, t_all)
         if cards:
             run_cards(preps, smi, t_all)
+        if stages:
+            run_stages(preps, smi, t_all)
     finally:
         stop_prep(preps)
     log(f"chip_smoke: all phases passed in "

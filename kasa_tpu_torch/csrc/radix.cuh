@@ -84,29 +84,34 @@ inline int sweep_tile_of(int L) {
 }
 
 // the digit passes, least significant first: the payload's low rid_bits
-// bits, then each 30-bit limb from the last to the first
+// bits, then each 30-bit limb from the last to the first.  A single limb
+// narrower than 30 bits (key_bits, L = 1 and no payload digits only)
+// takes only the passes its bits need: the histogram launch counts every
+// pass of the limb, and the first passes' counts are those of the plan.
 struct SweepPlan {
     int passes;
     int col[kMaxPasses];     // limb, or -1 for the payload
     int shift[kMaxPasses];
 };
 
-inline SweepPlan sweep_plan(int L, int rid_bits) {
+inline SweepPlan sweep_plan(int L, int rid_bits, int key_bits = 30) {
     SweepPlan p{};
     for (int sh = 0; sh < rid_bits; sh += kBits) {
         p.col[p.passes] = -1;
         p.shift[p.passes++] = sh;
     }
+    const int top = L == 1 && rid_bits == 0 && key_bits > 0
+                        && key_bits < 30 ? key_bits : kLimbPasses * kBits;
     for (int c = L - 1; c >= 0; --c)
-        for (int sh = 0; sh < kLimbPasses * kBits; sh += kBits) {
+        for (int sh = 0; sh < top; sh += kBits) {
             p.col[p.passes] = c;
             p.shift[p.passes++] = sh;
         }
     return p;
 }
 
-inline int rows_radix_passes(int L, int rid_bits) {
-    return sweep_plan(L, rid_bits).passes;
+inline int rows_radix_passes(int L, int rid_bits, int key_bits = 30) {
+    return sweep_plan(L, rid_bits, key_bits).passes;
 }
 
 // int32 words of rows_radix_sort's scratch: kMaxPasses x kRadix digit
@@ -432,8 +437,8 @@ template <int L>
 int sweep_sort(const int32_t* q, const int32_t* rid, int32_t* qa,
                int32_t* ra, int32_t* qb, int32_t* rb, int32_t* scratch,
                long long M, int rid_bits, cudaStream_t s,
-               cudaEvent_t* marks) {
-    const SweepPlan plan = sweep_plan(L, rid_bits);
+               cudaEvent_t* marks, int key_bits) {
+    const SweepPlan plan = sweep_plan(L, rid_bits, key_bits);
     const long long tiles = (M + sweep_tile<L>() - 1) / sweep_tile<L>();
     unsigned* ghist = reinterpret_cast<unsigned*>(scratch);
     unsigned* counters = ghist + kMaxPasses * kRadix;
@@ -443,8 +448,9 @@ int sweep_sort(const int32_t* q, const int32_t* rid, int32_t* qa,
     cudaError_t e = cudaMemsetAsync(
         scratch, 0, rows_radix_scratch_words(M, L) * sizeof(int32_t), s);
     if (e != cudaSuccess) return (int)e;
-    const int rid_passes = plan.passes - L * kLimbPasses;
-    const size_t hsmem = (size_t)plan.passes * kRadix * sizeof(unsigned);
+    const int rid_passes = (rid_bits + kBits - 1) / kBits;
+    const size_t hsmem = (size_t)(rid_passes + L * kLimbPasses) * kRadix
+                         * sizeof(unsigned);
     if (hsmem > 48 * 1024) {
         e = cudaFuncSetAttribute(sweep_hist_kernel<L>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -488,23 +494,24 @@ int sweep_sort(const int32_t* q, const int32_t* rid, int32_t* qa,
 // writing (qa, ra) when p is even, else (qb, rb); the caller reads the
 // pair of the last pass.  scratch holds rows_radix_scratch_words(M, L)
 // int32 words.  marks, when given, are passes + 2 events, recorded before
-// the memset, after the scan and after each pass.
+// the memset, after the scan and after each pass.  key_bits: see
+// sweep_plan.
 inline int rows_radix_sort(const int32_t* q, const int32_t* rid,
                            int32_t* qa, int32_t* ra, int32_t* qb,
                            int32_t* rb, int32_t* scratch, long long M, int L,
                            int rid_bits, cudaStream_t s,
-                           cudaEvent_t* marks = nullptr) {
+                           cudaEvent_t* marks = nullptr, int key_bits = 30) {
     switch (L) {
         case 1: return sweep_sort<1>(q, rid, qa, ra, qb, rb, scratch, M,
-                                     rid_bits, s, marks);
+                                     rid_bits, s, marks, key_bits);
         case 2: return sweep_sort<2>(q, rid, qa, ra, qb, rb, scratch, M,
-                                     rid_bits, s, marks);
+                                     rid_bits, s, marks, key_bits);
         case 3: return sweep_sort<3>(q, rid, qa, ra, qb, rb, scratch, M,
-                                     rid_bits, s, marks);
+                                     rid_bits, s, marks, key_bits);
         case 4: return sweep_sort<4>(q, rid, qa, ra, qb, rb, scratch, M,
-                                     rid_bits, s, marks);
+                                     rid_bits, s, marks, key_bits);
         default: return sweep_sort<5>(q, rid, qa, ra, qb, rb, scratch, M,
-                                      rid_bits, s, marks);
+                                      rid_bits, s, marks, key_bits);
     }
 }
 

@@ -31,8 +31,25 @@
 // reads the windows a second time (24 + 8 bytes per window moved) and
 // the scan's (C+1) x nseg counters are a few hundred KB.  One warp per
 // block keeps the running offsets of all C+1 bins in 4(C+1) bytes of
-// shared memory (C < 12,000 chunks).
-#include "common.cuh"
+// shared memory, so this arm takes C < 12,000 chunks (48 KB, the default
+// a block may use).
+//
+// The global arm, for more chunks (the wrapper picks it from C and the
+// card's shared memory, kernels.tiered_route_arm): the bin-major
+// counters would grow with C and M (at C = 20,000 and M = 8.5 M windows,
+// 166 M of them) and one block would scan them, so it sorts instead:
+//   bins:    one thread per window writes its bin (the same upper bound
+//            over chunk_limb0, C int32 that stay in L2) and its position;
+//   sort:    radix.cuh's one-sweep passes sort the (bin, position) pairs
+//            by bin, stably, over the bits of C only (two 8-bit passes
+//            up to 65,535 chunks), so positions keep window order;
+//   gather:  one thread per routed slot i copies window pos[i] and its
+//            validity bits; cuts come from the sorted bins: the chunks
+//            c with sorted bin i-1 <= c < sorted bin i start at i (slot
+//            M closes the last ones).
+// Its traffic is the windows once and the routed copy once, plus 8
+// bytes a window per pass each way.
+#include "radix.cuh"
 
 namespace {
 
@@ -50,6 +67,20 @@ __device__ __forceinline__ int bin_of(int32_t qh,
         else hi = mid;
     }
     return lo;
+}
+
+// validity bits: bit ki set while no letter min_k-1 .. k-1 is '^' (code
+// 30), k = max_k - ki (tiered.py:166-175)
+__device__ __forceinline__ int window_vbits(int2 w, int min_k, int max_k) {
+    int vb = 0;
+    bool ok = true;
+    for (int pos = min_k - 1; pos < max_k; ++pos) {
+        const int limb = pos < 6 ? w.x : w.y;
+        const int shift = 5 * (5 - pos % 6);
+        ok = ok && (((limb >> shift) & 31) != 30);
+        if (ok) vb |= 1 << (max_k - (pos + 1));
+    }
+    return vb;
 }
 
 __global__ void route_count_kernel(const int2* __restrict__ q,
@@ -123,18 +154,8 @@ __global__ void route_scatter_kernel(const int2* __restrict__ q,
         const int rank = __popc(peers & ((1u << lane) - 1u));
         if (b >= 0) {
             const int dst = off[b] + rank;
-            // validity bits: bit ki set while no letter min_k-1 .. k-1
-            // is '^' (code 30), k = max_k - ki (tiered.py:166-175)
-            int vb = 0;
-            bool ok = true;
-            for (int pos = min_k - 1; pos < max_k; ++pos) {
-                const int limb = pos < 6 ? w.x : w.y;
-                const int shift = 5 * (5 - pos % 6);
-                ok = ok && (((limb >> shift) & 31) != 30);
-                if (ok) vb |= 1 << (max_k - (pos + 1));
-            }
             qr[dst] = w;
-            vbr[dst] = vb;
+            vbr[dst] = window_vbits(w, min_k, max_k);
             posr[dst] = (int32_t)m;
         }
         __syncwarp();
@@ -143,7 +164,101 @@ __global__ void route_scatter_kernel(const int2* __restrict__ q,
     }
 }
 
+// ---------------------------------------------------------------------------
+// the global arm
+
+__global__ void route_bins_kernel(const int2* __restrict__ q,
+                                  const int32_t* __restrict__ limb0,
+                                  long long M, int C,
+                                  int32_t* __restrict__ bins,
+                                  int32_t* __restrict__ pos) {
+    const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (m >= M) return;
+    bins[m] = bin_of(q[m].x, limb0, C);
+    pos[m] = (int32_t)m;
+}
+
+__global__ void route_gather_kernel(const int2* __restrict__ q,
+                                    const int32_t* __restrict__ sbins,
+                                    const int32_t* __restrict__ spos,
+                                    long long M, int C, int min_k, int max_k,
+                                    int2* __restrict__ qr,
+                                    int32_t* __restrict__ vbr,
+                                    int32_t* __restrict__ posr,
+                                    int32_t* __restrict__ cuts) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i > M) return;
+    // chunk c starts at the first slot whose bin exceeds c
+    const int lo = i == 0 ? 0 : sbins[i - 1];
+    const int hi = i == M ? C : sbins[i];
+    for (int c = lo; c < hi; ++c) cuts[c] = (int32_t)i;
+    if (i == M) return;
+    const int32_t m = spos[i];
+    const int2 w = q[m];
+    qr[i] = w;
+    vbr[i] = window_vbits(w, min_k, max_k);
+    posr[i] = m;
+}
+
+// bits of a bin: bins run 0..C
+inline int bin_bits(int C) {
+    int b = 1;
+    while (b < 31 && (1LL << b) <= C) ++b;
+    return b;
+}
+
 }  // namespace
+
+// -> the shared memory a block may use on the card `device` without
+// opting in (the shared arm's limit), or minus a CUDA error
+extern "C" int kasa_tiered_route_smem(int device) {
+    int smem = 0;
+    const cudaError_t e = cudaDeviceGetAttribute(
+        &smem, cudaDevAttrMaxSharedMemoryPerBlock, device);
+    return e != cudaSuccess ? -(int)e : smem;
+}
+
+// -> the digit passes of the global arm's sort of M windows over C
+// chunks; *scratch_words: the int32 words of its scratch (four M-word
+// buffers of bins and positions, then the sort's own)
+extern "C" int kasa_tiered_route_global_plan(long long M, int C,
+                                             long long* scratch_words) {
+    *scratch_words = 4 * M + rows_radix_scratch_words(M, 1);
+    return rows_radix_passes(1, 0, bin_bits(C));
+}
+
+extern "C" int kasa_tiered_route_global(const void* q, const void* limb0,
+                                        long long M, int C, int min_k,
+                                        int max_k, void* scratch, void* qr,
+                                        void* vbr, void* posr, void* cuts,
+                                        void* stream) {
+    if (C < 1 || M < 0 || M >= (1LL << 31) || min_k < 1 || max_k > 12
+        || min_k > max_k)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    int32_t* w = (int32_t*)scratch;
+    int32_t *bins = w, *pos = w + M, *ba = w + 2 * M, *pa = w + 3 * M;
+    const int32_t* sb = bins;
+    const int32_t* sp = pos;
+    if (M > 0) {
+        route_bins_kernel<<<(unsigned)((M + 255) / 256), 256, 0, st>>>(
+            (const int2*)q, (const int32_t*)limb0, M, C, bins, pos);
+        // pass p writes (ba, pa) when p is even, else (bins, pos)
+        const int bits = bin_bits(C);
+        const int err = rows_radix_sort(bins, pos, ba, pa, bins, pos,
+                                        w + 4 * M, M, 1, 0, st, nullptr,
+                                        bits);
+        if (err != 0) return err;
+        if (rows_radix_passes(1, 0, bits) % 2 == 1) {
+            sb = ba;
+            sp = pa;
+        }
+    }
+    route_gather_kernel<<<(unsigned)((M + 256) / 256), 256, 0, st>>>(
+        (const int2*)q, sb, sp, M, C, min_k, max_k, (int2*)qr,
+        (int32_t*)vbr, (int32_t*)posr, (int32_t*)cuts);
+    return (int)cudaGetLastError();
+}
 
 extern "C" int kasa_tiered_route(const void* q, const void* limb0,
                                  long long M, int C, int nseg, int min_k,

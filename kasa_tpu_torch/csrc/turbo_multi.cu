@@ -259,25 +259,30 @@ int launch_multi(int parts,
         void* read_base, void* wl_row0, void* wl_T, void* wl_ridki,
         void* hist, void* r_cnt, void* r_rows, void* r_big,
         void* ofc, void* diag, void* acc_ca, void* dm, void* a3w, void* a3c,
-        int expand_blocks, void* stream) {
+        int expand_blocks, void* stream, void* marks) {
     if (R <= 0) return (int)cudaGetLastError();
     cudaStream_t st = (cudaStream_t)stream;
+    cudaEvent_t* ev = (cudaEvent_t*)marks;
     MultiParams p{R, SW, n, num_k, S, H, DR, B, cw, hist_n, EB};
+    if (ev) cudaEventRecord(ev[0], st);
     if (parts & kCut) {
         multi_scan_kernel<<<1, kScanThreads, 0, st>>>(
             (const int32_t*)mcnt, R, (int32_t*)read_base, (int32_t*)diag);
+        if (ev) cudaEventRecord(ev[1], st);
         multi_slots_kernel<<<R, 128, 0, st>>>(
             (const int32_t*)cp, (const int32_t*)mcnt,
             (const int32_t*)read_base, (const int32_t*)grp2,
             (const int4*)d_tax4, (const int32_t*)t_hot, p,
             (int32_t*)wl_row0, (int32_t*)wl_T, (int32_t*)wl_ridki,
             (int32_t*)hist);
+        if (ev) cudaEventRecord(ev[2], st);
         multi_cut_kernel<<<1, kScanThreads, 0, st>>>(
             (const int32_t*)mcnt, (const int32_t*)runs,
             (const int32_t*)read_base, (const int32_t*)wl_row0,
             (const int32_t*)wl_T, (const int32_t*)hist, p, (int32_t*)r_cnt,
             (int32_t*)r_rows, (uint8_t*)r_big, (uint8_t*)ofc,
             (int32_t*)diag);
+        if (ev) cudaEventRecord(ev[3], st);
     }
     if (parts & kExpand) {
         const int count_used = (parts & kCountUsed) != 0;
@@ -290,6 +295,7 @@ int launch_multi(int parts,
             (int32_t*)diag, (const int32_t*)file_of_read, p, count_used,
             (float*)acc_ca, (float*)dm, (float*)a3w,
             (float*)a3c);
+        if (ev) cudaEventRecord(ev[4], st);
     }
     return (int)cudaGetLastError();
 }
@@ -304,12 +310,12 @@ int launch_multi(int parts,
         int cw, int hist_n, void* read_base, void* wl_row0, void* wl_T, \
         void* wl_ridki, void* hist, void* r_cnt, void* r_rows, \
         void* r_big, void* ofc, void* diag, void* acc_ca, void* dm, \
-        void* a3w, void* a3c, int expand_blocks, void* stream
+        void* a3w, void* a3c, int expand_blocks, void* stream, void* marks
 #define KASA_MULTI_ARGS \
         cp, mcnt, runs, grp2, d_tax4, t_hot, weights, file_of_read, R, SW, \
         n, num_k, S, H, DR, B, EB, cw, hist_n, read_base, wl_row0, wl_T, \
         wl_ridki, hist, r_cnt, r_rows, r_big, ofc, diag, acc_ca, dm, a3w, \
-        a3c, expand_blocks, stream
+        a3c, expand_blocks, stream, marks
 
 extern "C" int kasa_turbo_multi(KASA_MULTI_PARAMS) {
     return launch_multi(kCut | kExpand, KASA_MULTI_ARGS);

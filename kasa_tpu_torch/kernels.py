@@ -41,11 +41,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # counts its cut as "turbo_multi" and its expansion as
 # "turbo_multi.split"; K14's long arm as "mesh_merge.long"; K8's prefix
 # tables as "tiered_pass.prefix"; K9's global arm as
-# "classic_classify.global")
+# "classic_classify.global"; K7's global arm as "tiered_route.global")
 COUNTS = {"encode": 0, "turbo_match": 0, "turbo_reads": 0,
           "turbo_reads.long": 0, "turbo_multi": 0, "turbo_multi.split": 0,
           "dedup": 0, "dedup.long": 0, "dedup.global": 0, "sparse_fold": 0,
-          "tiered_route": 0, "tiered_pass": 0, "tiered_pass.prefix": 0,
+          "tiered_route": 0, "tiered_route.global": 0, "tiered_pass": 0, "tiered_pass.prefix": 0,
           "classic_classify": 0, "classic_classify.global": 0,
           "join_match": 0, "join_scatter": 0, "query_sort": 0,
           "sort_dedup": 0, "mesh_merge": 0, "mesh_merge.long": 0}
@@ -55,7 +55,7 @@ _libs: dict = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_MULTI = [_P] * 8 + [_I] * 8 + [_L, _I, _I] + [_P] * 14 + [_I, _P]
+_MULTI = [_P] * 8 + [_I] * 8 + [_L, _I, _I] + [_P] * 14 + [_I, _P, _P]
 _ARGTYPES = {
     "kasa_encode_windows": [_P, _P] + [_I] * 7 + [_P, _P, _P],
     "kasa_turbo_match": [_P] * 6 + [_L] + [_I] * 7 + [_P, _P, _P],
@@ -71,6 +71,9 @@ _ARGTYPES = {
     "kasa_dedup_long_max_kpr": [_I, _I],
     "kasa_sparse_fold": [_P] * 6 + [_I] * 6 + [_P] * 5,
     "kasa_tiered_route": [_P, _P, _L, _I, _I, _I, _I] + [_P] * 6,
+    "kasa_tiered_route_global_plan": [_L, _I, _P],
+    "kasa_tiered_route_smem": [_I],
+    "kasa_tiered_route_global": [_P, _P, _L, _I, _I, _I] + [_P] * 6,
     "kasa_tiered_pass": [_P] * 11 + [_L, _L] + [_I] * 11 + [_P] * 5,
     "kasa_tiered_prefix": [_P, _I, _P, _P],
     "kasa_classic_classify": [_P] * 11 + [_L] * 4 + [_I] * 10 + [_P] * 6,
@@ -97,6 +100,9 @@ _LIB_OF = {"kasa_encode_windows": "encode",
            "kasa_dedup_long_max_kpr": "dedup",
            "kasa_sparse_fold": "sparse_fold",
            "kasa_tiered_route": "tiered_route",
+           "kasa_tiered_route_global_plan": "tiered_route",
+           "kasa_tiered_route_smem": "tiered_route",
+           "kasa_tiered_route_global": "tiered_route",
            "kasa_tiered_pass": "tiered_pass",
            "kasa_tiered_prefix": "tiered_pass",
            "kasa_classic_classify": "classic_classify",
@@ -413,13 +419,31 @@ def turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
 # ---------------------------------------------------------------------------
 # K4 turbo_multi (csrc/turbo_multi.cu)
 
+MULTI_MARKS = 5
+
+
+def _marks(marks, n: int):
+    """ctypes array of the cudaEvent_t handles of n torch.cuda.Events
+    (each recorded once here so that it exists), or None."""
+    if marks is None:
+        return None
+    if len(marks) != n:
+        raise ValueError(f"{len(marks)} marks, expected {n}")
+    for ev in marks:
+        ev.record()
+    return (ctypes.c_void_p * n)(*[ev.cuda_event for ev in marks])
+
+
 def turbo_multi(cp, mcnt, runs, tt, acc_ca, multi_budget: int,
                 exp_budget: int, cw: int, sent: int, file_of_read=None,
-                counts_only: bool = False, flag_reduce=None):
+                counts_only: bool = False, flag_reduce=None, marks=None):
     """counts_only (the sparse regime): no (R, S) score rows and no hot
     credits are allocated or written; dm, a3w and a3c come back None.
     flag_reduce (the mesh): the cut and the expansion launch apart, and
-    the flags between them are replaced by flag_reduce(flags)."""
+    the flags between them are replaced by flag_reduce(flags).  marks:
+    None, or MULTI_MARKS torch.cuda.Events recorded before the four
+    launches (scan, slots, cut, expand) and after each (chip_smoke.py
+    times the stages with them; not with flag_reduce)."""
     dev = cp.device
     if dev.type != "cuda":
         raise ValueError("turbo_multi: the kernel takes CUDA tensors")
@@ -460,11 +484,14 @@ def turbo_multi(cp, mcnt, runs, tt, acc_ca, multi_budget: int,
             _ptr(acc_ca), _ptr(dm), _ptr(a3w), _ptr(a3c), sms * 8,
             _stream(dev))
     if flag_reduce is None:
-        _launch("kasa_turbo_multi", "turbo_multi", *args)
+        _launch("kasa_turbo_multi", "turbo_multi", *args,
+                _marks(marks, MULTI_MARKS))
         return ofc, dm, a3w, a3c, diag
-    _launch("kasa_turbo_multi_cut", "turbo_multi", *args)
+    if marks is not None:
+        raise ValueError("marks: the split entry points are not timed")
+    _launch("kasa_turbo_multi_cut", "turbo_multi", *args, None)
     ofc.copy_(flag_reduce(ofc))
-    _launch("kasa_turbo_multi_expand", "turbo_multi.split", *args)
+    _launch("kasa_turbo_multi_expand", "turbo_multi.split", *args, None)
     return ofc, dm, a3w, a3c, diag
 
 
@@ -551,6 +578,23 @@ def sparse_fold(cp, mcnt, ofc, tt, wm: int, sent: int):
 # ---------------------------------------------------------------------------
 # K7 tiered_route (csrc/tiered_route.cu)
 
+# chunks the shared arm takes: a segment's running offsets, 4 (C + 1)
+# bytes, sit in the 48 KB a block may use without opting in
+ROUTE_SHARED_MAX = 12_000
+ROUTE_SMEM = 48 * 1024
+
+
+def tiered_route_arm(C: int, smem_per_block: int = ROUTE_SMEM) -> str:
+    """K7's arm for C chunks on a card whose blocks may use
+    smem_per_block bytes of shared memory: "shared" (running offsets per
+    segment in shared memory) or "global" (a radix sort of the windows by
+    bin, counted as "tiered_route.global")."""
+    if C < 1:
+        raise ValueError(f"{C} chunks")
+    fits = 4 * (C + 1) <= min(smem_per_block, ROUTE_SMEM)
+    return "shared" if C < ROUTE_SHARED_MAX and fits else "global"
+
+
 def tiered_route(q: torch.Tensor, chunk_limb0: torch.Tensor, min_k: int,
                  max_k: int):
     """-> (qr (M, 2), vbr (M,), posr (M,), cuts (C,)) int32: the windows
@@ -562,20 +606,31 @@ def tiered_route(q: torch.Tensor, chunk_limb0: torch.Tensor, min_k: int,
     C = chunk_limb0.shape[0]
     _check(q, "q", torch.int32, (M, 2), dev)
     _check(chunk_limb0, "chunk_limb0", torch.int32, (C,), dev)
-    # a segment's running offsets sit in 48 KB of shared memory
-    if not 1 <= C < 12_000:
-        raise NotImplementedError(f"{C} chunks: the routing kernel takes "
-                                  "1..11,999")
-    nseg = max(-(-M // 1024), 1)
+    if C < 1:
+        raise ValueError("chunk_limb0: no chunk")
+    if M >= 1 << 31:
+        raise ValueError(f"{M} windows: the kernel takes fewer than 2^31")
     i32 = dict(dtype=torch.int32, device=dev)
     qr = torch.empty((M, 2), **i32)
     vbr = torch.empty((M,), **i32)
     posr = torch.empty((M,), **i32)
     cuts = torch.empty((C,), **i32)
-    hist = torch.empty(((C + 1) * nseg,), **i32)
-    _launch("kasa_tiered_route", "tiered_route", _ptr(q), _ptr(chunk_limb0),
-            M, C, nseg, min_k, max_k, _ptr(hist), _ptr(qr), _ptr(vbr),
-            _ptr(posr), _ptr(cuts), _stream(dev))
+    smem = _fn("kasa_tiered_route_smem")(_device_index(dev))
+    if smem < 0:
+        raise RuntimeError(f"kasa_tiered_route_smem: CUDA error {-smem}")
+    if tiered_route_arm(C, smem) == "shared":
+        nseg = max(-(-M // 1024), 1)
+        hist = torch.empty(((C + 1) * nseg,), **i32)
+        _launch("kasa_tiered_route", "tiered_route", _ptr(q),
+                _ptr(chunk_limb0), M, C, nseg, min_k, max_k, _ptr(hist),
+                _ptr(qr), _ptr(vbr), _ptr(posr), _ptr(cuts), _stream(dev))
+    else:
+        words = ctypes.c_longlong(0)
+        _fn("kasa_tiered_route_global_plan")(M, C, ctypes.byref(words))
+        scratch = torch.empty((words.value,), **i32)
+        _launch("kasa_tiered_route_global", "tiered_route.global", _ptr(q),
+                _ptr(chunk_limb0), M, C, min_k, max_k, _ptr(scratch),
+                _ptr(qr), _ptr(vbr), _ptr(posr), _ptr(cuts), _stream(dev))
     return qr, vbr, posr, cuts
 
 

@@ -347,6 +347,41 @@ def test_tiered_route_kernel(cuda, M, C):
         assert torch.equal(a.cpu(), b.cpu())
 
 
+@pytest.mark.parametrize("C,arm", [(11_999, "tiered_route"),
+                                   (12_000, "tiered_route.global"),
+                                   (20_011, "tiered_route.global")])
+def test_tiered_route_kernel_arms(cuda, C, arm):
+    """K7 on either side of its shared-memory capacity (ROADMAP F2): the
+    arm's counter moves, and the routed arrays and cuts equal the plain
+    version's exactly; windows fall below the first chunk, on chunk
+    starts, past the last one and in empty chunks."""
+    from kasa_tpu_torch import kernels
+    from kasa_tpu_torch.match import tiered as TI
+    rng = np.random.default_rng(C)
+    M = 300_007
+    limb0 = np.sort(rng.choice(np.arange(1 << 20, 1 << 30, 1 << 14), C,
+                               replace=False))
+    q = rng.integers(0, 1 << 30, size=(M, 2), dtype=np.int64)
+    # a third of the windows sit on a chunk's first limb0, a thousand
+    # below the first chunk
+    on = rng.random(M) < 0.3
+    q[on, 0] = limb0[rng.integers(0, C, size=int(on.sum()))]
+    q[:1000, 0] = rng.integers(0, limb0[0], size=1000)
+    bad = rng.random(M) < 0.2
+    q[bad, 1] |= 30 << (5 * rng.integers(0, 6, size=int(bad.sum())))
+    qd = torch.from_numpy(q.astype(np.int32)).to(cuda)
+    l0 = torch.from_numpy(limb0.astype(np.int32)).to(cuda)
+    kernels.reset_counts()
+    got = TI.tiered_route(qd, l0, 7, 12)
+    assert kernels.COUNTS[arm] == 1
+    want = TI.tiered_route_plain(qd, l0, 7, 12)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b.cpu())
+    # no window at all: every cut is 0
+    empty = TI.tiered_route(qd[:0], l0, 7, 12)[3]
+    assert int(empty.abs().sum()) == 0
+
+
 def _tier_chunks(tmp_path):
     """The port's chunk tables of tests/test_turbo.py's tiers index (T =
     4, 13, 30 on the device, 61, 201 on the host) in >= 4 chunks, and

@@ -84,10 +84,11 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
            1,024, default and -e, and 8,192 pairs of 2 x 250 bp under
            --six through identify (K3's long arm on every batch, K5's
            shared-memory arm under -e), each with the launch counts reset
-           just before and read just after; K3's and K5's long arms
-           against their plain versions on the batch of all 8,192, timed
-           beside torch.sort (K5); the first 256 long reads, default and
-           -e, against the port's CPU run;
+           just before and read just after; K3 pre's shared-memory and
+           global long arms and K5's long arm against their plain
+           versions on the batch of all 8,192, timed beside torch.sort
+           (K5), and the stage split of that batch; the first 256 long
+           reads, default and -e, against the port's CPU run;
   budgets  multi slots and flagged reads of a --six, a paired and a
            paired --six batch at kasa_tpu's fixed budgets and at twice
            them, beside the worklist the drive loop gives each;
@@ -97,7 +98,11 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
            computes the same function, that call's time as a yardstick
            the port never uses; the new arms (K1 one-frame and protein,
            the per-file counts of K3 and K4) against their plain
-           versions too, and the whole batch step timed per mode;
+           versions too, and the whole batch step timed per mode; the
+           stage split of the default batch (and of the sparse and long
+           batches in their phases): K3 pre and post apart, K4's four
+           launches apart (CUDA events between them), each row's share of
+           sentinel slot keys;
   classic-vs-turbo  the default corpus at k 7..12 (after the full
            phases) and the 128-bit corpus at k 20..25 (after the wide
            phase) under KASA_TPU_NO_TURBO, the 65,536 smoke reads with
@@ -193,7 +198,10 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
            then K7, K8 and K3's additive arm against their plain versions
            on a real batch of each run, timed, with torch.sort of the
            batch's 60-bit window keys (K7) and torch.searchsorted over
-           each chunk's keys (K8) as yardsticks.
+           each chunk's keys (K8) as yardsticks, K3's additive pre and
+           post apart; K7's global arm on the first run's windows over
+           20,000 synthetic chunk starts, against its plain version,
+           timed.
 
 Prints the card's name and power limit, a JSON line of the kernels and
 their new arms, and last the line {"ok": true, "device": {...}}.
@@ -202,7 +210,14 @@ their new arms, and last the line {"ok": true, "device": {...}}.
 
 runs only build, the default corpus, its single-card run and the mesh
 over four cards (the cards entry of the mesh phase), and prints the
-card line and the ok line.  Longer
+card line and the ok line.
+
+    python3 chip_smoke.py --stages
+
+runs only build and the stage splits of K3, K4 and K7 on the default
+corpus (default, long and 32,768-read additive batches, synthetic chunk
+plans of 4 to 20,000 chunks) and the sparse corpus, each held to its
+plain version, into .synth_corpus/out/chip_smoke_stages.json.  Longer
 logs and the full-size outputs go to .synth_corpus/out/.  Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -492,7 +507,7 @@ def phase_golden_flags():
 
 CLASSIC_KERNELS = ("encode", "classic_classify")
 TURBO_ONLY = ("turbo_match", "turbo_reads", "turbo_multi", "sparse_fold",
-              "tiered_route", "tiered_pass")
+              "tiered_route", "tiered_route.global", "tiered_pass")
 K128 = {"lower_k": 12, "higher_k": 25}
 
 
@@ -1491,8 +1506,8 @@ def phase_kernels(disp, mat, R, w, launches):
     log(f"library: torch.searchsorted over packed 60-bit keys {lib_ms:.4f} "
         "ms (yardstick for turbo_match's search; the port never calls it)")
     log(f"step: fused_turbo_acc {step_ms:.4f} ms per {R}-read batch on the "
-        "device (all four kernels, the zeroed score rows and the two "
-        "hot-set products)")
+        "device (all four kernels and the two hot-set products)")
+    turbo_stages("default", tt, mat, R, w, mb, eb, cap)
     return out, step_ms
 
 
@@ -1991,6 +2006,7 @@ def phase_kernels_sparse(disp, big, launches):
     ms6 = time_ms(lambda: T.sparse_fold(cp, mcnt, ofc, tt), 20)
     plain6 = time_ms(lambda: T.sparse_fold_plain(cp, mcnt, ofc, tt), 3)
     lib6 = time_ms(lambda: torch.sort(lane_keys), 20)
+    turbo_stages("sparse", tt, mat, R, w, mb, eb, cap)
     ms4 = time_ms(lambda: T.turbo_multi(cp, mcnt, runs, tt, ca_t, mb, eb,
                                         counts_only=True), 10)
     plain4 = time_ms(lambda: T.turbo_multi_plain(
@@ -2121,7 +2137,9 @@ def phase_kernels_wide(disp, corpus, launches, launches_e):
 # ---------------------------------------------------------------------------
 # the tiered beyond-resident path (a device budget below the tables)
 
-TIERED_KERNELS = ("encode", "tiered_route", "tiered_pass.prefix",
+# K7 launches one of its arms, picked by the chunk count
+# (kernels.tiered_route_arm); tiered_drive checks that one did
+TIERED_KERNELS = ("encode", "tiered_pass.prefix",
                   "tiered_pass", "turbo_reads")
 ALL_HITS = 100_000      # -b: write every hit (reads tie at the third best)
 
@@ -2183,6 +2201,14 @@ def tiered_agree(tag, ref, got, srtol=2e-4, satol=2e-4):
         f"{float(np.abs(ra[0]).max()):.6g}, {used:.3g} of the allowance)")
 
 
+K7_COUNTER = {"shared": "tiered_route", "global": "tiered_route.global"}
+
+
+def tiered_route_arm(C):
+    from kasa_tpu_torch import kernels
+    return kernels.tiered_route_arm(C)
+
+
 def tiered_drive(tag, index, reads, over, expect, n_reads):
     """The resident run and the tiered run (KASA_DEVICE_BUDGET =
     TIERED_BUDGET) of the same reads, every hit written, each with its
@@ -2213,6 +2239,10 @@ def tiered_drive(tag, index, reads, over, expect, n_reads):
         fail(f"{tag}: the budget did not select the tiered path")
     if launches["turbo_match"] or launches["turbo_multi"]:
         fail(f"{tag}: the tiered run launched K2/K4: {launches}")
+    arm = K7_COUNTER[tiered_route_arm(len(disp.chunks))]
+    if launches[arm] <= 0:
+        fail(f"{tag}: K7's {arm} arm ({len(disp.chunks)} chunks) did not "
+             f"launch: {launches}")
     if res[2] != n_reads:
         fail(f"{tag}: {res[2]} reads identified, expected {n_reads}")
     tiered_agree(tag, outs["resident"], outs["tiered"])
@@ -2521,14 +2551,62 @@ def phase_kernels_tiered(disp, mat, R, w, lpr, unique, launches, tag,
         err = {"tiered_route": 0.0, "tiered_pass.prefix": 0.0,
                "tiered_pass": err8, "turbo_reads.additive": err3}[name]
         counter = name if name == "tiered_pass.prefix" else f
+        label = name
+        if name == "tiered_route":
+            # the arm the wrapper takes for this run's chunks
+            counter = label = K7_COUNTER[tiered_route_arm(l0.numel())]
         entries.append(kernel_entry(
-            name + suffix, f"kasa_tpu_torch/csrc/{f}.cu", rep,
+            label + suffix, f"kasa_tpu_torch/csrc/{f}.cu", rep,
             launches[counter], err, ms[name], plain[name], nbytes[name], lib,
             note))
     log(f"step {tag}: K1 + K7 + K8 over {len(ranges)} chunks + K3 additive "
         f"{step_ms:.4f} ms per {R}-read batch with every chunk on the "
         "device")
+    # K3's additive arm, pre and post apart
+    pre_ms = time_ms(lambda: T.turbo_reads_pre(skv, None, cw=SW), 10)
+    post_ms = time_ms(lambda: T.turbo_reads_post(
+        ck, cc, ofc, dm, disp.weights, ca_t, cu_t, zero2, cap, wm=wm,
+        additive=True, cadd=sp[2][:nk * S]), 10)
+    STAGES[tag] = {"additive_pre": pre_ms, "additive_post": post_ms,
+                   "slots": slot_stats(skv)}
+    log(f"stages {tag}: K3 additive pre {pre_ms:.4f} ms, post "
+        f"{post_ms:.4f} ms; " + json.dumps(STAGES[tag]))
+    if not suffix:
+        entries.append(route_global_entry(q))
     return entries, dict(ms, step=step_ms)
+
+
+ROUTE_CHUNKS = 20_000     # K7's global arm: a synthetic chunk plan
+
+
+def route_global_entry(q):
+    """K7's global arm on a tiered batch's windows over ROUTE_CHUNKS
+    synthetic chunk starts (route_chunks), against its plain version,
+    timed, with torch.sort of the windows' 60-bit keys as its yardstick;
+    no run of this script has that many chunks, so its launches on a
+    path are 0.  -> the kernel entry."""
+    import torch
+    from kasa_tpu_torch import kernels as K
+    from kasa_tpu_torch.match import tiered as TI
+    l0 = route_chunks(q, ROUTE_CHUNKS)
+    C, M = l0.numel(), q.shape[0]
+    K.reset_counts()
+    got = TI.tiered_route(q, l0, 7, 12)
+    if K.COUNTS["tiered_route.global"] != 1:
+        fail(f"tiered_route at C={C}: the global arm did not launch")
+    want = TI.tiered_route_plain(q, l0, 7, 12)
+    for nm, a, b in zip(("qr", "vbr", "posr", "cuts"), got, want):
+        same(f"tiered_route.global.{nm}", a, b)
+    ms = time_ms(lambda: TI.tiered_route(q, l0, 7, 12), 10)
+    plain_ms = time_ms(lambda: TI.tiered_route_plain(q, l0, 7, 12), 3)
+    keys = (q[:, 0].long() << 30) | q[:, 1].long()
+    lib = time_ms(lambda: torch.sort(keys), 10)
+    log(f"kernel tiered_route.global: {M} windows over {C} chunks")
+    return kernel_entry("tiered_route.global",
+                        "kasa_tpu_torch/csrc/tiered_route.cu",
+                        "kasa_tpu/match/tiered.py:184", 0, 0.0, ms, plain_ms,
+                        M * 8 + M * 16 + C * 4 * 2, lib,
+                        "torch.sort of the 60-bit keys")
 
 
 # ---------------------------------------------------------------------------
@@ -3073,10 +3151,19 @@ def phase_oocore(corpus):
 # long read lines (K3's and K5's long arms), the index build (K13) and
 # the other CLI modes
 
-LONG_KERNELS = ("encode", "turbo_match", "turbo_reads", "turbo_reads.long",
-                "turbo_multi")
+LONG_KERNELS = ("encode", "turbo_match", "turbo_reads",
+                "turbo_reads.long_smem", "turbo_multi")
+# K3 pre's long arms: the shared-memory arm while a batch's rows fit one
+# block, else the global arm
+LONG_ARMS = ("turbo_reads.long_smem", "turbo_reads.long")
 LONG_CPU_READS = 256      # long reads held to the port's CPU run
 LONG_FALLBACK_PCT = 1.0   # most of the long reads the host may recompute
+
+
+def expect_long_arm(tag, counts):
+    """The run's long batches went through one of K3 pre's long arms."""
+    if not any(counts[a] > 0 for a in LONG_ARMS):
+        fail(f"{tag}: no long arm of K3 pre launched: {counts}")
 
 
 def phase_golden_long():
@@ -3088,7 +3175,8 @@ def phase_golden_long():
                             "long_multi", dev)
             for dev in ("cpu", DEVICE)}
     expect_launched("golden-long multi --six", runs[DEVICE][0],
-                    LONG_KERNELS)
+                    PATH_KERNELS)
+    expect_long_arm("golden-long multi --six", runs[DEVICE][0])
     n = 0
     for name in ("a", "b"):
         # a folder's outputs are <out><name>.json and <profile><name>.csv
@@ -3113,7 +3201,7 @@ def phase_long(corpus):
     -> (kernel entries, launches, infos)."""
     import numpy as np
     import torch
-    from kasa_tpu_torch import synth
+    from kasa_tpu_torch import kernels, synth
     from kasa_tpu_torch.config import Config
     from kasa_tpu_torch.core import encode as E
     from kasa_tpu_torch.core.alphabet import build_codon_code_lut
@@ -3168,11 +3256,29 @@ def phase_long(corpus):
     q = E.encode_windows(mat_d, lut, w)
     skey, mpay = T.turbo_match(q, tt, R, w)
     SW = skey.shape[1]
+    kernels.reset_counts()
     got = T.turbo_reads_pre(skey, mpay)
+    if kernels.COUNTS["turbo_reads.long_smem"] != 1:
+        fail(f"long: K3 pre took another arm than long_smem on the batch of "
+             f"all long reads: {kernels.COUNTS}")
     want = T.turbo_reads_pre_plain(skey, mpay)
     for name, a, b in zip(("ck", "cc", "runs", "mcnt", "cp"), got, want):
-        same(f"turbo_reads.long.{name}", a, b)
+        same(f"turbo_reads.long_smem.{name}", a, b)
+    # the global arm on the same rows (no batch of this script's paths
+    # takes it while a batch's rows fit one block)
+    keep = kernels.reads_hist_max
+    kernels.reads_hist_max = lambda *a: 0
+    try:
+        got = T.turbo_reads_pre(skey, mpay)
+        if kernels.COUNTS["turbo_reads.long"] != 1:
+            fail("long: the global arm of K3 pre did not launch")
+        for name, a, b in zip(("ck", "cc", "runs", "mcnt", "cp"), got, want):
+            same(f"turbo_reads.long.{name}", a, b)
+        ms_g = time_ms(lambda: T.turbo_reads_pre(skey, mpay), 3)
+    finally:
+        kernels.reads_hist_max = keep
     max_runs = int(want[2].max())
+    real = slot_stats(skey)
     del got, want
     # the batch's demand on the sizes that batch_budgets scales, and the
     # flags of the batch step at the scaled sizes
@@ -3195,13 +3301,22 @@ def phase_long(corpus):
     ms = time_ms(lambda: T.turbo_reads_pre(skey, mpay), 5)
     plain_ms = time_ms(lambda: T.turbo_reads_pre_plain(skey, mpay), 2)
     nbytes = 3 * R * SW * 4 + 2 * R * T.CW * 4 + 2 * R * 4
-    k3 = kernel_entry("turbo_reads.long", "kasa_tpu_torch/csrc/turbo_reads.cu",
+    k3 = kernel_entry("turbo_reads.long_smem",
+                      "kasa_tpu_torch/csrc/turbo_reads.cu",
                       "kasa_tpu/match/turbo.py:717",
-                      runs["long"][0]["turbo_reads.long"], 0.0, ms,
+                      runs["long"][0]["turbo_reads.long_smem"], 0.0, ms,
                       plain_ms, nbytes, None)
-    log(f"kernel turbo_reads.long on a real batch: R={R}, SW={SW}, "
-        f"w={w}")
+    k3g = kernel_entry("turbo_reads.long",
+                       "kasa_tpu_torch/csrc/turbo_reads.cu",
+                       "kasa_tpu/match/turbo.py:717",
+                       runs["long"][0]["turbo_reads.long"], 0.0, ms_g,
+                       plain_ms, nbytes, None)
+    log(f"kernel turbo_reads.long_smem / turbo_reads.long (pre, the "
+        f"shared-memory and global arms) on a real batch: R={R}, SW={SW}, "
+        f"w={w}, real slot keys {json.dumps(real)}")
     del skey, mpay
+    stages_long = turbo_stages("long", tt, mat, R, w, mb, eb,
+                               disp.csr_cap(R), wout=wout)
     got = T.dedup_windows(q, R, w)
     want = T.dedup_windows_plain(q, R, w)
     same("dedup.long", got, want)
@@ -3246,8 +3361,9 @@ def phase_long(corpus):
             f"{' under -e' if unique else ''} on the card agree with the "
             "port's CPU run (unique counts identical, every hit)")
 
-    return [k3, k5], {t: r[0] for t, r in runs.items()}, \
-        {t: r[1] for t, r in runs.items()}
+    infos = {t: r[1] for t, r in runs.items()}
+    infos["stages"] = stages_long
+    return [k3, k3g, k5], {t: r[0] for t, r in runs.items()}, infos
 
 
 def phase_dedup_global(wide_index):
@@ -3273,9 +3389,10 @@ def phase_dedup_global(wide_index):
     stem = os.path.join(OUT, "wide_long_six_e")
     (ca, cu, nreads, _), launches, info = drive(
         tag, sub, stem + ".json", stem + ".csv",
-        LONG_KERNELS + ("dedup.global",),
+        PATH_KERNELS + ("dedup.global",),
         over={"lower_k": 20, "higher_k": 25, "six_frames": True,
               "unique": True}, corpus={"index": wide_index})
+    expect_long_arm(tag, launches)
     if nreads != LONG_CPU_READS or not np.isfinite(ca).all() \
             or cu.sum() <= 0:
         fail(f"{tag}: wrong read count or empty / non-finite counts")
@@ -3775,6 +3892,7 @@ def phase_mesh_cards(corpus, ref):
 
 STAGE_REPS = 10
 K4_STAGES = ("scan", "slots", "cut", "expand")
+STAGES = {}     # tag -> the stage splits of turbo_stages, for the json
 
 
 def slot_stats(skey):
@@ -3787,32 +3905,78 @@ def slot_stats(skey):
             "sentinel_pct": 100.0 * (1.0 - float(n.mean()) / skey.shape[1])}
 
 
-def k4_stages(cp, mcnt, runs, tt, acc_ca, mb, eb, counts_only=False,
-              reps=STAGE_REPS):
-    """K4's four launches timed apart (CUDA events between them, the
-    mean of reps calls after one warm-up call) -> {stage: ms}."""
+def multi_counts_f64(cp, mcnt, ofc, tt):
+    """The sums K4 adds over the reads, in float64: the counts (numK, S),
+    1/T for each taxon of each cold slot of an unflagged read, and the
+    hot credits (numK, H), 1/T for each of its hot slots."""
     import torch
-    from kasa_tpu_torch import kernels as K
-    from kasa_tpu_torch.match import turbo as T
-    marks = [torch.cuda.Event(enable_timing=True)
-             for _ in range(K.MULTI_MARKS)]
-    tot = [0.0] * len(K4_STAGES)
+    R, SW = cp.shape
+    H = tt.hotmask.shape[0]
+    iota = torch.arange(SW, device=cp.device)
+    slot = torch.nonzero((iota[None, :] < mcnt[:, None]) & ~ofc[:, None])
+    mp = cp[slot[:, 0], slot[:, 1]].long()
+    ki = mp & 7
+    row0 = tt.grp2[(ki * tt.n + (mp >> 3)).clamp(
+        max=tt.num_k * tt.n - 1)].long()
+    hot = row0 < 0
+    hid = -row0[hot] - 1
+    hot_c = torch.zeros(tt.num_k * H, dtype=torch.float64, device=cp.device)
+    hot_c.index_add_(0, ki[hot] * H + hid,
+                     1.0 / tt.t_hot[hid].double().clamp(min=1))
+    cold = row0 > 0
+    ki, row0 = ki[cold], row0[cold]
+    T = tt.d_tax4[row0, 0].long()
+    lanes = ((T + 3) >> 2) * 4
+    sl = torch.repeat_interleave(torch.arange(len(T), device=cp.device),
+                                 lanes)
+    j = torch.arange(len(sl), device=cp.device) \
+        - (torch.cumsum(lanes, 0) - lanes)[sl]
+    taxa = tt.d_tax4.view(-1)[((row0[sl] + 1) * 4 + j).clamp(
+        max=tt.d_tax4.numel() - 1)].long()
+    ok = taxa >= 0
+    S = tt.num_species
+    out = torch.zeros(tt.num_k * S, dtype=torch.float64, device=cp.device)
+    out.index_add_(0, (ki[sl] * S + taxa)[ok],
+                   (1.0 / T.double())[sl][ok])
+    return out.view(tt.num_k, S), hot_c.view(tt.num_k, H)
+
+
+def marked_ms(fn, n, reps=STAGE_REPS):
+    """The device times between n CUDA events that fn(marks) records
+    around its launches (no host time between them), the mean of reps
+    calls after one warm-up call -> n - 1 ms."""
+    import torch
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    tot = [0.0] * (n - 1)
     for rep in range(reps + 1):
-        K.turbo_multi(cp, mcnt, runs, tt, acc_ca, mb, eb, T.CW, T.SENT,
-                      counts_only=counts_only, marks=marks)
+        fn(marks)
         torch.cuda.synchronize()
         if rep:
-            for i in range(len(K4_STAGES)):
+            for i in range(n - 1):
                 tot[i] += marks[i].elapsed_time(marks[i + 1])
-    return {n: t / reps for n, t in zip(K4_STAGES, tot)}
+    return [t / reps for t in tot]
+
+
+def k4_stages(cp, mcnt, runs, tt, acc_ca, mb, eb, counts_only=False,
+              reps=STAGE_REPS):
+    """K4's four launches timed apart (CUDA events between them) ->
+    {stage: ms}."""
+    from kasa_tpu_torch import kernels as K
+    from kasa_tpu_torch.match import turbo as T
+    ms = marked_ms(lambda m: K.turbo_multi(
+        cp, mcnt, runs, tt, acc_ca, mb, eb, T.CW, T.SENT,
+        counts_only=counts_only, marks=m), K.MULTI_MARKS, reps)
+    return dict(zip(K4_STAGES, ms))
 
 
 def turbo_stages(tag, tt, mat, R, w, mb, eb, cap, wout=None, lpr=1):
     """K3 pre, K4's four stages and K3 post timed apart on one real batch
-    as the main path runs it, with the share of sentinel slot keys ->
-    {name: ms or stats}."""
+    as the main path runs it, each held to its plain version first, with
+    the share of sentinel slot keys and K3 pre's arm -> {name: ms or
+    stats}."""
     import numpy as np
     import torch
+    from kasa_tpu_torch import kernels as K
     from kasa_tpu_torch.core import encode as E
     from kasa_tpu_torch.core.alphabet import build_codon_code_lut
     from kasa_tpu_torch.match import turbo as T
@@ -3825,30 +3989,89 @@ def turbo_stages(tag, tt, mat, R, w, mb, eb, cap, wout=None, lpr=1):
     skey, mpay = T.turbo_match(q, tt, R, w * lpr)
     del q
     out = {"slots": slot_stats(skey)}
+    K.reset_counts()
+    got = T.turbo_reads_pre(skey, mpay)
+    out["pre_arm"] = {k: v for k, v in K.COUNTS.items() if v}
+    want = T.turbo_reads_pre_plain(skey, mpay)
+    for nm, a, b in zip(("ck", "cc", "runs", "mcnt", "cp"), got, want):
+        same(f"stages {tag} turbo_reads.{nm}", a, b)
+    del got
     out["pre"] = time_ms(lambda: T.turbo_reads_pre(skey, mpay), STAGE_REPS)
-    ck, cc, runs, mcnt, cp = T.turbo_reads_pre(skey, mpay)
+    if hasattr(K, "PRE_MARKS"):
+        out["pre_device"] = marked_ms(lambda m: K.turbo_reads_pre(
+            skey, mpay, T.SENT, T.CW, marks=m), K.PRE_MARKS)[0]
+    ck, cc, runs, mcnt, cp = want
     del skey, mpay
     ca = torch.zeros((nk, S), device=dev)
     cu = torch.zeros((nk, S), dtype=torch.int32, device=dev)
+    ca_p = torch.zeros((nk, S), device=dev)
+    mk = T.turbo_multi(cp, mcnt, runs, tt, ca, mb, eb, counts_only=sparse)
+    mp_ = T.turbo_multi_plain(cp, mcnt, runs, tt, ca_p, mb, eb,
+                              counts_only=sparse)
+    same(f"stages {tag} turbo_multi.ofc", mk[0], mp_[0])
+    same(f"stages {tag} turbo_multi.diag", mk[4], mp_[4])
+    # the counts against their float64 sum; a long-read batch adds ~10^5
+    # terms to a cell, where float32 orders differ by more than the rtol,
+    # so there the plain version's float32 sum is only logged beside it
+    ref, ref_h = multi_counts_f64(cp, mcnt, mp_[0], tt)
+    err4 = close(f"stages {tag} turbo_multi.acc_ca (float64 sum)", ca, ref)
+    out["k4_plain_f32_err"] = float((ca_p.double() - ref).abs().max())
+    if tag != "long":
+        err4 = max(err4, close(f"stages {tag} turbo_multi.acc_ca", ca, ca_p))
+    if not sparse:
+        err4 = max(err4, close(f"stages {tag} turbo_multi.dm", mk[1], mp_[1]),
+                   close(f"stages {tag} turbo_multi.a3w", mk[2], mp_[2]),
+                   close(f"stages {tag} turbo_multi.a3c (float64 sum)",
+                         mk[3], ref_h))
+        if tag != "long":
+            err4 = max(err4, close(f"stages {tag} turbo_multi.a3c", mk[3],
+                                   mp_[3]))
+    out["k4_err"] = err4
+    del mk
     out["k4"] = k4_stages(cp, mcnt, runs, tt, ca, mb, eb, sparse)
     out["k4_total"] = time_ms(lambda: T.turbo_multi(
         cp, mcnt, runs, tt, ca, mb, eb, counts_only=sparse), STAGE_REPS)
-    ofc, dm, a3w, _, diag = T.turbo_multi(cp, mcnt, runs, tt, ca, mb, eb,
-                                          counts_only=sparse)
+    ofc, dm, a3w, _, diag = mp_
     if sparse:
         ml = T.sparse_fold(cp, mcnt, ofc, tt)
-        out["post"] = time_ms(lambda: T.turbo_reads_post(
-            ck, cc, ofc, None, tt.weights, ca, cu, diag, cap, mlist=ml,
-            wout=wout), STAGE_REPS)
+
+        def post(fn, a, u):
+            return fn(ck, cc, ofc, None, tt.weights, a, u, diag, cap,
+                      mlist=ml, wout=wout)
+
+        def post_marked(m):
+            return K.turbo_reads_post(ck, cc, ofc, None, tt.weights, ca, cu,
+                                      diag, cap, T.SENT, wout, T.WM,
+                                      mlist=ml, marks=m)
     else:
+        dm = dm.clone()
         dm.addmm_(a3w, tt.hotmask)
-        out["post"] = time_ms(lambda: T.turbo_reads_post(
-            ck, cc, ofc, dm, tt.weights, ca, cu, diag, cap, wm=wout,
-            wout=wout), STAGE_REPS)
+
+        def post(fn, a, u):
+            return fn(ck, cc, ofc, dm, tt.weights, a, u, diag, cap, wm=wout,
+                      wout=wout)
+
+        def post_marked(m):
+            return K.turbo_reads_post(ck, cc, ofc, dm, tt.weights, ca, cu,
+                                      diag, cap, T.SENT, wout, wout, marks=m)
+    pk = post(T.turbo_reads_post, ca.clone(), cu.clone())
+    pp = post(T.turbo_reads_post_plain, ca.clone(), cu.clone())
+    ints = torch.ones(len(pk[0]), dtype=torch.bool)
+    ints[2 * R + 1:2 * R + 2 * cap:2] = False
+    same(f"stages {tag} turbo_reads.packed", pk[0].cpu()[ints],
+         pp[0].cpu()[ints])
+    same(f"stages {tag} turbo_reads.ht", pk[1], pp[1])
+    out["post_err"] = close(f"stages {tag} turbo_reads.hk", pk[2], pp[2])
+    out["post"] = time_ms(lambda: post(T.turbo_reads_post, ca, cu),
+                          STAGE_REPS)
+    if hasattr(K, "POST_MARKS"):
+        out["post_device"] = dict(zip(("post", "scan", "scatter"), marked_ms(
+            lambda m: post_marked(m), K.POST_MARKS)))
     mtot, eused = (int(x) for x in diag.tolist())
     out["multi_slots"], out["expansion_rows"] = mtot, eused
     out["flagged"] = int(ofc.sum())
     log(f"stages {tag} (R={R}, S={S}): " + json.dumps(out))
+    STAGES[tag] = out
     return out
 
 
@@ -3898,9 +4121,10 @@ def route_chunks(q, C):
 
 
 def route_stages(mat, R, w):
-    """K7's arms on a real batch's windows over synthetic chunk plans:
-    C = 11,999 (the shared arm's last) and 20,000 (the global arm), each
-    against its plain version, timed -> {C: ms}."""
+    """K7's arms on a real batch's windows over synthetic chunk plans of
+    4 to 20,000 chunks, each against its plain version, timed: the arm
+    the wrapper picks and, below the shared arm's limit, the global arm
+    too -> {C: {arm: ms}}."""
     import numpy as np
     import torch
     from kasa_tpu_torch import kernels as K
@@ -3910,21 +4134,29 @@ def route_stages(mat, R, w):
     dev = torch.device(DEVICE)
     lut = torch.from_numpy(build_codon_code_lut().astype(np.int32)).to(dev)
     q = E.encode_windows(torch.from_numpy(mat).to(dev), lut, w)
-    out = {}
-    for C, arm in ((11_999, "tiered_route"), (20_000, "tiered_route.global")):
+    out = {"M": q.shape[0]}
+    keep = K.ROUTE_SHARED_MAX
+    for C in (4, 64, 512, 2048, 11_999, 20_000):
         l0 = route_chunks(q, C)
-        K.reset_counts()
-        got = TI.tiered_route(q, l0, 7, 12)
-        if K.COUNTS[arm] != 1:
-            fail(f"tiered_route at C={l0.numel()}: arm {arm} not launched")
-        want = TI.tiered_route_plain(q, l0, 7, 12)
-        for nm, a, b in zip(("qr", "vbr", "posr", "cuts"), got, want):
-            same(f"{arm}.{nm} (C={l0.numel()})", a, b)
-        out[l0.numel()] = {
-            "arm": arm, "M": q.shape[0],
-            "ms": time_ms(lambda: TI.tiered_route(q, l0, 7, 12), 10),
-            "plain_ms": time_ms(lambda: TI.tiered_route_plain(q, l0, 7, 12),
-                                3)}
+        res = {}
+        for force in (False, True):
+            if force:
+                K.ROUTE_SHARED_MAX = 1
+            try:
+                K.reset_counts()
+                got = TI.tiered_route(q, l0, 7, 12)
+                arm = [k for k, v in K.COUNTS.items() if v]
+                want = TI.tiered_route_plain(q, l0, 7, 12)
+                for nm, a, b in zip(("qr", "vbr", "posr", "cuts"), got,
+                                    want):
+                    same(f"{arm}.{nm} (C={l0.numel()})", a, b)
+                res[",".join(arm)] = time_ms(
+                    lambda: TI.tiered_route(q, l0, 7, 12), 10)
+            finally:
+                K.ROUTE_SHARED_MAX = keep
+        res["plain"] = time_ms(lambda: TI.tiered_route_plain(q, l0, 7, 12),
+                               3)
+        out[l0.numel()] = res
     log("stages tiered_route: " + json.dumps(out))
     return out
 
@@ -4461,7 +4693,7 @@ def run(preps, smi, t_all):
                    "kernels": kern, "step_ms": step_ms,
                    "step_ms_by_mode": steps, "six_e_kernel_ms": six_e_ms,
                    "sparse_kernel_ms": sparse_ms, "wide_kernel_ms": wide_ms,
-                   "budgets": budgets}, fh, indent=1)
+                   "budgets": budgets, "stages": STAGES}, fh, indent=1)
     return kern
 
 

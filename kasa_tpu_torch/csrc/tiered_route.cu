@@ -31,13 +31,13 @@
 // reads the windows a second time (24 + 8 bytes per window moved) and
 // the scan's (C+1) x nseg counters are a few hundred KB.  One warp per
 // block keeps the running offsets of all C+1 bins in 4(C+1) bytes of
-// shared memory, so this arm takes C < 12,000 chunks (48 KB, the default
-// a block may use).
+// shared memory, so this arm could take C < 12,000 chunks (48 KB, the
+// default a block may use); but its counters grow with C and M (at C =
+// 20,000 and M = 8.5 M windows, 166 M of them) and one block scans them,
+// so on the H100 it only wins below 8 chunks.
 //
-// The global arm, for more chunks (the wrapper picks it from C and the
-// card's shared memory, kernels.tiered_route_arm): the bin-major
-// counters would grow with C and M (at C = 20,000 and M = 8.5 M windows,
-// 166 M of them) and one block would scan them, so it sorts instead:
+// The global arm, for more chunks (the wrapper picks the arm from C and
+// the card's shared memory, kernels.tiered_route_arm), sorts instead:
 //   bins:    one thread per window writes its bin (the same upper bound
 //            over chunk_limb0, C int32 that stay in L2) and its position;
 //   sort:    radix.cuh's one-sweep passes sort the (bin, position) pairs

@@ -36,16 +36,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # launches per kernel since the last reset_counts(): one per wrapper
 # call that launched (turbo_reads counts its pre and post entry points;
-# the long arms of K3 pre and K5 count apart, as "turbo_reads.long",
+# the long arms of K3 pre and K5 count apart, as "turbo_reads.long_smem"
+# (shared memory), "turbo_reads.long" (global),
 # "dedup.long" (shared memory) and "dedup.global"; K4 split for the mesh
 # counts its cut as "turbo_multi" and its expansion as
 # "turbo_multi.split"; K14's long arm as "mesh_merge.long"; K8's prefix
 # tables as "tiered_pass.prefix"; K9's global arm as
 # "classic_classify.global"; K7's global arm as "tiered_route.global")
 COUNTS = {"encode": 0, "turbo_match": 0, "turbo_reads": 0,
-          "turbo_reads.long": 0, "turbo_multi": 0, "turbo_multi.split": 0,
+          "turbo_reads.long": 0, "turbo_reads.long_smem": 0,
+          "turbo_multi": 0, "turbo_multi.split": 0,
           "dedup": 0, "dedup.long": 0, "dedup.global": 0, "sparse_fold": 0,
-          "tiered_route": 0, "tiered_route.global": 0, "tiered_pass": 0, "tiered_pass.prefix": 0,
+          "tiered_route": 0, "tiered_route.global": 0, "tiered_pass": 0,
+          "tiered_pass.prefix": 0,
           "classic_classify": 0, "classic_classify.global": 0,
           "join_match": 0, "join_scatter": 0, "query_sort": 0,
           "sort_dedup": 0, "mesh_merge": 0, "mesh_merge.long": 0}
@@ -55,13 +58,16 @@ _libs: dict = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_MULTI = [_P] * 8 + [_I] * 8 + [_L, _I, _I] + [_P] * 14 + [_I, _P, _P]
+_MULTI = [_P] * 8 + [_I] * 8 + [_L, _I, _I] + [_P] * 14
 _ARGTYPES = {
     "kasa_encode_windows": [_P, _P] + [_I] * 7 + [_P, _P, _P],
     "kasa_turbo_match": [_P] * 6 + [_L] + [_I] * 7 + [_P, _P, _P],
-    "kasa_turbo_reads_pre": [_P, _P] + [_I] * 5 + [_P] * 6,
-    "kasa_turbo_reads_pre_long": [_P, _P] + [_I] * 4 + [_P] * 8,
-    "kasa_turbo_reads_post": [_P] * 13 + [_I] * 9 + [_L] + [_P] * 8,
+    "kasa_turbo_reads_pre": [_P, _P] + [_I] * 4 + [_P] * 7,
+    "kasa_turbo_reads_pre_hist": [_P, _P] + [_I] * 5 + [_P] * 7,
+    "kasa_turbo_reads_hist_max": [_I],
+    "kasa_turbo_reads_kmax": [_P, _I, _I, _I, _P, _P],
+    "kasa_turbo_reads_pre_long": [_P, _P] + [_I] * 4 + [_P] * 9,
+    "kasa_turbo_reads_post": [_P] * 13 + [_I] * 9 + [_L] + [_P] * 9,
     "kasa_turbo_multi": _MULTI,
     "kasa_turbo_multi_cut": _MULTI,
     "kasa_turbo_multi_expand": _MULTI,
@@ -89,6 +95,9 @@ _ARGTYPES = {
 _LIB_OF = {"kasa_encode_windows": "encode",
            "kasa_turbo_match": "turbo_match",
            "kasa_turbo_reads_pre": "turbo_reads",
+           "kasa_turbo_reads_pre_hist": "turbo_reads",
+           "kasa_turbo_reads_hist_max": "turbo_reads",
+           "kasa_turbo_reads_kmax": "turbo_reads",
            "kasa_turbo_reads_pre_long": "turbo_reads",
            "kasa_turbo_reads_post": "turbo_reads",
            "kasa_turbo_multi": "turbo_multi",
@@ -231,6 +240,18 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def _marks(marks, n: int):
+    """ctypes array of the cudaEvent_t handles of n torch.cuda.Events
+    (each recorded once here so that it exists), or None."""
+    if marks is None:
+        return None
+    if len(marks) != n:
+        raise ValueError(f"{len(marks)} marks, expected {n}")
+    for ev in marks:
+        ev.record()
+    return (ctypes.c_void_p * n)(*[ev.cuda_event for ev in marks])
+
+
 # ---------------------------------------------------------------------------
 # K1 encode (csrc/encode.cu)
 
@@ -313,13 +334,43 @@ def _pow2(n: int) -> int:
     return p
 
 
-def turbo_reads_pre(skey: torch.Tensor, mpay: torch.Tensor | None,
-                    sent: int, cw: int):
-    """Without mpay (the tiered finish) no multi payloads are compacted:
-    mcnt and cp come back None.  A batch with SW or cw above SW_CAP takes
-    the long arm (counted as "turbo_reads.long"), which sorts the rows in
-    two (R, SW) int32 scratch buffers."""
+PRE_MARKS = 2
+POST_MARKS = 4
+
+
+def reads_hist_max(device: torch.device) -> int:
+    """The widest key range K3 pre's shared-memory long arm takes on the
+    card `device`: int32 counters in one block's opt-in shared memory
+    (turbo_reads.cu kasa_turbo_reads_hist_max)."""
+    n = _fn("kasa_turbo_reads_hist_max")(_device_index(device))
+    if n < 0:
+        raise RuntimeError(f"kasa_turbo_reads_hist_max: CUDA error {-n}")
+    return n
+
+
+def reads_pre_arm(SW: int, cw: int, kmax: int, hist_max: int) -> str:
+    """K3 pre's arm for rows of SW slot keys keeping cw runs: "short"
+    (SW and cw at most SW_CAP: every row's keys in shared memory),
+    "long_smem" (the batch's largest real key, kmax, below hist_max: a
+    histogram of the row's keys in shared memory, reads_hist_max) or
+    "global" (segmented radix passes in global memory).  kmax is only
+    read past SW_CAP."""
     from .match.turbo import SW_CAP
+    if SW <= SW_CAP and cw <= SW_CAP:
+        return "short"
+    return "long_smem" if kmax < hist_max else "global"
+
+
+def turbo_reads_pre(skey: torch.Tensor, mpay: torch.Tensor | None,
+                    sent: int, cw: int, marks=None):
+    """Without mpay (the tiered finish) no multi payloads are compacted:
+    mcnt and cp come back None.  A batch with SW or cw above SW_CAP first
+    finds its largest real key (one reduction and a sync): below
+    reads_hist_max it takes the shared-memory long arm
+    ("turbo_reads.long_smem"), else the global arm ("turbo_reads.long"),
+    which sorts the rows in two (R, SW) int32 scratch buffers.  marks:
+    None, or PRE_MARKS torch.cuda.Events recorded around the arm's
+    launches (chip_smoke.py times the stage with them)."""
     dev = skey.device
     if dev.type != "cuda":
         raise ValueError("turbo_reads_pre: the kernel takes CUDA tensors")
@@ -336,16 +387,32 @@ def turbo_reads_pre(skey: torch.Tensor, mpay: torch.Tensor | None,
     ck = torch.empty((R, cw), **i32)
     cc = torch.empty((R, cw), **i32)
     runs = torch.empty((R,), **i32)
-    if SW <= SW_CAP and cw <= SW_CAP:
+    kmax = hist_max = 0
+    if reads_pre_arm(SW, cw, 0, 0) != "short":
+        # part of the long arms: counted with the arm's launch below
+        out = torch.zeros((1,), **i32)
+        rc = _fn("kasa_turbo_reads_kmax")(_ptr(skey), R, SW, sent,
+                                          _ptr(out), _stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"kasa_turbo_reads_kmax: CUDA error {rc}")
+        kmax = int(out.item())
+        hist_max = reads_hist_max(dev)
+    arm = reads_pre_arm(SW, cw, kmax, hist_max)
+    ev = _marks(marks, PRE_MARKS)
+    if arm == "short":
         _launch("kasa_turbo_reads_pre", "turbo_reads", _ptr(skey),
-                _ptr(mpay), R, SW, _pow2(SW), sent, cw, _ptr(ck), _ptr(cc),
-                _ptr(runs), _ptr(mcnt), _ptr(cp), _stream(dev))
+                _ptr(mpay), R, SW, sent, cw, _ptr(ck), _ptr(cc), _ptr(runs),
+                _ptr(mcnt), _ptr(cp), _stream(dev), ev)
+    elif arm == "long_smem":
+        _launch("kasa_turbo_reads_pre_hist", "turbo_reads.long_smem",
+                _ptr(skey), _ptr(mpay), R, SW, kmax + 1, sent, cw, _ptr(ck),
+                _ptr(cc), _ptr(runs), _ptr(mcnt), _ptr(cp), _stream(dev), ev)
     else:
         scr = torch.empty((2, R, SW), **i32)
         _launch("kasa_turbo_reads_pre_long", "turbo_reads.long", _ptr(skey),
                 _ptr(mpay), R, SW, sent, cw, _ptr(scr[0]), _ptr(scr[1]),
                 _ptr(ck), _ptr(cc), _ptr(runs), _ptr(mcnt), _ptr(cp),
-                _stream(dev))
+                _stream(dev), ev)
     return ck, cc, runs, mcnt, cp
 
 
@@ -361,13 +428,15 @@ def _check_files(file_of_read, acc_ca, R, nk, S, dev):
 def turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
                      csr_cap: int, sent: int, wout: int, wm: int,
                      file_of_read=None, mlist=None, additive: bool = False,
-                     cadd=None):
+                     cadd=None, marks=None):
     """Dense arm: the multi taxa from dm, the (R, S) score rows.  List
     arm (dm None): from mlist = (mk (R, wm) int32, mv (R, wm) f32,
     multi_of (R,) bool), K6's lists; S is the accumulators' last
     dimension in both arms.  Additive arm (the tiered finish): flagged
     reads keep their counts and scores, and cadd, (numK * S,) f32 multi
-    counts, is added to acc_ca."""
+    counts, is added to acc_ca.  marks: None, or POST_MARKS
+    torch.cuda.Events recorded before the post kernel and after it, the
+    hit-count scan and the CSR scatter."""
     dev = ck.device
     if dev.type != "cuda":
         raise ValueError("turbo_reads_post: the kernel takes CUDA tensors")
@@ -403,8 +472,9 @@ def turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
     cum = torch.empty((R,), **i32)
     packed = torch.zeros((2 * R + 2 * csr_cap + 4,), **i32)
     # lists wider than the kernel's shared arrays (256) sit in a scratch
-    # row of 2 * (wout + wm) words per read
-    lscr = torch.empty((R, 2 * (wout + wm)), **i32) \
+    # row of 2 * (wout + wm) + wm + 1 words per read (turbo_reads.cu
+    # post_scratch_words)
+    lscr = torch.empty((R, 2 * (wout + wm) + wm + 1), **i32) \
         if max(wout, wm) > 256 else None
     _launch("kasa_turbo_reads_post", "turbo_reads", _ptr(ck), _ptr(cc),
             _ptr(ofc), _ptr(dm), _ptr(mk), _ptr(mv), _ptr(mof), _ptr(weights),
@@ -412,7 +482,7 @@ def turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
             _ptr(cadd), R, S, nk, cw, sent, wout, wm, int(additive),
             0 if cadd is None else nk * S, csr_cap, _ptr(lscr), _ptr(ht),
             _ptr(hk), _ptr(hc), _ptr(flags), _ptr(cum), _ptr(packed),
-            _stream(dev))
+            _stream(dev), _marks(marks, POST_MARKS))
     return packed, ht, hk
 
 
@@ -420,18 +490,6 @@ def turbo_reads_post(ck, cc, ofc, dm, weights, acc_ca, acc_cu, diag,
 # K4 turbo_multi (csrc/turbo_multi.cu)
 
 MULTI_MARKS = 5
-
-
-def _marks(marks, n: int):
-    """ctypes array of the cudaEvent_t handles of n torch.cuda.Events
-    (each recorded once here so that it exists), or None."""
-    if marks is None:
-        return None
-    if len(marks) != n:
-        raise ValueError(f"{len(marks)} marks, expected {n}")
-    for ev in marks:
-        ev.record()
-    return (ctypes.c_void_p * n)(*[ev.cuda_event for ev in marks])
 
 
 def turbo_multi(cp, mcnt, runs, tt, acc_ca, multi_budget: int,
@@ -464,24 +522,21 @@ def turbo_multi(cp, mcnt, runs, tt, acc_ca, multi_budget: int,
     read_base = torch.empty((R,), **i32)
     wl = torch.empty((3, max(B, 1)), **i32)
     hist = torch.zeros((hist_n,), **i32)
-    r_cnt = torch.empty((R,), **i32)
-    r_rows = torch.empty((R,), **i32)
-    r_big = torch.empty((R,), dtype=torch.uint8, device=dev)
+    r_stats = torch.empty((4, R), **i32)
     ofc = torch.empty((R,), dtype=torch.bool, device=dev)
     diag = torch.zeros((2,), **i32)
     dm = a3w = a3c = None
     if not counts_only:
-        dm = torch.zeros((R, S), **f32)
-        a3w = torch.zeros((R, H), **f32)
+        # the expansion writes every score row and credit row whole
+        dm = torch.empty((R, S), **f32)
+        a3w = torch.empty((R, H), **f32)
         a3c = torch.zeros((F * nk, H), **f32)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     args = (_ptr(cp), _ptr(mcnt), _ptr(runs), _ptr(tt.grp2), _ptr(tt.d_tax4),
             _ptr(tt.t_hot), _ptr(tt.weights), _ptr(file_of_read),
             R, SW, tt.n, nk, S, H, tt.d_tax4.shape[0], B,
             int(exp_budget), cw, hist_n, _ptr(read_base), _ptr(wl[0]),
-            _ptr(wl[1]), _ptr(wl[2]), _ptr(hist), _ptr(r_cnt),
-            _ptr(r_rows), _ptr(r_big), _ptr(ofc), _ptr(diag),
-            _ptr(acc_ca), _ptr(dm), _ptr(a3w), _ptr(a3c), sms * 8,
+            _ptr(wl[1]), _ptr(wl[2]), _ptr(hist), _ptr(r_stats), _ptr(ofc),
+            _ptr(diag), _ptr(acc_ca), _ptr(dm), _ptr(a3w), _ptr(a3c),
             _stream(dev))
     if flag_reduce is None:
         _launch("kasa_turbo_multi", "turbo_multi", *args,
@@ -578,17 +633,21 @@ def sparse_fold(cp, mcnt, ofc, tt, wm: int, sent: int):
 # ---------------------------------------------------------------------------
 # K7 tiered_route (csrc/tiered_route.cu)
 
-# chunks the shared arm takes: a segment's running offsets, 4 (C + 1)
-# bytes, sit in the 48 KB a block may use without opting in
-ROUTE_SHARED_MAX = 12_000
+# chunks the shared arm takes.  A segment's running offsets, 4 (C + 1)
+# bytes, sit in the 48 KB a block may use without opting in (C < 12,000),
+# but the arm writes and scans (C + 1) counters per 1,024 windows: on the
+# H100 it beats the global arm at 4 chunks (0.192 against 0.208 ms on
+# 4.6 M windows) and loses from 64 (1.114 against 0.250; chip_smoke.py
+# --stages)
+ROUTE_SHARED_MAX = 8
 ROUTE_SMEM = 48 * 1024
 
 
 def tiered_route_arm(C: int, smem_per_block: int = ROUTE_SMEM) -> str:
     """K7's arm for C chunks on a card whose blocks may use
     smem_per_block bytes of shared memory: "shared" (running offsets per
-    segment in shared memory) or "global" (a radix sort of the windows by
-    bin, counted as "tiered_route.global")."""
+    segment in shared memory, for a few chunks) or "global" (a radix sort
+    of the windows by bin, counted as "tiered_route.global")."""
     if C < 1:
         raise ValueError(f"{C} chunks")
     fits = 4 * (C + 1) <= min(smem_per_block, ROUTE_SMEM)
@@ -890,14 +949,7 @@ def query_sort(q, read_ids, rid_bits: int, marks=None):
     if M == 0:
         return q.clone(), read_ids.clone()
     passes, words = query_sort_plan(M, L, rid_bits)
-    handles = None
-    if marks is not None:
-        if len(marks) != passes + 2:
-            raise ValueError(f"{len(marks)} marks for {passes} passes")
-        for ev in marks:
-            ev.record()           # creates the event
-        handles = (ctypes.c_void_p * len(marks))(
-            *[ev.cuda_event for ev in marks])
+    handles = _marks(marks, passes + 2)
     qa, qb = torch.empty_like(q), torch.empty_like(q)
     ra, rb = torch.empty_like(read_ids), torch.empty_like(read_ids)
     scratch = torch.empty((words,), dtype=torch.int32, device=dev)

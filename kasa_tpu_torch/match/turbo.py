@@ -8,15 +8,18 @@ One batch of reads goes through six hand-written CUDA kernels
                                       slots over L limbs: T==1 keys
                                       tax*8+ki, multi payloads psel*8+ki
   K3 turbo_reads   (this module)      per read, in shared memory: before
-                                      K4 the T1 sort/runs/CW compaction and
-                                      the multi-slot compaction; after K4
-                                      the T1 fold, the per-read hit lists
-                                      and the packed CSR readback
+                                      K4 the sort of the read's real T1
+                                      keys, runs/CW compaction and the
+                                      multi-slot compaction; after K4 the
+                                      T1 fold, the per-read hit lists and
+                                      the packed CSR readback
   K4 turbo_multi   (this module)      the global multi worklist: exact T,
-                                      expansion-budget flags, the CSR
-                                      expansion folded by atomics into the
-                                      (numK, S) counts and the (R, S)
-                                      score rows, hot-set credits
+                                      expansion-budget flags (a
+                                      block-wide cut), the CSR expansion
+                                      folded into the (numK, S) counts by
+                                      atomics and into each read's (R, S)
+                                      score row in shared memory, hot-set
+                                      credits
   K5 dedup         (this module)      -e: per read, the windows sorted and
                                       duplicates poisoned (before K2)
   K6 sparse_fold   (this module)      the sparse regime's per-read multi
@@ -97,10 +100,11 @@ I32_MAX = np.int32(2**31 - 1)
 # shared memory, so the keys stay int32 with one sentinel for every S
 # (the key order, and so every output, is the same).
 SENT = int(I32_MAX)
-# K3 sorts a read's SW = W * numK slot keys in shared memory, padded to
-# a power of two, up to 4096 int32 keys (16 KB; a 150 bp read needs 846,
-# W = 141, numK = 6); a batch with more slots per read takes its long
-# arm, which sorts in global memory.  K5 and K6 switch the same way.
+# K3 sorts the real keys among a read's SW = W * numK slot keys in shared
+# memory, up to SW = 4096 (a 150 bp read has 846, W = 141, numK = 6); a
+# batch with more slots per read takes a long arm: in one block's shared
+# memory while its rows' real keys fit, else in global memory.  K5 and
+# K6 switch at the same width.
 SW_CAP = 4096
 DEDUP_CAP = 4096
 # slots per read that one MULTI_BUDGET, EXP_BUDGET and WOUT serve: two

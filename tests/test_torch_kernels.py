@@ -1,10 +1,12 @@
 """The CUDA kernels of kasa_tpu_torch against their plain PyTorch
 versions, on the card: K1-K13, the per-file, counts-only, list,
 additive and sloppy arms, the five-limb arms of K1, K2 and K5, the long
-arms (K3 pre and K5 above 4,096 slots or windows per read, K5's in
-shared memory and, past its capacity, in global memory; K6's slot table
-in global memory), K12's ascending-id arm, K4 split for the mesh and
-K14 mesh_merge.
+arms (K3 pre and K5 above 4,096 slots or windows per read: K3's
+histogram in shared memory and, past its key range, its global arm; K5's
+in shared memory and, past its capacity, in global memory; K6's slot
+table in global memory), K4's budget cut inside a T, K7's two arms on
+either side of their chunk limits, K12's ascending-id arm, K4 split for
+the mesh and K14 mesh_merge.
 CUDA kernels have no CPU mode: without a GPU these tests skip.  On a machine with one (and without JAX):
 
     python3 -m pytest --noconftest -q -m cuda tests/test_torch_kernels.py
@@ -347,14 +349,18 @@ def test_tiered_route_kernel(cuda, M, C):
         assert torch.equal(a.cpu(), b.cpu())
 
 
-@pytest.mark.parametrize("C,arm", [(11_999, "tiered_route"),
+@pytest.mark.parametrize("C,arm", [(4, "tiered_route"),
+                                   (7, "tiered_route"),
+                                   (8, "tiered_route.global"),
+                                   (11_999, "tiered_route.global"),
                                    (12_000, "tiered_route.global"),
                                    (20_011, "tiered_route.global")])
 def test_tiered_route_kernel_arms(cuda, C, arm):
-    """K7 on either side of its shared-memory capacity (ROADMAP F2): the
+    """K7's two arms on either side of the shared arm's chunk limit and
+    past its shared-memory capacity (12,000 chunks, ROADMAP F2): the
     arm's counter moves, and the routed arrays and cuts equal the plain
     version's exactly; windows fall below the first chunk, on chunk
-    starts, past the last one and in empty chunks."""
+    starts and past the last one."""
     from kasa_tpu_torch import kernels
     from kasa_tpu_torch.match import tiered as TI
     rng = np.random.default_rng(C)
@@ -875,9 +881,10 @@ def test_turbo_reads_pre_long_arm(cuda, SW, cw):
     skey = torch.from_numpy(keys).to(cuda)
     mp = None if cw == SW else torch.from_numpy(mpay.astype(np.int32)) \
         .to(cuda)
-    n = kernels.COUNTS["turbo_reads.long"]
+    # every row's real keys fit one block's shared memory
+    n = kernels.COUNTS["turbo_reads.long_smem"]
     got = PT.turbo_reads_pre(skey, mp, cw)
-    assert kernels.COUNTS["turbo_reads.long"] == n + 1
+    assert kernels.COUNTS["turbo_reads.long_smem"] == n + 1
     want = PT.turbo_reads_pre_plain(skey, mp, cw)
     for a, b in zip(got, want):
         assert (a is None) == (b is None)
@@ -908,7 +915,7 @@ def test_long_batch_step(cuda):
         p, ht, hk = PT.turbo_core(tt, torch.from_numpy(q).to(dev), R, kpr,
                                   ca, cu, 160 * R)
         outs.append([t.cpu() for t in (p, ht, hk, ca, cu)])
-    assert kernels.COUNTS["turbo_reads.long"] == 1
+    assert kernels.COUNTS["turbo_reads.long_smem"] == 1
     (p1, ht1, hk1, ca1, cu1), (p2, ht2, hk2, ca2, cu2) = outs
     ints = torch.ones(p1.numel(), dtype=torch.bool)
     ints[2 * R + 1:2 * R + 2 * 160 * R:2] = False
@@ -917,6 +924,181 @@ def test_long_batch_step(cuda):
     _close(hk1, hk2)
     _close(ca1, ca2)
     assert int(p2[:R].sum()) > 0
+
+
+@pytest.mark.parametrize("edge", ["fill", "over"])
+def test_turbo_reads_pre_hist_capacity(cuda, edge):
+    """K3 pre on long rows whose largest key is the last the
+    shared-memory long arm's histogram holds (kernels.reads_hist_max)
+    and one past it, which takes the global arm."""
+    from kasa_tpu_torch import kernels
+    from kasa_tpu_torch.match import turbo as PT
+    cw = PT.CW
+    kmax = kernels.reads_hist_max(cuda) - (edge == "fill")
+    rng = np.random.default_rng(kmax)
+    R, SW = 3, 5000
+    keys = rng.integers(max(kmax - 3000, 0), kmax, size=(R, SW)) \
+        .astype(np.int32)
+    keys[rng.random((R, SW)) < 0.4] = PT.SENT
+    keys[0, 17] = kmax
+    keys[1, 40:200] = kmax - 8
+    mpay = np.where(keys == PT.SENT, rng.integers(0, 1 << 20, size=(R, SW)),
+                    -1).astype(np.int32)
+    skey = torch.from_numpy(keys).to(cuda)
+    mp = torch.from_numpy(mpay).to(cuda)
+    arm = "turbo_reads.long_smem" if edge == "fill" else "turbo_reads.long"
+    kernels.reset_counts()
+    got = PT.turbo_reads_pre(skey, mp, cw)
+    assert kernels.COUNTS[arm] == 1
+    want = PT.turbo_reads_pre_plain(skey, mp, cw)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b.cpu())
+    assert int(want[2].max()) > cw
+
+
+@pytest.mark.parametrize("S", [2048, 10_002])
+def test_turbo_reads_short_arm(cuda, S):
+    """K3 pre's short arm at SW = 1,692 (282 windows at six levels under
+    --six) on rows of no real key up to all of them, with keys of two and
+    of three 8-bit digits, and K3 post on its runs: identical to the
+    plain versions."""
+    from kasa_tpu_torch import kernels
+    from kasa_tpu_torch.match import turbo as PT
+    rng = np.random.default_rng(S)
+    R, SW = 64, 1692
+    keys = (rng.integers(0, S, size=(R, SW)) * 8
+            + rng.integers(0, 6, size=(R, SW))).astype(np.int32)
+    # rows from no real key up to all of them
+    drop = rng.random((R, SW)) < np.linspace(0.0, 1.0, R)[:, None]
+    keys[drop] = PT.SENT
+    keys[:, ::7] = keys[:, :1]
+    skey = torch.from_numpy(keys).to(cuda)
+    mpay = torch.from_numpy(np.where(drop, rng.integers(0, 1 << 20, size=(
+        R, SW)), -1).astype(np.int32)).to(cuda)
+    kernels.reset_counts()
+    got = PT.turbo_reads_pre(skey, mpay)
+    assert kernels.COUNTS["turbo_reads"] == 1
+    want = PT.turbo_reads_pre_plain(skey, mpay)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b.cpu())
+    ck, cc, runs, _, _ = want
+    ofc = torch.from_numpy(rng.random(R) < 0.2).to(cuda)
+    dm = torch.from_numpy(np.where(rng.random((R, S)) < 0.03,
+                                   rng.random((R, S)), 0.0)
+                          .astype(np.float32)).to(cuda)
+    w = torch.tensor([1.0, 0.9, 0.8, 0.7, 0.6, 0.5], device=cuda)
+    diag = torch.tensor([5, 6], dtype=torch.int32, device=cuda)
+    cap = 4 * R
+    outs = []
+    for fn in (PT.turbo_reads_post, PT.turbo_reads_post_plain):
+        ca = torch.zeros((6, S), device=cuda)
+        cu = torch.zeros((6, S), dtype=torch.int32, device=cuda)
+        outs.append((*fn(ck, cc, ofc, dm, w, ca, cu, diag, cap), ca, cu))
+    (p1, ht1, hk1, ca1, cu1), (p2, ht2, hk2, ca2, cu2) = outs
+    ints = torch.ones(p1.numel(), dtype=torch.bool)
+    ints[2 * R + 1:2 * R + 2 * cap:2] = False
+    assert torch.equal(p1.cpu()[ints], p2.cpu()[ints])
+    assert torch.equal(ht1.cpu(), ht2.cpu()) and torch.equal(cu1.cpu(),
+                                                           cu2.cpu())
+    _close(hk1, hk2)
+    _close(ca1, ca2)
+
+
+def test_long_batch_one_long_read(cuda):
+    """The batch step on 15 reads of 140 windows and one of 7,981 (an 8
+    kbp read): every row padded to 47,886 slots, mostly sentinels; K3
+    pre takes its shared-memory long arm.  Against the plain step on the
+    same tables."""
+    from kasa_tpu_torch import kernels
+    from kasa_tpu_torch.match import turbo as PT
+    from test_turbo import _index_with_tiers, S
+    limbs, taxids, _ = _index_with_tiers()
+    arrays, meta = PT.build_tables_np(limbs, taxids.astype(np.int32), 12, 7,
+                                      12, S)
+    rng = np.random.default_rng(7981)
+    R, kpr = 16, 7981
+    q = limbs[rng.integers(0, len(taxids), size=R * kpr)].copy()
+    # windows past a short read's end: '^' letters, which no level takes
+    caret = sum(30 << (5 * j) for j in range(6))
+    rows = q.reshape(R, kpr, 2)
+    rows[1:, 140:] = caret
+    outs = []
+    kernels.reset_counts()
+    for dev in (cuda, torch.device("cpu")):
+        tt = PT.tables_from_numpy(arrays, meta, dev)
+        ca = torch.zeros((6, S), device=dev)
+        cu = torch.zeros((6, S), dtype=torch.int32, device=dev)
+        mb, eb, wout = PT.batch_budgets(kpr * 6, S)
+        p, ht, hk = PT.turbo_core(tt, torch.from_numpy(q).to(dev), R, kpr,
+                                  ca, cu, 160 * R, mb, eb, wout=wout)
+        outs.append([t.cpu() for t in (p, ht, hk, ca, cu)])
+    assert kernels.COUNTS["turbo_reads.long_smem"] == 1
+    assert kernels.COUNTS["turbo_multi"] == 1
+    (p1, ht1, hk1, ca1, cu1), (p2, ht2, hk2, ca2, cu2) = outs
+    ints = torch.ones(p1.numel(), dtype=torch.bool)
+    ints[2 * R + 1:2 * R + 2 * 160 * R:2] = False
+    assert torch.equal(p1[ints], p2[ints])
+    assert torch.equal(ht1, ht2) and torch.equal(cu1, cu2)
+    _close(hk1, hk2)
+    _close(ca1, ca2)
+    assert int(p2[:R].sum()) > 0
+
+
+def test_turbo_multi_mid_cut(cuda):
+    """K4 under an expansion budget that admits every cold slot below a
+    middle T* and then half of T*'s slots, with reads holding a slot above
+    T*: flags and diag identical to the plain version, floats within the
+    contract; some reads with T* slots admitted and some flagged."""
+    from kasa_tpu_torch import kernels
+    from kasa_tpu_torch.match import turbo as PT
+    from test_turbo import _index_with_tiers, S
+    limbs, taxids, hot = _index_with_tiers(
+        n=20_000, heavy_ts=(3, 4, 6, 8, 8, 13, 16, 30))
+    saved = PT.HOT_SETS
+    PT.HOT_SETS = 1
+    try:
+        arrays, meta = PT.build_tables_np(limbs, taxids.astype(np.int32),
+                                          12, 7, 12, S)
+    finally:
+        PT.HOT_SETS = saved
+    rng = np.random.default_rng(47)
+    R, kpr = 48, 24
+    q = limbs[rng.integers(0, len(taxids), size=R * kpr)].copy()
+    for i, kl in enumerate(hot):
+        for j in range(3):
+            q[(i * 5 + j) * kpr + 4 + j] = kl
+    tt = PT.tables_from_numpy(arrays, meta, cuda)
+    skey, mpay = PT.turbo_match_plain(torch.from_numpy(q).to(cuda), tt, R,
+                                      kpr)
+    _, _, runs, mcnt, cp = PT.turbo_reads_pre_plain(skey, mpay)
+    valid = torch.arange(cp.shape[1], device=cuda)[None, :] < mcnt[:, None]
+    mp = cp[valid].long()
+    rid = torch.nonzero(valid)[:, 0]
+    row0 = tt.grp2[((mp & 7) * tt.n + (mp >> 3)).clamp(
+        max=tt.num_k * tt.n - 1)].long()
+    Ts = tt.d_tax4[row0[row0 > 0], 0].long().cpu().numpy()
+    rid = rid[row0 > 0].cpu().numpy()
+    vals, cnt = np.unique(Ts, return_counts=True)
+    mid = [t for t, c in zip(vals, cnt) if c >= 2 and t < vals.max()]
+    tstar = int(mid[len(mid) // 2])
+    c = int(cnt[vals == tstar][0]) // 2
+    eb = int(sum(int(n) * ((int(t) + 3) >> 2) for t, n in zip(vals, cnt)
+                 if t < tstar)) + ((tstar + 3) >> 2) * c
+    ca1 = torch.zeros((6, S), device=cuda)
+    ca2 = torch.zeros((6, S), device=cuda)
+    kernels.reset_counts()
+    m1 = PT.turbo_multi(cp, mcnt, runs, tt, ca1, PT.MULTI_BUDGET, eb)
+    assert kernels.COUNTS["turbo_multi"] == 1
+    m2 = PT.turbo_multi_plain(cp, mcnt, runs, tt, ca2, PT.MULTI_BUDGET, eb)
+    assert torch.equal(m1[0].cpu(), m2[0].cpu())
+    assert torch.equal(m1[4].cpu(), m2[4].cpu())
+    for a, b in zip(m1[1:4], m2[1:4]):
+        _close(a, b)
+    _close(ca1, ca2)
+    flagged = m2[0].cpu().numpy()
+    assert flagged[np.unique(rid[Ts > tstar])].all()
+    star = np.unique(rid[Ts == tstar])
+    assert 0 < flagged[star].sum() < len(star)
 
 
 def test_sparse_fold_global_table(cuda, monkeypatch):

@@ -1697,7 +1697,7 @@ def phase_budgets(disp, corpus, R):
         kpr = w * lpr
         skey, mpay = T.turbo_match(E.encode_windows(mat_d, lut, w), tt, R,
                                    kpr)
-        _, _, runs, mcnt, cp = T.turbo_reads_pre(skey, mpay)
+        _, _, runs, mcnt, cp = T.turbo_reads_pre(skey, mpay, num_species=S)
         ca = torch.zeros((nk, S), dtype=torch.float32, device=dev)
         cu = torch.zeros((nk, S), dtype=torch.int32, device=dev)
         diag = T.turbo_multi(cp, mcnt, runs, tt, ca, 1 << 30, 1 << 30)[4]
@@ -2563,7 +2563,8 @@ def phase_kernels_tiered(disp, mat, R, w, lpr, unique, launches, tag,
         f"{step_ms:.4f} ms per {R}-read batch with every chunk on the "
         "device")
     # K3's additive arm, pre and post apart
-    pre_ms = time_ms(lambda: T.turbo_reads_pre(skv, None, cw=SW), 10)
+    pre_ms = time_ms(lambda: T.turbo_reads_pre(skv, None, cw=SW,
+                                               num_species=S), 10)
     post_ms = time_ms(lambda: T.turbo_reads_post(
         ck, cc, ofc, dm, disp.weights, ca_t, cu_t, zero2, cap, wm=wm,
         additive=True, cadd=sp[2][:nk * S]), 10)
@@ -3256,8 +3257,9 @@ def phase_long(corpus):
     q = E.encode_windows(mat_d, lut, w)
     skey, mpay = T.turbo_match(q, tt, R, w)
     SW = skey.shape[1]
+    S = tt.num_species
     kernels.reset_counts()
-    got = T.turbo_reads_pre(skey, mpay)
+    got = T.turbo_reads_pre(skey, mpay, num_species=S)
     if kernels.COUNTS["turbo_reads.long_smem"] != 1:
         fail(f"long: K3 pre took another arm than long_smem on the batch of "
              f"all long reads: {kernels.COUNTS}")
@@ -3269,12 +3271,13 @@ def phase_long(corpus):
     keep = kernels.reads_hist_max
     kernels.reads_hist_max = lambda *a: 0
     try:
-        got = T.turbo_reads_pre(skey, mpay)
+        got = T.turbo_reads_pre(skey, mpay, num_species=S)
         if kernels.COUNTS["turbo_reads.long"] != 1:
             fail("long: the global arm of K3 pre did not launch")
         for name, a, b in zip(("ck", "cc", "runs", "mcnt", "cp"), got, want):
             same(f"turbo_reads.long.{name}", a, b)
-        ms_g = time_ms(lambda: T.turbo_reads_pre(skey, mpay), 3)
+        ms_g = time_ms(lambda: T.turbo_reads_pre(skey, mpay,
+                                                 num_species=S), 3)
     finally:
         kernels.reads_hist_max = keep
     max_runs = int(want[2].max())
@@ -3298,7 +3301,7 @@ def phase_long(corpus):
               "list_flagged": int(((fl >> 1) & 1).sum())}
     log("long budgets: " + json.dumps(demand))
     del ca_l, cu_l, packed
-    ms = time_ms(lambda: T.turbo_reads_pre(skey, mpay), 5)
+    ms = time_ms(lambda: T.turbo_reads_pre(skey, mpay, num_species=S), 5)
     plain_ms = time_ms(lambda: T.turbo_reads_pre_plain(skey, mpay), 2)
     nbytes = 3 * R * SW * 4 + 2 * R * T.CW * 4 + 2 * R * 4
     k3 = kernel_entry("turbo_reads.long_smem",
@@ -3990,16 +3993,17 @@ def turbo_stages(tag, tt, mat, R, w, mb, eb, cap, wout=None, lpr=1):
     del q
     out = {"slots": slot_stats(skey)}
     K.reset_counts()
-    got = T.turbo_reads_pre(skey, mpay)
+    got = T.turbo_reads_pre(skey, mpay, num_species=S)
     out["pre_arm"] = {k: v for k, v in K.COUNTS.items() if v}
     want = T.turbo_reads_pre_plain(skey, mpay)
     for nm, a, b in zip(("ck", "cc", "runs", "mcnt", "cp"), got, want):
         same(f"stages {tag} turbo_reads.{nm}", a, b)
     del got
-    out["pre"] = time_ms(lambda: T.turbo_reads_pre(skey, mpay), STAGE_REPS)
+    out["pre"] = time_ms(lambda: T.turbo_reads_pre(skey, mpay,
+                                                   num_species=S), STAGE_REPS)
     if hasattr(K, "PRE_MARKS"):
         out["pre_device"] = marked_ms(lambda m: K.turbo_reads_pre(
-            skey, mpay, T.SENT, T.CW, marks=m), K.PRE_MARKS)[0]
+            skey, mpay, T.SENT, T.CW, 8 * S, marks=m), K.PRE_MARKS)[0]
     ck, cc, runs, mcnt, cp = want
     del skey, mpay
     ca = torch.zeros((nk, S), device=dev)
@@ -4098,9 +4102,10 @@ def additive_stages(tt, mat, R, w, cap):
                                      1 << 30)
     del ck0, cc0, cp, mpay, q
     out = {"slots": slot_stats(skey)}
-    out["pre"] = time_ms(lambda: T.turbo_reads_pre(skey, None, cw=SW),
+    out["pre"] = time_ms(lambda: T.turbo_reads_pre(skey, None, cw=SW,
+                                                   num_species=S),
                          STAGE_REPS)
-    ck, cc = T.turbo_reads_pre(skey, None, cw=SW)[:2]
+    ck, cc = T.turbo_reads_pre(skey, None, cw=SW, num_species=S)[:2]
     zero2 = torch.zeros(2, dtype=torch.int32, device=dev)
     cadd = torch.rand(nk * S, device=dev)
     out["post"] = time_ms(lambda: T.turbo_reads_post(

@@ -36,8 +36,8 @@
 // 20,000 and M = 8.5 M windows, 166 M of them) and one block scans them,
 // so on the H100 it only wins below 8 chunks.
 //
-// The global arm, for more chunks (the wrapper picks the arm from C and
-// the card's shared memory, kernels.tiered_route_arm), sorts instead:
+// The global arm, for more chunks (the wrapper picks the arm from C,
+// kernels.tiered_route_arm), sorts instead:
 //   bins:    one thread per window writes its bin (the same upper bound
 //            over chunk_limb0, C int32 that stay in L2) and its position;
 //   sort:    radix.cuh's one-sweep passes sort the (bin, position) pairs
@@ -208,15 +208,6 @@ inline int bin_bits(int C) {
 }
 
 }  // namespace
-
-// -> the shared memory a block may use on the card `device` without
-// opting in (the shared arm's limit), or minus a CUDA error
-extern "C" int kasa_tiered_route_smem(int device) {
-    int smem = 0;
-    const cudaError_t e = cudaDeviceGetAttribute(
-        &smem, cudaDevAttrMaxSharedMemoryPerBlock, device);
-    return e != cudaSuccess ? -(int)e : smem;
-}
 
 // -> the digit passes of the global arm's sort of M windows over C
 // chunks; *scratch_words: the int32 words of its scratch (four M-word

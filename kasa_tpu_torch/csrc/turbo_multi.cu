@@ -52,7 +52,11 @@
 //           offset fk_e): dm, a3w and a3c are null, cold groups add only
 //           to the counts and K6 (sparse_fold.cu) builds the per-read
 //           lists, so no (R, S) buffer exists (328 MB at R = 8192, S =
-//           10,002).
+//           10,002).  With no score row to keep, this arm takes a warp
+//           per worklist slot over the whole worklist, each adding 1/T
+//           per taxon: on the H100 a read's block with its hash table
+//           took 0.1499 ms against 0.0969 on the sparse batch of
+//           chip_smoke.py --stages, whose reads hold few repeated groups.
 //
 // Bound on the H100: bytes in the function's inputs and outputs (the
 // score rows written once, R * S * 4 bytes), but the work is gathers and
@@ -63,10 +67,11 @@
 // does this.  The plain version adds 1/T per slot and taxon in sequence
 // (index_add_); on a long-read batch a common cell takes ~10^5 such adds
 // and the float32 orders differ by more than the contract's rtol (the
-// checks on that batch hold the counts to a float64 sum).  The hash table
-// holds kHash entries for reads of up to 4,096 slots and kHashLong above;
-// a slot that finds no place in kProbes probes expands alone (n = 1)
-// from its thread.
+// checks on that batch hold the counts to a float64 sum).  A read's hash
+// table holds the next power of two at or above twice its slots in the
+// worklist (at least 32), up to kHash entries for reads of up to 4,096
+// slots and kHashLong above; a slot that finds no place in kProbes probes
+// expands alone (n = 1) from its thread.
 //
 // Split entry points (the mesh, parallel/turbo_mesh.py): kasa_turbo_multi
 // queues all four; kasa_turbo_multi_cut queues scan, slots and cut, and
@@ -351,8 +356,13 @@ __global__ void __launch_bounds__(kExpandThreads) multi_expand_kernel(
     if (shot)
         for (int i = tid; i < p.H; i += kExpandThreads) s_hot[i] = 0.0f;
     const bool flagged = ofc[r] != 0;
+    const long long b0 = read_base[r];
+    const long long b1 = min(b0 + mcnt[r], (long long)p.B);
+    // the read's table: only its own entries are cleared
+    int hc = 32;
+    while (hc < 2 * (b1 - b0) && hc < hcap) hc <<= 1;
     if (!flagged) {
-        for (int i = tid; i < hcap; i += kExpandThreads) {
+        for (int i = tid; i < hc; i += kExpandThreads) {
             keys[i] = kEmpty;
             hcnt[i] = 0;
         }
@@ -367,9 +377,7 @@ __global__ void __launch_bounds__(kExpandThreads) multi_expand_kernel(
                                             * p.num_k : 0;
         // the read's slots by (group, level); a slot that finds no place
         // expands alone
-        const long long b0 = read_base[r];
-        const long long b1 = min(b0 + mcnt[r], (long long)p.B);
-        const int mask = hcap - 1;
+        const int mask = hc - 1;
         for (long long j = b0 + tid; j < b1; j += kExpandThreads) {
             const int32_t row0 = wl_row0[j];
             if (row0 == 0) continue;
@@ -413,6 +421,39 @@ __global__ void __launch_bounds__(kExpandThreads) multi_expand_kernel(
     if (shot)
         for (int i = tid; i < p.H; i += kExpandThreads)
             a3w[r * p.H + i] = s_hot[i];
+}
+
+// the counts-only arm's expansion: a warp per worklist slot of an
+// unflagged read, its lanes over the cold group's taxa, 1/T to each
+// count; the read's first slot adds its rows to diag[1] (count_used)
+__global__ void __launch_bounds__(kExpandThreads) multi_count_kernel(
+        const int32_t* __restrict__ read_base,
+        const int32_t* __restrict__ wl_row0,
+        const int32_t* __restrict__ wl_ridki,
+        const int32_t* __restrict__ r_rows,
+        const uint8_t* __restrict__ ofc,
+        const int32_t* __restrict__ d_tax4,
+        const float* __restrict__ weights, int32_t* __restrict__ diag,
+        const int32_t* __restrict__ file_of_read, MultiParams p,
+        int count_used, float* __restrict__ acc_ca) {
+    const int lane = threadIdx.x & 31;
+    const long long warp = ((long long)blockIdx.x * blockDim.x
+                            + threadIdx.x) >> 5;
+    const long long nwarps = ((long long)gridDim.x * blockDim.x) >> 5;
+    const long long nb = min((long long)diag[0], (long long)p.B);
+    for (long long j = warp; j < nb; j += nwarps) {
+        const int ridki = wl_ridki[j];
+        const int r = ridki >> 3, ki = ridki & 7;
+        if (ofc[r]) continue;
+        if (count_used && lane == 0 && j == read_base[r])
+            atomicAdd(&diag[1], r_rows[r]);
+        const int32_t row0 = wl_row0[j];
+        if (row0 <= 0) continue;
+        const long long fk = (file_of_read ? (long long)file_of_read[r]
+                                             * p.num_k : 0) + ki;
+        expand_group(row0, ki, 1, lane, 32, fk, d_tax4, nullptr, weights,
+                     p, acc_ca, nullptr, nullptr, nullptr);
+    }
 }
 
 enum { kCut = 1, kExpand = 2, kCountUsed = 4 };
@@ -464,21 +505,38 @@ int launch_multi(int parts,
             cudaMemsetAsync(dm, 0, (size_t)R * S * sizeof(float), st);
         if (a3w && H > kHotMax)
             cudaMemsetAsync(a3w, 0, (size_t)R * H * sizeof(float), st);
-        const int hcap = SW <= 4096 ? kHash : kHashLong;
-        const size_t smem = (size_t)hcap * 16
-            + (dm && S <= kRowMax ? (size_t)S * 4 : 0)
-            + (a3w && H <= kHotMax ? (size_t)H * 4 : 0);
-        const cudaError_t e = cudaFuncSetAttribute(
-            multi_expand_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (e != cudaSuccess) return (int)e;
-        multi_expand_kernel<<<R, kExpandThreads, smem, st>>>(
-            (const int32_t*)mcnt, (const int32_t*)read_base,
-            (const int32_t*)wl_row0, (const int32_t*)wl_ridki, r_rows,
-            (const uint8_t*)ofc, (const int32_t*)d_tax4,
-            (const int32_t*)t_hot, (const float*)weights, (int32_t*)diag,
-            (const int32_t*)file_of_read, p, count_used, hcap,
-            (float*)acc_ca, (float*)dm, (float*)a3w, (float*)a3c);
+        if (dm == nullptr) {
+            // counts-only: a warp per worklist slot, 8 blocks an SM
+            int dev = 0, sms = 0;
+            cudaError_t e = cudaGetDevice(&dev);
+            if (e == cudaSuccess)
+                e = cudaDeviceGetAttribute(
+                    &sms, cudaDevAttrMultiProcessorCount, dev);
+            if (e != cudaSuccess) return (int)e;
+            multi_count_kernel<<<sms * 8, kExpandThreads, 0, st>>>(
+                (const int32_t*)read_base, (const int32_t*)wl_row0,
+                (const int32_t*)wl_ridki, r_rows, (const uint8_t*)ofc,
+                (const int32_t*)d_tax4, (const float*)weights,
+                (int32_t*)diag, (const int32_t*)file_of_read, p, count_used,
+                (float*)acc_ca);
+        } else {
+            const int hcap = SW <= 4096 ? kHash : kHashLong;
+            const size_t smem = (size_t)hcap * 16
+                + (S <= kRowMax ? (size_t)S * 4 : 0)
+                + (a3w && H <= kHotMax ? (size_t)H * 4 : 0);
+            const cudaError_t e = cudaFuncSetAttribute(
+                multi_expand_kernel,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            if (e != cudaSuccess) return (int)e;
+            multi_expand_kernel<<<R, kExpandThreads, smem, st>>>(
+                (const int32_t*)mcnt, (const int32_t*)read_base,
+                (const int32_t*)wl_row0, (const int32_t*)wl_ridki, r_rows,
+                (const uint8_t*)ofc, (const int32_t*)d_tax4,
+                (const int32_t*)t_hot, (const float*)weights,
+                (int32_t*)diag, (const int32_t*)file_of_read, p,
+                count_used, hcap, (float*)acc_ca, (float*)dm, (float*)a3w,
+                (float*)a3c);
+        }
         if (ev) cudaEventRecord(ev[4], st);
     }
     return (int)cudaGetLastError();

@@ -64,11 +64,10 @@
 //              150 bp batch, and over only the real keys as long: their
 //              power of two is the same, 1,024);
 //   long_smem  longer rows (read lines above ~690 bp at six levels, long
-//              read pairs, the additive arm's cw = SW) whose batch's keys
-//              all lie below the histogram a block can hold
+//              read pairs, the additive arm's cw = SW) whose key range,
+//              8 S for S species, fits the histogram a block can hold
 //              (kasa_turbo_reads_hist_max: 58,000 keys, indices of up to
-//              ~7,200 species, on the H100; a pass that finds the batch's
-//              largest key picks the arm, one sync): the runs come from a
+//              ~7,200 species, on the H100): the runs come from a
 //              histogram of the row's keys in shared memory, with no sort
 //              and no limit on the row's length;
 //   global     the rest: every row's SW keys sorted in global scratch by
@@ -337,23 +336,6 @@ __global__ void __launch_bounds__(NT) reads_pre_hist_kernel(
         cc[r * cw + rho] = 0;
     }
     compact_payloads<NT>(mpay, SW, r, mcnt, cp, warp_sums);
-}
-
-// the batch's largest real key (the long arms' pick) into *kmax
-__global__ void reads_kmax_kernel(const int32_t* __restrict__ skey, int SW,
-                                  int sent, int32_t* __restrict__ kmax) {
-    __shared__ int s_k;
-    const long long r = blockIdx.x;
-    if (threadIdx.x == 0) s_k = 0;
-    __syncthreads();
-    int k = 0;
-    for (int i = threadIdx.x; i < SW; i += blockDim.x) {
-        const int32_t v = skey[r * SW + i];
-        if (v != sent) k = max(k, v);
-    }
-    atomicMax(&s_k, k);
-    __syncthreads();
-    if (threadIdx.x == 0) atomicMax(kmax, s_k);
 }
 
 // the long arm: srt holds every row's SW keys sorted (seg_radix_sort);
@@ -758,17 +740,6 @@ extern "C" int kasa_turbo_reads_hist_max(int device) {
     e = cudaFuncGetAttributes(&fa, reads_pre_hist_kernel<kHistThreads>);
     if (e != cudaSuccess) return -(int)e;
     return (int)(((long long)smem - (long long)fa.sharedSizeBytes) / 4);
-}
-
-// the batch's largest real (not sent) key into *kmax (zeroed by the
-// caller)
-extern "C" int kasa_turbo_reads_kmax(const void* skey, int R, int SW,
-                                     int sent, void* kmax, void* stream) {
-    if (SW < 1) return (int)cudaErrorInvalidValue;
-    if (R > 0)
-        reads_kmax_kernel<<<R, kThreads, 0, (cudaStream_t)stream>>>(
-            (const int32_t*)skey, SW, sent, (int32_t*)kmax);
-    return (int)cudaGetLastError();
 }
 
 // the shared-memory long arm: rows of any SW whose keys lie in [0, range)

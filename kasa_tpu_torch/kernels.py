@@ -65,7 +65,6 @@ _ARGTYPES = {
     "kasa_turbo_reads_pre": [_P, _P] + [_I] * 4 + [_P] * 7,
     "kasa_turbo_reads_pre_hist": [_P, _P] + [_I] * 5 + [_P] * 7,
     "kasa_turbo_reads_hist_max": [_I],
-    "kasa_turbo_reads_kmax": [_P, _I, _I, _I, _P, _P],
     "kasa_turbo_reads_pre_long": [_P, _P] + [_I] * 4 + [_P] * 9,
     "kasa_turbo_reads_post": [_P] * 13 + [_I] * 9 + [_L] + [_P] * 9,
     "kasa_turbo_multi": _MULTI,
@@ -78,7 +77,6 @@ _ARGTYPES = {
     "kasa_sparse_fold": [_P] * 6 + [_I] * 6 + [_P] * 5,
     "kasa_tiered_route": [_P, _P, _L, _I, _I, _I, _I] + [_P] * 6,
     "kasa_tiered_route_global_plan": [_L, _I, _P],
-    "kasa_tiered_route_smem": [_I],
     "kasa_tiered_route_global": [_P, _P, _L, _I, _I, _I] + [_P] * 6,
     "kasa_tiered_pass": [_P] * 11 + [_L, _L] + [_I] * 11 + [_P] * 5,
     "kasa_tiered_prefix": [_P, _I, _P, _P],
@@ -97,7 +95,6 @@ _LIB_OF = {"kasa_encode_windows": "encode",
            "kasa_turbo_reads_pre": "turbo_reads",
            "kasa_turbo_reads_pre_hist": "turbo_reads",
            "kasa_turbo_reads_hist_max": "turbo_reads",
-           "kasa_turbo_reads_kmax": "turbo_reads",
            "kasa_turbo_reads_pre_long": "turbo_reads",
            "kasa_turbo_reads_post": "turbo_reads",
            "kasa_turbo_multi": "turbo_multi",
@@ -110,7 +107,6 @@ _LIB_OF = {"kasa_encode_windows": "encode",
            "kasa_sparse_fold": "sparse_fold",
            "kasa_tiered_route": "tiered_route",
            "kasa_tiered_route_global_plan": "tiered_route",
-           "kasa_tiered_route_smem": "tiered_route",
            "kasa_tiered_route_global": "tiered_route",
            "kasa_tiered_pass": "tiered_pass",
            "kasa_tiered_prefix": "tiered_pass",
@@ -348,29 +344,36 @@ def reads_hist_max(device: torch.device) -> int:
     return n
 
 
-def reads_pre_arm(SW: int, cw: int, kmax: int, hist_max: int) -> str:
+def reads_pre_arm(SW: int, cw: int, key_range: int | None,
+                  hist_max: int) -> str:
     """K3 pre's arm for rows of SW slot keys keeping cw runs: "short"
     (SW and cw at most SW_CAP: every row's keys in shared memory),
-    "long_smem" (the batch's largest real key, kmax, below hist_max: a
-    histogram of the row's keys in shared memory, reads_hist_max) or
-    "global" (segmented radix passes in global memory).  kmax is only
-    read past SW_CAP."""
+    "long_smem" (every real key below key_range, key_range at most
+    hist_max: a histogram of the row's keys in shared memory,
+    reads_hist_max) or "global" (segmented radix passes in global
+    memory).  key_range is only read past SW_CAP, where it must be
+    given."""
     from .match.turbo import SW_CAP
     if SW <= SW_CAP and cw <= SW_CAP:
         return "short"
-    return "long_smem" if kmax < hist_max else "global"
+    if key_range is None:
+        raise ValueError(f"SW={SW}, cw={cw}: the long arms need the key "
+                         "range")
+    return "long_smem" if key_range <= hist_max else "global"
 
 
 def turbo_reads_pre(skey: torch.Tensor, mpay: torch.Tensor | None,
-                    sent: int, cw: int, marks=None):
+                    sent: int, cw: int, key_range: int | None = None,
+                    marks=None):
     """Without mpay (the tiered finish) no multi payloads are compacted:
-    mcnt and cp come back None.  A batch with SW or cw above SW_CAP first
-    finds its largest real key (one reduction and a sync): below
-    reads_hist_max it takes the shared-memory long arm
-    ("turbo_reads.long_smem"), else the global arm ("turbo_reads.long"),
-    which sorts the rows in two (R, SW) int32 scratch buffers.  marks:
-    None, or PRE_MARKS torch.cuda.Events recorded around the arm's
-    launches (chip_smoke.py times the stage with them)."""
+    mcnt and cp come back None.  A batch with SW or cw above SW_CAP
+    takes a long arm, picked from key_range (every real key lies in
+    [0, key_range): 8 S for slot keys tax * 8 + k): up to
+    reads_hist_max the shared-memory long arm ("turbo_reads.long_smem"),
+    else the global arm ("turbo_reads.long"), which sorts the rows in two
+    (R, SW) int32 scratch buffers.  marks: None, or PRE_MARKS
+    torch.cuda.Events recorded around the arm's launches (chip_smoke.py
+    times the stage with them)."""
     dev = skey.device
     if dev.type != "cuda":
         raise ValueError("turbo_reads_pre: the kernel takes CUDA tensors")
@@ -387,17 +390,10 @@ def turbo_reads_pre(skey: torch.Tensor, mpay: torch.Tensor | None,
     ck = torch.empty((R, cw), **i32)
     cc = torch.empty((R, cw), **i32)
     runs = torch.empty((R,), **i32)
-    kmax = hist_max = 0
-    if reads_pre_arm(SW, cw, 0, 0) != "short":
-        # part of the long arms: counted with the arm's launch below
-        out = torch.zeros((1,), **i32)
-        rc = _fn("kasa_turbo_reads_kmax")(_ptr(skey), R, SW, sent,
-                                          _ptr(out), _stream(dev))
-        if rc != 0:
-            raise RuntimeError(f"kasa_turbo_reads_kmax: CUDA error {rc}")
-        kmax = int(out.item())
+    hist_max = 0
+    if reads_pre_arm(SW, cw, key_range, 0) != "short":
         hist_max = reads_hist_max(dev)
-    arm = reads_pre_arm(SW, cw, kmax, hist_max)
+    arm = reads_pre_arm(SW, cw, key_range, hist_max)
     ev = _marks(marks, PRE_MARKS)
     if arm == "short":
         _launch("kasa_turbo_reads_pre", "turbo_reads", _ptr(skey),
@@ -405,7 +401,7 @@ def turbo_reads_pre(skey: torch.Tensor, mpay: torch.Tensor | None,
                 _ptr(mcnt), _ptr(cp), _stream(dev), ev)
     elif arm == "long_smem":
         _launch("kasa_turbo_reads_pre_hist", "turbo_reads.long_smem",
-                _ptr(skey), _ptr(mpay), R, SW, kmax + 1, sent, cw, _ptr(ck),
+                _ptr(skey), _ptr(mpay), R, SW, key_range, sent, cw, _ptr(ck),
                 _ptr(cc), _ptr(runs), _ptr(mcnt), _ptr(cp), _stream(dev), ev)
     else:
         scr = torch.empty((2, R, SW), **i32)
@@ -634,24 +630,22 @@ def sparse_fold(cp, mcnt, ofc, tt, wm: int, sent: int):
 # K7 tiered_route (csrc/tiered_route.cu)
 
 # chunks the shared arm takes.  A segment's running offsets, 4 (C + 1)
-# bytes, sit in the 48 KB a block may use without opting in (C < 12,000),
-# but the arm writes and scans (C + 1) counters per 1,024 windows: on the
-# H100 it beats the global arm at 4 chunks (0.192 against 0.208 ms on
-# 4.6 M windows) and loses from 64 (1.114 against 0.250; chip_smoke.py
-# --stages)
+# bytes, sit in shared memory: below 8 chunks that is at most 32 bytes,
+# far inside the 48 KB any CUDA card gives a block without opting in
+# (the offsets could take C < 12,000).  But the arm writes and scans
+# (C + 1) counters per 1,024 windows: on the H100 it beats the global arm
+# at 4 chunks (0.192 against 0.208 ms on 4.6 M windows) and loses from 64
+# (1.114 against 0.250; chip_smoke.py --stages)
 ROUTE_SHARED_MAX = 8
-ROUTE_SMEM = 48 * 1024
 
 
-def tiered_route_arm(C: int, smem_per_block: int = ROUTE_SMEM) -> str:
-    """K7's arm for C chunks on a card whose blocks may use
-    smem_per_block bytes of shared memory: "shared" (running offsets per
-    segment in shared memory, for a few chunks) or "global" (a radix sort
-    of the windows by bin, counted as "tiered_route.global")."""
+def tiered_route_arm(C: int) -> str:
+    """K7's arm for C chunks: "shared" (running offsets per segment in
+    shared memory, below ROUTE_SHARED_MAX chunks) or "global" (a radix
+    sort of the windows by bin, counted as "tiered_route.global")."""
     if C < 1:
         raise ValueError(f"{C} chunks")
-    fits = 4 * (C + 1) <= min(smem_per_block, ROUTE_SMEM)
-    return "shared" if C < ROUTE_SHARED_MAX and fits else "global"
+    return "shared" if C < ROUTE_SHARED_MAX else "global"
 
 
 def tiered_route(q: torch.Tensor, chunk_limb0: torch.Tensor, min_k: int,
@@ -674,10 +668,7 @@ def tiered_route(q: torch.Tensor, chunk_limb0: torch.Tensor, min_k: int,
     vbr = torch.empty((M,), **i32)
     posr = torch.empty((M,), **i32)
     cuts = torch.empty((C,), **i32)
-    smem = _fn("kasa_tiered_route_smem")(_device_index(dev))
-    if smem < 0:
-        raise RuntimeError(f"kasa_tiered_route_smem: CUDA error {-smem}")
-    if tiered_route_arm(C, smem) == "shared":
+    if tiered_route_arm(C) == "shared":
         nseg = max(-(-M // 1024), 1)
         hist = torch.empty(((C + 1) * nseg,), **i32)
         _launch("kasa_tiered_route", "tiered_route", _ptr(q),

@@ -373,7 +373,7 @@ def tiered_finish(skey, sflat, cflat, big, weights, acc_ca, acc_cu,
     S = acc_ca.shape[1]
     SW = kmers_per_read * num_k
     ck, cc, _, _, _ = turbo_reads_pre(skey[:R * kmers_per_read].view(R, SW),
-                                      None, cw=SW)
+                                      None, cw=SW, num_species=S)
     diag = torch.zeros(2, dtype=torch.int32, device=skey.device)
     wout = batch_budgets(SW, S)[2]
     return turbo_reads_post(ck, cc, big[:R] > 0, sflat[:R * S].view(R, S),

@@ -623,12 +623,18 @@ def turbo_reads_pre_plain(skey: torch.Tensor, mpay: torch.Tensor | None,
 
 
 def turbo_reads_pre(skey: torch.Tensor, mpay: torch.Tensor | None,
-                    cw: int = CW):
-    """K3 (pre) wrapper."""
+                    cw: int = CW, num_species: int | None = None):
+    """K3 (pre) wrapper.  Rows of more than SW_CAP slots, or cw above
+    it, need num_species: their slot keys lie below 8 * num_species,
+    which picks the kernel's long arm."""
+    if num_species is None and max(skey.shape[1], cw) > SW_CAP:
+        raise ValueError(f"SW={skey.shape[1]}, cw={cw}: long rows need "
+                         "num_species")
     if skey.device.type == "cpu":
         return turbo_reads_pre_plain(skey, mpay, cw)
     from .. import kernels
-    return kernels.turbo_reads_pre(skey, mpay, SENT, cw)
+    return kernels.turbo_reads_pre(
+        skey, mpay, SENT, cw, None if num_species is None else 8 * num_species)
 
 
 # ---------------------------------------------------------------------------
@@ -1066,7 +1072,8 @@ def turbo_core(tt: TurboTables, q: torch.Tensor, num_reads: int,
     mb = int(multi_budget or MULTI_BUDGET)
     eb = int(exp_budget or EXP_BUDGET)
     skey, mpay = turbo_match(q, tt, num_reads, kmers_per_read)
-    ck, cc, runs, mcnt, cp = turbo_reads_pre(skey, mpay)
+    ck, cc, runs, mcnt, cp = turbo_reads_pre(skey, mpay,
+                                             num_species=tt.num_species)
     ofc, dm, a3w, a3c, diag = turbo_multi(cp, mcnt, runs, tt, acc_ca, mb, eb,
                                           file_of_read, counts_only=sparse,
                                           flag_reduce=flag_reduce)
@@ -1144,7 +1151,8 @@ def fused_turbo_probe(tt: TurboTables, byte_mat: torch.Tensor,
         return float(np.float32(np.uint32(wrapped).view(np.int32)))
     if probe == "t1sort":
         skey, mpay = turbo_match(q, tt, num_reads, kpr)
-        _, _, runs, _, _ = turbo_reads_pre(skey, mpay)
+        _, _, runs, _, _ = turbo_reads_pre(skey, mpay,
+                                           num_species=tt.num_species)
         n1 = int((skey != SENT).sum()) + int(runs.sum())
         return float(np.float32(n1))
     ht, hk, hc, ca, cu, _, _ = turbo_classify(tt, q, num_reads, kpr)

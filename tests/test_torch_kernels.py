@@ -520,7 +520,8 @@ def test_additive_finish_kernel(cuda, tmp_path):
     for sk, sf, cf, bg, RR, SS in cases:
         sk, sf, cf, bg = (x.to(cuda) for x in (sk, sf, cf, bg))
         SW = kpr * nk
-        pre = PT.turbo_reads_pre(sk[:RR * kpr].view(RR, SW), None, cw=SW)
+        pre = PT.turbo_reads_pre(sk[:RR * kpr].view(RR, SW), None, cw=SW,
+                                 num_species=SS)
         pre2 = PT.turbo_reads_pre_plain(sk[:RR * kpr].view(RR, SW), None,
                                         cw=SW)
         assert pre[3] is None and pre[4] is None
@@ -860,18 +861,34 @@ def test_dedup_kernel_arms(cuda, L, edge):
     assert int((want == PT.POISON_LIMB).all(dim=1).sum()) > 0
 
 
+LONG_ARMS = {"long_smem": "turbo_reads.long_smem",
+             "global": "turbo_reads.long"}
+
+
+def _force_long_arm(monkeypatch, arm):
+    """K3 pre's global arm on rows whose key range fits the histogram:
+    a card whose histogram holds no key."""
+    from kasa_tpu_torch import kernels
+    if arm == "global":
+        monkeypatch.setattr(kernels, "reads_hist_max", lambda *a: 0)
+    return LONG_ARMS[arm]
+
+
+@pytest.mark.parametrize("arm", list(LONG_ARMS))
 @pytest.mark.parametrize("SW,cw", [(4097, 160), (30_000, 160),
                                    (5000, 5000), (4000, 4500)],
                          ids=["just_over", "long", "additive", "cw_over"])
-def test_turbo_reads_pre_long_arm(cuda, SW, cw):
-    """K3 pre's long arm: slot keys of few taxa (long runs) with
-    sentinels and multi payloads between them; cw = SW is the tiered
-    finish's additive arm (every run kept, no payloads)."""
+def test_turbo_reads_pre_long_arm(cuda, monkeypatch, SW, cw, arm):
+    """K3 pre's long arms, the shared-memory histogram and the global
+    radix passes: slot keys of few taxa (long runs) with sentinels and
+    multi payloads between them, a row of sentinels only and a row of
+    one key; cw = SW is the tiered finish's additive arm (every run kept,
+    no payloads)."""
     from kasa_tpu_torch import kernels
     from kasa_tpu_torch.match import turbo as PT
     rng = np.random.default_rng(SW + cw)
-    R = 12
-    keys = (rng.integers(0, 300, size=(R, SW)) * 8
+    R, S = 12, 300
+    keys = (rng.integers(0, S, size=(R, SW)) * 8
             + rng.integers(0, 6, size=(R, SW))).astype(np.int32)
     keys[rng.random((R, SW)) < 0.3] = PT.SENT
     keys[0] = PT.SENT
@@ -881,10 +898,10 @@ def test_turbo_reads_pre_long_arm(cuda, SW, cw):
     skey = torch.from_numpy(keys).to(cuda)
     mp = None if cw == SW else torch.from_numpy(mpay.astype(np.int32)) \
         .to(cuda)
-    # every row's real keys fit one block's shared memory
-    n = kernels.COUNTS["turbo_reads.long_smem"]
-    got = PT.turbo_reads_pre(skey, mp, cw)
-    assert kernels.COUNTS["turbo_reads.long_smem"] == n + 1
+    counter = _force_long_arm(monkeypatch, arm)
+    kernels.reset_counts()
+    got = PT.turbo_reads_pre(skey, mp, cw, num_species=S)
+    assert {k: v for k, v in kernels.COUNTS.items() if v} == {counter: 1}
     want = PT.turbo_reads_pre_plain(skey, mp, cw)
     for a, b in zip(got, want):
         assert (a is None) == (b is None)
@@ -893,8 +910,9 @@ def test_turbo_reads_pre_long_arm(cuda, SW, cw):
     assert int(want[2].max()) > min(cw, 160)
 
 
-def test_long_batch_step(cuda):
-    """The whole batch step (K2, K3 pre's long arm, K4, the dense fold,
+@pytest.mark.parametrize("arm", list(LONG_ARMS))
+def test_long_batch_step(cuda, monkeypatch, arm):
+    """The whole batch step (K2, K3 pre's long arms, K4, the dense fold,
     K3 post) on reads of 700 windows x 6 levels (4,200 slots) against the
     plain step on the same tables."""
     from kasa_tpu_torch import kernels
@@ -907,6 +925,7 @@ def test_long_batch_step(cuda):
     R, kpr = 16, 700
     q = limbs[rng.integers(0, len(taxids), size=R * kpr)].copy()
     outs = []
+    counter = _force_long_arm(monkeypatch, arm)
     kernels.reset_counts()
     for dev in (cuda, torch.device("cpu")):
         tt = PT.tables_from_numpy(arrays, meta, dev)
@@ -915,7 +934,8 @@ def test_long_batch_step(cuda):
         p, ht, hk = PT.turbo_core(tt, torch.from_numpy(q).to(dev), R, kpr,
                                   ca, cu, 160 * R)
         outs.append([t.cpu() for t in (p, ht, hk, ca, cu)])
-    assert kernels.COUNTS["turbo_reads.long_smem"] == 1
+    assert kernels.COUNTS[counter] == 1
+    assert sum(kernels.COUNTS[c] for c in LONG_ARMS.values()) == 1
     (p1, ht1, hk1, ca1, cu1), (p2, ht2, hk2, ca2, cu2) = outs
     ints = torch.ones(p1.numel(), dtype=torch.bool)
     ints[2 * R + 1:2 * R + 2 * 160 * R:2] = False
@@ -928,7 +948,7 @@ def test_long_batch_step(cuda):
 
 @pytest.mark.parametrize("edge", ["fill", "over"])
 def test_turbo_reads_pre_hist_capacity(cuda, edge):
-    """K3 pre on long rows whose largest key is the last the
+    """K3 pre on long rows whose key range is the widest the
     shared-memory long arm's histogram holds (kernels.reads_hist_max)
     and one past it, which takes the global arm."""
     from kasa_tpu_torch import kernels
@@ -948,7 +968,7 @@ def test_turbo_reads_pre_hist_capacity(cuda, edge):
     mp = torch.from_numpy(mpay).to(cuda)
     arm = "turbo_reads.long_smem" if edge == "fill" else "turbo_reads.long"
     kernels.reset_counts()
-    got = PT.turbo_reads_pre(skey, mp, cw)
+    got = kernels.turbo_reads_pre(skey, mp, PT.SENT, cw, kmax + 1)
     assert kernels.COUNTS[arm] == 1
     want = PT.turbo_reads_pre_plain(skey, mp, cw)
     for a, b in zip(got, want):
@@ -1156,12 +1176,15 @@ def test_sort_dedup_kernel(cuda, N, L):
     assert len(want[1]) <= N
 
 
+@pytest.mark.parametrize("counts_only", [False, True],
+                         ids=["dense", "counts_only"])
 @pytest.mark.parametrize("budget_drop", [False, True])
-def test_turbo_multi_split_kernel(cuda, budget_drop):
+def test_turbo_multi_split_kernel(cuda, budget_drop, counts_only):
     """K4 split (the mesh's flag_reduce between its cut and expansion)
     against the plain version's split, with a reduce that ORs in every
-    fifth read as another shard would; flag_reduce=None stays the fused
-    launch."""
+    fifth read as another shard would, on the dense and the counts-only
+    arm (the expansion's recount of the rows used in diag[1] included);
+    flag_reduce=None stays the fused launch."""
     from kasa_tpu_torch import kernels
     from kasa_tpu_torch.match import turbo as PT
     arrays, meta, q_np, R, kpr, eb = _tiers(budget_drop)
@@ -1181,21 +1204,25 @@ def test_turbo_multi_split_kernel(cuda, budget_drop):
     ca2 = torch.zeros((nk, S), device=cuda)
     kernels.reset_counts()
     m1 = PT.turbo_multi(cp, mcnt, runs, tt, ca1, PT.MULTI_BUDGET,
-                        eb or PT.EXP_BUDGET, flag_reduce=reduce)
+                        eb or PT.EXP_BUDGET, counts_only=counts_only,
+                        flag_reduce=reduce)
     assert kernels.COUNTS["turbo_multi"] == 1
     assert kernels.COUNTS["turbo_multi.split"] == 1
     m2 = PT.turbo_multi_plain(cp, mcnt, runs, tt, ca2, PT.MULTI_BUDGET,
-                              eb or PT.EXP_BUDGET, flag_reduce=reduce)
+                              eb or PT.EXP_BUDGET, counts_only=counts_only,
+                              flag_reduce=reduce)
     assert torch.equal(seen[0].cpu(), seen[1].cpu())    # the cut's flags
     assert torch.equal(m1[0].cpu(), m2[0].cpu())
     assert torch.equal(m1[4].cpu(), m2[4].cpu())
     for a, b in zip(m1[1:4], m2[1:4]):
-        _close(a, b)
+        assert (a is None) == counts_only == (b is None)
+        if not counts_only:
+            _close(a, b)
     _close(ca1, ca2)
-    assert bool((m1[1][extra] == 0).all())
+    assert counts_only or bool((m1[1][extra] == 0).all())
     ca3 = torch.zeros((nk, S), device=cuda)
     m3 = PT.turbo_multi(cp, mcnt, runs, tt, ca3, PT.MULTI_BUDGET,
-                        eb or PT.EXP_BUDGET)
+                        eb or PT.EXP_BUDGET, counts_only=counts_only)
     assert kernels.COUNTS["turbo_multi.split"] == 1
     assert torch.equal(m3[0].cpu(), seen[0].cpu())
 

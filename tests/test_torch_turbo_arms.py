@@ -7,8 +7,8 @@ through a radix sort of the windows by chunk from 8 on (where the shared
 arm could not hold the offsets of 12,000 chunks or more); the routing
 the kernels are held to on the card is tiered_route_plain, which these
 tests hold to kasa_tpu's chunk_cuts at 12,000 and 20,011 chunks.  K3 pre
-picks its arm from the row width and the batch's largest real slot key
-(kernels.reads_pre_arm).  K4's budget cut admits the cold slots of
+picks its arm from the row width and the key range of the index's
+species (kernels.reads_pre_arm).  K4's budget cut admits the cold slots of
 every T below T* and the first c slots of T*: the batch step of both
 packages under budgets that cut mid-histogram, and under a worklist
 budget below the batch's multi slots."""
@@ -31,12 +31,9 @@ RTOL, ATOL = 2e-5, 1e-4
 def test_tiered_route_arm(C, arm):
     """The shared arm below 8 chunks (where it beats the global arm on
     the H100), the global arm from 8 chunks on, and past the 11,999 the
-    shared arm's offsets could hold; a card whose blocks hold less than
-    the 4 (C + 1) bytes of a segment's offsets takes the global arm at
-    any C."""
+    shared arm's offsets could hold in 48 KB."""
     from kasa_tpu_torch import kernels
     assert kernels.tiered_route_arm(C) == arm
-    assert kernels.tiered_route_arm(C, 4 * (C + 1) - 1) == "global"
     with pytest.raises(ValueError):
         kernels.tiered_route_arm(0)
 
@@ -87,44 +84,77 @@ def test_route_plain_matches_chunk_cuts(C):
 def test_reads_pre_arm():
     """Rows of at most SW_CAP slots keeping at most SW_CAP runs take the
     short arm whatever their keys; wider rows take the shared-memory long
-    arm while the batch's largest real key is below the histogram's
-    capacity, and the global arm at it."""
+    arm while the key range (8 S for S species) fits the histogram's
+    capacity, the global arm above it, and need the range to be given:
+    the wrapper refuses a long row without the species count, on the CPU
+    as on the card."""
     from kasa_tpu_torch import kernels
-    from kasa_tpu_torch.match.turbo import CW, SW_CAP
-    assert kernels.reads_pre_arm(846, CW, 0, 0) == "short"
+    from kasa_tpu_torch.match import turbo as PT
+    CW, SW_CAP = PT.CW, PT.SW_CAP
+    assert kernels.reads_pre_arm(846, CW, None, 0) == "short"
     assert kernels.reads_pre_arm(SW_CAP, SW_CAP, 1 << 30, 0) == "short"
     cap = 58_000
     for SW, cw in ((SW_CAP + 1, CW), (47_886, CW), (846, SW_CAP + 1)):
-        assert kernels.reads_pre_arm(SW, cw, cap - 1, cap) == "long_smem"
-        assert kernels.reads_pre_arm(SW, cw, cap, cap) == "global"
-    # a batch without a real key (its largest key reads 0)
-    assert kernels.reads_pre_arm(47_886, CW, 0, cap) == "long_smem"
+        assert kernels.reads_pre_arm(SW, cw, cap, cap) == "long_smem"
+        assert kernels.reads_pre_arm(SW, cw, cap + 1, cap) == "global"
+        with pytest.raises(ValueError, match="key range"):
+            kernels.reads_pre_arm(SW, cw, None, cap)
+    # the default corpus (2,047 species) and the 10,001-species one
+    assert kernels.reads_pre_arm(47_886, CW, 8 * 2047, cap) == "long_smem"
+    assert kernels.reads_pre_arm(47_886, CW, 8 * 10_001, cap) == "global"
+    skey = torch.full((2, SW_CAP + 1), PT.SENT, dtype=torch.int32)
+    with pytest.raises(ValueError, match="num_species"):
+        PT.turbo_reads_pre(skey, None)
+    with pytest.raises(ValueError, match="num_species"):
+        PT.turbo_reads_pre(skey[:, :846], None, cw=SW_CAP + 1)
+    runs = PT.turbo_reads_pre(skey, None, num_species=1)[2]
+    assert (runs == 0).all()
 
 
-def test_long_arm_runs_are_a_histogram():
-    """What the shared-memory long arm computes: a row's runs are its
-    distinct real keys in ascending order with their counts, so a
-    histogram over the batch's key range gives turbo_reads_pre_plain's
-    ck, cc and runs, for the long batch's shapes (a row of 47,886 slots,
-    half of them sentinels)."""
+def test_long_rows_match_turbo_classify():
+    """Rows longer than SW_CAP (700 windows at six levels, 4,200 slots;
+    the long arms of K3 pre on the card): the port's batch step against
+    kasa_tpu's turbo_classify on the same windows, with reads whose
+    windows repeat (runs longer than one) and a read of one window
+    repeated (one run a level): hit lists, counts and flags identical,
+    floats within the contract."""
+    import jax.numpy as jnp
+    import kasa_tpu.match.turbo as JT
     from kasa_tpu_torch.match import turbo as PT
-    rng = np.random.default_rng(47_886)
-    R, SW, cw = 4, 47_886, PT.CW
-    keys = (rng.integers(0, 40, size=(R, SW)) * 8
-            + rng.integers(0, 6, size=(R, SW))).astype(np.int32)
-    keys[rng.random((R, SW)) < 0.5] = PT.SENT
-    keys[3] = PT.SENT
-    ck, cc, runs, _, _ = PT.turbo_reads_pre_plain(torch.from_numpy(keys),
-                                                  None, cw)
-    for r in range(R):
-        real = keys[r][keys[r] != PT.SENT]
-        hist = np.bincount(real, minlength=1)
-        present = np.nonzero(hist)[0]
-        assert int(runs[r]) == len(present)
-        n = min(cw, len(present))
-        np.testing.assert_array_equal(ck[r, :n].numpy(), present[:n])
-        np.testing.assert_array_equal(cc[r, :n].numpy(), hist[present[:n]])
-        assert (ck[r, n:] == PT.SENT).all() and (cc[r, n:] == 0).all()
+    from test_torch_core import _port_tables
+    from test_turbo import S, _index_with_tiers
+
+    limbs, taxids, _ = _index_with_tiers()
+    rng = np.random.default_rng(4200)
+    R, kpr = 4, 700
+    q = limbs[rng.integers(0, len(taxids), size=R * kpr)].copy()
+    q[kpr:2 * kpr] = q[kpr:kpr + 50][rng.integers(0, 50, size=kpr)]
+    q[2 * kpr:3 * kpr] = q[2 * kpr]
+    jt = JT.TurboTables.build_from_arrays(limbs, taxids.astype(np.int32),
+                                          12, 7, 12, S)
+    tt = _port_tables(jt)
+    skey, _ = PT.turbo_match_plain(torch.from_numpy(q), tt, R, kpr)
+    assert skey.shape[1] > PT.SW_CAP
+    ht_j, hk_j, hc_j, ca_j, cu_j, ofc_j, ofl_j = [
+        np.asarray(o) for o in JT.turbo_classify(
+            jt.keys2, jt.rowdat, jt.router, jt.sub2, jt.grp2, jt.d_tax4,
+            jt.weights, jt.masks2, jt.hotmask, jt.t_hot, jnp.asarray(q),
+            jt.num_steps, 7, 12, 12, S, R, kpr)]
+    ca = torch.zeros((6, S))
+    cu = torch.zeros((6, S), dtype=torch.int32)
+    packed, ht, hk = PT.turbo_core(tt, torch.from_numpy(q), R, kpr, ca, cu,
+                                   160 * R)
+    packed = packed.numpy()
+    flags = packed[R:2 * R]
+    np.testing.assert_array_equal(packed[:R], hc_j)
+    np.testing.assert_array_equal(flags & 1, ofc_j.astype(np.int32))
+    np.testing.assert_array_equal((flags >> 1) & 1, ofl_j.astype(np.int32))
+    np.testing.assert_array_equal(ht.numpy(), ht_j)
+    np.testing.assert_allclose(hk.numpy(), hk_j, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(ca.numpy(), ca_j, rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(cu.numpy(), cu_j)
+    runs = PT.turbo_reads_pre_plain(skey, None, PT.CW)[2]
+    assert int(runs[2]) <= 6 < int(runs[0]) and int(hc_j.sum()) > 0
 
 
 # ---------------------------------------------------------------------------

@@ -218,17 +218,23 @@ card line and the ok line.
 
     python3 chip_smoke.py --stages [--parent DIR]
 
-runs only build and the stage splits of K3, K4, K5 and K7 on the
-default corpus (default, long and 32,768-read additive batches,
+runs only build and the stage splits of K2, K3, K4, K5, K7 and K11 on
+the default corpus (K2 on the default batch with the widths of the
+buckets it bisects; default, long and 32,768-read additive batches,
 synthetic chunk plans of 4 to 20,000 chunks; K5 on the --six -e batch,
 the wide --six -e batch, the wide long-read batch and synthetic reads of
-2,048 and 4,096 windows) and of K3, K4 and K6 on the sparse corpus (K6's
-lanes a read and its warp arm by stage), each held to its plain version,
+2,048 and 4,096 windows; K11 on the first batch of the join run, its
+valid occurrences and pairs, split into its float64 fill, its adds and
+its rounding pass), of K3, K4 and K6 on the sparse corpus (K6's lanes a
+read and its warp arm by stage) and of K2 and K11 on the 128-bit corpus
+(the wide batch, the join run at L = 5), each held to its plain version,
 into .synth_corpus/out/chip_smoke_stages.json.  With --parent, DIR is a
-checkout of the parent commit (git archive) whose K5 and K6 are built
-from its csrc/ and timed in turns with this tree's on the same inputs.  Longer
-logs and the full-size outputs go to .synth_corpus/out/.  Without a CUDA
-device, or outside a checkout, it exits non-zero and prints no result.
+checkout of the parent commit (git archive) whose K2 (with stop points
+after its router and after its bisect) and K11 (its float64 fill, adds
+and rounding pass apart) are built from its csrc/ and timed in turns
+with this tree's on the same inputs.  Longer logs and the full-size
+outputs go to .synth_corpus/out/.  Without a CUDA device, or outside a
+checkout, it exits non-zero and prints no result.
 """
 
 import json
@@ -1298,14 +1304,13 @@ def sector_bytes(idx, row_bytes):
                     .numel())
 
 
-def match_bytes(q, tt, R, SW):
-    """Least bytes K2 moves on these windows: q once, the outputs once,
-    and the distinct sectors of router, sub-router, keys2 (every bisect
-    midpoint, repeated ones included) and rowdat (pos and pos-1) that
-    the search touches."""
+def search_bounds(q, tt):
+    """The bucket [lo, hi) that each window's bisect starts from (the
+    router row of limb 0's top 24 bits, or the sub-router row of a fat
+    bucket), as K2 and turbo_match_plain find it -> (lo, hi, the router
+    rows, the sub-router rows of the windows in fat buckets)."""
     import torch
     from kasa_tpu_torch.match import turbo as T
-    n, L = tt.n, q.shape[1]
     q0, q1 = q[:, 0], q[:, 1]
     bucket = (q0 >> (T.LIMB_BITS - T.ROUTER_BITS)).long()
     rr = tt.router[bucket]
@@ -1319,6 +1324,17 @@ def match_bytes(q, tt, R, SW):
     srow = tt.sub2[torch.where(is_sub, sidx, torch.zeros_like(sidx)).long()]
     lo = torch.where(is_sub, srow[:, 0], lo)
     hi = torch.where(is_sub, srow[:, 1], meta)
+    return lo, hi, bucket, sidx[is_sub]
+
+
+def match_bytes(q, tt, R, SW):
+    """Least bytes K2 moves on these windows: q once, the outputs once,
+    and the distinct sectors of router, sub-router, keys2 (every bisect
+    midpoint, repeated ones included) and rowdat (pos and pos-1) that
+    the search touches."""
+    import torch
+    n, L = tt.n, q.shape[1]
+    lo, hi, bucket, sub = search_bounds(q, tt)
     mids = []
     for _ in range(tt.num_steps):
         mid = (lo + hi) >> 1
@@ -1331,7 +1347,7 @@ def match_bytes(q, tt, R, SW):
         hi = torch.where(less, hi, mid)
     rows = torch.cat([lo.clamp(max=n - 1), (lo - 1).clamp(0, n - 1)])
     return (q.numel() * 4 + 2 * R * SW * 4
-            + sector_bytes(bucket, 8) + sector_bytes(sidx[is_sub], 8)
+            + sector_bytes(bucket, 8) + sector_bytes(sub, 8)
             + sector_bytes(torch.cat(mids), 4 * L)
             + sector_bytes(rows, 4 * (L + 2)))
 
@@ -2982,6 +2998,18 @@ def scatter_pairs(t, valid, T, start, read_ids):
     return torch.cat(cells), torch.cat(vals), torch.cat(dcells)
 
 
+def scatter_bytes(t, valid, dcells, R):
+    """Least bytes K11 moves: the level flags, T and start of the valid
+    occurrences and their read ids (distinct sectors), the d_tax cells of
+    their groups (dcells, from scatter_pairs), the weights and the (R, S)
+    float32 output once."""
+    import torch
+    nk, M = valid.shape
+    occ = torch.nonzero(valid.reshape(-1))[:, 0]
+    return (nk * M + 2 * sector_bytes(occ, 4) + sector_bytes(occ % M, 4)
+            + sector_bytes(dcells, 4) + nk * 4 + R * t.num_species * 4)
+
+
 def phase_kernels_join(t, batch, launches, suffix, what):
     """K12, K10 and K11 on the first batch of a join run, in the engine's
     order, each against its plain version (integers identical, scores
@@ -3049,11 +3077,8 @@ def phase_kernels_join(t, batch, launches, suffix, what):
     acc = torch.zeros(R * t.num_species, dtype=torch.float32, device=d)
     lib11 = time_ms(lambda: acc.index_put_((cells,), vals, accumulate=True),
                     10)
-    occ = torch.nonzero(valid.reshape(-1))[:, 0]
+    bytes11 = scatter_bytes(t, valid, dcells, R)
     nk, S = t.num_k, t.num_species
-    bytes11 = (nk * M + 2 * sector_bytes(occ, 4)
-               + sector_bytes(occ % M, 4) + sector_bytes(dcells, 4)
-               + nk * 4 + R * S * 4)
     torch.cuda.synchronize()
     log(f"kernels join{suffix}: query_sort, join_match and join_scatter "
         f"agree with their plain versions on the first batch of the {what} "
@@ -4259,130 +4284,148 @@ def route_stages(mat, R, w):
     return out
 
 
-class ParentKernels:
-    """K5 and K6 of another checkout (the parent commit, unpacked with
-    git archive), built from its own csrc/ with nvcc and called through
-    its own C interface, to time beside this tree's kernels on the same
-    inputs in one call (--stages --parent DIR).  The interface is that of
-    commit 91debd4: K5's bitonic short arm up to 4,096 windows (P, the
-    next power of two), its shared-memory long arm and its global arm;
-    K6 as one block a read, its slot table in global scratch above 4,096
-    slots."""
-    ARGTYPES = {"kasa_dedup_windows": "P" + "I" * 5 + "PP",
-                "kasa_dedup_windows_long": "P" + "I" * 4 + "PP",
-                "kasa_dedup_windows_global": "P" + "I" * 4 + "PPP",
-                "kasa_sparse_fold": "P" * 6 + "I" * 7 + "P" * 5}
-    # K6's stage split: stop points put into the parent's sparse_fold.cu
-    # before it is built (an extra int, stop, after sent: 1 ends after
-    # the slot table and its scan, 2 after the lane build of each chunk,
-    # 3 after its sort, 0 runs it all), as this tree's kernel has them
-    K6_STOPS = (
-        ("    int SW, n, num_k, wm, sent;\n",
-         "    int SW, n, num_k, wm, sent, stop;\n"),
-        ("        run += t;\n    }\n    __syncthreads();\n",
-         "        run += t;\n    }\n    __syncthreads();\n"
-         "    if (p.stop == 1) {\n"
-         "        if (tid == 0 && pre[0] == 123456789) multi_of[r] = 3;\n"
-         "        return;\n    }\n"),
-        ("        __syncthreads();\n        block_bitonic_sort<unsigned long "
-         "long, kThreads>(keys, P);\n",
-         "        __syncthreads();\n        if (p.stop == 2) {\n"
-         "            if (tid == 0 && keys[0] == 123456789ull) "
-         "multi_of[r] = 3;\n"
-         "            __syncthreads();\n            continue;\n        }\n"
-         "        block_bitonic_sort<unsigned long long, kThreads>(keys, P);"
-         "\n        if (p.stop == 3) {\n"
-         "            if (tid == 0 && keys[1] == 123456789ull) "
-         "multi_of[r] = 3;\n"
-         "            __syncthreads();\n            continue;\n        }\n"),
-        ("int sent, void* tab,", "int sent, int stop, void* tab,"),
-        ("FoldParams p{SW, n, num_k, wm, sent};",
-         "FoldParams p{SW, n, num_k, wm, sent, stop};"))
+# K2's stage split: stop points put into a scratch copy of a
+# turbo_match.cu before it is built: an extra int, stop, after sent; a
+# stopped window writes nothing unless its bounds are impossible, so that
+# its loads are not dropped
+K2_STOP_ARG = (
+    ("    int n, num_k, min_k, max_k, num_steps, sent;\n",
+     "    int n, num_k, min_k, max_k, num_steps, sent, stop;\n"),
+    ("int sent, void* skey, void* mpay,",
+     "int sent, int stop, void* skey, void* mpay,"),
+    ("MatchParams p{n, num_k, min_k, max_k, num_steps, sent, M};",
+     "MatchParams p{n, num_k, min_k, max_k, num_steps, sent, stop, M};"))
+# this tree's K2: 1 ends after the router, the sub-router and the steps
+# from memory, 2 after the copies of the buckets, 3 after the bisect
+K2_STOPS = K2_STOP_ARG + (
+    ("    // the rows at pos and pos - 1, found in kRounds rounds: in each, "
+     "the\n",
+     "    if (p.stop == 1) {\n"
+     "        if (live && lo == 123456789 && hi == 5) skey[m * p.num_k] = 3;\n"
+     "        return;\n    }\n"
+     "    // the rows at pos and pos - 1, found in kRounds rounds: in each, "
+     "the\n"),
+    ("        if (live && turn) {\n",
+     "        if (live && turn && p.stop != 2) {\n"),
+    ("    int32_t* st_key = reinterpret_cast<int32_t*>(pool);\n",
+     "    if (p.stop == 2 || p.stop == 3) {\n"
+     "        if (live && pos == 123456789 && at[0] == pv[1]\n"
+     "                && reinterpret_cast<const int*>(pool)[lane] == 5)\n"
+     "            skey[m * p.num_k] = 3;\n"
+     "        return;\n    }\n"
+     "    int32_t* st_key = reinterpret_cast<int32_t*>(pool);\n"))
+# the parent's (a671075) K2: 1 ends after the router and the sub-router,
+# 2 after the bisect
+PARENT_K2_STOPS = K2_STOP_ARG + (
+    ("    for (int step = 0; step < p.num_steps; ++step) {\n",
+     "    if (p.stop == 1) {\n"
+     "        if (lo == 123456789 && hi == 5) skey[m * p.num_k] = 3;\n"
+     "        return;\n    }\n"
+     "    for (int step = 0; step < p.num_steps; ++step) {\n"),
+    ("    const int pos = lo;\n",
+     "    if (p.stop == 2) {\n"
+     "        if (lo == 123456789) skey[m * p.num_k] = 3;\n"
+     "        return;\n    }\n"
+     "    const int pos = lo;\n"))
 
-    def __init__(self, root):
+
+class SplitKernels:
+    """K2 and K11 of a csrc/ directory built apart with nvcc into
+    OUT/<tag>_build, all started together, K2 from a scratch copy of its
+    source with stop points patched in, and called through their own C
+    interface (that of commit a671075 and of this tree, K2 with its extra
+    stop): this tree's split by stage, or the parent's (--stages --parent
+    DIR).  units: (name, stop points or None)."""
+    ARGTYPES = {"kasa_turbo_match": "P" * 6 + "L" + "I" * 8 + "PPP",
+                "kasa_join_scatter": "P" * 6 + "LLII" + "PP"}
+
+    def __init__(self, csrc, tag, units):
         import ctypes
         from kasa_tpu_torch import kernels as K
-        csrc = os.path.join(os.path.abspath(root), "kasa_tpu_torch", "csrc")
-        build = os.path.join(OUT, "parent_build")
+        build = os.path.join(OUT, f"{tag}_build")
         os.makedirs(build, exist_ok=True)
-        src = open(os.path.join(csrc, "sparse_fold.cu")).read()
-        src = src.replace("                                int sent, void* "
-                          "tab,", "int sent, void* tab,")
-        for a, b in self.K6_STOPS:
-            if src.count(a) != 1:
-                fail(f"parent sparse_fold.cu: no single {a!r} for the "
-                     "stop points")
-            src = src.replace(a, b)
-        split = os.path.join(build, "sparse_fold_split.cu")
-        with open(split, "w") as fh:
-            fh.write(src)
         procs = {}
-        for name, path in (("dedup", os.path.join(csrc, "dedup.cu")),
-                           ("sparse_fold", split)):
+        for name, stops in units:
+            path = os.path.join(csrc, f"{name}.cu")
+            if stops:
+                src = open(path).read()
+                for a, b in stops:
+                    if src.count(a) != 1:
+                        fail(f"{tag} {name}.cu: no single {a!r} for the "
+                             "stop points")
+                    src = src.replace(a, b)
+                path = os.path.join(build, f"{name}_split.cu")
+                with open(path, "w") as fh:
+                    fh.write(src)
             so = os.path.join(build, f"lib{name}.so")
             procs[name] = (so, subprocess.Popen(
                 [K.nvcc_path(), *K.NVCC_FLAGS, "-I", csrc, "-o", so, path],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         self.fns = {}
-        types = {"P": ctypes.c_void_p, "I": ctypes.c_int}
+        types = {"P": ctypes.c_void_p, "I": ctypes.c_int,
+                 "L": ctypes.c_longlong}
         for name, (so, proc) in procs.items():
             out, _ = proc.communicate()
             if proc.returncode != 0:
-                fail(f"parent {name}.cu did not build:\n{out[-3000:]}")
-            lib = ctypes.CDLL(so)
-            for sym, sig in self.ARGTYPES.items():
-                if hasattr(lib, sym) and sym.startswith(
-                        "kasa_sparse" if name == "sparse_fold" else
-                        "kasa_dedup"):
-                    f = getattr(lib, sym)
-                    f.restype = ctypes.c_int
-                    f.argtypes = [types[c] for c in sig]
-                    self.fns[sym] = f
-        log(f"parent kernels built from {csrc}")
+                fail(f"{tag} {name}.cu did not build:\n{out[-3000:]}")
+            f = getattr(ctypes.CDLL(so), f"kasa_{name}")
+            f.restype = ctypes.c_int
+            f.argtypes = [types[c] for c in self.ARGTYPES[f"kasa_{name}"]]
+            self.fns[name] = f
+        self.tag = tag
+        log(f"{tag} kernels built from {csrc}")
 
-    def _call(self, sym, *args):
-        rc = self.fns[sym](*args)
+    def _call(self, name, *args):
+        rc = self.fns[name](*args)
         if rc != 0:
-            fail(f"parent {sym}: CUDA error {rc}")
+            fail(f"{self.tag} {name}: CUDA error {rc}")
 
-    def dedup(self, q, R, kpr, poison, out=None, scratch=None):
+    def turbo_match(self, q, tt, R, kpr, stop=0):
         import torch
-        from kasa_tpu_torch import kernels as K
-        L = q.shape[1]
-        out = torch.empty_like(q) if out is None else out
-        st = torch.cuda.current_stream().cuda_stream
-        P = 32
-        while P < kpr:
-            P <<= 1
-        if P <= 4096:
-            self._call("kasa_dedup_windows", q.data_ptr(), R, kpr, L, P,
-                       poison, out.data_ptr(), st)
-        elif kpr <= K.dedup_caps(L, K.dedup_smem(q.device))[0]:
-            self._call("kasa_dedup_windows_long", q.data_ptr(), R, kpr, L,
-                       poison, out.data_ptr(), st)
-        else:
-            scratch = torch.empty_like(q) if scratch is None else scratch
-            self._call("kasa_dedup_windows_global", q.data_ptr(), R, kpr, L,
-                       poison, scratch.data_ptr(), out.data_ptr(), st)
+        from kasa_tpu_torch.match import turbo as T
+        dev, nk = q.device, tt.num_k
+        skey = torch.empty((R, kpr * nk), dtype=torch.int32, device=dev)
+        mpay = torch.empty_like(skey)
+        self._call("turbo_match", q.data_ptr(), tt.router.data_ptr(),
+                   tt.sub2.data_ptr(), tt.keys2.data_ptr(),
+                   tt.rowdat.data_ptr(), tt.masks2.data_ptr(), q.shape[0],
+                   q.shape[1], tt.n, nk, tt.min_k, tt.max_k, tt.num_steps,
+                   T.SENT, stop, skey.data_ptr(), mpay.data_ptr(),
+                   torch.cuda.current_stream().cuda_stream)
+        return skey, mpay
+
+    def join_scatter(self, t, valid, T, start, read_ids, R, marks=None):
+        """K11 as its wrapper runs it: the float64 fill, the kernel's
+        adds, the rounding pass; marks: None or four CUDA events recorded
+        around the three."""
+        import torch
+        rec = (lambda i: marks[i].record()) if marks else (lambda i: None)
+        rec(0)
+        scores = torch.zeros((R, t.num_species), dtype=torch.float64,
+                             device=read_ids.device)
+        rec(1)
+        self._call("join_scatter", valid.data_ptr(), T.data_ptr(),
+                   start.data_ptr(), read_ids.data_ptr(), t.d_tax.data_ptr(),
+                   t.weights.data_ptr(), read_ids.shape[0],
+                   t.d_tax.shape[1], t.num_k, t.num_species,
+                   scores.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        rec(2)
+        out = scores.float()
+        rec(3)
         return out
 
-    def sparse_fold(self, cp, mcnt, ofc, tt, wm, sent, stop=0):
-        import torch
-        R, SW = cp.shape
-        dev = cp.device
-        mk = torch.empty((R, wm), dtype=torch.int32, device=dev)
-        mv = torch.empty((R, wm), dtype=torch.float32, device=dev)
-        mo = torch.empty((R,), dtype=torch.bool, device=dev)
-        tab = (torch.empty((R, 3 * SW + 1), dtype=torch.int32, device=dev)
-               if SW > 4096 else None)
-        self._call("kasa_sparse_fold", cp.data_ptr(), mcnt.data_ptr(),
-                   ofc.data_ptr(), tt.grp2.data_ptr(), tt.d_tax4.data_ptr(),
-                   tt.weights.data_ptr(), R, SW, tt.n, tt.num_k, wm, sent,
-                   stop, None if tab is None else tab.data_ptr(),
-                   mk.data_ptr(),
-                   mv.data_ptr(), mo.data_ptr(),
-                   torch.cuda.current_stream().cuda_stream)
-        return mk, mv, mo
+
+class ParentKernels(SplitKernels):
+    """K2 and K11 of another checkout (the parent commit, unpacked with
+    git archive), to time beside this tree's kernels on the same inputs
+    in one call: at commit a671075, K2 one thread a window, K11 float64
+    atomics into an (R, S) buffer that the caller zeroes and rounds."""
+
+    def __init__(self, root):
+        super().__init__(
+            os.path.join(os.path.abspath(root), "kasa_tpu_torch", "csrc"),
+            "parent", (("turbo_match", PARENT_K2_STOPS),
+                       ("join_scatter", None)))
 
 
 def turns_ms(parent_fn, change_fn, reps):
@@ -4398,15 +4441,13 @@ def turns_ms(parent_fn, change_fn, reps):
     return (p1 + p2) / 2, (c1 + c2) / 2
 
 
-def fold_stages(tt, mat, R, w, mb, eb, pk=None):
+def fold_stages(tt, mat, R, w, mb, eb):
     """K6 on one real sparse batch as the main path runs it: the lanes a
     read, the reads of the block arm, the two launches alone with the
     warp arm split by stage (its slots and lane build, its sort, its run
     sums and list: the kernel's stop points) and the block arm the rest,
-    each output held to sparse_fold_plain, the parent's kernel (split by
-    its own stages: slot table, lane build, sort, run sums) and this
-    tree's in turns, the plain version and torch.sort of the lane keys
-    -> {name: ms or stats}."""
+    each output held to sparse_fold_plain, the plain version and
+    torch.sort of the lane keys -> {name: ms or stats}."""
     import numpy as np
     import torch
     from kasa_tpu_torch import kernels as K
@@ -4431,15 +4472,8 @@ def fold_stages(tt, mat, R, w, mb, eb, pk=None):
     same("stages sparse_fold.mk", got[0], want[0])
     same("stages sparse_fold.multi_of", got[2], want[2])
     out["err"] = close("stages sparse_fold.mv", got[1], want[1])
-    parent = None
-    if pk is not None:
-        pg = pk.sparse_fold(cp, mcnt, ofc, tt, T.WM, T.SENT)
-        same("stages parent sparse_fold.mk", pg[0], want[0])
-        same("stages parent sparse_fold.multi_of", pg[2], want[2])
-        close("stages parent sparse_fold.mv", pg[1], want[1])
-        parent = lambda: pk.sparse_fold(cp, mcnt, ofc, tt, T.WM, T.SENT)
-    out["parent"], out["ms"] = turns_ms(
-        parent, lambda: K.sparse_fold(cp, mcnt, ofc, tt, T.WM, T.SENT), 20)
+    out["ms"] = time_ms(lambda: K.sparse_fold(cp, mcnt, ofc, tt, T.WM,
+                                              T.SENT), 20)
     # the two launches alone (outputs allocated once, no wrapper checks)
     R_, SW = cp.shape
     mk, mv = got[0].clone(), got[1].clone()
@@ -4468,13 +4502,6 @@ def fold_stages(tt, mat, R, w, mb, eb, pk=None):
     out["stages"] = {"warp_lanes": cut[0], "warp_sort": cut[1] - cut[0],
                      "warp_sums_list": cut[2] - cut[1],
                      "block_arm": out["launch"] - cut[2]}
-    if pk is not None:
-        cut = [time_ms(lambda: pk.sparse_fold(cp, mcnt, ofc, tt, T.WM,
-                                              T.SENT, stop), 20)
-               for stop in (1, 2, 3)]
-        out["parent_stages"] = {
-            "slot_table_scan": cut[0], "lane_build": cut[1] - cut[0],
-            "sort": cut[2] - cut[1], "sums_list": out["parent"] - cut[2]}
     out["plain"] = time_ms(lambda: T.sparse_fold_plain(cp, mcnt, ofc, tt),
                            3)
     keys = (rid << 24) | tax
@@ -4503,14 +4530,13 @@ def dedup_launch(q, R, kpr, arm, out, scratch):
     return lambda: fn(*args)
 
 
-def dedup_stages(corpus, pk=None):
-    """K5 on the batches of the main path, the parent's kernels and this
-    tree's in turns, each held to dedup_windows_plain: the --six -e batch
-    (L = 2), the wide --six -e batch (L = 5), the wide long-read batch
-    (LONG_CPU_READS long reads under --six at L = 5: the limb-0 arm,
-    split by stage with its runs of equal limb 0), and synthetic batches
-    of 2,048 and 4,096 windows a read (past the short arm) -> {batch:
-    {arm, ms, parent, plain, bound, ...}}."""
+def dedup_stages(corpus):
+    """K5 on the batches of the main path, each held to
+    dedup_windows_plain: the --six -e batch (L = 2), the wide --six -e
+    batch (L = 5), the wide long-read batch (LONG_CPU_READS long reads
+    under --six at L = 5: the limb-0 arm, split by stage with its runs of
+    equal limb 0), and synthetic batches of 2,048 and 4,096 windows a
+    read (past the short arm) -> {batch: {arm, ms, plain, bound, ...}}."""
     import numpy as np
     import torch
     from kasa_tpu_torch import kernels as K
@@ -4550,19 +4576,11 @@ def dedup_stages(corpus, pk=None):
                "bound": 2 * q.numel() * 4 / HBM_BYTES_PER_S * 1e3}
         want = T.dedup_windows_plain(q, R, kpr)
         same(f"stages dedup {tag}", T.dedup_windows(q, R, kpr), want)
-        parent = None
-        if pk is not None:
-            same(f"stages parent dedup {tag}",
-                 pk.dedup(q, R, kpr, T.POISON_LIMB), want)
-            parent = lambda: pk.dedup(q, R, kpr, T.POISON_LIMB)
         del want
-        res["parent"], res["ms"] = turns_ms(
-            parent, lambda: T.dedup_windows(q, R, kpr), 10)
+        res["ms"] = time_ms(lambda: T.dedup_windows(q, R, kpr), 10)
         # the launches alone (outputs allocated once, no wrapper checks)
         out_t, scr = torch.empty_like(q), torch.empty_like(q)
-        res["parent_launch"], res["launch"] = turns_ms(
-            None if pk is None else lambda: pk.dedup(
-                q, R, kpr, T.POISON_LIMB, out_t, scr),
+        res["launch"] = time_ms(
             dedup_launch(q, R, kpr, res["arm"], out_t, scr), 10)
         del out_t, scr
         if res["arm"] == "limb0" or (res["arm"] == "short"
@@ -4588,23 +4606,195 @@ def dedup_stages(corpus, pk=None):
     return out
 
 
+def match_stages(tag, tt, mat, R, w, sk, highest_k=12, pk=None):
+    """K2 on a real batch as the main path runs it: the tables'
+    num_steps and the widths of the buckets the batch's windows bisect;
+    the parent's kernel split by its stop points (router and sub-router,
+    bisect, rows and slots) and this tree's by its own (router and
+    sub-router, bucket copy, bisect, slots), both patched into scratch
+    copies of the sources (sk, pk: SplitKernels); the parent's and this
+    tree's kernels in turns, each held to turbo_match_plain bit for bit;
+    the plain version and the bound -> {name: ms or stats}."""
+    import numpy as np
+    import torch
+    from kasa_tpu_torch.core import encode as E
+    from kasa_tpu_torch.core.alphabet import build_codon_code_lut
+    from kasa_tpu_torch.match import turbo as T
+    dev = torch.device(DEVICE)
+    lut = torch.from_numpy(build_codon_code_lut().astype(np.int32)).to(dev)
+    q = E.encode_windows(torch.from_numpy(mat).to(dev), lut, w,
+                         highest_k=highest_k)
+    M, L = q.shape
+    lo, hi, _, sub = search_bounds(q, tt)
+    width = (hi - lo).clamp(min=0)
+    hist = torch.bincount(width.clamp(max=64).long()).cpu().tolist()
+    out = {"R": R, "M": M, "L": L, "n": tt.n, "num_steps": tt.num_steps,
+           "sub_share": sub.numel() / M,
+           "width_mean": float(width.double().mean()),
+           "widths": {str(i): c for i, c in enumerate(hist) if c},
+           # windows whose rows [lo - 1, hi] pass g rows
+           "rows_over": {str(g): float((width + 2 > g).double().mean())
+                         for g in (8, 16, 32)}}
+    del lo, hi, sub, width
+    want = T.turbo_match_plain(q, tt, R, w)
+    got = T.turbo_match(q, tt, R, w)
+    same(f"stages {tag} turbo_match.skey", got[0], want[0])
+    same(f"stages {tag} turbo_match.mpay", got[1], want[1])
+    got = sk.turbo_match(q, tt, R, w)
+    same(f"stages {tag} split turbo_match.skey", got[0], want[0])
+    same(f"stages {tag} split turbo_match.mpay", got[1], want[1])
+    parent = None
+    if pk is not None:
+        pg = pk.turbo_match(q, tt, R, w)
+        same(f"stages {tag} parent turbo_match.skey", pg[0], want[0])
+        same(f"stages {tag} parent turbo_match.mpay", pg[1], want[1])
+        parent = lambda: pk.turbo_match(q, tt, R, w)
+    del got, want
+    out["parent"], out["ms"] = turns_ms(
+        parent, lambda: T.turbo_match(q, tt, R, w), 20)
+    cut = [time_ms(lambda: sk.turbo_match(q, tt, R, w, stop), 20)
+           for stop in (1, 2, 3, 0)]
+    out["stages"] = {"router_sub": cut[0], "copy": cut[1] - cut[0],
+                     "bisect": cut[2] - cut[1], "slots": cut[3] - cut[2]}
+    if pk is not None:
+        cut = [time_ms(lambda: pk.turbo_match(q, tt, R, w, stop), 20)
+               for stop in (1, 2, 0)]
+        out["parent_stages"] = {"router_sub": cut[0],
+                                "bisect": cut[1] - cut[0],
+                                "rows_slots": cut[2] - cut[1]}
+    out["plain"] = time_ms(lambda: T.turbo_match_plain(q, tt, R, w), 3)
+    out["bound"] = match_bytes(q, tt, R, w * tt.num_k) / HBM_BYTES_PER_S \
+        * 1e3
+    log(f"stages turbo_match {tag}: " + json.dumps(out))
+    return out
+
+
+class _FirstBatch(Exception):
+    pass
+
+
+def join_first_batch(tag, index, inp, over):
+    """The arguments of the first match_and_score call of the join
+    engine's run (--engine join --coverage) over these reads; the run
+    stops there -> (arguments, seconds from the start of the run: the
+    join tables built or taken from the RAM cache, the batch read and
+    encoded)."""
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.match import join as J
+    from kasa_tpu_torch.match.pipeline import identify
+    cfg = Config()
+    for k, v in dict(over, engine="join", coverage=True).items():
+        setattr(cfg, k, v)
+    orig, got = J.match_and_score, []
+
+    def first(*a, **k):
+        got.append(a)
+        raise _FirstBatch
+    J.match_and_score = first
+    t0 = time.perf_counter()
+    try:
+        identify(cfg, index_path=index, input_path=inp,
+                 out_file=os.path.join(OUT, "stages_join.json"),
+                 profile_file=None, device=DEVICE)
+    except _FirstBatch:
+        pass
+    finally:
+        J.match_and_score = orig
+    dt = time.perf_counter() - t0
+    if not got:
+        fail(f"{tag}: the join engine handed over no batch")
+    log(f"{tag}: the first batch {dt:.1f} s after the start of the run")
+    return got[0], dt
+
+
+def scatter_stages(tag, batch, sk, pk=None):
+    """K11 on the first batch of a join run as the engine hands it over
+    (K12's order, K10's flags): its valid occurrences, (occurrence,
+    taxon) pairs, largest T and valid (level, occurrence) pairs a read;
+    the parent's and this tree's in turns, each held to
+    join_scatter_plain; each split by CUDA events into its float64 fill,
+    its adds and its rounding pass (this tree's through its own build,
+    sk); the plain version and the bound -> {name: ms or stats}."""
+    import numpy as np
+    import torch
+    from kasa_tpu_torch.match import join as J
+    ji, q_np, r_np, R = batch[:4]
+    t, dev = ji.tables, torch.device(DEVICE)
+    q = torch.from_numpy(np.ascontiguousarray(q_np, np.int32)).to(dev)
+    r = torch.from_numpy(np.ascontiguousarray(r_np, np.int32)).to(dev)
+    M, L = q.shape
+    qs, rs = J.sort_queries(q, r, R, ids_ascending=bool(
+        (r[1:] >= r[:-1]).all()))
+    matched, _, T, start, ok = J.join_match(t, qs)
+    valid = matched & ok
+    del q, r, qs, matched, ok
+    per_read = torch.zeros(R, dtype=torch.int64, device=dev).index_add_(
+        0, rs.long(), valid.sum(0))
+    Tv = T[valid]
+    out = {"R": R, "M": M, "L": L, "S": t.num_species, "levels": t.num_k,
+           "valid": int(Tv.numel()), "pairs": int(Tv.long().sum()),
+           "T_max": int(Tv.max()) if Tv.numel() else 0,
+           "reads_without_valid": int((per_read == 0).sum()),
+           "valid_per_read_median": float(per_read.double().median()),
+           "valid_per_read_max": int(per_read.max())}
+    del Tv, per_read
+    want = J.join_scatter_plain(t, valid, T, start, rs, R)
+    got = J.join_scatter(t, valid, T, start, rs, R)
+    same(f"stages {tag} join_scatter.hit_cells", got > 0, want > 0)
+    out["err"] = close(f"stages {tag} join_scatter.scores", got, want)
+    parent = None
+    if pk is not None:
+        pg = pk.join_scatter(t, valid, T, start, rs, R)
+        same(f"stages {tag} parent join_scatter.hit_cells", pg > 0,
+             want > 0)
+        close(f"stages {tag} parent join_scatter.scores", pg, want)
+        parent = lambda: pk.join_scatter(t, valid, T, start, rs, R)
+        del pg
+    del got, want
+    out["parent"], out["ms"] = turns_ms(
+        parent, lambda: J.join_scatter(t, valid, T, start, rs, R), 10)
+    out["stages"] = dict(zip(
+        ("fill", "adds", "round"),
+        marked_ms(lambda m: sk.join_scatter(t, valid, T, start, rs, R,
+                                            marks=m), 4)))
+    if pk is not None:
+        out["parent_stages"] = dict(zip(
+            ("fill", "adds", "round"),
+            marked_ms(lambda m: pk.join_scatter(t, valid, T, start, rs, R,
+                                                marks=m), 4)))
+    out["plain"] = time_ms(lambda: J.join_scatter_plain(t, valid, T, start,
+                                                        rs, R), 3)
+    dcells = scatter_pairs(t, valid, T, start, rs)[2]
+    out["bound"] = scatter_bytes(t, valid, dcells, R) / HBM_BYTES_PER_S \
+        * 1e3
+    log(f"stages join_scatter {tag}: " + json.dumps(out))
+    return out
+
+
 def run_stages(preps, smi, t_all, parent=None):
-    """--stages: build, then the stage splits of K3, K4, K5 and K7 on the
-    default corpus (the default batch, the long batch, a 32,768-read
-    additive batch, synthetic chunk plans, and K5's batches of the main
-    path) and of K3, K4 and K6 on the 10,001-species corpus (the sparse
-    batch); with parent, a checkout of the parent commit, its K5 and K6
+    """--stages: build, then the stage splits of K2, K3, K4, K5, K7 and
+    K11 on the default corpus (the default batch, the long batch, a
+    32,768-read additive batch, synthetic chunk plans, K5's batches of
+    the main path, the join run's first batch), of K3, K4 and K6 on the
+    10,001-species corpus (the sparse batch) and of K2 and K11 on the
+    128-bit corpus (the wide batch, the first batch of the join run at
+    L = 5); with parent, a checkout of the parent commit, its K2 and K11
     timed beside this tree's in the same call."""
     from kasa_tpu_torch import synth
     from kasa_tpu_torch.match import fast
     phase_build()
+    from kasa_tpu_torch import kernels as K
+    sk = SplitKernels(K.CSRC, "split", (("turbo_match", K2_STOPS),
+                                        ("join_scatter", None)))
     pk = ParentKernels(parent) if parent else None
     wait_prep(preps, t_all, ("default",))
     corpus = phase_corpus()
     disp = warm_up("stages default", corpus["index"], corpus["warm"])
     tt = disp.tt
-    out = {"card": smi}
+    out = {"card": smi, "match": {}, "scatter": {}}
     mat, R, w, _ = real_batch(corpus)
+    out["match"]["default"] = match_stages("default", tt, mat, R, w, sk,
+                                           pk=pk)
     out["default"] = turbo_stages("default", tt, mat, R, w,
                                   disp.multi_budget, disp.exp_budget,
                                   disp.csr_cap(R))
@@ -4618,8 +4808,14 @@ def run_stages(preps, smi, t_all, parent=None):
     mat, R, w, _ = real_batch(corpus, R=4 * fast.READS_PER_BATCH)
     out["additive"] = additive_stages(tt, mat, R, w, disp.csr_cap(R))
     out["route"] = route_stages(mat, R, w)
-    out["dedup"] = dedup_stages(corpus, pk)
+    out["dedup"] = dedup_stages(corpus)
     del disp, tt
+    forget_tables()
+    batch, secs = join_first_batch("stages join", corpus["index"],
+                                   corpus["smoke"], {})
+    out["scatter"]["join"] = dict(scatter_stages("join", batch, sk, pk),
+                                  first_batch_s=secs)
+    del batch
     forget_tables()
     wait_prep(preps, t_all, ("bigS",))
     big = synth.generate_big_s(log=log)
@@ -4629,7 +4825,24 @@ def run_stages(preps, smi, t_all, parent=None):
                                  disp.multi_budget, disp.exp_budget,
                                  disp.csr_cap(R))
     out["sparse_fold"] = fold_stages(disp.tt, mat, R, w, disp.multi_budget,
-                                     disp.exp_budget, pk)
+                                     disp.exp_budget)
+    del disp
+    forget_tables()
+    wait_prep(preps, t_all, ("wide",))
+    wide = synth.generate_wide(log=log)
+    over = {"lower_k": 20, "higher_k": 25}
+    disp = warm_up("stages wide", wide["index"], corpus["warm"], over)
+    mat, R, w, _ = real_batch(corpus, highest_k=25, min_k=20)
+    out["match"]["wide"] = match_stages("wide", disp.tt, mat, R, w, sk,
+                                        highest_k=25, pk=pk)
+    del disp
+    forget_tables()
+    batch, secs = join_first_batch("stages join wide", wide["index"],
+                                   corpus["warm"], over)
+    out["scatter"]["join_wide"] = dict(
+        scatter_stages("join wide", batch, sk, pk), first_batch_s=secs)
+    del batch
+    forget_tables()
     with open(os.path.join(OUT, "chip_smoke_stages.json"), "w") as fh:
         json.dump(out, fh, indent=1)
 
@@ -5153,8 +5366,7 @@ def main():
     if args and not (cards or stages):
         fail(f"unknown arguments {args}: none, --cards or --stages "
              "[--parent DIR]")
-    preps = start_prep(("default",) if cards else
-                       ("default", "bigS") if stages else PREP,
+    preps = start_prep(("default",) if cards else PREP,
                        tiered=not stages)
     try:
         kern = None if cards or stages else run(preps, smi, t_all)

@@ -318,6 +318,11 @@ def turbo_match(q: torch.Tensor, tt, num_reads: int, kmers_per_read: int,
     _check_tables(tt, dev)
     L = tt.keys2.shape[1]
     _check(q, "q", torch.int32, (M, L), dev)
+    if nk > 8:
+        raise ValueError(f"{nk} k levels: the kernel takes at most 8")
+    # the buckets are copied in 16-byte chunks of rowdat
+    if tt.rowdat.data_ptr() % 16:
+        raise ValueError("rowdat: not 16-byte aligned")
     skey = torch.empty((R, kpr * nk), dtype=torch.int32, device=dev)
     mpay = torch.empty((R, kpr * nk), dtype=torch.int32, device=dev)
     _launch("kasa_turbo_match", "turbo_match", _ptr(q), _ptr(tt.router),

@@ -489,34 +489,15 @@ def _build(limbs, tax_rows, tables, highest_k, min_k, max_k, num_species):
 # ---------------------------------------------------------------------------
 # K2 turbo_match: search + slots (kasa_tpu turbo.py:569-667)
 
-def turbo_match_plain(q: torch.Tensor, tt: TurboTables, num_reads: int,
-                      kmers_per_read: int):
-    """(M, L) int32 windows -> (skey, mpay), both (R, SW) int32 with
-    slot s = window * numK + ki of its read:
-      skey: tax*8+ki for a T == 1 match at level ki, else SENT;
-      mpay: psel*8+ki for a multi-taxa (T >= 2) match, else -1.
-    The bisect compares the L limbs lexicographically and each level's
-    prefix compare masks every limb (zero past the level's k).  Mirrors
-    kasa_tpu bit for bit, including its clamped gathers when the search
-    runs past the last key (pos = n + 1)."""
+def turbo_search_plain(q: torch.Tensor, tt: TurboTables) -> torch.Tensor:
+    """K2's search: the (M,) int32 lower bound pos of each window in
+    keys2, from its router (and sub-router) bucket and num_steps bisect
+    steps comparing the L limbs lexicographically, as kasa_tpu runs them:
+    the gathers clamp to row n - 1, and a window above every key of the
+    last bucket ends at pos = n + 1."""
     n = tt.n
-    num_k = tt.num_k
-    M, L = q.shape
-    R, kpr = num_reads, kmers_per_read
-    SW = kpr * num_k
+    L = q.shape[1]
     q0, q1 = q[:, 0], q[:, 1]
-
-    def letter(pos):
-        i, j = divmod(pos, kmer.LETTERS_PER_LIMB)
-        shift = kmer.BITS_PER_LETTER * (kmer.LETTERS_PER_LIMB - 1 - j)
-        return (q[:, i] >> shift) & 31
-    ok = torch.ones(M, dtype=torch.bool, device=q.device)
-    cum_ok_by_k = []
-    for pos in range(tt.min_k - 1, tt.max_k):
-        ok = ok & (letter(pos) != 30)
-        cum_ok_by_k.append(ok)
-    cum_ok = [cum_ok_by_k[num_k - 1 - ki] for ki in range(num_k)]
-
     bucket = (q0 >> (LIMB_BITS - ROUTER_BITS)).long()
     rr = tt.router[bucket]
     lo, meta = rr[:, 0], rr[:, 1]
@@ -538,7 +519,37 @@ def turbo_match_plain(q: torch.Tensor, tt: TurboTables, num_reads: int,
             less = (kk[:, i] < q[:, i]) | ((kk[:, i] == q[:, i]) & less)
         lo = torch.where(less, mid + 1, lo)
         hi = torch.where(less, hi, mid)
-    pos = lo
+    return lo
+
+
+def turbo_match_plain(q: torch.Tensor, tt: TurboTables, num_reads: int,
+                      kmers_per_read: int):
+    """(M, L) int32 windows -> (skey, mpay), both (R, SW) int32 with
+    slot s = window * numK + ki of its read:
+      skey: tax*8+ki for a T == 1 match at level ki, else SENT;
+      mpay: psel*8+ki for a multi-taxa (T >= 2) match, else -1.
+    The search is turbo_search_plain; each level's prefix compare masks
+    every limb (zero past the level's k) of the rows at pos and pos - 1.
+    Mirrors kasa_tpu bit for bit, including its clamped gathers when the
+    search runs past the last key (pos = n + 1)."""
+    n = tt.n
+    num_k = tt.num_k
+    M, L = q.shape
+    R, kpr = num_reads, kmers_per_read
+    SW = kpr * num_k
+
+    def letter(pos):
+        i, j = divmod(pos, kmer.LETTERS_PER_LIMB)
+        shift = kmer.BITS_PER_LETTER * (kmer.LETTERS_PER_LIMB - 1 - j)
+        return (q[:, i] >> shift) & 31
+    ok = torch.ones(M, dtype=torch.bool, device=q.device)
+    cum_ok_by_k = []
+    for pos in range(tt.min_k - 1, tt.max_k):
+        ok = ok & (letter(pos) != 30)
+        cum_ok_by_k.append(ok)
+    cum_ok = [cum_ok_by_k[num_k - 1 - ki] for ki in range(num_k)]
+
+    pos = turbo_search_plain(q, tt)
     pos_c = pos.clamp(max=n - 1)
     at_n = pos >= n
     prev = (pos - 1).clamp(min=0)

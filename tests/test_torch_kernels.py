@@ -6,7 +6,8 @@ histogram in shared memory and, past its key range, its global arm; K5's
 in shared memory and, past its capacity, in global memory; K6's slot
 table in global memory), K4's budget cut inside a T, K7's two arms on
 either side of their chunk limits, K12's ascending-id arm, K4 split for
-the mesh and K14 mesh_merge.
+the mesh and K14 mesh_merge; K2 on tables built to hit every edge of its
+search, and K11's two arms on the edges of its adds.
 CUDA kernels have no CPU mode: without a GPU these tests skip.  On a machine with one (and without JAX):
 
     python3 -m pytest --noconftest -q -m cuda tests/test_torch_kernels.py
@@ -869,6 +870,58 @@ def test_join_kernels(cuda, highest_k, min_k, max_k):
     torch.cuda.synchronize()
     assert torch.equal(s1 > 0, s2 > 0)
     _close(s1, s2)
+
+
+@pytest.mark.parametrize("case", ["resid", "deep"])
+@pytest.mark.parametrize("L", [2, 3, 4, 5])
+def test_turbo_match_edges(cuda, L, case):
+    """K2 against turbo_match_plain, bit for bit, on tables built to hit
+    every edge of its search (test_torch_match_arms.edge_case): empty
+    buckets, a router bucket of exactly RESID rows, fat buckets through
+    the sub-router, under "deep" a 40-row sub-bucket (num_steps 6, wider
+    than a window's copy: its first steps from keys2; at L = 2 its
+    windows fill their pools), windows below and above every key (pos 0
+    and n + 1) and with '^' letters; one window a read, the last warp
+    part full."""
+    from test_torch_match_arms import edge_case
+    from kasa_tpu_torch.match import turbo as PT
+    arrays, meta, q_np = edge_case(L, case)
+    tt = PT.tables_from_numpy(arrays, meta, cuda)
+    q = torch.from_numpy(q_np).to(cuda)
+    M = q.shape[0]
+    assert M % 64
+    skey, mpay = PT.turbo_match(q, tt, M, 1)
+    sk2, mp2 = PT.turbo_match_plain(q, tt, M, 1)
+    pos = PT.turbo_search_plain(q, tt)
+    torch.cuda.synchronize()
+    assert torch.equal(skey.cpu(), sk2.cpu())
+    assert torch.equal(mpay.cpu(), mp2.cpu())
+    assert bool((pos == 0).any()) and bool((pos == tt.n + 1).any())
+    assert bool((sk2 != PT.SENT).any()) and bool((mp2 >= 0).any())
+
+
+@pytest.mark.parametrize("case", ["zero_rows", "one_taxon", "largest_t",
+                                  "one_read", "unique", "wide_s"])
+def test_join_scatter_cases(cuda, case):
+    """K11 against join_scatter_plain on the edges of its adds
+    (test_torch_match_arms.scatter_case): reads without a valid
+    occurrence, a read of 5,000 occurrences of one taxon at every level,
+    groups of all S taxa, one read, the read ids of a -e batch, and
+    S = 30,000: hit cells identical, scores within the contract (each
+    cell summed in float64 and rounded once), every row written, zeros
+    included."""
+    from test_torch_match_arms import scatter_case
+    from kasa_tpu_torch import kernels as K
+    from kasa_tpu_torch.match import join as J
+    t, valid, T, start, rid, R = scatter_case(case, cuda)
+    K.reset_counts()
+    got = J.join_scatter(t, valid, T, start, rid, R)
+    want = J.join_scatter_plain(t, valid, T, start, rid, R)
+    torch.cuda.synchronize()
+    assert K.COUNTS["join_scatter"] == 1
+    assert got.shape == (R, t.num_species) and got.dtype == torch.float32
+    assert torch.equal(got.cpu() > 0, want.cpu() > 0)
+    _close(got, want)
 
 
 @pytest.mark.parametrize("M,L,R", [(1, 2, 1), (1024, 2, 1025),

@@ -117,11 +117,14 @@ Phases (any failure ends the run with a non-zero exit; none is caught):
            written; hit taxa and unique counts identical, all-counts
            within rtol 2e-5 / atol 2e-3, scores within the contract):
            reads/s, the join/* and identify/* host stages, the device's
-           busy share; then K12 (as the path calls it, the batch's read
-           ids ascending, and its read-id arm; each stage timed), K10
-           and K11 on the run's first batch against their plain versions,
-           timed, with torch.sort, torch.searchsorted and index_put_ as
-           yardsticks;
+           busy share; the run's batches take K11's read arm; then K12
+           (as the path calls it, carrying the windows' positions, and
+           its read-id arm; each stage timed), K10 with its read-order
+           heads and K11's read arm and global arm on the run's first
+           batch against their plain versions, timed, with torch.sort,
+           torch.searchsorted and index_put_ as yardsticks, and the
+           batch's device memory through match_and_score (K11's read arm
+           allocating less than an (R, S) float64 buffer);
   oocore   8,192 read pairs of the default corpus under KASA_TPU_NO_TURBO
            with a 700 MiB -m (6 index chunks, their cache built first)
            against the resident per-batch run (-r): chunks, batches, MB
@@ -218,21 +221,29 @@ card line and the ok line.
 
     python3 chip_smoke.py --stages [--parent DIR]
 
-runs only build and the stage splits of K2, K3, K4, K5, K7 and K11 on
-the default corpus (K2 on the default batch with the widths of the
-buckets it bisects; default, long and 32,768-read additive batches,
-synthetic chunk plans of 4 to 20,000 chunks; K5 on the --six -e batch,
-the wide --six -e batch, the wide long-read batch and synthetic reads of
-2,048 and 4,096 windows; K11 on the first batch of the join run, its
-valid occurrences and pairs, split into its float64 fill, its adds and
-its rounding pass), of K3, K4 and K6 on the sparse corpus (K6's lanes a
-read and its warp arm by stage) and of K2 and K11 on the 128-bit corpus
-(the wide batch, the join run at L = 5), each held to its plain version,
-into .synth_corpus/out/chip_smoke_stages.json.  With --parent, DIR is a
-checkout of the parent commit (git archive) whose K2 (with stop points
-after its router and after its bisect) and K11 (its float64 fill, adds
-and rounding pass apart) are built from its csrc/ and timed in turns
-with this tree's on the same inputs.  Longer logs and the full-size
+runs only build and the stage splits of K2, K3, K4, K5, K7, K10 + K11
+and K14 on the default corpus (K2 on the default batch with the widths
+of the buckets it bisects; default, long and 32,768-read additive
+batches, synthetic chunk plans of 4 to 20,000 chunks; K5 on the --six
+-e batch, the wide --six -e batch, the wide long-read batch and
+synthetic reads of 2,048 and 4,096 windows; K10 + K11 as a pair on the
+first batch of the join run and on its first 8,192, 16,384 and 32,768
+reads, its
+valid occurrences and pairs, K10's heads and K11's read arm split by
+stop points and clock64 counts; K14 on the shard lists of an 8,192-read
+batch at ip = 2 and 4, two host processes building the shards' table
+sidecars from the start, split the same way and timed on the batch's
+first 1,024 to 8,192 reads), of K3, K4 and K6 on the sparse corpus (K6's
+lanes a read and its warp arm by stage) and of K2 and K10 + K11 on the
+128-bit corpus (the wide batch, the first batch of a join run at L = 5
+over the 65,536 smoke reads, and on its first reads), each held to its
+plain version, into .synth_corpus/out/chip_smoke_stages.json; times both
+with the wrapper's host time (time_ms) and queued ahead of the card
+(queued_ms).  With --parent, DIR is a checkout of the parent commit (git
+archive) whose K10, K11 (its float64 fill, adds and rounding pass
+apart) and K14 (with stop points after its merge and after its scan)
+are built from its csrc/ and timed in turns with this tree's on the
+same inputs.  Longer logs and the full-size
 outputs go to .synth_corpus/out/.  Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
 """
@@ -2670,7 +2681,11 @@ def route_global_entry(q):
 # ---------------------------------------------------------------------------
 # the join and exact engines, --visualize, the per-batch engine over -m
 
-JOIN_KERNELS = ("encode", "query_sort", "join_match", "join_scatter")
+# the join engine's kernels: K11's global arm on batches of fewer than
+# kernels.READ_ARM_MIN_READS reads and under -e, its read arm on larger
+# batches whose read ids ascend
+JOIN_KERNELS = ("encode", "query_sort", "join_match", "join_scatter.global")
+JOIN_KERNELS_READS = JOIN_KERNELS[:3] + ("join_scatter.reads",)
 OOCORE_MEM = 700 << 20    # -m of the oocore phase: 6 chunks
 OOCORE_PAIRS = 8_192
 
@@ -2907,12 +2922,13 @@ class FirstCall:
         setattr(self.module, self.name, self.orig)
 
 
-def phase_join(tag, index, inp, over, n_reads):
+def phase_join(tag, index, inp, over, n_reads, kernels=JOIN_KERNELS):
     """The turbo run and the join engine's run (--engine join, or
     --coverage on the default engine) of the same reads, every hit
     written: hit taxa and unique counts identical, all-counts within rtol
-    2e-5 / atol 2e-3, scores within the contract.  -> (join launches,
-    info, the join run's first batch)."""
+    2e-5 / atol 2e-3, scores within the contract; the join run launched
+    `kernels` and no other (the K11 arm its batches take).  -> (join
+    launches, info, the join run's first batch)."""
     from kasa_tpu_torch.match import join as J
     corpus = {"index": index}
     over = dict(over, num_of_beasts=ALL_HITS)
@@ -2925,13 +2941,13 @@ def phase_join(tag, index, inp, over, n_reads):
         with FirstCall(J, "match_and_score") as first:
             res, launches, info = drive(
                 f"{tag} ({kind})", inp, j, p,
-                PATH_KERNELS if kind == "turbo" else JOIN_KERNELS,
+                PATH_KERNELS if kind == "turbo" else kernels,
                 over=over if kind == "turbo" else dict(
                     over, engine="join", coverage=True), corpus=corpus)
         with open(j) as fh:
             outs[kind] = (res, json.load(fh))
         os.remove(j)
-    expect_only(tag, launches, JOIN_KERNELS)
+    expect_only(tag, launches, kernels)
     if res[2] != n_reads:
         fail(f"{tag}: {res[2]} reads identified, expected {n_reads}")
     with open(p) as fh:
@@ -2952,7 +2968,9 @@ def join_match_bytes(t, q, out):
     distinct index sectors of the search and the run_end entries it
     reads, the grp_id cells of the matched levels, the grp_start cells
     (g and g + 1 of the matched, entry 0 of the unmatched), the masks,
-    and the five (numK, M) outputs once."""
+    and the five (numK, M) outputs once; with the read-order records
+    (out[5], out[6]), the positions, the d_tax cell of each head's taxon,
+    the heads once and the wide_at cells written (distinct sectors)."""
     import torch
     n, M, L, nk = t.n, q.shape[0], q.shape[1], t.num_k
     pos, idx_sec, b, runs = search_sectors(t, q)
@@ -2969,10 +2987,23 @@ def join_match_bytes(t, q, out):
         gst.append(ki * t.grp_start.shape[1] + torch.cat(
             [gk, gk + 1, torch.zeros(1, dtype=torch.long, device=q.device)]))
     cat = torch.cat
+    rec = 0
+    if len(out) > 5:
+        # the head's taxon: the d_tax cell at each query's first valid
+        # level where T == 1 there, read in key order
+        valid = out[0] & out[4]
+        kis = torch.arange(nk, device=q.device)[:, None]
+        lo = torch.where(valid, kis, nk).min(dim=0).values
+        i = torch.nonzero(lo < nk)[:, 0]
+        lo = lo[i]
+        one = out[2][lo, i] == 1
+        cells = lo[one] * t.d_tax.shape[1] + out[3][lo, i][one].long()
+        rec = M * 4 + sector_bytes(cells, 4) + M * 8 \
+            + sector_bytes(torch.nonzero(out[6] >= 0)[:, 0], 4)
     return (M * L * 4 + sector_bytes(cat([b, b + 1]), 4)
             + 32 * int(idx_sec.numel()) + sector_bytes(runs, 4)
             + sector_bytes(cat(gid), 4) + sector_bytes(cat(gst), 4)
-            + nk * L * 4 + nk * M * (1 + 4 + 4 + 4 + 1))
+            + nk * L * 4 + nk * M * (1 + 4 + 4 + 4 + 1) + rec)
 
 
 def scatter_pairs(t, valid, T, start, read_ids):
@@ -2999,10 +3030,10 @@ def scatter_pairs(t, valid, T, start, read_ids):
 
 
 def scatter_bytes(t, valid, dcells, R):
-    """Least bytes K11 moves: the level flags, T and start of the valid
-    occurrences and their read ids (distinct sectors), the d_tax cells of
-    their groups (dcells, from scatter_pairs), the weights and the (R, S)
-    float32 output once."""
+    """Least bytes K11's global arm moves: the level flags, T and start
+    of the valid occurrences and their read ids (distinct sectors), the
+    d_tax cells of their groups (dcells, from scatter_pairs), the weights
+    and the (R, S) float32 output once."""
     import torch
     nk, M = valid.shape
     occ = torch.nonzero(valid.reshape(-1))[:, 0]
@@ -3010,13 +3041,100 @@ def scatter_bytes(t, valid, dcells, R):
             + sector_bytes(dcells, 4) + nk * 4 + R * t.num_species * 4)
 
 
+def scatter_reads_bytes(t, heads, wide_at, T, start, R):
+    """Least bytes K11's read arm moves: K10's heads and the read ids
+    once, the wide_at cells of the queries with T > 1 levels and those
+    levels' T and start cells (distinct sectors), the d_tax cells of
+    their groups, the weights and the (R, S) float32 output once."""
+    import torch
+    M = heads.shape[0]
+    nk = t.num_k
+    row = wide_at[wide_at >= 0].long()
+    hi = ((heads[:, 1] >> 8) & 255)[wide_at >= 0].long()
+    cells, dcells = [], []
+    for ki in range(nk):
+        r = row[hi <= ki]
+        cells.append(ki * M + r)
+        Tv, sv = T[ki][r].long(), start[ki][r].long()
+        pair = torch.repeat_interleave(torch.arange(len(Tv), device=T.device),
+                                       Tv)
+        j = torch.arange(len(pair), device=T.device) \
+            - (torch.cumsum(Tv, 0) - Tv)[pair]
+        dcells.append(ki * t.d_tax.shape[1] + sv[pair] + j)
+    c = torch.cat(cells)
+    return (M * 8 + M * 4 + sector_bytes(torch.nonzero(wide_at >= 0)[:, 0],
+                                         4)
+            + 2 * sector_bytes(c, 4) + sector_bytes(torch.cat(dcells), 4)
+            + nk * 4 + R * t.num_species * 4)
+
+
+def mesh_merge_bytes(hts, size):
+    """Least bytes K14 moves on (ip, R, wout) shard lists whose rows hold
+    ascending taxa, then SENT (the order its row arm relies on): each
+    row's slots up to and including its first SENT (nothing past it need
+    be read) and the ksums of the taxa present (distinct sectors both),
+    ofc and ofl, the merged (R, wout) rows and the packed row of size
+    int32 written once."""
+    import torch
+    from kasa_tpu_torch.match import turbo as T
+    ip, R, wout = hts.shape
+    real = hts != T.SENT
+    j = torch.arange(wout, device=hts.device)
+    flat = torch.arange(hts.numel(), device=hts.device).view(ip, R, wout)
+    return (sector_bytes(flat[j <= real.sum(2, keepdim=True)], 4)
+            + sector_bytes(flat[real], 4) + 2 * R + R * wout * 8
+            + size * 4)
+
+
+def join_batch_memory(batch, R, S):
+    """The device memory one join batch takes through match_and_score as
+    the engine runs it, and K11's share of it -> (peak bytes above the
+    start, bytes K11 took above what K10 had left); fails where K11 took
+    an (R, S) float64 buffer's worth (the read arm writes its float32
+    rows and an (R + 1,) int64 scratch)."""
+    import torch
+    from kasa_tpu_torch.match import join as J
+    orig, k11 = J.join_scatter_reads, {}
+
+    def measured(*a):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        k11["before"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = orig(*a)
+        torch.cuda.synchronize()
+        k11["bytes"] = torch.cuda.max_memory_allocated() - base
+        return out
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    J.join_scatter_reads = measured
+    try:
+        J.match_and_score(*batch)
+    finally:
+        J.join_scatter_reads = orig
+    if "bytes" not in k11:
+        fail("join batch: match_and_score did not take K11's read arm")
+    peak = max(k11["before"], torch.cuda.max_memory_allocated()) - start
+    if k11["bytes"] >= R * S * 8:
+        fail(f"join batch: K11 took {k11['bytes']:,} bytes, an (R, S) "
+             f"float64 buffer's worth ({R * S * 8:,})")
+    return peak, k11["bytes"]
+
+
 def phase_kernels_join(t, batch, launches, suffix, what):
-    """K12, K10 and K11 on the first batch of a join run, in the engine's
-    order, each against its plain version (integers identical, scores
-    within the contract), timed with CUDA events after a warm-up, with
-    its bound and, where one exists, a PyTorch call as yardstick.
-    -> (kernel entries, the three kernels' ms per batch, K12's read-id
-    arm and stage times)."""
+    """K12, K10 and K11 on the first batch of a join run, each against
+    its plain version (integers identical, scores within the contract),
+    timed with CUDA events after a warm-up, with its bound and, where one
+    exists, a PyTorch call as yardstick: K12 carrying each window's
+    position, K10 with and without its read-order records, both arms of
+    K11 (the read arm on K10's records, the global arm in key order).
+    The entries and the step are the variants the engine runs on this
+    batch (J.scatter_arm): K12 and K10 without records and K11's global
+    arm where the batch takes the global arm, whose read-order pair is
+    then only logged; the batch's device memory on the read arm.  ->
+    (kernel entries, the three kernels' ms per batch, K12's read-id arm
+    and stage times, the memory)."""
     import numpy as np
     import torch
     from kasa_tpu_torch.match import join as J
@@ -3025,69 +3143,125 @@ def phase_kernels_join(t, batch, launches, suffix, what):
     q = torch.from_numpy(np.ascontiguousarray(q_np, np.int32)).to(d)
     r = torch.from_numpy(np.ascontiguousarray(r_np, np.int32)).to(d)
     M, L = q.shape
+    pos = torch.arange(M, dtype=torch.int32, device=d)
+    # the arm of K11 that match_and_score takes on this batch
+    arm = J.scatter_arm(t, True, R)
+    reads = arm == "reads"
     # K12 as the join path calls it (the batch's read ids ascend: the
-    # limbs alone), then its read-id arm on the same batch; the plain
-    # version sorts by (limbs, read id) in both
-    qs, rs = J.sort_queries(q, r, R, ids_ascending=True)
-    pq, pr = J.sort_queries_plain(q, r)
+    # limbs alone, each window's position carried), then its read-id arm
+    # on the same batch; the plain version sorts by (limbs, payload)
+    qs, ps = J.sort_queries(q, pos, M, ids_ascending=True)
+    pq, pp = J.sort_queries_plain(q, pos)
     same(f"query_sort{suffix}.limbs", qs, pq)
-    same(f"query_sort{suffix}.read_ids", rs, pr)
+    same(f"query_sort{suffix}.positions", ps, pp)
+    del pq, pp
+    rs = r[ps.long()]
     q2, r2 = J.sort_queries(q, r, R)
+    pq, pr = J.sort_queries_plain(q, r)
     same(f"query_sort{suffix}.rid_arm.limbs", q2, pq)
     same(f"query_sort{suffix}.rid_arm.read_ids", r2, pr)
-    del q2, r2
-    ms12 = time_ms(lambda: J.sort_queries(q, r, R, ids_ascending=True), 10)
+    same(f"query_sort{suffix}.rid_arm.gathered_ids", rs, pr)
+    del q2, r2, pq, pr
+    # the payload the engine carries: the positions on the read arm, the
+    # read ids on the global arm (the same kernel, limbs alone)
+    ms12 = time_ms(lambda: J.sort_queries(q, pos, M, ids_ascending=True)
+                   if reads else J.sort_queries(q, r, R, ids_ascending=True),
+                   10)
     rid_bits = max(R - 1, 0).bit_length()
     k12 = {"ms_rid_arm": time_ms(lambda: J.sort_queries(q, r, R), 10),
            "rid_bits": rid_bits,
-           "stages_ms": k12_stages(q, r, 0),
+           "stages_ms": k12_stages(q, pos, 0),
            "stages_ms_rid_arm": k12_stages(q, r, rid_bits)}
-    plain12 = time_ms(lambda: J.sort_queries_plain(q, r), 3)
+    plain12 = time_ms(lambda: J.sort_queries_plain(q, pos), 3)
     lib12 = None
     if L == 2:
         keys = (q[:, 0].long() << 30) | q[:, 1].long()
         lib12 = time_ms(lambda: torch.sort(keys, stable=True), 10)
     log(f"kernel query_sort{suffix}: the read-id arm ({rid_bits} bits) "
         f"{k12['ms_rid_arm']:.4f} ms; stage ms (histogram and scan, then "
-        f"each pass): ids ascending {k12['stages_ms']}, read-id arm "
+        f"each pass): positions {k12['stages_ms']}, read-id arm "
         f"{k12['stages_ms_rid_arm']}")
-    # K10
-    got = J.join_match(t, qs)
-    want = J.join_match_plain(t, qs)
-    for name, a, b in zip(("matched", "g", "T", "start", "ok"), got, want):
+    # K10, with its read-order records
+    got = J.join_match(t, qs, ps)
+    want = J.join_match_plain(t, qs, ps)
+    for name, a, b in zip(("matched", "g", "T", "start", "ok", "heads",
+                           "wide_at"), got, want):
         same(f"join_match{suffix}.{name}", a, b)
-    ms10 = time_ms(lambda: J.join_match(t, qs), 10)
-    plain10 = time_ms(lambda: J.join_match_plain(t, qs), 3)
+    del got
+    ms10 = time_ms(lambda: J.join_match(t, qs, ps), 10)
+    ms10_key = time_ms(lambda: J.join_match(t, qs), 10)
+    plain10 = time_ms(lambda: J.join_match_plain(t, qs, ps if reads
+                                                 else None), 3)
     lib10 = None
     if L == 2:
         k64 = (t.idx_limbs[:, 0].long() << 30) | t.idx_limbs[:, 1].long()
         q64 = (qs[:, 0].long() << 30) | qs[:, 1].long()
         lib10 = time_ms(lambda: torch.searchsorted(k64, q64), 10)
-    # K11
-    matched, g, T, start, ok = want
+    # K11: the read arm on K10's records against the plain version on the
+    # key-order outputs; the global arm on those
+    matched, g, T, start, ok, heads, wide_at = want
     valid = matched & ok
-    s1 = J.join_scatter(t, valid, T, start, rs, R)
     s2 = J.join_scatter_plain(t, valid, T, start, rs, R)
+    s1 = J.join_scatter_reads(t, heads, wide_at, T, start, r, R)
     same(f"join_scatter{suffix}.hit_cells", s1 > 0, s2 > 0)
     err11 = close(f"join_scatter{suffix}.scores", s1, s2)
-    ms11 = time_ms(lambda: J.join_scatter(t, valid, T, start, rs, R), 10)
-    plain11 = time_ms(lambda: J.join_scatter_plain(t, valid, T, start, rs,
-                                                   R), 3)
+    s3 = J.join_scatter(t, valid, T, start, rs, R)
+    same(f"join_scatter.global{suffix}.hit_cells", s3 > 0, s2 > 0)
+    err11g = close(f"join_scatter.global{suffix}.scores", s3, s2)
+    s4 = J.join_scatter_reads_plain(t, heads, wide_at, T, start, r, R)
+    same(f"join_scatter_reads_plain{suffix}.hit_cells", s4 > 0, s2 > 0)
+    close(f"join_scatter_reads_plain{suffix}.scores", s4, s2)
+    del s1, s2, s3, s4
+    ms11 = time_ms(lambda: J.join_scatter_reads(t, heads, wide_at, T, start,
+                                                r, R), 10)
+    ms11g = time_ms(lambda: J.join_scatter(t, valid, T, start, rs, R), 10)
+    plain11 = time_ms(lambda: J.join_scatter_reads_plain(
+        t, heads, wide_at, T, start, r, R), 3)
+    plain11g = time_ms(lambda: J.join_scatter_plain(t, valid, T, start, rs,
+                                                    R), 3)
     cells, vals, dcells = scatter_pairs(t, valid, T, start, rs)
     acc = torch.zeros(R * t.num_species, dtype=torch.float32, device=d)
     lib11 = time_ms(lambda: acc.index_put_((cells,), vals, accumulate=True),
                     10)
-    bytes11 = scatter_bytes(t, valid, dcells, R)
+    del acc
+    bytes11 = scatter_reads_bytes(t, heads, wide_at, T, start, R)
+    bytes11g = scatter_bytes(t, valid, dcells, R)
+    bytes10 = join_match_bytes(t, qs, want if reads else want[:5])
     nk, S = t.num_k, t.num_species
+    npairs = cells.numel()
+    del cells, vals, dcells, want, matched, g, T, start, ok, heads, wide_at
+    del valid
     torch.cuda.synchronize()
-    log(f"kernels join{suffix}: query_sort, join_match and join_scatter "
-        f"agree with their plain versions on the first batch of the {what} "
-        f"({R} reads, M={M:,} windows, L={L}, {nk} levels, n={t.n:,}, "
-        f"S={S}; valid occurrences {int(valid.sum()):,}, (occurrence, "
-        f"taxon) pairs {cells.numel():,}, largest T {int(T.max())})")
+    peak, k11_bytes = join_batch_memory(batch[:4], R, S) \
+        if reads else (None, None)
+    # the variants the engine runs on this batch
+    run10, run11 = (ms10, ms11) if reads else (ms10_key, ms11g)
+    log(f"kernels join{suffix}: query_sort, join_match (with and without "
+        f"its records) and join_scatter (both arms) agree with their plain "
+        f"versions on the first batch of the {what} ({R} reads, M={M:,} "
+        f"windows, L={L}, {nk} levels, n={t.n:,}, S={S}; (occurrence, "
+        f"taxon) pairs {npairs:,}); the batch takes K11's {arm} arm: the "
+        f"pair K10 + K11 {run10 + run11:.4f} ms (K10 {run10:.4f}, K11 "
+        f"{run11:.4f})")
+    log(f"kernels join{suffix}, the read-order pair: K10 with its records "
+        f"{ms10:.4f} ms + K11's read arm {ms11:.4f} (plain {plain11:.4f}) = "
+        f"{ms10 + ms11:.4f}; the key-order pair: K10 {ms10_key:.4f} + "
+        f"K11's global arm {ms11g:.4f} (plain {plain11g:.4f}) = "
+        f"{ms10_key + ms11g:.4f}" + ("" if reads else
+                                     " (the read-order pair does not run "
+                                     f"on a batch of {R} reads)"))
+    if reads:
+        log(f"join batch memory{suffix}: match_and_score's peak "
+            f"{peak / 2**30:.3f} GiB above its start; K11's read arm "
+            f"{k11_bytes / 2**20:.1f} MiB (an (R, S) float64 buffer would "
+            f"be {R * S * 8 / 2**20:.1f} MiB)")
+    else:
+        log(f"join batch memory{suffix}: the batch of {R} reads takes K11's "
+            "global arm (kernels.READ_ARM_MIN_READS), its (R, S) float64 "
+            "buffer")
     log(f"yardstick for K9: join_match + join_scatter{suffix} "
-        f"{1e6 * (ms10 + ms11) / M:.4f} ns a window, with query_sort "
-        f"{1e6 * (ms12 + ms10 + ms11) / M:.4f} ns ({M:,} windows sorted "
+        f"{1e6 * (run10 + run11) / M:.4f} ns a window, with query_sort "
+        f"{1e6 * (ms12 + run10 + run11) / M:.4f} ns ({M:,} windows sorted "
         "by key)")
     e = [kernel_entry(f"query_sort{suffix}",
                       "kasa_tpu_torch/csrc/query_sort.cu",
@@ -3097,14 +3271,23 @@ def phase_kernels_join(t, batch, launches, suffix, what):
          kernel_entry(f"join_match{suffix}",
                       "kasa_tpu_torch/csrc/join_match.cu",
                       "kasa_tpu/match/join.py:175", launches["join_match"],
-                      0.0, ms10, plain10, join_match_bytes(t, qs, want),
-                      lib10, "torch.searchsorted over the 60-bit keys"),
-         kernel_entry(f"join_scatter{suffix}",
-                      "kasa_tpu_torch/csrc/join_scatter.cu",
-                      "kasa_tpu/match/join.py:200", launches["join_scatter"],
-                      err11, ms11, plain11, bytes11, lib11,
-                      "index_put_(accumulate=True) of the expanded pairs")]
-    return e, ms12 + ms10 + ms11, k12
+                      0.0, run10, plain10, bytes10, lib10,
+                      "torch.searchsorted over the 60-bit keys")]
+    if reads:
+        e.append(kernel_entry(
+            f"join_scatter{suffix}", "kasa_tpu_torch/csrc/join_scatter.cu",
+            "kasa_tpu/match/join.py:200", launches["join_scatter.reads"],
+            err11, ms11, plain11, bytes11, lib11,
+            "index_put_(accumulate=True) of the expanded pairs"))
+    e.append(kernel_entry(
+        f"join_scatter.global{suffix}", "kasa_tpu_torch/csrc/join_scatter.cu",
+        "kasa_tpu/match/join.py:200", launches["join_scatter.global"], err11g,
+        ms11g, plain11g, bytes11g, lib11,
+        "index_put_(accumulate=True) of the expanded pairs"))
+    mem = {"arm": arm, "peak_bytes": peak, "k11_bytes": k11_bytes,
+           "k10_key_order_ms": ms10_key, "k10_records_ms": ms10,
+           "k11_reads_ms": ms11, "k11_global_ms": ms11g}
+    return e, ms12 + run10 + run11, k12, mem
 
 
 def k12_stages(q, r, rid_bits):
@@ -3960,6 +4143,10 @@ def mesh_cli(tag, corpus, env, dp, ip, ref, world=MESH_WORLD,
         expect_launched(f"mesh {tag} rank {r}", rec["counts"],
                         MESH_KERNELS + (("turbo_multi.split",) if ip > 1
                                         else ()))
+        # K14's row arm on every rank (the smoke reads' lists fit it)
+        if rec["counts"]["mesh_merge.long"]:
+            fail(f"mesh {tag} rank {r}: K14 took its long arm "
+                 f"{rec['counts']['mesh_merge.long']} times")
     ndiff = identify_files_agree(f"mesh {tag}", ref, (out_j, out_p))
     os.remove(out_j)
     nb = -(-synth.SMOKE_READS // 8192)
@@ -4314,32 +4501,153 @@ K2_STOPS = K2_STOP_ARG + (
      "            skey[m * p.num_k] = 3;\n"
      "        return;\n    }\n"
      "    int32_t* st_key = reinterpret_cast<int32_t*>(pool);\n"))
-# the parent's (a671075) K2: 1 ends after the router and the sub-router,
-# 2 after the bisect
-PARENT_K2_STOPS = K2_STOP_ARG + (
-    ("    for (int step = 0; step < p.num_steps; ++step) {\n",
-     "    if (p.stop == 1) {\n"
-     "        if (lo == 123456789 && hi == 5) skey[m * p.num_k] = 3;\n"
+# a stop point's switch in a split source: a device global (and its host
+# copy) that the split library's kasa_set_stop sets, once before each
+# variant is timed
+def _stop_switch(include):
+    return ((include, include + "__device__ int kasa_split_stop;\n"
+             "__device__ unsigned long long kasa_dbg[16];\n"
+             "static int kasa_host_stop;\n"
+             "extern \"C\" int kasa_set_stop(int s) {\n"
+             "    kasa_host_stop = s;\n"
+             "    static unsigned long long zero[16];\n"
+             "    cudaMemcpyToSymbol(kasa_dbg, zero, sizeof(zero));\n"
+             "    return (int)cudaMemcpyToSymbol(kasa_split_stop, &s, "
+             "sizeof(int));\n}\n"
+             "extern \"C\" int kasa_get_dbg(void* out) {\n"
+             "    return (int)cudaMemcpyFromSymbol(out, kasa_dbg, "
+             "sizeof(kasa_dbg));\n}\n"),)
+
+
+# stop 10 of a split source: clock64 counts of its phases into kasa_dbg
+def _probe(at, i, lead="lane == 0"):
+    return ("if (kasa_split_stop == 10 && " + lead + ") {\n"
+            f"    atomicAdd(&kasa_dbg[{i}], (unsigned long long)(clock64() - "
+            f"{at}));\n    atomicAdd(&kasa_dbg[{i + 1}], 1ull);\n}}\n")
+
+
+# this tree's K10 with its heads: 1 takes no d_tax lookup (the head's
+# taxon -1), 2 writes the heads in key order (at m, not pos[m])
+K10_STOPS = _stop_switch('#include "common.cuh"\n') + (
+    ("                    if (t == 1 && p.heads != nullptr)\n",
+     "                    if (t == 1 && p.heads != nullptr\n"
+     "                            && kasa_split_stop != 1)\n"),
+    ("            const long long dst = p.pos[m];\n",
+     "            const long long dst = kasa_split_stop == 2 ? m : p.pos[m];\n"))
+# this tree's K11 read arm: 1 ends after seg_kernel, 2 leaves out every
+# add (the heads still loaded, the rows written), 3 leaves out the T > 1
+# levels, 4 reads their T and start and adds nothing
+K11_STOPS = _stop_switch('#include "common.cuh"\n') + (
+    ("    // a block as wide as a read's records, in whole warps\n",
+     "    if (kasa_host_stop == 1) return 0;\n"
+     "    // a block as wide as a read's records, in whole warps\n"),
+    ("            add_one(srow, h.x, v);\n",
+     "            if (kasa_split_stop == 2) {\n"
+     "                if (h.x == 123456789 && v == 0.5) srow[0] += 1.0;\n"
+     "                continue;\n            }\n"
+     "            add_one(srow, h.x, v);\n"),
+    # stop 10: cycles of a warp's T > 1 levels (0, 1), rounds and calls of
+    # add_wide (2, 3), cycles of a read (4, 5), grid and block (6, 7)
+    ("            const int row = hi < num_k ? wide_at[m] : -1;\n",
+     "            const long long c0 = clock64();\n"
+     "            const int row = hi < num_k ? wide_at[m] : -1;\n"),
+    ("            const int kmin = __reduce_min_sync(kFull, hi);\n",
+     "            if (kasa_split_stop == 3) continue;\n"
+     "            const int kmin = __reduce_min_sync(kFull, hi);\n"),
+    ("                if (u >= kmin && u < num_k)\n",
+     "                if (kasa_split_stop == 4) {\n"
+     "                    if (pa[u] == 123456789 && pt[u] == 5) srow[0] += 1.0;"
+     "\n                } else if (u >= kmin && u < num_k)\n"),
+    ("                add_wide(srow, d_tax + ki * tmax, lev[ki], a, t);\n"
+     "            }\n",
+     "                add_wide(srow, d_tax + ki * tmax, lev[ki], a, t);\n"
+     "            }\n" + _probe("c0", 0, "(threadIdx.x & 31) == 0")),
+    ("    const int W = __shfl_sync(kFull, incl, 31);\n",
+     "    const int W = __shfl_sync(kFull, incl, 31);\n"
+     "    if (kasa_split_stop == 10 && lane == 0) {\n"
+     "        atomicAdd(&kasa_dbg[2], (unsigned long long)((W + 31) / 32));\n"
+     "        atomicAdd(&kasa_dbg[3], 1ull);\n    }\n"),
+    ("        // whole warps step together: the bounds are the block's\n",
+     "        const long long c1 = clock64();\n"
+     "        // whole warps step together: the bounds are the block's\n"),
+    ("        float* out = scores + r * S;\n",
+     _probe("c1", 4, "threadIdx.x == 0")
+     + "        float* out = scores + r * S;\n"),
+    ("    for (int i = threadIdx.x; i < num_k; i += blockDim.x) lev[i] = "
+     "weights[i];\n",
+     "    for (int i = threadIdx.x; i < num_k; i += blockDim.x) lev[i] = "
+     "weights[i];\n"
+     "    if (kasa_split_stop == 10 && blockIdx.x == 0 && threadIdx.x == 0) {"
+     "\n        kasa_dbg[6] = gridDim.x;\n        kasa_dbg[7] = blockDim.x;"
+     "\n    }\n"))
+# this tree's K14 row arm: 1 ends after the loads, pass A, the scan and
+# pass B (no look-back), 2 after the look-back (no CSR)
+K14_STOPS = _stop_switch('#include "radix.cuh"\n') + (
+    ("    // the block's CSR offset: a decoupled look-back over the blocks, "
+     "the\n",
+     "    if (kasa_split_stop == 1) {\n"
+     "        if (ntax == 123456789) packed[0] = 1;\n"
      "        return;\n    }\n"
-     "    for (int step = 0; step < p.num_steps; ++step) {\n"),
-    ("    const int pos = lo;\n",
-     "    if (p.stop == 2) {\n"
-     "        if (lo == 123456789) skey[m * p.num_k] = 3;\n"
-     "        return;\n    }\n"
-     "    const int pos = lo;\n"))
+     "    // the block's CSR offset: a decoupled look-back over the blocks, "
+     "the\n"),
+    ("    if (!live) return;\n",
+     "    if (!live || kasa_split_stop == 2) return;\n"),
+    # stop 10: a warp's cycles in the load (0, 1), pass A (2, 3), the scan
+    # and the block's barrier (4, 5), pass B (6, 7), the look-back (8, 9)
+    ("    int ntax = 0, tot = 0;\n",
+     "    int ntax = 0, tot = 0;\n    long long c0 = clock64();\n"),
+    ("        // pass A: each taxon's first copy marks its slot in the merge\n",
+     _probe("c0", 0) + "        c0 = clock64();\n"
+     "        // pass A: each taxon's first copy marks its slot in the merge\n"),
+    ("        // the words' exclusive scan of their flags, a lane a chunk\n",
+     _probe("c0", 2) + "        c0 = clock64();\n"
+     "        // the words' exclusive scan of their flags, a lane a chunk\n"),
+    ("    // pass B: the sums at their ranks in the rows, before the "
+     "look-back,\n",
+     _probe("c0", 4) + "    c0 = clock64();\n"
+     "    // pass B: the sums at their ranks in the rows, before the "
+     "look-back,\n"),
+    ("    // the block's CSR offset: a decoupled look-back over the blocks, "
+     "the\n",
+     _probe("c0", 6) + "    c0 = clock64();\n"
+     "    // the block's CSR offset: a decoupled look-back over the blocks, "
+     "the\n"),
+    ("    // the CSR: the read's first hc pairs, copied from its row at its "
+     "offset\n",
+     _probe("c0", 8) + "    // the CSR: the read's first hc pairs, copied "
+     "from its row at its offset\n"))
+# the parent's (1cbed98) K14: 1 ends after the merge launch, 2 after the
+# scan, so that merge, scan and pack time apart
+PARENT_K14_STOPS = (
+    ("                               void* stream) {\n",
+     "                               void* stream, int stop) {\n"),
+    ("    scan_kernel<<<1, kScanThreads, 0, st>>>(",
+     "    if (stop == 1) return (int)cudaGetLastError();\n"
+     "    scan_kernel<<<1, kScanThreads, 0, st>>>("),
+    ("    pack_kernel<<<R, 128, 0, st>>>(",
+     "    if (stop == 2) return (int)cudaGetLastError();\n"
+     "    pack_kernel<<<R, 128, 0, st>>>("))
 
 
 class SplitKernels:
-    """K2 and K11 of a csrc/ directory built apart with nvcc into
-    OUT/<tag>_build, all started together, K2 from a scratch copy of its
-    source with stop points patched in, and called through their own C
-    interface (that of commit a671075 and of this tree, K2 with its extra
-    stop): this tree's split by stage, or the parent's (--stages --parent
+    """Kernels of a csrc/ directory built apart with nvcc into
+    OUT/<tag>_build, all started together, each from a scratch copy of
+    its source with stop points patched in where it has them, and called
+    through their own C interface: this tree's K2 split by stage
+    (--stages), or the parent's K10, K11 and K14 (--stages --parent
     DIR).  units: (name, stop points or None)."""
+    # C interfaces: this tree's (K2 with its stop argument) ...
     ARGTYPES = {"kasa_turbo_match": "P" * 6 + "L" + "I" * 8 + "PPP",
-                "kasa_join_scatter": "P" * 6 + "LLII" + "PP"}
+                "kasa_join_match": "P" * 9 + "L" * 4 + "I" * 4 + "P" * 8,
+                "kasa_join_scatter_reads": "P" * 7 + "LL" + "IIII" + "PPP",
+                "kasa_mesh_merge": "PPPP" + "IIII" + "L" + "P" * 8}
+    # ... and the parent's (1cbed98)
+    PARENT_ARGTYPES = {"kasa_join_match": "P" * 7 + "LLL" + "IIII" + "P" * 6,
+                       "kasa_join_scatter": "P" * 6 + "LLII" + "PP",
+                       "kasa_mesh_merge": "PPPP" + "IIII" + "L" + "P" * 7
+                       + "I"}
 
-    def __init__(self, csrc, tag, units):
+    def __init__(self, csrc, tag, units, syms=None):
         import ctypes
         from kasa_tpu_torch import kernels as K
         build = os.path.join(OUT, f"{tag}_build")
@@ -4364,14 +4672,24 @@ class SplitKernels:
         self.fns = {}
         types = {"P": ctypes.c_void_p, "I": ctypes.c_int,
                  "L": ctypes.c_longlong}
+        argtypes = self.PARENT_ARGTYPES if tag == "parent" else self.ARGTYPES
         for name, (so, proc) in procs.items():
             out, _ = proc.communicate()
             if proc.returncode != 0:
                 fail(f"{tag} {name}.cu did not build:\n{out[-3000:]}")
-            f = getattr(ctypes.CDLL(so), f"kasa_{name}")
+            sym = (syms or {}).get(name, f"kasa_{name}")
+            lib = ctypes.CDLL(so)
+            f = getattr(lib, sym)
             f.restype = ctypes.c_int
-            f.argtypes = [types[c] for c in self.ARGTYPES[f"kasa_{name}"]]
+            f.argtypes = [types[c] for c in argtypes[sym]]
             self.fns[name] = f
+            if hasattr(lib, "kasa_set_stop"):
+                g = lib.kasa_set_stop
+                g.restype, g.argtypes = ctypes.c_int, [ctypes.c_int]
+                self.fns[f"{name}.stop"] = g
+                g = lib.kasa_get_dbg
+                g.restype, g.argtypes = ctypes.c_int, [ctypes.c_void_p]
+                self.fns[f"{name}.dbg"] = g
         self.tag = tag
         log(f"{tag} kernels built from {csrc}")
 
@@ -4394,10 +4712,133 @@ class SplitKernels:
                    torch.cuda.current_stream().cuda_stream)
         return skey, mpay
 
+    def set_stop(self, name, stop):
+        """The stop point of the split source `name` for the calls that
+        follow (K10_STOPS, K11_STOPS, K14_STOPS; 0: the whole kernel)."""
+        import torch
+        torch.cuda.synchronize()
+        self._call(f"{name}.stop", stop)
+
+    def probe(self, name, fn):
+        """One call of fn at stop point 10 of `name` (the clock64 counts
+        its split source keeps) -> the 16 counts."""
+        import ctypes
+        import torch
+        self.set_stop(name, 10)
+        fn()
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * 16)()
+        self._call(f"{name}.dbg", ctypes.cast(buf, ctypes.c_void_p))
+        self.set_stop(name, 0)
+        return list(buf)
+
+    def timed_stops(self, name, stops, fn, reps):
+        """queued_ms of fn at each stop point of `name`, then the stop
+        back at 0 -> [ms]."""
+        out = []
+        for stop in stops:
+            self.set_stop(name, stop)
+            out.append(queued_ms(fn, reps))
+        self.set_stop(name, 0)
+        return out
+
+    def join_match(self, t, q, pos):
+        """This tree's K10 with its heads (K10_STOPS)."""
+        import torch
+        dev = q.device
+        nk, M = t.num_k, q.shape[0]
+        outs = [torch.empty((nk, M), dtype=d, device=dev) for d in (
+            torch.bool, torch.int32, torch.int32, torch.int32, torch.bool)]
+        heads = torch.empty((M, 2), dtype=torch.int32, device=dev)
+        wide_at = torch.full((M,), -1, dtype=torch.int32, device=dev)
+        self._call("join_match", t.idx_limbs.data_ptr(),
+                   t.grp_id.data_ptr(), t.grp_start.data_ptr(),
+                   t.masks.data_ptr(), t.run_end.data_ptr(),
+                   t.prefix_tbl.data_ptr(), q.data_ptr(), t.d_tax.data_ptr(),
+                   pos.data_ptr(), t.n, t.grp_start.shape[1],
+                   t.d_tax.shape[1], M, q.shape[1], nk, t.min_k, t.max_k,
+                   *(o.data_ptr() for o in outs), heads.data_ptr(),
+                   wide_at.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        return (*outs, heads, wide_at)
+
+    def join_scatter_reads(self, t, heads, wide_at, T, start, read_ids, R):
+        """This tree's K11 read arm (K11_STOPS)."""
+        import torch
+        from kasa_tpu_torch import kernels as K
+        dev = read_ids.device
+        scores = torch.empty((R, t.num_species), dtype=torch.float32,
+                             device=dev)
+        seg = torch.empty((R + 2,), dtype=torch.int64, device=dev)
+        self._call("join_scatter", heads.data_ptr(), wide_at.data_ptr(),
+                   T.data_ptr(), start.data_ptr(), read_ids.data_ptr(),
+                   t.d_tax.data_ptr(), t.weights.data_ptr(),
+                   read_ids.shape[0], t.d_tax.shape[1], t.num_k,
+                   t.num_species, R, K._sms(dev), seg.data_ptr(),
+                   scores.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        return scores
+
+    def mesh_merge(self, hts, hks, ofc, ofl, cap, packed=None):
+        """This tree's K14 row arm (K14_STOPS), into packed (zeroed here
+        when None); its ticket and look-back words zeroed on every
+        call."""
+        import torch
+        from kasa_tpu_torch import kernels as K
+        ip, R, wout = hts.shape
+        dev = hts.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        warps = K.mesh_merge_warps(ip, wout, K.dedup_smem(dev))
+        if packed is None:
+            packed = torch.zeros((2 * R + 2 * cap + 2,), **i32)
+        status = torch.zeros((2 + 2 * -(-R // warps),), **i32)
+        ht_m = torch.empty((R, wout), **i32)
+        hk_m = torch.empty((R, wout), dtype=torch.float32, device=dev)
+        self._call("mesh_merge", hts.data_ptr(), hks.data_ptr(),
+                   ofc.data_ptr(), ofl.data_ptr(), ip, R, wout, warps, cap,
+                   None, None, None, status.data_ptr(), ht_m.data_ptr(),
+                   hk_m.data_ptr(), packed.data_ptr(),
+                   torch.cuda.current_stream().cuda_stream)
+        return packed, ht_m, hk_m
+
+
+class ParentKernels(SplitKernels):
+    """K10, K11 and K14 of another checkout (the parent commit, unpacked
+    with git archive), to time beside this tree's kernels on the same
+    inputs in one call, through their C interfaces at commit 1cbed98:
+    K10 its key-order outputs alone; K11 float64 atomics into an (R, S)
+    buffer that the caller zeroes and rounds; K14 a bitonic sort a read,
+    a one-block scan and a pack (stop points after the merge and after
+    the scan patched into a scratch copy)."""
+
+    def __init__(self, root):
+        super().__init__(
+            os.path.join(os.path.abspath(root), "kasa_tpu_torch", "csrc"),
+            "parent", (("join_match", None), ("join_scatter", None),
+                       ("mesh_merge", PARENT_K14_STOPS)))
+
+    def join_match(self, t, q):
+        """K10 as the parent's wrapper runs it: its five outputs zeroed,
+        one launch."""
+        import torch
+        dev = q.device
+        nk, M = t.num_k, q.shape[0]
+        matched = torch.zeros((nk, M), dtype=torch.bool, device=dev)
+        g = torch.zeros((nk, M), dtype=torch.int32, device=dev)
+        T, start = torch.zeros_like(g), torch.zeros_like(g)
+        ok = torch.zeros_like(matched)
+        self._call("join_match", t.idx_limbs.data_ptr(),
+                   t.grp_id.data_ptr(), t.grp_start.data_ptr(),
+                   t.masks.data_ptr(), t.run_end.data_ptr(),
+                   t.prefix_tbl.data_ptr(), q.data_ptr(), t.n,
+                   t.grp_start.shape[1], M, q.shape[1], nk, t.min_k,
+                   t.max_k, matched.data_ptr(), g.data_ptr(), T.data_ptr(),
+                   start.data_ptr(), ok.data_ptr(),
+                   torch.cuda.current_stream().cuda_stream)
+        return matched, g, T, start, ok
+
     def join_scatter(self, t, valid, T, start, read_ids, R, marks=None):
-        """K11 as its wrapper runs it: the float64 fill, the kernel's
-        adds, the rounding pass; marks: None or four CUDA events recorded
-        around the three."""
+        """K11 as the parent's wrapper runs it: the float64 fill, the
+        kernel's adds, the rounding pass; marks: None or four CUDA events
+        recorded around the three."""
         import torch
         rec = (lambda i: marks[i].record()) if marks else (lambda i: None)
         rec(0)
@@ -4414,31 +4855,75 @@ class SplitKernels:
         rec(3)
         return out
 
+    def mesh_merge(self, hts, hks, ofc, ofl, cap, stop=0, fill=True):
+        """K14 as the parent's wrapper runs it (the packed row zeroed,
+        then merge, scan and pack); stop 1 ends after the merge, 2 after
+        the scan; fill=False leaves the zero fill out (the caller's
+        packed row, zeroed once)."""
+        import torch
+        ip, R, wout = hts.shape
+        dev = hts.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        if fill is True:
+            packed = torch.zeros((2 * R + 2 * cap + 2,), **i32)
+        else:
+            packed = fill
+        ht_m = torch.empty((R, wout), **i32)
+        hk_m = torch.empty((R, wout), dtype=torch.float32, device=dev)
+        cum = torch.empty((R,), **i32)
+        from kasa_tpu_torch import kernels as K
+        P = K._pow2(ip * wout)
+        if P > 4096:
+            fail("parent K14: its long arm is not timed here")
+        self._call("mesh_merge", hts.data_ptr(), hks.data_ptr(),
+                   ofc.data_ptr(), ofl.data_ptr(), ip, R, wout, P, cap, None,
+                   None, cum.data_ptr(), ht_m.data_ptr(), hk_m.data_ptr(),
+                   packed.data_ptr(), torch.cuda.current_stream().cuda_stream,
+                   stop)
+        return packed, ht_m, hk_m
 
-class ParentKernels(SplitKernels):
-    """K2 and K11 of another checkout (the parent commit, unpacked with
-    git archive), to time beside this tree's kernels on the same inputs
-    in one call: at commit a671075, K2 one thread a window, K11 float64
-    atomics into an (R, S) buffer that the caller zeroes and rounds."""
 
-    def __init__(self, root):
-        super().__init__(
-            os.path.join(os.path.abspath(root), "kasa_tpu_torch", "csrc"),
-            "parent", (("turbo_match", PARENT_K2_STOPS),
-                       ("join_scatter", None)))
-
-
-def turns_ms(parent_fn, change_fn, reps):
+def turns_ms(parent_fn, change_fn, reps, timer=None):
     """The parent's and this tree's times of the same function in turns
     (parent, change, change, parent) -> (parent ms, change ms), each the
-    mean of its two turns; the parent's is None without one."""
+    mean of its two turns; the parent's is None without one.  timer:
+    time_ms (the default) or queued_ms."""
+    timer = timer or time_ms
     if parent_fn is None:
-        return None, time_ms(change_fn, reps)
-    p1 = time_ms(parent_fn, reps)
-    c1 = time_ms(change_fn, reps)
-    c2 = time_ms(change_fn, reps)
-    p2 = time_ms(parent_fn, reps)
+        return None, timer(change_fn, reps)
+    p1 = timer(parent_fn, reps)
+    c1 = timer(change_fn, reps)
+    c2 = timer(change_fn, reps)
+    p2 = timer(parent_fn, reps)
     return (p1 + p2) / 2, (c1 + c2) / 2
+
+
+def queued_ms(fn, reps):
+    """The card's ms per call of fn with the calls queued ahead of it: a
+    spin kernel (torch.cuda._sleep) holds the stream while the host
+    queues the reps calls, so the host's time between launches (the
+    wrapper's checks, allocations, attribute and occupancy queries) does
+    not count.  time_ms counts it where it exceeds the card's time: a
+    kernel of tens of microseconds reads as its wrapper's host time
+    there."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # cycles at up to 2 GHz, half again the host's time for the calls
+    torch.cuda._sleep(int(3e9 * host) + 1_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def fold_stages(tt, mat, R, w, mb, eb):
@@ -4606,15 +5091,13 @@ def dedup_stages(corpus):
     return out
 
 
-def match_stages(tag, tt, mat, R, w, sk, highest_k=12, pk=None):
+def match_stages(tag, tt, mat, R, w, sk, highest_k=12):
     """K2 on a real batch as the main path runs it: the tables'
     num_steps and the widths of the buckets the batch's windows bisect;
-    the parent's kernel split by its stop points (router and sub-router,
-    bisect, rows and slots) and this tree's by its own (router and
-    sub-router, bucket copy, bisect, slots), both patched into scratch
-    copies of the sources (sk, pk: SplitKernels); the parent's and this
-    tree's kernels in turns, each held to turbo_match_plain bit for bit;
-    the plain version and the bound -> {name: ms or stats}."""
+    the kernel split by its stop points (router and sub-router, bucket
+    copy, bisect, slots) patched into a scratch copy of its source (sk:
+    SplitKernels), each held to turbo_match_plain bit for bit; the plain
+    version and the bound -> {name: ms or stats}."""
     import numpy as np
     import torch
     from kasa_tpu_torch.core import encode as E
@@ -4643,25 +5126,12 @@ def match_stages(tag, tt, mat, R, w, sk, highest_k=12, pk=None):
     got = sk.turbo_match(q, tt, R, w)
     same(f"stages {tag} split turbo_match.skey", got[0], want[0])
     same(f"stages {tag} split turbo_match.mpay", got[1], want[1])
-    parent = None
-    if pk is not None:
-        pg = pk.turbo_match(q, tt, R, w)
-        same(f"stages {tag} parent turbo_match.skey", pg[0], want[0])
-        same(f"stages {tag} parent turbo_match.mpay", pg[1], want[1])
-        parent = lambda: pk.turbo_match(q, tt, R, w)
     del got, want
-    out["parent"], out["ms"] = turns_ms(
-        parent, lambda: T.turbo_match(q, tt, R, w), 20)
+    out["ms"] = time_ms(lambda: T.turbo_match(q, tt, R, w), 20)
     cut = [time_ms(lambda: sk.turbo_match(q, tt, R, w, stop), 20)
            for stop in (1, 2, 3, 0)]
     out["stages"] = {"router_sub": cut[0], "copy": cut[1] - cut[0],
                      "bisect": cut[2] - cut[1], "slots": cut[3] - cut[2]}
-    if pk is not None:
-        cut = [time_ms(lambda: pk.turbo_match(q, tt, R, w, stop), 20)
-               for stop in (1, 2, 0)]
-        out["parent_stages"] = {"router_sub": cut[0],
-                                "bisect": cut[1] - cut[0],
-                                "rows_slots": cut[2] - cut[1]}
     out["plain"] = time_ms(lambda: T.turbo_match_plain(q, tt, R, w), 3)
     out["bound"] = match_bytes(q, tt, R, w * tt.num_k) / HBM_BYTES_PER_S \
         * 1e3
@@ -4708,13 +5178,20 @@ def join_first_batch(tag, index, inp, over):
 
 
 def scatter_stages(tag, batch, sk, pk=None):
-    """K11 on the first batch of a join run as the engine hands it over
-    (K12's order, K10's flags): its valid occurrences, (occurrence,
-    taxon) pairs, largest T and valid (level, occurrence) pairs a read;
-    the parent's and this tree's in turns, each held to
-    join_scatter_plain; each split by CUDA events into its float64 fill,
-    its adds and its rounding pass (this tree's through its own build,
-    sk); the plain version and the bound -> {name: ms or stats}."""
+    """K10 and K11 as a pair on the first batch of a join run as the
+    engine hands it over: its valid occurrences, (occurrence, taxon)
+    pairs, largest T and valid (level, occurrence) pairs a read; this
+    tree's pair (K10 writing its read-order heads at the positions K12
+    carried, K11's read arm) and the parent's (K10's key-order outputs,
+    K11's float64 fill, adds and rounding pass) in turns, each held to
+    join_scatter_plain; the parent's K11 split by CUDA events into its
+    fill, adds and rounding pass; this tree's K10 with and without its
+    heads, its K11 alone and split by their stop points (sk: K10's T = 1
+    lookups and the scatter of its heads; K11's seg_kernel, the heads
+    read and the rows written, the T = 1 adds, the T > 1 levels' adds);
+    each time both as time_ms takes it (the wrapper call
+    whole, host gaps included) and queued ahead of the card (queued_ms);
+    the plain version and the bound -> {name: ms or stats}."""
     import numpy as np
     import torch
     from kasa_tpu_torch.match import join as J
@@ -4723,78 +5200,326 @@ def scatter_stages(tag, batch, sk, pk=None):
     q = torch.from_numpy(np.ascontiguousarray(q_np, np.int32)).to(dev)
     r = torch.from_numpy(np.ascontiguousarray(r_np, np.int32)).to(dev)
     M, L = q.shape
-    qs, rs = J.sort_queries(q, r, R, ids_ascending=bool(
-        (r[1:] >= r[:-1]).all()))
-    matched, _, T, start, ok = J.join_match(t, qs)
+    if not bool((r[1:] >= r[:-1]).all()):
+        fail(f"stages {tag}: the batch's read ids do not ascend")
+    pos = torch.arange(M, dtype=torch.int32, device=dev)
+    qs, ps = J.sort_queries(q, pos, M, ids_ascending=True)
+    rs = r[ps.long()]
+    matched, _, T, start, ok, heads, wide_at = J.join_match(t, qs, ps)
     valid = matched & ok
-    del q, r, qs, matched, ok
+    del pos, matched, ok
     per_read = torch.zeros(R, dtype=torch.int64, device=dev).index_add_(
         0, rs.long(), valid.sum(0))
     Tv = T[valid]
     out = {"R": R, "M": M, "L": L, "S": t.num_species, "levels": t.num_k,
            "valid": int(Tv.numel()), "pairs": int(Tv.long().sum()),
-           "T_max": int(Tv.max()) if Tv.numel() else 0,
+           "valid_T1": int((Tv == 1).sum()), "T_max": int(Tv.max())
+           if Tv.numel() else 0,
            "reads_without_valid": int((per_read == 0).sum()),
            "valid_per_read_median": float(per_read.double().median()),
-           "valid_per_read_max": int(per_read.max())}
+           "valid_per_read_max": int(per_read.max()),
+           "heads_T1": int((heads[:, 0] >= 0).sum()),
+           "heads_wide": int((wide_at >= 0).sum()),
+           "arm": J.scatter_arm(t, True, R)}
     del Tv, per_read
     want = J.join_scatter_plain(t, valid, T, start, rs, R)
-    got = J.join_scatter(t, valid, T, start, rs, R)
-    same(f"stages {tag} join_scatter.hit_cells", got > 0, want > 0)
-    out["err"] = close(f"stages {tag} join_scatter.scores", got, want)
+    got = J.join_scatter_reads(t, heads, wide_at, T, start, r, R)
+    same(f"stages {tag} join_scatter.reads.hit_cells", got > 0, want > 0)
+    out["err"] = close(f"stages {tag} join_scatter.reads.scores", got,
+                       want)
+    del got
+
+    def change():
+        o = J.join_match(t, qs, ps)
+        o[0] & o[4]             # the host statistics' valid flags
+        return J.join_scatter_reads(t, o[5], o[6], o[2], o[3], r, R)
     parent = None
     if pk is not None:
-        pg = pk.join_scatter(t, valid, T, start, rs, R)
+        po = pk.join_match(t, qs)
+        for name, a, b in zip(("matched", "g", "T", "start", "ok"), po,
+                              J.join_match_plain(t, qs)):
+            same(f"stages {tag} parent join_match.{name}", a, b)
+        pg = pk.join_scatter(t, po[0] & po[4], po[2], po[3], rs, R)
         same(f"stages {tag} parent join_scatter.hit_cells", pg > 0,
              want > 0)
         close(f"stages {tag} parent join_scatter.scores", pg, want)
-        parent = lambda: pk.join_scatter(t, valid, T, start, rs, R)
-        del pg
-    del got, want
-    out["parent"], out["ms"] = turns_ms(
-        parent, lambda: J.join_scatter(t, valid, T, start, rs, R), 10)
-    out["stages"] = dict(zip(
-        ("fill", "adds", "round"),
-        marked_ms(lambda m: sk.join_scatter(t, valid, T, start, rs, R,
-                                            marks=m), 4)))
+        del po, pg
+
+        def parent():
+            o = pk.join_match(t, qs)
+            return pk.join_scatter(t, o[0] & o[4], o[2], o[3], rs, R)
+    sg = sk.join_scatter_reads(t, heads, wide_at, T, start, r, R)
+    close(f"stages {tag} split join_scatter.reads.scores", sg, want)
+    del sg, want
+    out["parent"], out["ms"] = turns_ms(parent, change, 10)
+    out["parent_q"], out["ms_q"] = turns_ms(parent, change, 10, queued_ms)
+    if pk is not None and R > 8192:
+        # the pairs on the batch's first reads: where the read arm's edge
+        # over the parent's pair falls with the batch's size
+        out["first_reads_q"] = {}
+        for Rs in (x for x in (8192, 16384, 32768) if x < R):
+            Ms = int(torch.searchsorted(
+                r, torch.tensor([Rs], dtype=r.dtype, device=dev))[0])
+            q2, r2 = q[:Ms].contiguous(), r[:Ms].contiguous()
+            qs2, ps2 = J.sort_queries(
+                q2, torch.arange(Ms, dtype=torch.int32, device=dev), Ms,
+                ids_ascending=True)
+            rs2 = r2[ps2.long()]
+
+            def ch():
+                o = J.join_match(t, qs2, ps2)
+                o[0] & o[4]
+                return J.join_scatter_reads(t, o[5], o[6], o[2], o[3], r2,
+                                            Rs)
+
+            def pa():
+                o = pk.join_match(t, qs2)
+                return pk.join_scatter(t, o[0] & o[4], o[2], o[3], rs2, Rs)
+            out["first_reads_q"][Rs] = turns_ms(pa, ch, 10, queued_ms)
+            del q2, r2, qs2, ps2, rs2
+    del q
+    for key, fn in (
+            ("k10_records", lambda: J.join_match(t, qs, ps)),
+            ("k10_key_order", lambda: J.join_match(t, qs)),
+            ("k11_reads", lambda: J.join_scatter_reads(
+                t, heads, wide_at, T, start, r, R))):
+        out[key] = time_ms(fn, 10)
+        out[key + "_q"] = queued_ms(fn, 10)
+    cut = sk.timed_stops("join_scatter", (1, 2, 3, 4, 0),
+                         lambda: sk.join_scatter_reads(
+                             t, heads, wide_at, T, start, r, R), 10)
+    out["k11_stages_q"] = {"seg": cut[0], "heads_rows": cut[1] - cut[0],
+                           "adds_t1": cut[2] - cut[1],
+                           "wide_T_start": cut[3] - cut[2],
+                           "wide_adds": cut[4] - cut[3]}
+    d = sk.probe("join_scatter", lambda: sk.join_scatter_reads(
+        t, heads, wide_at, T, start, r, R))
+    out["k11_probe"] = {
+        "wide_cycles_per_warp_step": d[0] / max(d[1], 1),
+        "warp_steps": d[1], "add_wide_calls": d[3],
+        "rounds_per_call": d[2] / max(d[3], 1),
+        "read_cycles": d[4] / max(d[5], 1), "reads": d[5],
+        "grid": d[6], "block": d[7]}
+    sm = sk.join_match(t, qs, ps)
+    same(f"stages {tag} split join_match.heads", sm[5], heads)
+    same(f"stages {tag} split join_match.wide_at", sm[6], wide_at)
+    del sm
+    cut = sk.timed_stops("join_match", (1, 2, 0),
+                         lambda: sk.join_match(t, qs, ps), 10)
+    out["k10_stages_q"] = {"t1_lookups": cut[2] - cut[0],
+                           "scattered_heads": cut[2] - cut[1]}
     if pk is not None:
+        for key, fn in (
+                ("parent_k10", lambda: pk.join_match(t, qs)),
+                ("parent_k11", lambda: pk.join_scatter(t, valid, T, start,
+                                                       rs, R))):
+            out[key] = time_ms(fn, 10)
+            out[key + "_q"] = queued_ms(fn, 10)
         out["parent_stages"] = dict(zip(
             ("fill", "adds", "round"),
             marked_ms(lambda m: pk.join_scatter(t, valid, T, start, rs, R,
                                                 marks=m), 4)))
-    out["plain"] = time_ms(lambda: J.join_scatter_plain(t, valid, T, start,
-                                                        rs, R), 3)
-    dcells = scatter_pairs(t, valid, T, start, rs)[2]
-    out["bound"] = scatter_bytes(t, valid, dcells, R) / HBM_BYTES_PER_S \
-        * 1e3
+    out["plain"] = time_ms(lambda: J.join_scatter_reads_plain(
+        t, heads, wide_at, T, start, r, R), 3)
+    out["bound"] = scatter_reads_bytes(t, heads, wide_at, T, start, R) \
+        / HBM_BYTES_PER_S * 1e3
     log(f"stages join_scatter {tag}: " + json.dumps(out))
     return out
 
 
+def shard_sidecars(index, ip):
+    """Builds the turbo-table sidecars of the ip prefix-aligned shards of
+    `index` on the host, one after the other (the --stages K14 lists
+    load them): python3 -c "import chip_smoke; chip_smoke.shard_sidecars(
+    INDEX, IP)"."""
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.match.pipeline import _load_index
+    from kasa_tpu_torch.parallel import turbo_mesh as TM
+    limbs, _, hk, content, _, tax_rows = _load_index(Config(), index)
+    for s in range(ip):
+        TM.ShardedTurboTables.build(limbs, tax_rows, hk, 7, 12,
+                                    content.num_species, ip, s, "cpu", None,
+                                    index)
+
+
+MERGE_IPS = (2, 4)      # the shard counts K14 is split on
+
+
+def start_shard_prep(index):
+    """One host process per shard count of MERGE_IPS building its shards'
+    sidecars (CPU only, logging to OUT/prep_shards_<ip>.log)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    procs = {}
+    for ip in MERGE_IPS:
+        path = os.path.join(OUT, f"prep_shards_{ip}.log")
+        fh = open(path, "w")
+        procs[f"shards{ip}"] = (subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; "
+             f"chip_smoke.shard_sidecars({index!r}, {ip})"], cwd=HERE,
+            stdout=fh, stderr=subprocess.STDOUT, env=env), fh, path)
+    return procs
+
+
+def mesh_lists(index, smoke, R, ip):
+    """The turbo mesh's K14 input on a real batch of R reads of the
+    default corpus at ip shards, in one process: each shard's tables
+    (from its sidecar) through turbo_core on the batch, the lists stacked
+    as the gather over "ip" lays them out, the flags ORed (each shard's
+    K4 cut runs without the others' flags, which the mesh step ORs in
+    before it counts: the lists of the few reads that changes are
+    another shard's) -> (hts, hks, ofc, ofl, cap, wout)."""
+    import torch
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.match import turbo as T
+    from kasa_tpu_torch.match.pipeline import _load_index
+    from kasa_tpu_torch.parallel import turbo_mesh as TM
+    limbs, _, hk, content, _, tax_rows = _load_index(Config(), index)
+    S = content.num_species
+    _, _, w, q = _mesh_batch(smoke, R)
+    cap = T.CSR_CAP_FACTOR * R
+    hts, hks, ofc, ofl = [], [], None, None
+    for s in range(ip):
+        st = TM.ShardedTurboTables.build(limbs, tax_rows, hk, 7, 12, S, ip,
+                                         s, DEVICE, None, index)
+        tt = st.shard
+        mb, eb, wout = T.batch_budgets(w * tt.num_k, S)
+        ca = torch.zeros((tt.num_k, S), device=DEVICE)
+        cu = torch.zeros((tt.num_k, S), dtype=torch.int32, device=DEVICE)
+        packed, ht, hkl = T.turbo_core(tt, q, R, w, ca, cu, cap, mb, eb,
+                                       wout=wout)
+        fl = packed[R:2 * R]
+        ofc = ((fl & 1) > 0) if ofc is None else ofc | ((fl & 1) > 0)
+        ofl = ((fl & 2) > 0) if ofl is None else ofl | ((fl & 2) > 0)
+        hts.append(ht)
+        hks.append(hkl)
+        del st, tt, ca, cu
+        forget_tables()
+    return (torch.stack(hts).contiguous(), torch.stack(hks).contiguous(),
+            ofc.contiguous(), ofl.contiguous(), cap, wout)
+
+
+def merge_stages(index, smoke, R, ip, sk, pk=None):
+    """K14 on the lists of a real R-read batch of the default corpus at ip
+    shards (mesh_lists): the taxa a read (mean and largest) and the share
+    of a read's taxa that several shards hold; this tree's kernel and the
+    parent's in turns, each held to mesh_merge_plain (integers identical,
+    ksums within the contract; this tree's ksums bit for bit the
+    parent's); the parent's split by its stop points into its zero fill
+    of the packed row, merge, scan and pack; this tree's zero fill apart
+    and its kernel split by its own (sk: loads, pass A and scan;
+    look-back; pass B); each time both as time_ms takes it and queued
+    ahead of the card (queued_ms); the plain version and the bound ->
+    {name: ms or stats}."""
+    import torch
+    from kasa_tpu_torch import kernels as K
+    from kasa_tpu_torch.match import turbo as T
+    from kasa_tpu_torch.parallel import turbo_mesh as TM
+    hts, hks, ofc, ofl, cap, wout = mesh_lists(index, smoke, R, ip)
+    tag = f"mesh_merge ip {ip}"
+    tk = hts.permute(1, 0, 2).reshape(R, ip * wout)
+    k2 = torch.sort(tk, dim=1)[0]
+    real = k2 != T.SENT
+    first = real & torch.cat([torch.ones_like(real[:, :1]),
+                              k2[:, 1:] != k2[:, :-1]], dim=1)
+    ntax = first.sum(1)
+    copies = torch.cat([k2[:, 1:] == k2[:, :-1],
+                        torch.zeros_like(real[:, :1])], dim=1) & first
+    step = hts[:, :, 1:] > hts[:, :, :-1]
+    out = {"R": R, "ip": ip, "wout": wout, "cap": cap,
+           "rows_sorted": bool((step | (hts[:, :, 1:] == T.SENT)).all()),
+           "taxa_mean": float(ntax.double().mean()),
+           "taxa_max": int(ntax.max()),
+           "shared_share": float(copies.sum()) / max(int(ntax.sum()), 1),
+           "pairs_mean": float(real.sum(1).double().mean()),
+           "warps": K.mesh_merge_warps(ip, wout, K.dedup_smem(hts.device))}
+    if not out["rows_sorted"]:
+        fail(f"stages {tag}: a shard's row is not ascending")
+    args = (hts, hks, ofc, ofl, cap)
+    want = TM.mesh_merge_plain(*args)
+    got = TM.mesh_merge(*args)
+    ints = torch.ones(got[0].numel(), dtype=torch.bool, device=hts.device)
+    ints[2 * R + 1:2 * R + 2 * cap:2] = False
+    same(f"stages {tag} packed", got[0][ints], want[0][ints])
+    same(f"stages {tag} ht_m", got[1], want[1])
+    out["err"] = close(f"stages {tag} hk_m", got[2], want[2])
+    out["hits"], out["flagged"] = int(got[0][-2]), int(got[0][-1])
+    parent = None
+    if pk is not None:
+        pg = pk.mesh_merge(*args)
+        for i, name in enumerate(("packed", "ht_m", "hk_m")):
+            # the same floats: both sum each taxon's ksums in shard order
+            same(f"stages {tag} parent {name}", pg[i], got[i])
+        parent = lambda: pk.mesh_merge(*args)
+    sg = sk.mesh_merge(*args)
+    for i, name in enumerate(("packed", "ht_m", "hk_m")):
+        same(f"stages {tag} split {name}", sg[i], got[i])
+    del got, want, sg
+    out["parent"], out["ms"] = turns_ms(
+        parent, lambda: TM.mesh_merge(*args), 20)
+    out["parent_q"], out["ms_q"] = turns_ms(
+        parent, lambda: TM.mesh_merge(*args), 20, queued_ms)
+    size = 2 * R + 2 * cap + 2
+    warps = out["warps"]
+    out["fill_q"] = queued_ms(lambda: torch.zeros(
+        (size + 3 + 2 * -(-R // warps),), dtype=torch.int32,
+        device=hts.device), 20)
+    buf = torch.zeros((size,), dtype=torch.int32, device=hts.device)
+    cut = sk.timed_stops("mesh_merge", (1, 2, 0),
+                         lambda: sk.mesh_merge(*args, packed=buf), 20)
+    out["stages_q"] = {"load_passA_scan_passB": cut[0],
+                       "lookback": cut[1] - cut[0],
+                       "csr": cut[2] - cut[1]}
+    d = sk.probe("mesh_merge", lambda: sk.mesh_merge(*args, packed=buf))
+    out["probe_cycles_per_warp"] = {
+        k: d[2 * i] / max(d[2 * i + 1], 1) for i, k in enumerate(
+            ("load", "passA", "scan_barrier", "passB", "lookback"))}
+    # the kernel's time against the reads it merges
+    out["reads_q"] = {}
+    for n in (1024, 2048, 4096, R):
+        part = (hts[:, :n].contiguous(), hks[:, :n].contiguous(),
+                ofc[:n].contiguous(), ofl[:n].contiguous(), cap)
+        out["reads_q"][n] = queued_ms(lambda: TM.mesh_merge(*part), 20)
+    if pk is not None:
+        cut = [queued_ms(lambda: pk.mesh_merge(*args, stop=s, fill=buf), 20)
+               for s in (1, 2, 0)]
+        out["parent_stages_q"] = {
+            "fill": queued_ms(lambda: torch.zeros(
+                (size,), dtype=torch.int32, device=hts.device), 20),
+            "merge": cut[0], "scan": cut[1] - cut[0],
+            "pack": cut[2] - cut[1]}
+    out["plain"] = time_ms(lambda: TM.mesh_merge_plain(*args), 5)
+    out["bound"] = mesh_merge_bytes(hts, size) / HBM_BYTES_PER_S * 1e3
+    log(f"stages {tag}: " + json.dumps(out))
+    return out
+
+
 def run_stages(preps, smi, t_all, parent=None):
-    """--stages: build, then the stage splits of K2, K3, K4, K5, K7 and
-    K11 on the default corpus (the default batch, the long batch, a
-    32,768-read additive batch, synthetic chunk plans, K5's batches of
-    the main path, the join run's first batch), of K3, K4 and K6 on the
-    10,001-species corpus (the sparse batch) and of K2 and K11 on the
-    128-bit corpus (the wide batch, the first batch of the join run at
-    L = 5); with parent, a checkout of the parent commit, its K2 and K11
-    timed beside this tree's in the same call."""
+    """--stages: build, then the stage splits of K2, K3, K4, K5, K7, K10
+    with K11 and K14 on the default corpus (the default batch, the long
+    batch, a 32,768-read additive batch, synthetic chunk plans, K5's
+    batches of the main path, the join run's first batch, the mesh's
+    lists of a batch at 2 and 4 shards), of K3, K4 and K6 on the
+    10,001-species corpus (the sparse batch) and of K2, K10 and K11 on the
+    128-bit corpus (the wide batch, the first batch of a join run at
+    L = 5 over the smoke reads); with parent, a checkout of the parent commit, its K10, K11
+    and K14 timed beside this tree's in the same call."""
     from kasa_tpu_torch import synth
     from kasa_tpu_torch.match import fast
     phase_build()
     from kasa_tpu_torch import kernels as K
-    sk = SplitKernels(K.CSRC, "split", (("turbo_match", K2_STOPS),
-                                        ("join_scatter", None)))
+    sk = SplitKernels(K.CSRC, "split", (
+        ("turbo_match", K2_STOPS), ("join_match", K10_STOPS),
+        ("join_scatter", K11_STOPS), ("mesh_merge", K14_STOPS)),
+        syms={"join_scatter": "kasa_join_scatter_reads"})
     pk = ParentKernels(parent) if parent else None
     wait_prep(preps, t_all, ("default",))
     corpus = phase_corpus()
+    preps.update(start_shard_prep(corpus["index"]))
     disp = warm_up("stages default", corpus["index"], corpus["warm"])
     tt = disp.tt
-    out = {"card": smi, "match": {}, "scatter": {}}
+    out = {"card": smi, "match": {}, "scatter": {}, "merge": {}}
     mat, R, w, _ = real_batch(corpus)
-    out["match"]["default"] = match_stages("default", tt, mat, R, w, sk,
-                                           pk=pk)
+    out["match"]["default"] = match_stages("default", tt, mat, R, w, sk)
     out["default"] = turbo_stages("default", tt, mat, R, w,
                                   disp.multi_budget, disp.exp_budget,
                                   disp.csr_cap(R))
@@ -4834,15 +5559,20 @@ def run_stages(preps, smi, t_all, parent=None):
     disp = warm_up("stages wide", wide["index"], corpus["warm"], over)
     mat, R, w, _ = real_batch(corpus, highest_k=25, min_k=20)
     out["match"]["wide"] = match_stages("wide", disp.tt, mat, R, w, sk,
-                                        highest_k=25, pk=pk)
+                                        highest_k=25)
     del disp
     forget_tables()
+    # the smoke reads: the engine's batches at L = 5 as large as a run's
     batch, secs = join_first_batch("stages join wide", wide["index"],
-                                   corpus["warm"], over)
+                                   corpus["smoke"], over)
     out["scatter"]["join_wide"] = dict(
         scatter_stages("join wide", batch, sk, pk), first_batch_s=secs)
     del batch
     forget_tables()
+    for ip in MERGE_IPS:
+        wait_prep(preps, t_all, (f"shards{ip}",))
+        out["merge"][f"ip{ip}"] = merge_stages(
+            corpus["index"], corpus["smoke"], 8192, ip, sk, pk)
     with open(os.path.join(OUT, "chip_smoke_stages.json"), "w") as fh:
         json.dump(out, fh, indent=1)
 
@@ -4957,7 +5687,13 @@ def mesh_kernels_rank(index, smoke, R, R_classic):
         pp, pt, pv = TM.mesh_merge_plain(*args)
         ints = torch.ones(kp.numel(), dtype=torch.bool, device=DEVICE)
         ints[2 * R + 1:2 * R + 2 * cap:2] = False
+        from kasa_tpu_torch import kernels as K
+        step = hts[:, :, 1:] > hts[:, :, :-1]
         out["k14"] = dict(
+            rows_sorted=bool((step | (hts[:, :, 1:] == T.SENT)).all()
+                             and (hts[:, :, :-1] != T.SENT)[
+                                 hts[:, :, 1:] != T.SENT].all()),
+            warps=K.mesh_merge_warps(MESH_IP, wout, K.dedup_smem(kp.device)),
             same=bool(torch.equal(kp[ints], pp[ints])
                       and torch.equal(kt, pt)),
             err=max(float((kv - pv).abs().max()),
@@ -4965,8 +5701,7 @@ def mesh_kernels_rank(index, smoke, R, R_classic):
                            - pp[~ints].view(torch.float32)).abs().max())),
             ms=time_ms(lambda: TM.mesh_merge(*args), 20),
             plain_ms=time_ms(lambda: TM.mesh_merge_plain(*args), 5),
-            bytes=(hts.numel() * 8 + 2 * R + kp.numel() * 4
-                   + kt.numel() * 8),
+            bytes=mesh_merge_bytes(hts, kp.numel()),
             ip=MESH_IP, R=R, wout=wout, hits=int(kp[-2]),
             flagged=int(kp[-1]))
     D.dist.barrier()
@@ -5075,6 +5810,14 @@ def phase_mesh(corpus):
     k14 = r0["k14"]
     if not k14["same"] or k14["err"] > ATOL:
         fail(f"mesh: K14 disagrees with its plain version: {k14}")
+    if not k14["rows_sorted"] or not k14["warps"]:
+        fail(f"mesh: K14's row arm did not take the batch's lists: {k14}")
+    for tag in ("1x2", "over-budget"):
+        if not launches[tag]["mesh_merge"] or launches[tag][
+                "mesh_merge.long"]:
+            fail(f"mesh {tag}: K14 ran {launches[tag]['mesh_merge']} times "
+                 f"on its row arm, {launches[tag]['mesh_merge.long']} on "
+                 "its long arm")
     log(f"mesh: gloo all_gather of CUDA tensors: {r0['probe']}; K4 split "
         f"on a {R}-read batch at an expansion budget of {MESH_SPLIT_EB} "
         f"rows: rank 0 cut {r0['k4']['local']} flags, rank 1 "
@@ -5090,7 +5833,9 @@ def phase_mesh(corpus):
         k14["err"], k14["ms"], k14["plain_ms"], k14["bytes"], None)
     log(f"mesh: K14 on the batch's gathered lists (ip {k14['ip']}, wout "
         f"{k14['wout']}, {k14['hits']} hits, {k14['flagged']} flagged "
-        "reads); no single PyTorch call computes the merge")
+        f"reads; each shard's rows ascending with distinct taxa; the row "
+        f"arm, {k14['warps']} reads a block); no single PyTorch call "
+        "computes the merge")
 
     # the classic meshes at ip = 2 against the single K9 run (the
     # default corpus's classic tables are in the RAM cache)
@@ -5209,9 +5954,11 @@ def run(preps, smi, t_all):
     # the join engine (--coverage) and the per-batch engine over -m on
     # the same index, while its classic tables sit in the RAM cache
     launches_jn, info_jn, jbatch = phase_join(
-        "join", corpus["index"], corpus["smoke"], {}, synth.SMOKE_READS)
-    k_jn, steps["join"], info_jn["k12"] = phase_kernels_join(
-        jbatch[0].tables, jbatch, launches_jn, "", "join run (L = 2)")
+        "join", corpus["index"], corpus["smoke"], {}, synth.SMOKE_READS,
+        JOIN_KERNELS_READS)
+    k_jn, steps["join"], info_jn["k12"], info_jn["memory"] = \
+        phase_kernels_join(jbatch[0].tables, jbatch, launches_jn, "",
+                           "join run (L = 2)")
     kern += k_jn
     launches_oo, info_oo, k_oo = phase_oocore(corpus)
     kern.append(k_oo)
@@ -5250,8 +5997,9 @@ def run(preps, smi, t_all):
     launches_jw, info_jw, jbatch = phase_join(
         "join wide", wide_index, corpus["warm"],
         {"lower_k": 20, "higher_k": 25}, synth.WARM_READS)
-    k_jw, steps["join_wide"], info_jw["k12"] = phase_kernels_join(
-        jbatch[0].tables, jbatch, launches_jw, ".L5", "join wide run")
+    k_jw, steps["join_wide"], info_jw["k12"], info_jw["memory"] = \
+        phase_kernels_join(jbatch[0].tables, jbatch, launches_jw, ".L5",
+                           "join wide run")
     kern += k_jw
     del disp_w, jbatch
     forget_tables()

@@ -13,6 +13,8 @@
 #define KASA_I32_MAX 2147483647
 
 constexpr unsigned kFull = 0xffffffffu;
+// the most cards a process keeps per-device host caches for
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ unsigned long long shfl_xor_t(
         unsigned long long v, int m) {

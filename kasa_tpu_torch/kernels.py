@@ -44,7 +44,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the mesh counts its cut as "turbo_multi" and its expansion as
 # "turbo_multi.split"; K14's long arm as "mesh_merge.long"; K8's prefix
 # tables as "tiered_pass.prefix"; K9's global arm as
-# "classic_classify.global"; K7's global arm as "tiered_route.global")
+# "classic_classify.global"; K7's global arm as "tiered_route.global";
+# K11's arms as "join_scatter.reads" and "join_scatter.global")
 COUNTS = {"encode": 0, "turbo_match": 0, "turbo_reads": 0,
           "turbo_reads.long": 0, "turbo_reads.long_smem": 0,
           "turbo_multi": 0, "turbo_multi.split": 0,
@@ -53,7 +54,8 @@ COUNTS = {"encode": 0, "turbo_match": 0, "turbo_reads": 0,
           "tiered_route": 0, "tiered_route.global": 0, "tiered_pass": 0,
           "tiered_pass.prefix": 0,
           "classic_classify": 0, "classic_classify.global": 0,
-          "join_match": 0, "join_scatter": 0, "query_sort": 0,
+          "join_match": 0, "join_scatter.reads": 0,
+          "join_scatter.global": 0, "query_sort": 0,
           "sort_dedup": 0, "mesh_merge": 0, "mesh_merge.long": 0}
 
 _libs: dict = {}
@@ -87,13 +89,14 @@ _ARGTYPES = {
     "kasa_tiered_prefix": [_P, _I, _P, _P],
     "kasa_classic_classify": [_P] * 11 + [_L] * 4 + [_I] * 10 + [_P] * 6,
     "kasa_classic_smem_budget": [_I],
-    "kasa_join_match": [_P] * 7 + [_L] * 3 + [_I] * 4 + [_P] * 6,
+    "kasa_join_match": [_P] * 9 + [_L] * 4 + [_I] * 4 + [_P] * 8,
     "kasa_join_scatter": [_P] * 6 + [_L] * 2 + [_I] * 2 + [_P] * 2,
+    "kasa_join_scatter_reads": [_P] * 7 + [_L] * 2 + [_I] * 4 + [_P] * 3,
     "kasa_query_sort": [_P] * 7 + [_L, _I, _I, _P, _P],
     "kasa_query_sort_plan": [_L, _I, _I, _P],
     "kasa_sort_dedup": [_P] * 7 + [_L, _I] + [_P] * 4,
     "kasa_sort_dedup_plan": [_L, _I, _P],
-    "kasa_mesh_merge": [_P] * 4 + [_I] * 4 + [_L] + [_P] * 7,
+    "kasa_mesh_merge": [_P] * 4 + [_I] * 4 + [_L] + [_P] * 8,
 }
 _LIB_OF = {"kasa_encode_windows": "encode",
            "kasa_turbo_match": "turbo_match",
@@ -121,6 +124,7 @@ _LIB_OF = {"kasa_encode_windows": "encode",
            "kasa_classic_smem_budget": "classic_classify",
            "kasa_join_match": "join_match",
            "kasa_join_scatter": "join_scatter",
+           "kasa_join_scatter_reads": "join_scatter",
            "kasa_query_sort": "query_sort",
            "kasa_query_sort_plan": "query_sort",
            "kasa_sort_dedup": "sort_dedup",
@@ -235,6 +239,16 @@ def _stream(device) -> int:
 def _device_index(device: torch.device) -> int:
     return torch.cuda.current_device() if device.index is None \
         else device.index
+
+
+@functools.lru_cache(maxsize=None)
+def _sms_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sms(device: torch.device) -> int:
+    """The card's multiprocessors (a persistent grid's width)."""
+    return _sms_of(_device_index(device))
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -924,7 +938,7 @@ def classic_classify(t, q, read_ids, q_valid, num_reads: int, cap: int,
               torch.zeros((num_reads, S), dtype=torch.float64, device=dev))
     seg = (torch.empty((num_reads + 1,), dtype=torch.int64, device=dev)
            if local and kmers_per_read == 0 else None)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = _sms(dev)
     _launch("kasa_classic_classify",
             "classic_classify" if local else "classic_classify.global",
             _ptr(t.idx_limbs), _ptr(t.grp_id), _ptr(t.grp_start),
@@ -942,10 +956,13 @@ def classic_classify(t, q, read_ids, q_valid, num_reads: int, cap: int,
 # ---------------------------------------------------------------------------
 # K10 join_match (csrc/join_match.cu)
 
-def join_match(t, q):
+def join_match(t, q, pos=None):
     """-> (matched (numK, M) bool, g, T, start (numK, M) int32, ok
     (numK, M) bool) for StackedTables t (match/join.py
-    join_match_plain)."""
+    join_match_plain); with pos ((M,) int32, each query's position in
+    the batch before K12 sorted it), also heads (M, 2) and wide_at (M,)
+    int32, the read-order records K11's read arm takes
+    (csrc/join_match.cu)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError("join_match: the kernel takes CUDA tensors")
@@ -962,22 +979,61 @@ def join_match(t, q):
     T = torch.zeros_like(g)
     start = torch.zeros_like(g)
     ok = torch.zeros_like(matched)
+    heads = wide_at = None
+    if pos is not None:
+        _check(pos, "pos", torch.int32, (M,), dev)
+        # the kernel writes every head where the index has entries, and
+        # the rows of queries with T > 1 levels
+        heads = torch.empty((M, 2), dtype=torch.int32, device=dev)
+        if n == 0:
+            heads[:, 0] = -1
+            heads[:, 1] = nk | nk << 8
+        wide_at = torch.full((M,), -1, dtype=torch.int32, device=dev)
+    outs = (matched, g, T, start, ok) + (
+        () if heads is None else (heads, wide_at))
     if M == 0 or n == 0:
-        return matched, g, T, start, ok
+        return outs
     _launch("kasa_join_match", "join_match", _ptr(t.idx_limbs),
             _ptr(t.grp_id), _ptr(t.grp_start), _ptr(t.masks),
-            _ptr(t.run_end), _ptr(t.prefix_tbl), _ptr(q), n,
-            t.grp_start.shape[1], M, L, nk, t.min_k, t.max_k, _ptr(matched),
-            _ptr(g), _ptr(T), _ptr(start), _ptr(ok), _stream(dev))
-    return matched, g, T, start, ok
+            _ptr(t.run_end), _ptr(t.prefix_tbl), _ptr(q), _ptr(t.d_tax),
+            _ptr(pos), n, t.grp_start.shape[1], t.d_tax.shape[1], M, L, nk,
+            t.min_k, t.max_k, _ptr(matched), _ptr(g), _ptr(T), _ptr(start),
+            _ptr(ok), _ptr(heads), _ptr(wide_at), _stream(dev))
+    return outs
 
 
 # ---------------------------------------------------------------------------
 # K11 join_scatter (csrc/join_scatter.cu)
 
+# shared memory of a read-arm block beside its row (its levels' weights,
+# its ticket)
+_SCATTER_RESERVE = 512
+# the fewest reads a batch takes K11's read arm at: a read's time there is
+# a chain of dependent loads, longest for the reads with many T > 1
+# groups, and a small batch waits on its slowest reads.  K10 + K11 on the
+# H100 against the global arm's pair, in turns (PERF.md §6): lost on
+# 8,192 reads (0.81 ms against 0.78 at L = 2, 0.71 against 0.66 at
+# L = 5), won from 16,384 reads at both (1.17 against 1.24, 1.02
+# against 1.07) to 65,536 (2.95 against 3.63, 2.18 against 2.88)
+READ_ARM_MIN_READS = 16_384
+
+
+def join_scatter_arm(S: int, read_order: bool, smem: int,
+                     num_reads: int) -> str:
+    """K11's arm for a batch: "reads" (a block per read, its row of S
+    8-byte cells in shared memory) where the batch comes as K10's
+    read-order records (its read ids ascending), holds at least
+    READ_ARM_MIN_READS reads, and its row fits a block of a card of smem
+    bytes of opt-in shared memory; else "global" (one thread per (level,
+    occurrence), the rows in an (R, S) float64 buffer)."""
+    return "reads" if read_order and num_reads >= READ_ARM_MIN_READS \
+        and 8 * S <= smem - _SCATTER_RESERVE else "global"
+
+
 def join_scatter(t, valid, T, start, read_ids, num_reads: int):
-    """-> (num_reads, S) float32 scores: every valid occurrence's w(k)/T
-    over its group's taxa (match/join.py join_scatter_plain)."""
+    """The global arm, counted as "join_scatter.global": -> (num_reads,
+    S) float32 scores, every valid occurrence's w(k)/T over its group's
+    taxa (match/join.py join_scatter_plain)."""
     dev = read_ids.device
     if dev.type != "cuda":
         raise ValueError("join_scatter: the kernel takes CUDA tensors")
@@ -993,10 +1049,47 @@ def join_scatter(t, valid, T, start, read_ids, num_reads: int):
     scores = torch.zeros((num_reads, S), dtype=torch.float64, device=dev)
     if M == 0 or num_reads == 0:
         return scores.float()
-    _launch("kasa_join_scatter", "join_scatter", _ptr(valid), _ptr(T),
+    _launch("kasa_join_scatter", "join_scatter.global", _ptr(valid), _ptr(T),
             _ptr(start), _ptr(read_ids), _ptr(t.d_tax), _ptr(t.weights), M,
             t.d_tax.shape[1], nk, S, _ptr(scores), _stream(dev))
     return scores.float()
+
+
+def join_scatter_reads(t, heads, wide_at, T, start, read_ids,
+                       num_reads: int):
+    """The read arm, counted as "join_scatter.reads": -> (num_reads, S)
+    float32 scores from K10's records (heads (M, 2), wide_at (M,)) in the
+    batch's own order, its key-order T and start (numK, M), and the
+    batch's read ids (M,), which must ascend (match/join.py
+    join_scatter_reads_plain).  Raises where the row passes the card's
+    shared memory (join_scatter_arm)."""
+    dev = read_ids.device
+    if dev.type != "cuda":
+        raise ValueError("join_scatter_reads: the kernel takes CUDA tensors")
+    M = read_ids.shape[0]
+    nk, S = t.num_k, t.num_species
+    _check(read_ids, "read_ids", torch.int32, (M,), dev)
+    _check(heads, "heads", torch.int32, (M, 2), dev)
+    _check(wide_at, "wide_at", torch.int32, (M,), dev)
+    _check(T, "T", torch.int32, (nk, M), dev)
+    _check(start, "start", torch.int32, (nk, M), dev)
+    _check(t.d_tax, "d_tax", torch.int32, (nk, t.d_tax.shape[1]), dev)
+    _check(t.weights, "weights", torch.float32, (nk,), dev)
+    if 8 * S > dedup_smem(dev) - _SCATTER_RESERVE:
+        raise ValueError(f"join_scatter_reads: a row of S = {S} 8-byte "
+                         "cells passes the block's shared memory")
+    if nk > 25:
+        raise ValueError(f"{nk} k levels: the kernel takes at most 25")
+    scores = torch.empty((num_reads, S), dtype=torch.float32, device=dev)
+    if num_reads == 0:
+        return scores
+    # each read's first record, and the kernel's ticket counter
+    seg = torch.empty((num_reads + 2,), dtype=torch.int64, device=dev)
+    _launch("kasa_join_scatter_reads", "join_scatter.reads", _ptr(heads),
+            _ptr(wide_at), _ptr(T), _ptr(start), _ptr(read_ids),
+            _ptr(t.d_tax), _ptr(t.weights), M, t.d_tax.shape[1], nk, S,
+            num_reads, _sms(dev), _ptr(seg), _ptr(scores), _stream(dev))
+    return scores
 
 
 # ---------------------------------------------------------------------------
@@ -1076,16 +1169,34 @@ def sort_dedup(limbs: torch.Tensor, taxids: torch.Tensor):
 # ---------------------------------------------------------------------------
 # K14 mesh_merge (csrc/mesh_merge.cu)
 
-# pairs per read that K14 sorts in shared memory (64-bit keys, 32 KB); a
-# read with more takes the long arm (global scratch, segmented radix)
-MERGE_SHORT_CAP = 4096
+# the most reads a block of K14's row arm takes (mesh_merge.cu
+# kRowWarps), and the block's static shared memory
+MERGE_ROW_WARPS = 8
+_MERGE_STATIC = 256
+
+
+def mesh_merge_warps(ip: int, wout: int, smem: int = H100_SMEM_OPTIN) -> int:
+    """K14's arm for (ip, R, wout) shard lists on a card whose blocks may
+    opt into smem bytes of shared memory: the reads a block of the row
+    arm takes (a warp each, whose n = ip * wout slots of taxa (int32),
+    first-copy flag bits and their words' prefix, and ip + 1 row starts
+    take 4 * (n + 2 ceil(n / 32) + ip + 1) bytes of shared memory; at
+    most MERGE_ROW_WARPS), or 0 for the long arm (rows too wide for one
+    warp's share: segmented radix passes in global memory)."""
+    n = ip * wout
+    per_warp = 4 * (n + 2 * -(-n // 32) + ip + 1)
+    return min(MERGE_ROW_WARPS, (smem - _MERGE_STATIC) // per_warp)
 
 
 def mesh_merge(hts: torch.Tensor, hks: torch.Tensor, ofc: torch.Tensor,
                ofl: torch.Tensor, cap: int):
     """-> (packed (2R + 2 cap + 2,) int32, ht_m (R, wout) int32, hk_m
     (R, wout) f32): the (ip, R, wout) shard lists merged per read and
-    CSR-packed (parallel/turbo_mesh.py mesh_merge_plain)."""
+    CSR-packed (parallel/turbo_mesh.py mesh_merge_plain).  Each shard's
+    row of a read must hold distinct taxa in ascending order, then
+    SENT: the row arm merges the rows without sorting them and checks
+    nothing.  The arm from mesh_merge_warps, counted as "mesh_merge" (the
+    row arm) or "mesh_merge.long"."""
     dev = hts.device
     if dev.type != "cuda":
         raise ValueError("mesh_merge: the kernel takes CUDA tensors")
@@ -1094,21 +1205,29 @@ def mesh_merge(hts: torch.Tensor, hks: torch.Tensor, ofc: torch.Tensor,
     _check(hks, "hks", torch.float32, (ip, R, wout), dev)
     _check(ofc, "ofc", torch.bool, (R,), dev)
     _check(ofl, "ofl", torch.bool, (R,), dev)
+    if R >= 1 << 24:
+        raise ValueError(f"{R} reads: the kernel takes fewer than 2^24")
     i32 = dict(dtype=torch.int32, device=dev)
-    packed = torch.zeros((2 * R + 2 * cap + 2,), **i32)
+    warps = mesh_merge_warps(ip, wout, dedup_smem(dev)) if R else 0
+    size = 2 * R + 2 * cap + 2
+    # one zero fill serves the packed row and, after it, the row arm's
+    # ticket and look-back words (8-byte aligned, one a block)
+    extra = 0 if warps == 0 else 3 + 2 * ((R + warps - 1) // warps)
+    buf = torch.zeros((size + extra,), **i32)
+    packed = buf[:size]
+    status = buf[size + (size & 1):] if warps else None
     ht_m = torch.empty((R, wout), **i32)
     hk_m = torch.empty((R, wout), dtype=torch.float32, device=dev)
-    cum = torch.empty((R,), **i32)
-    P = _pow2(ip * wout)
-    if P <= MERGE_SHORT_CAP:
+    if warps:
         _launch("kasa_mesh_merge", "mesh_merge", _ptr(hts), _ptr(hks),
-                _ptr(ofc), _ptr(ofl), ip, R, wout, P, cap, None, None,
-                _ptr(cum), _ptr(ht_m), _ptr(hk_m), _ptr(packed),
+                _ptr(ofc), _ptr(ofl), ip, R, wout, warps, cap, None, None,
+                None, _ptr(status), _ptr(ht_m), _ptr(hk_m), _ptr(packed),
                 _stream(dev))
     else:
         scr = torch.empty((2, R * ip * wout * 2), **i32)
+        cum = torch.empty((R,), **i32)
         _launch("kasa_mesh_merge", "mesh_merge.long", _ptr(hts), _ptr(hks),
                 _ptr(ofc), _ptr(ofl), ip, R, wout, 0, cap, _ptr(scr[0]),
-                _ptr(scr[1]), _ptr(cum), _ptr(ht_m), _ptr(hk_m),
+                _ptr(scr[1]), _ptr(cum), None, _ptr(ht_m), _ptr(hk_m),
                 _ptr(packed), _stream(dev))
     return packed, ht_m, hk_m

@@ -13,14 +13,22 @@ plain PyTorch version beside it (the wrappers take the plain version
 for CPU tensors only):
 
   K12 query_sort (csrc/query_sort.cu): the batch's windows sorted by
-      (limbs..., read id) -- kasa_tpu's lax.sort, join.py:225;
+      (limbs..., read id) -- kasa_tpu's lax.sort, join.py:225; where the
+      read ids ascend it carries each window's position in the batch
+      instead of its read id;
   K10 join_match (csrc/join_match.cu): per query and level, the match
       flag, group, T and d_tax start, and the '^' validity --
       kasa_tpu's _match_one_keff (join.py:175, over
       ops/search.py:30 searchsorted_limbs) and _letters_block (189);
+      given the positions, also a head per window at its position (the
+      taxon of its one-taxon levels and where its levels of several taxa
+      begin, and for those its row in the key-order outputs);
   K11 join_scatter (csrc/join_scatter.cu): every valid occurrence adds
       w(k)/T to its read's score row for each of its group's T taxa --
-      kasa_tpu's _score_scatter (join.py:200);
+      kasa_tpu's _score_scatter (join.py:200); from K10's heads in read
+      order (a block per read, its row in shared memory) where the read
+      ids ascend, else from K10's key-order outputs and the sorted read
+      ids;
 
 and on the host, as in kasa_tpu, the exact float64 group statistics of
 the profile (counts_all, counts_unique and, under --coverage,
@@ -229,7 +237,7 @@ def _check_match(t, q):
                          f"index of {t.idx_limbs.shape[1]} limbs")
 
 
-def join_match_plain(t, q: torch.Tensor):
+def join_match_plain(t, q: torch.Tensor, pos: torch.Tensor | None = None):
     """Plain version of K10 for StackedTables t and (M, L) int32 queries
     -> (matched, g, T, start, ok), each (numK, M), row ki <-> k = max_k -
     ki: matched (bool), the group g, its taxa count T and its start in
@@ -238,7 +246,18 @@ def join_match_plain(t, q: torch.Tensor):
     positions min_k-1 .. k-1 (kasa_tpu's cumulative _letters_block
     test).  One lower bound of the full key decides every level: k-prefix
     groups nest in the sorted order, so a query's level-k group, where it
-    exists, holds the entry at pos or at pos - 1."""
+    exists, holds the entry at pos or at pos - 1.
+
+    With pos ((M,) int32, each query's position in the batch before the
+    sort), also the read-order records K11's read arm takes
+    (csrc/join_match.cu), at row pos[m] of each: heads (M, 2) int32, x =
+    the taxon d_tax[lo][start] where T == 1 at lo, the query's first
+    valid level (matched and ok), else -1; y = lo | hi << 8, hi its
+    first valid level with T > 1 (numK where none of either); and wide_at
+    (M,) int32, m where hi < numK, else -1.  Valid levels nest (a query
+    valid at ki is valid at every ki' > ki, in a group holding the
+    deeper one's entries): its T = 1 levels are [lo, hi), one taxon, its
+    T > 1 levels [hi, numK)."""
     from ..ops.search import lower_bound_plain
     from .device import _valid_levels
     _check_match(t, q)
@@ -249,8 +268,16 @@ def join_match_plain(t, q: torch.Tensor):
     T = torch.zeros((nk, M), **i32)
     start = torch.zeros((nk, M), **i32)
     ok = torch.zeros((nk, M), dtype=torch.bool, device=q.device)
+    heads = wide_at = None
+    dest = None if pos is None else pos.long()
+    if pos is not None:
+        heads = torch.stack([torch.full((M,), -1, **i32),
+                             torch.full((M,), nk | nk << 8, **i32)], dim=1)
+        wide_at = torch.full((M,), -1, **i32)
+    outs = (matched, g, T, start, ok) + (
+        () if heads is None else (heads, wide_at))
     if M == 0 or n == 0:
-        return matched, g, T, start, ok
+        return outs
     kv = _valid_levels(q, t.min_k, t.max_k)
     pos = lower_bound_plain(t.idx_limbs, q)
     at = t.idx_limbs[pos.clamp(max=n - 1)]
@@ -270,16 +297,28 @@ def join_match_plain(t, q: torch.Tensor):
                             torch.zeros_like(gs[gk]))
         start[ki] = gs[gk]
         ok[ki] = kv >= t.max_k - ki
-    return matched, g, T, start, ok
+    if heads is not None:
+        valid = matched & ok
+        kis = torch.arange(nk, device=q.device)[:, None]
+        lo = torch.where(valid, kis, nk).min(dim=0).values
+        hi = torch.where(valid & (T > 1), kis, nk).min(dim=0).values
+        at = lo.clamp(max=nk - 1)
+        m = torch.arange(M, device=q.device)
+        one = (lo < nk) & (T[at, m] == 1)
+        taxon = t.d_tax[at, torch.where(one, start[at, m], 0).long()]
+        heads[dest, 0] = torch.where(one, taxon, -1)
+        heads[dest, 1] = (lo | hi << 8).int()
+        wide_at[dest] = torch.where(hi < nk, m, -1).int()
+    return outs
 
 
-def join_match(t, q: torch.Tensor):
+def join_match(t, q: torch.Tensor, pos: torch.Tensor | None = None):
     """K10 wrapper: the CUDA kernel on a CUDA tensor, else the plain
     version (join_match_plain)."""
     if q.device.type == "cpu":
-        return join_match_plain(t, q)
+        return join_match_plain(t, q, pos)
     from .. import kernels
-    return kernels.join_match(t, q)
+    return kernels.join_match(t, q, pos)
 
 
 def join_scatter_plain(t, valid, T, start, read_ids, num_reads: int):
@@ -308,12 +347,75 @@ def join_scatter_plain(t, valid, T, start, read_ids, num_reads: int):
 
 
 def join_scatter(t, valid, T, start, read_ids, num_reads: int):
-    """K11 wrapper: the CUDA kernel on a CUDA tensor, else the plain
-    version (join_scatter_plain)."""
+    """K11 wrapper, its global arm (occurrences in key order): the CUDA
+    kernel on a CUDA tensor, else the plain version
+    (join_scatter_plain)."""
     if read_ids.device.type == "cpu":
         return join_scatter_plain(t, valid, T, start, read_ids, num_reads)
     from .. import kernels
     return kernels.join_scatter(t, valid, T, start, read_ids, num_reads)
+
+
+def join_scatter_reads_plain(t, heads, wide_at, T, start, read_ids,
+                             num_reads: int):
+    """Plain version of K11's read arm: K10's records (heads, wide_at;
+    join_match_plain with pos) in the batch's own order, K10's key-order
+    T and start, and the batch's read ids (M,) -> the (num_reads, S)
+    float32 scores of join_scatter_plain: a query's T = 1 levels [lo,
+    hi) add w(k) each to its read's cell of the taxon heads[:, 0], its
+    T > 1 levels [hi, numK) add w(k) * (1/T) to each of the group's T
+    taxa d_tax[ki][start .. start + T) (T and start at its row
+    wide_at), summed in float64 and rounded once."""
+    S = t.num_species
+    dev = read_ids.device
+    nk = t.num_k
+    scores = torch.zeros((num_reads, S), dtype=torch.float64, device=dev)
+    lo, hi = heads[:, 1] & 255, (heads[:, 1] >> 8) & 255
+    rid = read_ids.long()
+    for ki in range(nk):
+        one = (heads[:, 0] >= 0) & (lo <= ki) & (ki < hi)
+        scores.view(-1).index_add_(
+            0, rid[one] * S + heads[one, 0].long(),
+            t.weights[ki].double().expand(int(one.sum())))
+        wide = (wide_at >= 0) & (hi <= ki)
+        row = wide_at[wide].long()
+        Tv = T[ki][row].long()
+        if Tv.numel() == 0:
+            continue
+        val = (t.weights[ki] * (1.0 / Tv.float())).double()
+        pair = torch.repeat_interleave(torch.arange(Tv.numel(), device=dev),
+                                       Tv)
+        j = torch.arange(pair.numel(), device=dev) \
+            - (torch.cumsum(Tv, 0) - Tv)[pair]
+        tax = t.d_tax[ki][start[ki][row].long()[pair] + j].long()
+        scores.view(-1).index_add_(0, rid[wide][pair] * S + tax, val[pair])
+    return scores.float()
+
+
+def join_scatter_reads(t, heads, wide_at, T, start, read_ids,
+                       num_reads: int):
+    """K11 wrapper, its read arm: the CUDA kernel on a CUDA tensor, else
+    the plain version (join_scatter_reads_plain)."""
+    if read_ids.device.type == "cpu":
+        return join_scatter_reads_plain(t, heads, wide_at, T, start,
+                                        read_ids, num_reads)
+    from .. import kernels
+    return kernels.join_scatter_reads(t, heads, wide_at, T, start, read_ids,
+                                      num_reads)
+
+
+def scatter_arm(t, read_order: bool, num_reads: int) -> str:
+    """K11's arm for a batch of num_reads reads on t's device: on the
+    card kernels.join_scatter_arm ("reads" where the batch comes in read
+    order, its read ids ascending, it is large enough and the read's row
+    fits a block's shared memory; else "global"); on the CPU, where
+    either arm is its plain version, "reads" wherever the read ids
+    ascend."""
+    if t.device.type == "cpu":
+        return "reads" if read_order else "global"
+    from .. import kernels
+    return kernels.join_scatter_arm(t.num_species, read_order,
+                                    kernels.dedup_smem(t.device), num_reads)
 
 
 class MatchResult:
@@ -345,7 +447,16 @@ def match_and_score(ji: JoinIndex, q_limbs: np.ndarray,
         ascending = bool((rid[1:] >= rid[:-1]).all())
         q = torch.from_numpy(np.ascontiguousarray(q_limbs, np.int32)).to(d)
         r = torch.from_numpy(rid).to(d)
-        q, r = sort_queries(q, r, num_reads, ids_ascending=ascending)
+        # the read arm of K11 takes the occurrences in read order: K12
+        # carries each window's position and K10 writes its head there
+        # (-e drops windows on the host after the sort: the global arm)
+        reads = want_scores and not unique \
+            and scatter_arm(t, ascending, num_reads) == "reads"
+        if reads:
+            pos = torch.arange(len(rid), dtype=torch.int32, device=d)
+            q, pos = sort_queries(q, pos, len(rid), ids_ascending=True)
+        else:
+            q, r = sort_queries(q, r, num_reads, ids_ascending=ascending)
         if unique:
             # -e: duplicate (kmer, readID) pairs dropped on the host, as
             # in kasa_tpu (join.py:263-277); the order stays (limbs...,
@@ -355,7 +466,8 @@ def match_and_score(ji: JoinIndex, q_limbs: np.ndarray,
             q = torch.from_numpy(np.ascontiguousarray(ql)).to(d)
             r = torch.from_numpy(np.ascontiguousarray(rl)).to(d)
     with timers.stage("join/match"):
-        matched, g, T, start, ok = join_match(t, q)
+        out = join_match(t, q, pos if reads else None)
+        matched, g, T, start, ok = out[:5]
         valid = matched & ok
         per_level = valid.sum(dim=1).cpu().numpy()
         gv, Tv, sv = (a[valid].cpu().numpy() for a in (g, T, start))
@@ -369,8 +481,10 @@ def match_and_score(ji: JoinIndex, q_limbs: np.ndarray,
                          ji.d_tax_host[ki], coverage)
     if want_scores:
         with timers.stage("join/scatter"):
-            res.scores = join_scatter(t, valid, T, start, r,
-                                      num_reads).cpu().numpy()
+            scores = (join_scatter_reads(t, out[5], out[6], T, start, r,
+                                         num_reads) if reads
+                      else join_scatter(t, valid, T, start, r, num_reads))
+            res.scores = scores.cpu().numpy()
     return res
 
 

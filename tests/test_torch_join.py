@@ -196,6 +196,87 @@ def test_join_scatter_plain_against_jax(case):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+def test_read_order_plain_against_jax(case):
+    """K11's read arm and K10's read-order records, plain versions,
+    against kasa_tpu: the batch's read ids made ascending (encode_batch's
+    layout), K12's plain version carrying each window's position, K10's
+    heads at those positions equal to what _match_one_keff and
+    _letters_block give each window in the batch's own order (lo its
+    first valid level, hi its first valid level of T > 1, the taxon of a
+    T = 1 level at lo; wide_at its sorted row where hi < numK), the
+    levels nested as the read arm relies on (valid from lo to the last
+    level, T not falling, one taxon over the T = 1 levels), and the read
+    arm's scores equal to _score_scatter's of the same windows: hit
+    cells identical, scores within the contract."""
+    import jax.numpy as jnp
+    from kasa_tpu.match.join import (_letters_block, _match_one_keff,
+                                     _score_scatter, weight)
+    from kasa_tpu_torch.match.join import (join_match_plain,
+                                           join_scatter_reads_plain,
+                                           sort_queries_plain)
+    jd, ts, q = case["jd"], case["ts"], case["q"]
+    min_k, max_k, R = case["min_k"], case["max_k"], 40
+    rid = np.sort(case["rid"])
+    M = len(rid)
+    qs, pos = sort_queries_plain(torch.from_numpy(q),
+                                 torch.arange(M, dtype=torch.int32))
+    assert sorted(pos.tolist()) == list(range(M))
+    _, _, Tk, sk, _, heads, wide_at = join_match_plain(ts, qs, pos)
+    nk = ts.num_k
+    qj = jnp.asarray(q)
+    letters = np.asarray(_letters_block(qj, tuple(range(min_k - 1, max_k))))
+    cum_ok = np.cumprod(letters != 30, axis=1).astype(bool)
+    scores = jnp.zeros((R, S), jnp.float32)
+    valid = np.zeros((nk, M), bool)
+    T = np.zeros((nk, M), np.int64)
+    taxon = np.full((nk, M), -1, np.int64)
+    for k in range(min_k, max_k + 1):
+        jt = jd.tables[k]
+        jm, _, jT, js = (np.asarray(a) for a in _match_one_keff(
+            jd.idx_limbs, jt.grp_id, jt.grp_start, jt.mask, qj,
+            jd.num_steps))
+        ki = max_k - k
+        v = jm & cum_ok[:, k - min_k]
+        valid[ki], T[ki] = v, jT
+        dt = np.asarray(jt.d_tax)
+        taxon[ki] = np.where(v & (jT == 1), dt[np.where(jT == 1, js, 0)], -1)
+        occ_T = jT[v].astype(np.int64)
+        cum = np.zeros(len(occ_T) + 1, np.int64)
+        np.cumsum(occ_T, out=cum[1:])
+        val = np.float32(weight(k)) \
+            * (np.float32(1.0) / occ_T.astype(np.float32))
+        scores = _score_scatter(
+            jnp.asarray(cum.astype(np.int32)), jnp.asarray(js[v]),
+            jnp.asarray(val), jnp.asarray(rid[v]), jt.d_tax,
+            jnp.zeros(len(occ_T), jnp.int32), scores,
+            1 << (int(cum[-1]) - 1).bit_length(), S)
+    kis = np.arange(nk)[:, None]
+    lo = np.where(valid, kis, nk).min(axis=0)
+    hi = np.where(valid & (T > 1), kis, nk).min(axis=0)
+    # the nesting: valid from lo on, T not falling, one T = 1 taxon
+    np.testing.assert_array_equal(valid, kis >= lo)
+    assert bool((np.diff(np.where(valid, T, 0), axis=0)[valid[:-1]]
+                 >= 0).all())
+    x = taxon[np.minimum(lo, nk - 1), np.arange(M)]
+    one = (kis >= lo) & (kis < hi)
+    np.testing.assert_array_equal(np.where(one, taxon, -1),
+                                  np.where(one, x, -1))
+    heads, wide_at = heads.numpy(), wide_at.numpy()
+    np.testing.assert_array_equal(heads[:, 0],
+                                  np.where(lo < hi, x, -1))
+    np.testing.assert_array_equal(heads[:, 1], lo | hi << 8)
+    inv = np.argsort(pos.numpy())
+    np.testing.assert_array_equal(wide_at, np.where(hi < nk, inv, -1))
+    assert (lo < hi).sum() > 100 and (hi < nk).sum() > 100
+    got = join_scatter_reads_plain(ts, torch.from_numpy(heads),
+                                   torch.from_numpy(wide_at), Tk, sk,
+                                   torch.from_numpy(rid), R).numpy()
+    want = np.asarray(scores)
+    assert (want > 0).sum() > 50
+    np.testing.assert_array_equal(got > 0, want > 0)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
 def test_sort_queries_plain_against_jax(case):
     """K12's plain version: kasa_tpu's limb order, and per distinct
     window the same read ids, which the port orders ascending."""
@@ -271,6 +352,42 @@ def test_match_and_score_against_jax(index, min_k, max_k):
         np.testing.assert_array_equal(got.scores > 0, want.scores > 0)
         np.testing.assert_allclose(got.scores, want.scores, rtol=RTOL,
                                    atol=ATOL, err_msg=tag)
+
+
+@pytest.mark.parametrize("index,min_k,max_k", [
+    ("exampleIndex", 7, 12), ("exampleIndex128", 20, 25)],
+    ids=["exampleIndex", "exampleIndex128"])
+def test_match_and_score_read_arm(monkeypatch, index, min_k, max_k):
+    """match_and_score takes K11's read arm on a batch whose read ids
+    ascend (K12 carrying positions, K10 its records) and the global arm
+    under -e; the read arm's scores equal the global arm's on the same
+    batch (hit cells identical, within the contract), its counts
+    identical."""
+    from kasa_tpu_torch.match import join as J
+    from kasa_tpu_torch.match.device import StackedTables
+    limbs, taxids, hk, content, q, r, R = _golden_batch(index, min_k)
+    t2r = content.tax_to_idx
+    ji = J.JoinIndex(StackedTables.build(J.DeviceIndex(
+        limbs, taxids, t2r, hk, min_k, max_k, content.num_species, "cpu")))
+    assert bool((np.diff(r) >= 0).all())
+    calls = []
+    for name in ("join_scatter_reads", "join_scatter"):
+        orig = getattr(J, name)
+        monkeypatch.setattr(J, name, lambda *a, _o=orig, _n=name: (
+            calls.append(_n), _o(*a))[1])
+    reads = J.match_and_score(ji, q, r, R, coverage=True)
+    assert calls == ["join_scatter_reads"]
+    J.match_and_score(ji, q, r, R, unique=True)
+    assert calls[1:] == ["join_scatter"]
+    monkeypatch.setattr(J, "scatter_arm", lambda t, read_order, R: "global")
+    glob = J.match_and_score(ji, q, r, R, coverage=True)
+    assert calls[2:] == ["join_scatter"]
+    for f in ("counts_all", "counts_unique", "counts_total"):
+        np.testing.assert_array_equal(getattr(reads, f), getattr(glob, f))
+    assert (glob.scores > 0).sum() > 0
+    np.testing.assert_array_equal(reads.scores > 0, glob.scores > 0)
+    np.testing.assert_allclose(reads.scores, glob.scores, rtol=RTOL,
+                               atol=ATOL)
 
 
 # ---------------------------------------------------------------------------

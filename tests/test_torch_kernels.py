@@ -903,8 +903,8 @@ def test_turbo_match_edges(cuda, L, case):
 @pytest.mark.parametrize("case", ["zero_rows", "one_taxon", "largest_t",
                                   "one_read", "unique", "wide_s"])
 def test_join_scatter_cases(cuda, case):
-    """K11 against join_scatter_plain on the edges of its adds
-    (test_torch_match_arms.scatter_case): reads without a valid
+    """K11's global arm against join_scatter_plain on the edges of its
+    adds (test_torch_match_arms.scatter_case): reads without a valid
     occurrence, a read of 5,000 occurrences of one taxon at every level,
     groups of all S taxa, one read, the read ids of a -e batch, and
     S = 30,000: hit cells identical, scores within the contract (each
@@ -918,10 +918,108 @@ def test_join_scatter_cases(cuda, case):
     got = J.join_scatter(t, valid, T, start, rid, R)
     want = J.join_scatter_plain(t, valid, T, start, rid, R)
     torch.cuda.synchronize()
-    assert K.COUNTS["join_scatter"] == 1
+    assert K.COUNTS["join_scatter.global"] == 1
     assert got.shape == (R, t.num_species) and got.dtype == torch.float32
     assert torch.equal(got.cpu() > 0, want.cpu() > 0)
     _close(got, want)
+
+
+def _read_arm_s_max(cuda):
+    """The widest S whose float64 row K11's read arm holds on this card."""
+    from kasa_tpu_torch import kernels as K
+    smem = K.dedup_smem(cuda)
+    S = (smem - K._SCATTER_RESERVE) // 8
+    n = K.READ_ARM_MIN_READS
+    assert K.join_scatter_arm(S, True, smem, n) == "reads"
+    assert K.join_scatter_arm(S + 1, True, smem, n) == "global"
+    return S
+
+
+@pytest.mark.parametrize("case", ["zero_rows", "one_taxon", "largest_t",
+                                  "one_read", "wide", "s_inside", "s_past"])
+def test_join_scatter_read_arm(cuda, case):
+    """K11's read arm on K10-layout heads of the read cases
+    (test_torch_match_arms.read_case: levels nested as K10's are), in
+    read order, against join_scatter_plain on the same windows in key
+    order: reads without a valid level, one taxon on every window of a
+    read, groups of all S taxa, R = 1, every valid level of T > 1, and S
+    at the widest row the arm holds ("s_inside"); hit cells identical,
+    scores within the contract, the arm's counter.  One S past it
+    ("s_past") takes the global arm (join_scatter_arm), and the read
+    arm's wrapper refuses it."""
+    from test_torch_match_arms import read_case
+    from kasa_tpu_torch import kernels as K
+    from kasa_tpu_torch.match import join as J
+    S = None
+    if case in ("s_inside", "s_past"):
+        S = _read_arm_s_max(cuda) + (case == "s_past")
+    t, (valid, T, start, rk), heads, wide_at, rid, R = read_case(
+        "s_given" if S else case, cuda, S=S)
+    want = J.join_scatter_plain(t, valid, T, start, rk, R)
+    K.reset_counts()
+    if case == "s_past":
+        assert K.join_scatter_arm(t.num_species, True, K.dedup_smem(cuda),
+                                  K.READ_ARM_MIN_READS) == "global"
+        with pytest.raises(ValueError):
+            J.join_scatter_reads(t, heads, wide_at, T, start, rid, R)
+        got = J.join_scatter(t, valid, T, start, rk, R)
+        arm = "join_scatter.global"
+    else:
+        got = J.join_scatter_reads(t, heads, wide_at, T, start, rid, R)
+        arm = "join_scatter.reads"
+    torch.cuda.synchronize()
+    assert K.COUNTS[arm] == 1 and sum(
+        K.COUNTS[a] for a in ("join_scatter.reads",
+                              "join_scatter.global")) == 1
+    assert got.shape == (R, t.num_species) and got.dtype == torch.float32
+    assert torch.equal(got.cpu() > 0, want.cpu() > 0)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("highest_k,min_k,max_k", [
+    (12, 7, 12), (25, 20, 25), (25, 12, 25)],
+    ids=["L2_k7_12", "L5_k20_25", "L5_k12_25"])
+def test_join_match_records(cuda, highest_k, min_k, max_k):
+    """K12 carrying positions, K10's read-order heads and K11's read arm,
+    as the join engine runs them on a batch whose read ids ascend: the
+    sorted positions identical to the plain sort's, K10's key-order
+    outputs and its heads and wide_at identical to join_match_plain's
+    (6 and 14 levels), the read arm's scores against join_scatter_plain
+    on the key-order outputs."""
+    from test_torch_join import _index, _queries
+    from kasa_tpu_torch import kernels as K
+    from kasa_tpu_torch.match import join as J
+    from kasa_tpu_torch.match.device import StackedTables
+    S, R = 9, 300
+    limbs, taxids = _index(highest_k, 20_000, S, seed=highest_k + min_k)
+    t = StackedTables.build(J.DeviceIndex(
+        limbs, taxids, {i: i for i in range(S)}, highest_k, min_k, max_k,
+        S, cuda))
+    q, rid = _queries(limbs, highest_k, 30_000, R, seed=min_k)
+    rid = np.sort(rid)
+    M = len(rid)
+    q, rid = torch.from_numpy(q).to(cuda), torch.from_numpy(rid).to(cuda)
+    pos = torch.arange(M, dtype=torch.int32, device=cuda)
+    qs, ps = J.sort_queries(q, pos, M, ids_ascending=True)
+    pq, pp = J.sort_queries_plain(q, pos)
+    assert torch.equal(qs.cpu(), pq.cpu()) and torch.equal(ps.cpu(), pp.cpu())
+    K.reset_counts()
+    got = J.join_match(t, qs, ps)
+    want = J.join_match_plain(t, qs, ps)
+    assert K.COUNTS["join_match"] == 1 and len(got) == len(want) == 7
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    heads, wide_at = got[5], got[6]
+    assert int((heads[:, 0] >= 0).sum()) > 0
+    assert int((wide_at >= 0).sum()) > 0
+    matched, g, T, start, ok = want[:5]
+    valid = matched & ok
+    s1 = J.join_scatter_reads(t, heads, wide_at, T, start, rid, R)
+    s2 = J.join_scatter_plain(t, valid, T, start, rid[ps.long()], R)
+    torch.cuda.synchronize()
+    assert K.COUNTS["join_scatter.reads"] == 1
+    assert torch.equal(s1.cpu() > 0, s2.cpu() > 0)
+    _close(s1, s2)
 
 
 @pytest.mark.parametrize("M,L,R", [(1, 2, 1), (1024, 2, 1025),
@@ -1511,27 +1609,92 @@ def _shard_lists(ip, R, wout, seed):
     return hts, hks, rng.random(R) < 0.1, rng.random(R) < 0.1
 
 
-@pytest.mark.parametrize("ip,R,wout,cap", [
-    (2, 100, 160, 64_000), (4, 33, 20, 200), (8, 40, 640, 50_000),
-    (3, 1000, 160, 400_000)])
-def test_mesh_merge_kernel(cuda, ip, R, wout, cap):
-    """K14 against its plain version: shared taxa, empty slots, reads
-    over wout taxa, a CSR that overflows (cap 200), and the long arm
-    (8 x 640 pairs a read, sorted in global memory)."""
+def _merge_agrees(cuda, args, cap, arm):
+    """K14 on args (hts, hks, ofc, ofl) against its plain version: the
+    integers identical, the ksums within the contract of the plain
+    version and bit for bit a float32 sum of each taxon's ksums in shard
+    order from 0 (the parent's sort-then-sum), the arm's counter."""
     from kasa_tpu_torch import kernels
     from kasa_tpu_torch.parallel.turbo_mesh import (mesh_merge,
                                                     mesh_merge_plain)
-    hts, hks, ofc, ofl = _shard_lists(ip, R, wout, ip * R)
-    args = [torch.from_numpy(a) for a in (hts, hks, ofc, ofl | ofc)]
+    hts, hks = args[0].numpy(), args[1].numpy()
+    ip, R, wout = hts.shape
     kernels.reset_counts()
     got = mesh_merge(*(a.to(cuda) for a in args), cap)
-    long = ip * wout > kernels.MERGE_SHORT_CAP
-    assert kernels.COUNTS["mesh_merge.long" if long else "mesh_merge"] == 1
+    torch.cuda.synchronize()
+    assert kernels.COUNTS[arm] == 1
+    assert kernels.COUNTS["mesh_merge"] + kernels.COUNTS[
+        "mesh_merge.long"] == 1
     want = mesh_merge_plain(*args, cap)
     p1, p2 = got[0].cpu(), want[0]
     ints = torch.ones(p1.numel(), dtype=torch.bool)
     ints[2 * R + 1:2 * R + 2 * cap:2] = False
     assert torch.equal(p1[ints], p2[ints])
     _close(p1[~ints].view(torch.float32), p2[~ints].view(torch.float32))
-    assert torch.equal(got[1].cpu(), want[1])
+    ht, hk = got[1].cpu().numpy(), got[2].cpu().numpy()
+    assert np.array_equal(ht, want[1].numpy())
     _close(got[2], want[2])
+    by_hand = np.zeros_like(hk)
+    for r in range(R):
+        for k in np.nonzero(ht[r] != 2 ** 31 - 1)[0]:
+            acc = np.float32(0)
+            for s in range(ip):
+                j = np.searchsorted(hts[s, r], ht[r, k])
+                if j < wout and hts[s, r, j] == ht[r, k]:
+                    acc = np.float32(acc + hks[s, r, j])
+            by_hand[r, k] = acc
+    assert np.array_equal(hk.view(np.int32), by_hand.view(np.int32))
+    csr = p1[2 * R:2 * R + 2 * cap].view(-1, 2)
+    n = min(int(p1[-2]), cap)
+    assert np.array_equal(csr[:n, 0].numpy(), ht[ht != 2 ** 31 - 1][:n])
+    assert np.array_equal(csr[:n, 1].numpy(),
+                          hk[ht != 2 ** 31 - 1][:n].view(np.int32))
+    assert not csr[n:].any()
+
+
+@pytest.mark.parametrize("ip,R,wout,cap", [
+    (2, 100, 160, 64_000), (4, 33, 20, 200), (8, 40, 640, 50_000),
+    (3, 1000, 160, 400_000), (1, 300, 160, 5_000)])
+def test_mesh_merge_kernel(cuda, ip, R, wout, cap):
+    """K14 against its plain version: shared taxa, empty slots, reads
+    over wout taxa, a CSR that overflows (cap 200 and 5,000), ip = 1,
+    and 8 x 640 pairs a read (three reads a block of the row arm)."""
+    from kasa_tpu_torch import kernels
+    hts, hks, ofc, ofl = _shard_lists(ip, R, wout, ip * R)
+    args = [torch.from_numpy(a) for a in (hts, hks, ofc, ofl | ofc)]
+    long = kernels.mesh_merge_warps(ip, wout, kernels.dedup_smem(cuda)) == 0
+    assert not long
+    _merge_agrees(cuda, args, cap, "mesh_merge")
+
+
+@pytest.mark.parametrize("case", ["random", "one_shard", "same_taxa",
+                                  "empty_rows", "wout_exact",
+                                  "wout_plus_one"])
+def test_mesh_merge_kernel_cases(cuda, case):
+    """K14's row arm on the edge cases of test_torch_turbo_mesh.merge_case
+    (whose numpy model of the arm is held to mesh_merge_plain on the
+    CPU): ip = 1, shards holding the same taxa, empty rows, exactly wout
+    and wout + 1 taxa after the merge; 3,000 reads (look-back over 375
+    blocks) and a cap the hits overflow."""
+    from test_torch_turbo_mesh import merge_case
+    hts, hks, ofc, ofl = merge_case(case, R=3000, wout=24)
+    args = [torch.from_numpy(a) for a in (hts, hks, ofc, ofl | ofc)]
+    _merge_agrees(cuda, args, 20 * 3000, "mesh_merge")
+
+
+@pytest.mark.parametrize("past", [False, True], ids=["widest", "long"])
+def test_mesh_merge_widest_row(cuda, past):
+    """The widest rows K14's row arm takes on this card (one warp's share
+    of a block's shared memory, ip = 2), and one pair more, which takes
+    the long arm (segmented radix passes in global memory)."""
+    from kasa_tpu_torch import kernels
+    smem = kernels.dedup_smem(cuda)
+    wout = 1
+    while kernels.mesh_merge_warps(2, wout + 1, smem) > 0:
+        wout += 1
+    assert kernels.mesh_merge_warps(2, wout, smem) == 1
+    wout += past
+    hts, hks, ofc, ofl = _shard_lists(2, 5, wout, wout)
+    args = [torch.from_numpy(a) for a in (hts, hks, ofc, ofl | ofc)]
+    _merge_agrees(cuda, args, 4 * wout,
+                  "mesh_merge.long" if past else "mesh_merge")

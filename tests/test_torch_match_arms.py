@@ -349,6 +349,86 @@ def scatter_case(case, dev="cpu"):
             R)
 
 
+READ_CASES = ("zero_rows", "one_taxon", "largest_t", "one_read", "wide",
+              "s_given")
+
+
+def read_case(case, dev="cpu", S=None):
+    """K11's read arm's inputs for `case`, its levels nested as K10's
+    are (valid from a window's first valid level lo on, T = 1 on [lo, hi)
+    with one taxon, T > 1 on [hi, numK)): tables of numK = 6 levels whose
+    d_tax rows start with every taxon once (a T = 1 group's start is its
+    taxon) and then random runs; the windows in read order with read ids
+    ascending, and a random key order for K10's outputs.  "zero_rows"
+    leaves the first half of the reads without a window and the last
+    read's windows without a valid level; "one_taxon" gives read 3 5,000
+    windows of taxon 7 at every level; "largest_t" groups of all S taxa;
+    "one_read" R = 1; "wide" every valid level T > 1; "s_given" the S
+    given.  -> (tables, (valid, T, start, read ids) in key order, heads,
+    wide_at, read ids in read order, R) on `dev`."""
+    from types import SimpleNamespace
+    rng = np.random.default_rng(READ_CASES.index(case) + 90)
+    S = S or (300 if case != "largest_t" else 2_000)
+    nk, R, M = 6, 500, 40_000
+    if case == "one_read":
+        R = 1
+    tmax = 2 * S + 20_000
+    d_tax = rng.integers(0, S, size=(nk, tmax)).astype(np.int32)
+    d_tax[:, :S] = np.arange(S)
+    d_tax[:, S:2 * S] = rng.permuted(np.tile(np.arange(S), (nk, 1)), axis=1)
+    rid = np.sort(rng.integers(R // 2 if case == "zero_rows" else 0, R,
+                               M)).astype(np.int32)
+    lo = rng.integers(0, nk + 1, M)
+    hi = lo + rng.integers(0, nk + 1 - lo)
+    if case == "wide":
+        hi = lo
+    x = rng.integers(0, S, M)
+    Tw = rng.integers(2, 6, size=(nk, M))
+    sw = (rng.random((nk, M)) * (tmax - 2 * S - 6)).astype(np.int64) + 2 * S
+    if case == "largest_t":
+        big = rng.random((nk, M)) < 0.01
+        Tw[big], sw[big] = S, S
+    if case == "zero_rows":
+        lo[rid == R - 1] = hi[rid == R - 1] = nk
+    if case == "one_taxon":
+        rid[:5000], lo[:5000], hi[:5000], x[:5000] = 3, 0, nk, 7
+        rid = np.sort(rid)
+    kis = np.arange(nk)[:, None]
+    valid = kis >= lo
+    one = valid & (kis < hi)
+    T = np.where(one, 1, np.where(valid, Tw, rng.integers(0, 9, (nk, M))))
+    start = np.where(one, x, sw).astype(np.int32)
+    perm = rng.permutation(M)          # key order i <- read order perm[i]
+    inv = np.argsort(perm)
+    heads = np.stack([np.where(lo < hi, x, -1), lo | hi << 8],
+                     axis=1).astype(np.int32)
+    wide_at = np.where(hi < nk, inv, -1).astype(np.int32)
+    t = SimpleNamespace(
+        num_k=nk, num_species=S, d_tax=torch.from_numpy(d_tax).to(dev),
+        weights=torch.from_numpy(rng.random(nk).astype(np.float32)).to(dev))
+
+    def key(a):
+        return torch.from_numpy(np.ascontiguousarray(a[..., perm])).to(dev)
+    return (t, (key(valid), key(T.astype(np.int32)), key(start), key(rid)),
+            torch.from_numpy(heads).to(dev), torch.from_numpy(wide_at).to(dev),
+            torch.from_numpy(rid).to(dev), R)
+
+
+@pytest.mark.parametrize("case", READ_CASES[:5])
+def test_read_case_plain_matches_plain(case):
+    """The read arm's plain version on each read case's heads gives
+    join_scatter_plain's scores on the same windows in key order: hit
+    cells identical, within the contract (the card tests hold K11's read
+    arm to both)."""
+    from kasa_tpu_torch.match import join as J
+    t, (valid, T, start, rk), heads, wide_at, rid, R = read_case(case)
+    assert bool((rid[1:] >= rid[:-1]).all())
+    got = J.join_scatter_reads_plain(t, heads, wide_at, T, start, rid, R)
+    want = J.join_scatter_plain(t, valid, T, start, rk, R)
+    assert torch.equal(got > 0, want > 0) and int((want > 0).sum()) > 0
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-4)
+
+
 def scatter_model(t, valid, T, start, rid, R):
     """K11's adds in numpy, thread for thread: each valid (level,
     occurrence) adds its float32 term w(k) * (1/T), in float64, to its
@@ -411,3 +491,17 @@ def test_scatter_plain_matches_reference_on_cases(case):
     want = np.asarray(scores)
     np.testing.assert_array_equal(got > 0, want > 0)
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-4)
+
+
+def test_join_scatter_arm_edges():
+    """K11's arm function at its edges: the read arm where the read ids
+    ascend, the batch holds READ_ARM_MIN_READS reads or more and a row of
+    S 8-byte cells fits the block's shared memory; the global arm one
+    step past each."""
+    from kasa_tpu_torch import kernels as K
+    smem, n = K.H100_SMEM_OPTIN, K.READ_ARM_MIN_READS
+    S = (smem - K._SCATTER_RESERVE) // 8
+    assert K.join_scatter_arm(S, True, smem, n) == "reads"
+    assert K.join_scatter_arm(S + 1, True, smem, n) == "global"
+    assert K.join_scatter_arm(S, True, smem, n - 1) == "global"
+    assert K.join_scatter_arm(S, False, smem, n) == "global"

@@ -487,3 +487,207 @@ def test_mesh_merge_plain_matches_numpy(ip, wout, cap):
     np.testing.assert_array_equal(got[0].numpy(), want[0])
     np.testing.assert_array_equal(got[1].numpy(), want[1])
     np.testing.assert_array_equal(got[2].numpy(), want[2])
+
+
+SENT = 2 ** 31 - 1
+
+
+def merge_rows_model(hts, hks, ofc, ofl, cap):
+    """K14's row arm (csrc/mesh_merge.cu merge_rows_kernel) in numpy,
+    pair for pair: each pair's place in the merge from lower bounds in
+    the other shards' rows, the first copy's flag at that place, the
+    flags' exclusive scan as the ranks, the sums in shard order (float32,
+    from 0), the CSR offsets as the look-back gives them -> (packed,
+    ht_m, hk_m) as mesh_merge_plain lays them out."""
+    ip, R, wout = hts.shape
+    hc = np.zeros(R, np.int32)
+    flags = np.zeros(R, np.int32)
+    ht = np.full((R, wout), SENT, np.int32)
+    hk = np.zeros((R, wout), np.float32)
+    csr = np.zeros((cap, 2), np.int32)
+    off = 0
+    for r in range(R):
+        rows = hts[:, r]
+        flag = np.zeros(ip * wout, np.int32)
+        found = []
+        for s in range(ip):
+            for j in range(wout):
+                t = rows[s, j]
+                if t == SENT:
+                    continue
+                P, first, acc = j, True, np.float32(0)
+                for s2 in range(ip):
+                    if s2 == s:
+                        acc = np.float32(acc + hks[s, r, j])
+                        continue
+                    lb = int(np.searchsorted(rows[s2], t, "left"))
+                    P += lb
+                    if lb < wout and rows[s2, lb] == t:
+                        if s2 < s:
+                            first = False
+                        else:
+                            acc = np.float32(acc + hks[s2, r, lb])
+                if first:
+                    flag[P] = 1
+                    found.append((P, t, acc))
+        rank = np.cumsum(flag) - flag
+        ntax = int(flag.sum())
+        hc[r] = min(ntax, wout)
+        flags[r] = int(ofc[r]) | (int(ofl[r] or ntax > wout) << 1)
+        for P, t, acc in found:
+            k = rank[P]
+            if k < wout:
+                ht[r, k], hk[r, k] = t, acc
+                if off + k < cap:
+                    csr[off + k] = (t, np.float32(acc).view(np.int32))
+        off += hc[r]
+    packed = np.concatenate([hc, flags, csr.reshape(-1),
+                             [hc.sum(), (flags != 0).sum()]]).astype(np.int32)
+    return packed, ht, hk
+
+
+MERGE_CASES = ("random", "one_shard", "same_taxa", "empty_rows",
+               "wout_exact", "wout_plus_one")
+
+
+def merge_case(case, ip=3, R=40, wout=12, seed=5):
+    """K14's inputs for `case`, every shard row ascending with distinct
+    taxa and SENT after them: "random" taxa shared at random, ip = 4;
+    "one_shard" ip = 1; "same_taxa" every shard of a read holds the same
+    taxa; "empty_rows" some shards' rows empty; "wout_exact" and
+    "wout_plus_one" reads of exactly wout and wout + 1 taxa after the
+    merge.  -> (hts, hks, ofc, ofl)."""
+    rng = np.random.default_rng(MERGE_CASES.index(case) + seed)
+    ip = {"random": 4, "one_shard": 1}.get(case, ip)
+    hts = np.full((ip, R, wout), SENT, np.int32)
+    hks = np.zeros((ip, R, wout), np.float32)
+    for r in range(R):
+        if case in ("wout_exact", "wout_plus_one"):
+            ntax = wout + (case == "wout_plus_one")
+            taxa = np.sort(rng.choice(5 * wout, ntax, replace=False))
+            owner = np.arange(ntax) % ip
+            rows = [taxa[owner == s] for s in range(ip)]
+            # a shared copy of some taxa, within each row's wout
+            rows = [np.union1d(rw, rng.choice(taxa, 2))[:wout]
+                    for rw in rows]
+        elif case == "same_taxa":
+            taxa = np.sort(rng.choice(3 * wout, int(rng.integers(0, wout + 1)),
+                                      replace=False))
+            rows = [taxa] * ip
+        else:
+            rows = []
+            for s in range(ip):
+                n = int(rng.integers(0, wout + 1))
+                if case == "empty_rows" and (r + s) % 2:
+                    n = 0
+                rows.append(np.sort(rng.choice(3 * wout, n, replace=False)))
+        for s, taxa in enumerate(rows):
+            hts[s, r, :len(taxa)] = taxa
+            hks[s, r, :len(taxa)] = rng.random(len(taxa)).astype(
+                np.float32) * 3
+    return hts, hks, rng.random(R) < 0.1, rng.random(R) < 0.1
+
+
+@pytest.mark.parametrize("case", MERGE_CASES)
+def test_merge_rows_model_matches_plain(case):
+    """The model of K14's row arm gives mesh_merge_plain's packed row and
+    merged lists bit for bit (its sums in shard order are the plain
+    version's stable sort then sum), and the ksums equal a float32 sum in
+    shard order taken here; a CSR cap that the hits overflow."""
+    from kasa_tpu_torch.parallel.turbo_mesh import mesh_merge_plain
+    hts, hks, ofc, ofl = merge_case(case)
+    ip, R, wout = hts.shape
+    for s in range(ip):
+        d = np.diff(hts[s], axis=1)
+        assert bool(((d > 0) | (hts[s][:, 1:] == SENT)).all())
+    cap = 5 * R
+    want = mesh_merge_plain(*(torch.from_numpy(a) for a in
+                              (hts, hks, ofc, ofl | ofc)), cap)
+    got = merge_rows_model(hts, hks, ofc, ofl | ofc, cap)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b.numpy())
+    by_hand = np.zeros((R, wout), np.float32)
+    for r in range(R):
+        for k, t in enumerate(got[1][r]):
+            if t != SENT:
+                acc = np.float32(0)
+                for s in range(ip):
+                    acc = np.float32(acc + hks[s, r][hts[s, r] == t].sum())
+                by_hand[r, k] = acc
+    np.testing.assert_array_equal(got[2], by_hand)
+    hc, list_of = got[0][:R], (got[0][R:2 * R] >> 1) & 1
+    if case == "wout_exact":
+        assert bool((hc == wout).all())
+        np.testing.assert_array_equal(list_of, ofl | ofc)
+    if case == "wout_plus_one":
+        assert bool((hc == wout).all()) and bool(list_of.all())
+    assert int(got[0][-2]) > cap or case in ("empty_rows", "same_taxa",
+                                             "one_shard")
+
+
+def test_shard_lists_sorted_and_match_jax(mesh_corpus):
+    """The order K14 relies on: on the mesh corpus, each shard's hit
+    lists from the port's turbo_core (plain) hold distinct taxa in
+    ascending order, then SENT to the row's end, and equal kasa_tpu's
+    _turbo_core lists of the same shard (taxa identical, ksums within
+    the contract)."""
+    import functools
+    import jax
+    import jax.numpy as jnp
+    from kasa_tpu.match.turbo import _turbo_core
+    from kasa_tpu.parallel.turbo_mesh import ShardedTurboTables as JST
+    from kasa_tpu_torch.core.encode import encode_windows
+    from kasa_tpu_torch.match.turbo import (CSR_CAP_FACTOR, EXP_BUDGET,
+                                            MULTI_BUDGET, WOUT, turbo_core)
+    from kasa_tpu_torch.parallel.turbo_mesh import ShardedTurboTables
+    _, idx, fq = mesh_corpus
+    limbs, tax_rows, S = _index(idx)
+    ip, R = 2, 256
+    mat, w, lut = _batch(idx, fq, R)
+    q = encode_windows(torch.from_numpy(mat), torch.from_numpy(lut), w,
+                       False, False, 12)
+    jst = JST.build(limbs, tax_rows, 12, 7, 12, S, ip)
+    core = jax.jit(functools.partial(
+        _turbo_core, num_steps=jst.num_steps, min_k=7, max_k=12,
+        highest_k=12, num_species=S, num_reads=R, kmers_per_read=w))
+    hits = 0
+    for s in range(ip):
+        st = ShardedTurboTables.build(limbs, tax_rows, 12, 7, 12, S, ip, s,
+                                      "cpu")
+        acc_ca = torch.zeros((6, S), dtype=torch.float32)
+        acc_cu = torch.zeros((6, S), dtype=torch.int32)
+        _, ht, hk = turbo_core(st.shard, q, R, w, acc_ca, acc_cu,
+                               CSR_CAP_FACTOR * R, MULTI_BUDGET, EXP_BUDGET,
+                               wout=WOUT)
+        ht, hk = ht.numpy(), hk.numpy()
+        real = ht != SENT
+        # SENT only after the taxa, the taxa strictly ascending
+        assert not (~real[:, :-1] & real[:, 1:]).any()
+        assert bool((np.diff(ht, axis=1)[real[:, 1:]] > 0).all())
+        jht, jhk = core(jst.keys2[s], jst.rowdat[s], jst.router[s],
+                        jst.sub2[s], jst.grp2[s], jst.d_tax4[s], jst.weights,
+                        jst.masks2, jst.hotmask_s[s], jst.t_hot_s[s],
+                        jnp.asarray(q.numpy()))[:2]
+        np.testing.assert_array_equal(ht, np.asarray(jht))
+        np.testing.assert_allclose(hk, np.asarray(jhk), rtol=RTOL, atol=ATOL)
+        hits += int(real.sum())
+    assert hits > R
+
+
+def test_mesh_merge_warps_edges():
+    """K14's arm function: eight reads a block of the row arm while eight
+    warps' rows fit the card's shared memory, fewer as the rows widen,
+    the long arm (0) once one warp's row does not fit."""
+    from kasa_tpu_torch import kernels as K
+    smem = K.H100_SMEM_OPTIN
+    assert K.mesh_merge_warps(2, 160, smem) == K.MERGE_ROW_WARPS
+    assert K.mesh_merge_warps(4, 160, smem) == K.MERGE_ROW_WARPS
+    wout = 1
+    while K.mesh_merge_warps(2, wout + 1, smem) > 0:
+        wout += 1
+    assert K.mesh_merge_warps(2, wout, smem) == 1
+    assert K.mesh_merge_warps(2, wout + 1, smem) == 0
+    n = 2 * wout
+    assert 4 * (n + 2 * -(-n // 32) + 3) <= smem
+    widths = [K.mesh_merge_warps(2, w, smem) for w in range(160, wout, 997)]
+    assert widths == sorted(widths, reverse=True)

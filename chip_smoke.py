@@ -221,16 +221,18 @@ card line and the ok line.
 
     python3 chip_smoke.py --stages [--parent DIR]
 
-runs only build and the stage splits of K2, K3, K4, K5, K7, K10 + K11
-and K14 on the default corpus (K2 on the default batch with the widths
-of the buckets it bisects; default, long and 32,768-read additive
-batches, synthetic chunk plans of 4 to 20,000 chunks; K5 on the --six
--e batch, the wide --six -e batch, the wide long-read batch and
-synthetic reads of 2,048 and 4,096 windows; K10 + K11 as a pair on the
-first batch of the join run and on its first 8,192, 16,384 and 32,768
-reads, its
-valid occurrences and pairs, K10's heads and K11's read arm split by
-stop points and clock64 counts; K14 on the shard lists of an 8,192-read
+runs only build and the stage splits of K1, K2, K3, K4, K5, K7, K10 +
+K11 and K14 on the default corpus (K1 on the default, wide and sloppy
+batches and the per-batch engine's line buffer; K2 on the default batch
+with the widths of the buckets it bisects; default, long and
+32,768-read additive batches, synthetic chunk plans of 4 to 20,000
+chunks; K5 on the --six -e batch, the wide --six -e batch, the wide
+long-read batch and synthetic reads of 2,048 and 4,096 windows; K10 +
+K11 as a pair on the first batch of the join run and on its first
+8,192, 16,384 and 32,768 reads, its valid occurrences and pairs, K10
+alone (with and without its heads, and on the first 8,192 reads) split
+into search, levels and heads and K11's read arm split, by stop points
+and clock64 counts; K14 on the shard lists of an 8,192-read
 batch at ip = 2 and 4, two host processes building the shards' table
 sidecars from the start, split the same way and timed on the batch's
 first 1,024 to 8,192 reads), of K3, K4 and K6 on the sparse corpus (K6's
@@ -239,11 +241,11 @@ lanes a read and its warp arm by stage) and of K2 and K10 + K11 on the
 over the 65,536 smoke reads, and on its first reads), each held to its
 plain version, into .synth_corpus/out/chip_smoke_stages.json; times both
 with the wrapper's host time (time_ms) and queued ahead of the card
-(queued_ms).  With --parent, DIR is a checkout of the parent commit (git
-archive) whose K10, K11 (its float64 fill, adds and rounding pass
-apart) and K14 (with stop points after its merge and after its scan)
-are built from its csrc/ and timed in turns with this tree's on the
-same inputs.  Longer logs and the full-size
+(queued_ms).  With --parent, DIR is a checkout of the parent commit's
+package (git archive <commit> kasa_tpu_torch) whose K1, K10 (split by
+stop points too) and K11 are imported, built from its csrc/ and timed
+through its own wrappers in turns with this tree's on the same inputs.
+Longer logs and the full-size
 outputs go to .synth_corpus/out/.  Without a CUDA device, or outside a
 checkout, it exits non-zero and prints no result.
 """
@@ -912,6 +914,30 @@ def phase_kernels_classic(tables, mat, R, w, launches, tag, suffix,
     return out, step_ms
 
 
+def pairs_first_batch(pairs):
+    """The per-batch engine's first batch of the classic pairs run (the
+    128-bit corpus at -k 25 12), built as _identify_per_batch builds it
+    -> (config, batch, encoder, its (n,) uint8 line buffer, which K1
+    encodes as one flat row)."""
+    import numpy as np
+    from kasa_tpu_torch.config import Config
+    from kasa_tpu_torch.core import encode as E
+    from kasa_tpu_torch.match import ingest
+    cfg = Config()
+    for k, v in K128.items():
+        setattr(cfg, k, v)
+    builder = ingest.BatchBuilder(cfg.higher_k, cfg.lower_k, protein=False,
+                                  six_frames=cfg.six_frames,
+                                  one_frame=cfg.one_frame)
+    batch = next(iter(ingest.read_paired_batches(
+        pairs[0], pairs[1], builder,
+        max_kmers_per_batch=max(int(cfg.memory_avail) // 64, 1 << 16))))
+    encoder = E.Encoder(codon_code_lut=E.custom_code_lut(cfg),
+                        device=DEVICE)
+    buf = np.ascontiguousarray(np.concatenate(batch.buffers), np.uint8)
+    return cfg, batch, encoder, buf
+
+
 def phase_kernels_per_batch(tables, pairs, launches):
     """The per-batch engine's first batch of the classic pairs run, built
     as _identify_per_batch builds it: K1 on the (1, n) line buffer
@@ -922,25 +948,12 @@ def phase_kernels_per_batch(tables, pairs, launches):
     timed, off every path this script drives.  -> kernel entries."""
     import numpy as np
     import torch
-    from kasa_tpu_torch.config import Config
     from kasa_tpu_torch.core import encode as E
     from kasa_tpu_torch.match import engine as EN
-    from kasa_tpu_torch.match import ingest
     from kasa_tpu_torch.match.pipeline import encode_batch
-    cfg = Config()
-    for k, v in K128.items():
-        setattr(cfg, k, v)
     hk = tables.highest_k
-    builder = ingest.BatchBuilder(hk, cfg.lower_k, protein=False,
-                                  six_frames=cfg.six_frames,
-                                  one_frame=cfg.one_frame)
-    batch = next(iter(ingest.read_paired_batches(
-        pairs[0], pairs[1], builder,
-        max_kmers_per_batch=max(int(cfg.memory_avail) // 64, 1 << 16))))
-    encoder = E.Encoder(codon_code_lut=E.custom_code_lut(cfg),
-                        device=DEVICE)
+    cfg, batch, encoder, buf = pairs_first_batch(pairs)
     # K1 on the flat buffer
-    buf = np.ascontiguousarray(np.concatenate(batch.buffers), np.uint8)
     row = torch.from_numpy(buf.reshape(1, -1)).to(DEVICE)
     w = len(buf) - 3 * hk + 1
     q1 = E.encode_windows(row, encoder.lut, w, highest_k=hk)
@@ -2970,7 +2983,8 @@ def join_match_bytes(t, q, out):
     (g and g + 1 of the matched, entry 0 of the unmatched), the masks,
     and the five (numK, M) outputs once; with the read-order records
     (out[5], out[6]), the positions, the d_tax cell of each head's taxon,
-    the heads once and the wide_at cells written (distinct sectors)."""
+    the 4-byte heads once and the wide_at cells written (distinct
+    sectors)."""
     import torch
     n, M, L, nk = t.n, q.shape[0], q.shape[1], t.num_k
     pos, idx_sec, b, runs = search_sectors(t, q)
@@ -2998,7 +3012,7 @@ def join_match_bytes(t, q, out):
         lo = lo[i]
         one = out[2][lo, i] == 1
         cells = lo[one] * t.d_tax.shape[1] + out[3][lo, i][one].long()
-        rec = M * 4 + sector_bytes(cells, 4) + M * 8 \
+        rec = M * 4 + sector_bytes(cells, 4) + M * 4 \
             + sector_bytes(torch.nonzero(out[6] >= 0)[:, 0], 4)
     return (M * L * 4 + sector_bytes(cat([b, b + 1]), 4)
             + 32 * int(idx_sec.numel()) + sector_bytes(runs, 4)
@@ -3047,10 +3061,11 @@ def scatter_reads_bytes(t, heads, wide_at, T, start, R):
     levels' T and start cells (distinct sectors), the d_tax cells of
     their groups, the weights and the (R, S) float32 output once."""
     import torch
+    from kasa_tpu_torch.match import join as J
     M = heads.shape[0]
     nk = t.num_k
     row = wide_at[wide_at >= 0].long()
-    hi = ((heads[:, 1] >> 8) & 255)[wide_at >= 0].long()
+    hi = J.unpack_heads(heads)[2][wide_at >= 0].long()
     cells, dcells = [], []
     for ki in range(nk):
         r = row[hi <= ki]
@@ -3062,7 +3077,7 @@ def scatter_reads_bytes(t, heads, wide_at, T, start, R):
             - (torch.cumsum(Tv, 0) - Tv)[pair]
         dcells.append(ki * t.d_tax.shape[1] + sv[pair] + j)
     c = torch.cat(cells)
-    return (M * 8 + M * 4 + sector_bytes(torch.nonzero(wide_at >= 0)[:, 0],
+    return (M * 4 + M * 4 + sector_bytes(torch.nonzero(wide_at >= 0)[:, 0],
                                          4)
             + 2 * sector_bytes(c, 4) + sector_bytes(torch.cat(dcells), 4)
             + nk * 4 + R * t.num_species * 4)
@@ -4526,14 +4541,74 @@ def _probe(at, i, lead="lane == 0"):
             f"{at}));\n    atomicAdd(&kasa_dbg[{i + 1}], 1ull);\n}}\n")
 
 
-# this tree's K10 with its heads: 1 takes no d_tax lookup (the head's
-# taxon -1), 2 writes the heads in key order (at m, not pos[m])
+# this tree's K10: 1 ends each query after its search (no levels, no
+# heads), 2 leaves out the heads, 3 searches every query in memory (no
+# copies), 6 stores the level outputs with the streaming hint
+# (st.global.cs), 8 writes the heads in key order and leaves out their
+# scatter, 9 scatters them without the L2 evict-last hint; stop 10
+# counts the blocks that copied (0), the
+# blocks (1) and the queries of copying blocks that searched in memory
+# (2)
 K10_STOPS = _stop_switch('#include "common.cuh"\n') + (
+    ("    const long long nw = n * L;\n",
+     "    const long long nw = n * L;\n"
+     "    if (kasa_split_stop == 3) stretch = 0;\n"),
+    ("        long long p;\n",
+     "        if (kasa_split_stop == 10 && threadIdx.x == 0) {\n"
+     "            atomicAdd(&kasa_dbg[0], copy ? 1ull : 0ull);\n"
+     "            atomicAdd(&kasa_dbg[1], 1ull);\n        }\n"
+     "        long long p;\n"),
+    ("            p = lower_bound_full<L>(idx, prefix, run_end, n, qv);\n",
+     "            p = lower_bound_full<L>(idx, prefix, run_end, n, qv);\n"
+     "            if (kasa_split_stop == 10 && copy && active)\n"
+     "                atomicAdd(&kasa_dbg[2], 1ull);\n"),
+    ("        const int kv = valid_level<L>(qv, min_k, max_k);\n",
+     "        if (kasa_split_stop == 1) {\n"
+     "            if (active && at[0] == 123456789 && pr[0] == p)\n"
+     "                matched[0] = 1;\n"
+     "            continue;\n        }\n"
+     "        const int kv = valid_level<L>(qv, min_k, max_k);\n"),
+    ("        if (keyed != nullptr && active) {\n",
+     "        if (keyed != nullptr && active && kasa_split_stop != 2) {\n"),
+    ("        asm volatile(\"st.global.L2::cache_hint.b32 [%0], %1, %2;\"\n",
+     "        if (kasa_split_stop == 9) heads[d] = h;\n"
+     "        else asm volatile(\"st.global.L2::cache_hint.b32 \"\n"
+     "                          \"[%0], %1, %2;\"\n"),
+    ("    if (err != cudaSuccess || out[5] == nullptr) return (int)err;\n",
+     "    if (err != cudaSuccess || out[5] == nullptr || kasa_host_stop == 1\n"
+     "            || kasa_host_stop == 2 || kasa_host_stop == 8)\n"
+     "        return (int)err;\n"),
+    ("                    matched[o] = h;\n"
+     "                    g_out[o] = gg[u];\n"
+     "                    T_out[o] = t;\n"
+     "                    start_out[o] = s0[u];\n"
+     "                    ok_out[o] = ok;\n",
+     "                    if (kasa_split_stop == 6) {\n"
+     "                        __stcs(matched + o, (uint8_t)h);\n"
+     "                        __stcs(g_out + o, gg[u]);\n"
+     "                        __stcs(T_out + o, t);\n"
+     "                        __stcs(start_out + o, s0[u]);\n"
+     "                        __stcs(ok_out + o, (uint8_t)ok);\n"
+     "                    } else {\n"
+     "                        matched[o] = h;\n"
+     "                        g_out[o] = gg[u];\n"
+     "                        T_out[o] = t;\n"
+     "                        start_out[o] = s0[u];\n"
+     "                        ok_out[o] = ok;\n"
+     "                    }\n"))
+# the parent's (b69d475) K10: 1 ends each query after its search, 2
+# leaves out the heads (their d_tax lookup and their scatter)
+PARENT_K10_STOPS = _stop_switch('#include "common.cuh"\n') + (
+    ("        int lo = p.num_k, hi = p.num_k;\n",
+     "        if (kasa_split_stop == 1) {\n"
+     "            if (at[0] == 123456789 && pr[0] == pos) p.matched[0] = 1;\n"
+     "            continue;\n        }\n"
+     "        int lo = p.num_k, hi = p.num_k;\n"),
     ("                    if (t == 1 && p.heads != nullptr)\n",
      "                    if (t == 1 && p.heads != nullptr\n"
-     "                            && kasa_split_stop != 1)\n"),
-    ("            const long long dst = p.pos[m];\n",
-     "            const long long dst = kasa_split_stop == 2 ? m : p.pos[m];\n"))
+     "                            && kasa_split_stop != 2)\n"),
+    ("        if (p.heads != nullptr) {\n",
+     "        if (p.heads != nullptr && kasa_split_stop != 2) {\n"))
 # this tree's K11 read arm: 1 ends after seg_kernel, 2 leaves out every
 # add (the heads still loaded, the rows written), 3 leaves out the T > 1
 # levels, 4 reads their T and start and adds nothing
@@ -4541,11 +4616,11 @@ K11_STOPS = _stop_switch('#include "common.cuh"\n') + (
     ("    // a block as wide as a read's records, in whole warps\n",
      "    if (kasa_host_stop == 1) return 0;\n"
      "    // a block as wide as a read's records, in whole warps\n"),
-    ("            add_one(srow, h.x, v);\n",
+    ("            add_one(srow, tax, v);\n",
      "            if (kasa_split_stop == 2) {\n"
-     "                if (h.x == 123456789 && v == 0.5) srow[0] += 1.0;\n"
+     "                if (tax == 123456789 && v == 0.5) srow[0] += 1.0;\n"
      "                continue;\n            }\n"
-     "            add_one(srow, h.x, v);\n"),
+     "            add_one(srow, tax, v);\n"),
     # stop 10: cycles of a warp's T > 1 levels (0, 1), rounds and calls of
     # add_wide (2, 3), cycles of a read (4, 5), grid and block (6, 7)
     ("            const int row = hi < num_k ? wide_at[m] : -1;\n",
@@ -4616,36 +4691,23 @@ K14_STOPS = _stop_switch('#include "radix.cuh"\n') + (
      "offset\n",
      _probe("c0", 8) + "    // the CSR: the read's first hc pairs, copied "
      "from its row at its offset\n"))
-# the parent's (1cbed98) K14: 1 ends after the merge launch, 2 after the
-# scan, so that merge, scan and pack time apart
-PARENT_K14_STOPS = (
-    ("                               void* stream) {\n",
-     "                               void* stream, int stop) {\n"),
-    ("    scan_kernel<<<1, kScanThreads, 0, st>>>(",
-     "    if (stop == 1) return (int)cudaGetLastError();\n"
-     "    scan_kernel<<<1, kScanThreads, 0, st>>>("),
-    ("    pack_kernel<<<R, 128, 0, st>>>(",
-     "    if (stop == 2) return (int)cudaGetLastError();\n"
-     "    pack_kernel<<<R, 128, 0, st>>>("))
 
 
 class SplitKernels:
     """Kernels of a csrc/ directory built apart with nvcc into
     OUT/<tag>_build, all started together, each from a scratch copy of
     its source with stop points patched in where it has them, and called
-    through their own C interface: this tree's K2 split by stage
-    (--stages), or the parent's K10, K11 and K14 (--stages --parent
+    through their own C interface: this tree's K2, K10, K11 and K14
+    split by stage (--stages), or the parent's K10 (--stages --parent
     DIR).  units: (name, stop points or None)."""
     # C interfaces: this tree's (K2 with its stop argument) ...
     ARGTYPES = {"kasa_turbo_match": "P" * 6 + "L" + "I" * 8 + "PPP",
-                "kasa_join_match": "P" * 9 + "L" * 4 + "I" * 4 + "P" * 8,
+                "kasa_join_match": "P" * 9 + "L" * 4 + "I" * 4 + "P" * 9,
                 "kasa_join_scatter_reads": "P" * 7 + "LL" + "IIII" + "PPP",
                 "kasa_mesh_merge": "PPPP" + "IIII" + "L" + "P" * 8}
-    # ... and the parent's (1cbed98)
-    PARENT_ARGTYPES = {"kasa_join_match": "P" * 7 + "LLL" + "IIII" + "P" * 6,
-                       "kasa_join_scatter": "P" * 6 + "LLII" + "PP",
-                       "kasa_mesh_merge": "PPPP" + "IIII" + "L" + "P" * 7
-                       + "I"}
+    # ... and the parent's (b69d475: K10 without its key-order scratch)
+    PARENT_ARGTYPES = {"kasa_join_match": "P" * 9 + "L" * 4 + "I" * 4
+                       + "P" * 8}
 
     def __init__(self, csrc, tag, units, syms=None):
         import ctypes
@@ -4672,7 +4734,6 @@ class SplitKernels:
         self.fns = {}
         types = {"P": ctypes.c_void_p, "I": ctypes.c_int,
                  "L": ctypes.c_longlong}
-        argtypes = self.PARENT_ARGTYPES if tag == "parent" else self.ARGTYPES
         for name, (so, proc) in procs.items():
             out, _ = proc.communicate()
             if proc.returncode != 0:
@@ -4681,7 +4742,9 @@ class SplitKernels:
             lib = ctypes.CDLL(so)
             f = getattr(lib, sym)
             f.restype = ctypes.c_int
-            f.argtypes = [types[c] for c in argtypes[sym]]
+            f.argtypes = [types[c] for c in (
+                self.PARENT_ARGTYPES if tag == "parent" else
+                self.ARGTYPES)[sym]]
             self.fns[name] = f
             if hasattr(lib, "kasa_set_stop"):
                 g = lib.kasa_set_stop
@@ -4742,24 +4805,36 @@ class SplitKernels:
         self.set_stop(name, 0)
         return out
 
-    def join_match(self, t, q, pos):
-        """This tree's K10 with its heads (K10_STOPS)."""
+    def join_match(self, t, q, pos=None):
+        """K10 (K10_STOPS, or the parent's PARENT_K10_STOPS) as its
+        wrapper runs it: this tree's outputs uninitialised and its
+        key-order heads in a scratch, the parent's outputs zeroed and
+        8-byte heads; wide_at filled with -1; the heads with pos
+        alone."""
         import torch
         dev = q.device
         nk, M = t.num_k, q.shape[0]
-        outs = [torch.empty((nk, M), dtype=d, device=dev) for d in (
+        parent = self.tag == "parent"
+        alloc = torch.zeros if parent else torch.empty
+        outs = [alloc((nk, M), dtype=d, device=dev) for d in (
             torch.bool, torch.int32, torch.int32, torch.int32, torch.bool)]
-        heads = torch.empty((M, 2), dtype=torch.int32, device=dev)
-        wide_at = torch.full((M,), -1, dtype=torch.int32, device=dev)
+        heads = wide_at = keyed = None
+        if pos is not None:
+            heads = torch.empty((M, 2) if parent else (M,),
+                                dtype=torch.int32, device=dev)
+            wide_at = torch.full((M,), -1, dtype=torch.int32, device=dev)
+            keyed = None if parent else torch.empty_like(wide_at)
+        ptr = (lambda x: None if x is None else x.data_ptr())
         self._call("join_match", t.idx_limbs.data_ptr(),
                    t.grp_id.data_ptr(), t.grp_start.data_ptr(),
                    t.masks.data_ptr(), t.run_end.data_ptr(),
                    t.prefix_tbl.data_ptr(), q.data_ptr(), t.d_tax.data_ptr(),
-                   pos.data_ptr(), t.n, t.grp_start.shape[1],
+                   ptr(pos), t.n, t.grp_start.shape[1],
                    t.d_tax.shape[1], M, q.shape[1], nk, t.min_k, t.max_k,
-                   *(o.data_ptr() for o in outs), heads.data_ptr(),
-                   wide_at.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        return (*outs, heads, wide_at)
+                   *(o.data_ptr() for o in outs), ptr(heads), ptr(wide_at),
+                   *(() if parent else (ptr(keyed),)),
+                   torch.cuda.current_stream().cuda_stream)
+        return tuple(outs) + (() if pos is None else (heads, wide_at))
 
     def join_scatter_reads(self, t, heads, wide_at, T, start, read_ids, R):
         """This tree's K11 read arm (K11_STOPS)."""
@@ -4800,87 +4875,39 @@ class SplitKernels:
         return packed, ht_m, hk_m
 
 
-class ParentKernels(SplitKernels):
-    """K10, K11 and K14 of another checkout (the parent commit, unpacked
-    with git archive), to time beside this tree's kernels on the same
-    inputs in one call, through their C interfaces at commit 1cbed98:
-    K10 its key-order outputs alone; K11 float64 atomics into an (R, S)
-    buffer that the caller zeroes and rounds; K14 a bitonic sort a read,
-    a one-block scan and a pack (stop points after the merge and after
-    the scan patched into a scratch copy)."""
+class ParentKernels:
+    """The parent commit's (b69d475) K1, K10 and K11 beside this tree's
+    on the same inputs in one call: its package, unpacked with git
+    archive, imported under its own name (kasa_parent), so that its own
+    wrappers run as the parent ran them and build its kernels from its
+    csrc/ into its own _build/: K1 the first design, K10 with zeroed
+    outputs and 8-byte heads, K11's read arm on them.  E, J: its
+    core.encode and match.join; split: its K10 with the stop points of
+    PARENT_K10_STOPS."""
 
     def __init__(self, root):
-        super().__init__(
-            os.path.join(os.path.abspath(root), "kasa_tpu_torch", "csrc"),
-            "parent", (("join_match", None), ("join_scatter", None),
-                       ("mesh_merge", PARENT_K14_STOPS)))
+        import importlib
+        import importlib.util
+        pkg = os.path.join(os.path.abspath(root), "kasa_tpu_torch")
+        spec = importlib.util.spec_from_file_location(
+            "kasa_parent", os.path.join(pkg, "__init__.py"),
+            submodule_search_locations=[pkg])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["kasa_parent"] = mod
+        spec.loader.exec_module(mod)
+        importlib.import_module("kasa_parent.kernels").build_all()
+        self.E = importlib.import_module("kasa_parent.core.encode")
+        self.J = importlib.import_module("kasa_parent.match.join")
+        self.split = SplitKernels(os.path.join(pkg, "csrc"), "parent",
+                                  (("join_match", PARENT_K10_STOPS),))
+        log(f"parent package loaded from {pkg}")
 
-    def join_match(self, t, q):
-        """K10 as the parent's wrapper runs it: its five outputs zeroed,
-        one launch."""
-        import torch
-        dev = q.device
-        nk, M = t.num_k, q.shape[0]
-        matched = torch.zeros((nk, M), dtype=torch.bool, device=dev)
-        g = torch.zeros((nk, M), dtype=torch.int32, device=dev)
-        T, start = torch.zeros_like(g), torch.zeros_like(g)
-        ok = torch.zeros_like(matched)
-        self._call("join_match", t.idx_limbs.data_ptr(),
-                   t.grp_id.data_ptr(), t.grp_start.data_ptr(),
-                   t.masks.data_ptr(), t.run_end.data_ptr(),
-                   t.prefix_tbl.data_ptr(), q.data_ptr(), t.n,
-                   t.grp_start.shape[1], M, q.shape[1], nk, t.min_k,
-                   t.max_k, matched.data_ptr(), g.data_ptr(), T.data_ptr(),
-                   start.data_ptr(), ok.data_ptr(),
-                   torch.cuda.current_stream().cuda_stream)
-        return matched, g, T, start, ok
-
-    def join_scatter(self, t, valid, T, start, read_ids, R, marks=None):
-        """K11 as the parent's wrapper runs it: the float64 fill, the
-        kernel's adds, the rounding pass; marks: None or four CUDA events
-        recorded around the three."""
-        import torch
-        rec = (lambda i: marks[i].record()) if marks else (lambda i: None)
-        rec(0)
-        scores = torch.zeros((R, t.num_species), dtype=torch.float64,
-                             device=read_ids.device)
-        rec(1)
-        self._call("join_scatter", valid.data_ptr(), T.data_ptr(),
-                   start.data_ptr(), read_ids.data_ptr(), t.d_tax.data_ptr(),
-                   t.weights.data_ptr(), read_ids.shape[0],
-                   t.d_tax.shape[1], t.num_k, t.num_species,
-                   scores.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        rec(2)
-        out = scores.float()
-        rec(3)
-        return out
-
-    def mesh_merge(self, hts, hks, ofc, ofl, cap, stop=0, fill=True):
-        """K14 as the parent's wrapper runs it (the packed row zeroed,
-        then merge, scan and pack); stop 1 ends after the merge, 2 after
-        the scan; fill=False leaves the zero fill out (the caller's
-        packed row, zeroed once)."""
-        import torch
-        ip, R, wout = hts.shape
-        dev = hts.device
-        i32 = dict(dtype=torch.int32, device=dev)
-        if fill is True:
-            packed = torch.zeros((2 * R + 2 * cap + 2,), **i32)
-        else:
-            packed = fill
-        ht_m = torch.empty((R, wout), **i32)
-        hk_m = torch.empty((R, wout), dtype=torch.float32, device=dev)
-        cum = torch.empty((R,), **i32)
-        from kasa_tpu_torch import kernels as K
-        P = K._pow2(ip * wout)
-        if P > 4096:
-            fail("parent K14: its long arm is not timed here")
-        self._call("mesh_merge", hts.data_ptr(), hks.data_ptr(),
-                   ofc.data_ptr(), ofl.data_ptr(), ip, R, wout, P, cap, None,
-                   None, cum.data_ptr(), ht_m.data_ptr(), hk_m.data_ptr(),
-                   packed.data_ptr(), torch.cuda.current_stream().cuda_stream,
-                   stop)
-        return packed, ht_m, hk_m
+    def pair(self, t, q, pos, read_ids, R):
+        """The parent's K10 with its heads and K11's read arm on them."""
+        o = self.J.join_match(t, q, pos)
+        o[0] & o[4]             # the host statistics' valid flags
+        return self.J.join_scatter_reads(t, o[5], o[6], o[2], o[3],
+                                         read_ids, R)
 
 
 def turns_ms(parent_fn, change_fn, reps, timer=None):
@@ -5178,20 +5205,25 @@ def join_first_batch(tag, index, inp, over):
 
 
 def scatter_stages(tag, batch, sk, pk=None):
-    """K10 and K11 as a pair on the first batch of a join run as the
-    engine hands it over: its valid occurrences, (occurrence, taxon)
-    pairs, largest T and valid (level, occurrence) pairs a read; this
-    tree's pair (K10 writing its read-order heads at the positions K12
-    carried, K11's read arm) and the parent's (K10's key-order outputs,
-    K11's float64 fill, adds and rounding pass) in turns, each held to
-    join_scatter_plain; the parent's K11 split by CUDA events into its
-    fill, adds and rounding pass; this tree's K10 with and without its
-    heads, its K11 alone and split by their stop points (sk: K10's T = 1
-    lookups and the scatter of its heads; K11's seg_kernel, the heads
-    read and the rows written, the T = 1 adds, the T > 1 levels' adds);
-    each time both as time_ms takes it (the wrapper call
-    whole, host gaps included) and queued ahead of the card (queued_ms);
-    the plain version and the bound -> {name: ms or stats}."""
+    """K10 and K11 on the first batch of a join run as the engine hands
+    it over: its valid occurrences, (occurrence, taxon) pairs, largest T
+    and valid (level, occurrence) pairs a read; this tree's pair (K10
+    writing its 4-byte read-order heads at the positions K12 carried,
+    K11's read arm) and the parent's (pk: the same pair with 8-byte
+    heads) in turns, each held to join_scatter_plain, on the batch and on
+    its first 8,192, 16,384 and 32,768 reads; K10 alone in turns with the
+    parent's, each held to join_match_plain: with its heads on the batch,
+    without on the batch and on its first 8,192 reads sorted as the
+    engine sorts a batch of that size (the main run's batch at L = 5);
+    this tree's K10 split by its stop points (sk: search; levels; heads
+    in key order and their scatter; the variants: every query searched in
+    memory, streaming stores, the scatter without its L2 hint; the blocks
+    that copied) and the parent's alike (search; levels; heads);
+    this tree's K11 alone and split by its stop points (seg_kernel, the
+    heads read and the rows written, the T = 1 adds, the T > 1 levels'
+    adds); each time both as time_ms takes it (the wrapper call whole,
+    host gaps included) and queued ahead of the card (queued_ms); the
+    plain versions and the bounds -> {name: ms or stats}."""
     import numpy as np
     import torch
     from kasa_tpu_torch.match import join as J
@@ -5205,7 +5237,13 @@ def scatter_stages(tag, batch, sk, pk=None):
     pos = torch.arange(M, dtype=torch.int32, device=dev)
     qs, ps = J.sort_queries(q, pos, M, ids_ascending=True)
     rs = r[ps.long()]
-    matched, _, T, start, ok, heads, wide_at = J.join_match(t, qs, ps)
+    got10 = J.join_match(t, qs, ps)
+    want10 = J.join_match_plain(t, qs, ps)
+    names = ("matched", "g", "T", "start", "ok", "heads", "wide_at")
+    for name, a, b in zip(names, got10, want10):
+        same(f"stages {tag} join_match.{name}", a, b)
+    matched, _, T, start, ok, heads, wide_at = got10
+    del got10
     valid = matched & ok
     del pos, matched, ok
     per_read = torch.zeros(R, dtype=torch.int64, device=dev).index_add_(
@@ -5218,7 +5256,7 @@ def scatter_stages(tag, batch, sk, pk=None):
            "reads_without_valid": int((per_read == 0).sum()),
            "valid_per_read_median": float(per_read.double().median()),
            "valid_per_read_max": int(per_read.max()),
-           "heads_T1": int((heads[:, 0] >= 0).sum()),
+           "heads_T1": int((J.unpack_heads(heads)[0] >= 0).sum()),
            "heads_wide": int((wide_at >= 0).sum()),
            "arm": J.scatter_arm(t, True, R)}
     del Tv, per_read
@@ -5229,33 +5267,32 @@ def scatter_stages(tag, batch, sk, pk=None):
                        want)
     del got
 
-    def change():
-        o = J.join_match(t, qs, ps)
+    def ours(qx, px, rx, Rx):
+        o = J.join_match(t, qx, px)
         o[0] & o[4]             # the host statistics' valid flags
-        return J.join_scatter_reads(t, o[5], o[6], o[2], o[3], r, R)
+        return J.join_scatter_reads(t, o[5], o[6], o[2], o[3], rx, Rx)
+    change = (lambda: ours(qs, ps, r, R))
     parent = None
     if pk is not None:
-        po = pk.join_match(t, qs)
-        for name, a, b in zip(("matched", "g", "T", "start", "ok"), po,
-                              J.join_match_plain(t, qs)):
+        po = pk.J.join_match(t, qs, ps)
+        for name, a, b in zip(names[:5], po, want10):
             same(f"stages {tag} parent join_match.{name}", a, b)
-        pg = pk.join_scatter(t, po[0] & po[4], po[2], po[3], rs, R)
+        pg = pk.pair(t, qs, ps, r, R)
         same(f"stages {tag} parent join_scatter.hit_cells", pg > 0,
              want > 0)
         close(f"stages {tag} parent join_scatter.scores", pg, want)
         del po, pg
-
-        def parent():
-            o = pk.join_match(t, qs)
-            return pk.join_scatter(t, o[0] & o[4], o[2], o[3], rs, R)
+        parent = (lambda: pk.pair(t, qs, ps, r, R))
     sg = sk.join_scatter_reads(t, heads, wide_at, T, start, r, R)
     close(f"stages {tag} split join_scatter.reads.scores", sg, want)
-    del sg, want
+    del sg, want, want10
     out["parent"], out["ms"] = turns_ms(parent, change, 10)
     out["parent_q"], out["ms_q"] = turns_ms(parent, change, 10, queued_ms)
-    if pk is not None and R > 8192:
-        # the pairs on the batch's first reads: where the read arm's edge
-        # over the parent's pair falls with the batch's size
+    # the batch's first reads: its first 8,192 as the engine sorts a
+    # batch of that size (the read ids carried, K10 without heads), and
+    # the pairs on its first 8,192, 16,384 and 32,768
+    subsets = {}
+    if R > 8192:
         out["first_reads_q"] = {}
         for Rs in (x for x in (8192, 16384, 32768) if x < R):
             Ms = int(torch.searchsorted(
@@ -5264,27 +5301,74 @@ def scatter_stages(tag, batch, sk, pk=None):
             qs2, ps2 = J.sort_queries(
                 q2, torch.arange(Ms, dtype=torch.int32, device=dev), Ms,
                 ids_ascending=True)
-            rs2 = r2[ps2.long()]
-
-            def ch():
-                o = J.join_match(t, qs2, ps2)
-                o[0] & o[4]
-                return J.join_scatter_reads(t, o[5], o[6], o[2], o[3], r2,
-                                            Rs)
-
-            def pa():
-                o = pk.join_match(t, qs2)
-                return pk.join_scatter(t, o[0] & o[4], o[2], o[3], rs2, Rs)
-            out["first_reads_q"][Rs] = turns_ms(pa, ch, 10, queued_ms)
-            del q2, r2, qs2, ps2, rs2
+            if Rs == 8192:
+                subsets["key_order_8192"] = J.sort_queries(
+                    q2, r2, Rs, ids_ascending=True)[0]
+            if pk is not None:
+                out["first_reads_q"][Rs] = turns_ms(
+                    lambda: pk.pair(t, qs2, ps2, r2, Rs),
+                    lambda: ours(qs2, ps2, r2, Rs), 10, queued_ms)
+            del q2, r2, qs2, ps2
     del q
-    for key, fn in (
-            ("k10_records", lambda: J.join_match(t, qs, ps)),
-            ("k10_key_order", lambda: J.join_match(t, qs)),
-            ("k11_reads", lambda: J.join_scatter_reads(
-                t, heads, wide_at, T, start, r, R))):
-        out[key] = time_ms(fn, 10)
-        out[key + "_q"] = queued_ms(fn, 10)
+    # K10 alone, in turns with the parent's
+    k10 = {"records": (qs, ps), "key_order": (qs, None)}
+    k10.update({k: (v, None) for k, v in subsets.items()})
+    out["k10"] = {}
+    for key, (qa, pa) in k10.items():
+        want = J.join_match_plain(t, qa, pa)
+        for name, a, b in zip(names, J.join_match(t, qa, pa), want):
+            same(f"stages {tag} join_match.{key}.{name}", a, b)
+        e = {"M": qa.shape[0]}
+        pfn = None
+        if pk is not None:
+            for name, a, b in zip(names, pk.J.join_match(t, qa, pa)[:5],
+                                  want):
+                same(f"stages {tag} parent join_match.{key}.{name}", a, b)
+            pfn = (lambda: pk.J.join_match(t, qa, pa))
+        cfn = (lambda: J.join_match(t, qa, pa))
+        e["parent"], e["ms"] = turns_ms(pfn, cfn, 10)
+        e["parent_q"], e["ms_q"] = turns_ms(pfn, cfn, 10, queued_ms)
+        e["plain"] = time_ms(lambda: J.join_match_plain(t, qa, pa), 3)
+        e["bound"] = join_match_bytes(t, qa, want) / HBM_BYTES_PER_S * 1e3
+        # the split: 1 search, 2 no heads, 8 the heads in key order (no
+        # scatter), 3 search in memory, 6 streaming stores, 9 the scatter
+        # without its L2 hint, 0 whole
+        sfn = (lambda: sk.join_match(t, qa, pa))
+        stops = (0, 1, 2, 8, 0, 3, 6, 9) if pa is not None \
+            else (0, 1, 0, 3, 6)
+        cut = dict(zip(stops, sk.timed_stops("join_match", stops, sfn, 10)))
+        e["stages_q"] = {"search": cut[1],
+                         "levels": cut[2 if pa is not None else 0] - cut[1],
+                         "heads": cut[0] - cut[2] if pa is not None else 0.0,
+                         "whole": cut[0], "search_in_memory": cut[3],
+                         "streaming_stores": cut[6]}
+        if pa is not None:
+            e["stages_q"]["heads_keyed"] = cut[8] - cut[2]
+            e["stages_q"]["heads_scatter"] = cut[0] - cut[8]
+            e["stages_q"]["scatter_no_hint"] = cut[9]
+        d = sk.probe("join_match", sfn)
+        e["blocks_copied"], e["blocks"], e["queries_in_memory"] = \
+            d[0], d[1], d[2]
+        if pk is not None:
+            pst = (0, 1, 2, 0) if pa is not None else (0, 1, 0)
+            pc = dict(zip(pst, pk.split.timed_stops(
+                "join_match", pst,
+                lambda: pk.split.join_match(t, qa, pa), 10)))
+            e["parent_stages_q"] = {
+                "search": pc[1],
+                "levels": pc[2 if pa is not None else 0] - pc[1],
+                "heads": pc[0] - pc[2] if pa is not None else 0.0,
+                "whole": pc[0]}
+        out["k10"][key] = e
+        del want
+    sm = sk.join_match(t, qs, ps)
+    same(f"stages {tag} split join_match.heads", sm[5], heads)
+    same(f"stages {tag} split join_match.wide_at", sm[6], wide_at)
+    del sm
+    out["k11_reads"] = time_ms(lambda: J.join_scatter_reads(
+        t, heads, wide_at, T, start, r, R), 10)
+    out["k11_reads_q"] = queued_ms(lambda: J.join_scatter_reads(
+        t, heads, wide_at, T, start, r, R), 10)
     cut = sk.timed_stops("join_scatter", (1, 2, 3, 4, 0),
                          lambda: sk.join_scatter_reads(
                              t, heads, wide_at, T, start, r, R), 10)
@@ -5300,30 +5384,60 @@ def scatter_stages(tag, batch, sk, pk=None):
         "rounds_per_call": d[2] / max(d[3], 1),
         "read_cycles": d[4] / max(d[5], 1), "reads": d[5],
         "grid": d[6], "block": d[7]}
-    sm = sk.join_match(t, qs, ps)
-    same(f"stages {tag} split join_match.heads", sm[5], heads)
-    same(f"stages {tag} split join_match.wide_at", sm[6], wide_at)
-    del sm
-    cut = sk.timed_stops("join_match", (1, 2, 0),
-                         lambda: sk.join_match(t, qs, ps), 10)
-    out["k10_stages_q"] = {"t1_lookups": cut[2] - cut[0],
-                           "scattered_heads": cut[2] - cut[1]}
-    if pk is not None:
-        for key, fn in (
-                ("parent_k10", lambda: pk.join_match(t, qs)),
-                ("parent_k11", lambda: pk.join_scatter(t, valid, T, start,
-                                                       rs, R))):
-            out[key] = time_ms(fn, 10)
-            out[key + "_q"] = queued_ms(fn, 10)
-        out["parent_stages"] = dict(zip(
-            ("fill", "adds", "round"),
-            marked_ms(lambda m: pk.join_scatter(t, valid, T, start, rs, R,
-                                                marks=m), 4)))
     out["plain"] = time_ms(lambda: J.join_scatter_reads_plain(
         t, heads, wide_at, T, start, r, R), 3)
     out["bound"] = scatter_reads_bytes(t, heads, wide_at, T, start, R) \
         / HBM_BYTES_PER_S * 1e3
     log(f"stages join_scatter {tag}: " + json.dumps(out))
+    return out
+
+
+def encode_stages(corpus, pk=None):
+    """K1 on the batches of the main path: the default batch, the wide
+    batch (highestK 25, L = 5), the sloppy fold of the default batch and
+    the per-batch engine's line buffer of the classic pairs run at
+    -k 25 12 (one flat row); this tree's kernel and the parent's (pk) in
+    turns on the same inputs, each held to the plain version, both as
+    time_ms takes the wrapper call and queued ahead of the card
+    (queued_ms); the plain version and the bound -> {arm: ms or
+    stats}."""
+    import numpy as np
+    import torch
+    from kasa_tpu_torch.core import encode as E
+    from kasa_tpu_torch.core.alphabet import build_codon_code_lut
+    dev = torch.device(DEVICE)
+    lut = torch.from_numpy(build_codon_code_lut().astype(np.int32)).to(dev)
+    aas = torch.from_numpy(E.aas_code_lut()).to(dev)
+    mat, _, w, _ = real_batch(corpus)
+    matw, _, ww, _ = real_batch(corpus, highest_k=25, min_k=20)
+    buf = pairs_first_batch(corpus["pairs"])[3]
+    arms = {"default": (mat, w, {}), "wide": (matw, ww, {"highest_k": 25}),
+            "sloppy": (mat, w, {"aas_lut": aas}),
+            "flat": (buf.reshape(1, -1), len(buf) - 75 + 1,
+                     {"highest_k": 25})}
+    out = {}
+    for arm, (m, wa, kw) in arms.items():
+        md = torch.from_numpy(m).to(dev)
+        want = E.encode_windows_plain(md, lut, wa, **kw)
+        same(f"stages encode.{arm}", E.encode_windows(md, lut, wa, **kw),
+             want)
+        pfn = None
+        if pk is not None:
+            same(f"stages parent encode.{arm}",
+                 pk.E.encode_windows(md, lut, wa, **kw), want)
+            pfn = (lambda: pk.E.encode_windows(md, lut, wa, **kw))
+        cfn = (lambda: E.encode_windows(md, lut, wa, **kw))
+        o = {"rows": m.shape[0], "maxlen": m.shape[1], "w": wa,
+             "L": want.shape[1]}
+        o["parent"], o["ms"] = turns_ms(pfn, cfn, 20)
+        o["parent_q"], o["ms_q"] = turns_ms(pfn, cfn, 20, queued_ms)
+        o["plain"] = time_ms(lambda: E.encode_windows_plain(md, lut, wa,
+                                                            **kw), 3)
+        o["bound"] = (m.size + want.numel() * 4 + 4096 * ("aas_lut" in kw)) \
+            / HBM_BYTES_PER_S * 1e3
+        out[arm] = o
+        del md, want
+    log("stages encode: " + json.dumps(out))
     return out
 
 
@@ -5398,18 +5512,15 @@ def mesh_lists(index, smoke, R, ip):
             ofc.contiguous(), ofl.contiguous(), cap, wout)
 
 
-def merge_stages(index, smoke, R, ip, sk, pk=None):
+def merge_stages(index, smoke, R, ip, sk):
     """K14 on the lists of a real R-read batch of the default corpus at ip
     shards (mesh_lists): the taxa a read (mean and largest) and the share
-    of a read's taxa that several shards hold; this tree's kernel and the
-    parent's in turns, each held to mesh_merge_plain (integers identical,
-    ksums within the contract; this tree's ksums bit for bit the
-    parent's); the parent's split by its stop points into its zero fill
-    of the packed row, merge, scan and pack; this tree's zero fill apart
-    and its kernel split by its own (sk: loads, pass A and scan;
-    look-back; pass B); each time both as time_ms takes it and queued
-    ahead of the card (queued_ms); the plain version and the bound ->
-    {name: ms or stats}."""
+    of a read's taxa that several shards hold; the kernel held to
+    mesh_merge_plain (integers identical, ksums within the contract); its
+    zero fill apart and the kernel split by its stop points (sk: loads,
+    pass A and scan; look-back; pass B); each time both as time_ms takes
+    it and queued ahead of the card (queued_ms); the plain version and
+    the bound -> {name: ms or stats}."""
     import torch
     from kasa_tpu_torch import kernels as K
     from kasa_tpu_torch.match import turbo as T
@@ -5443,21 +5554,12 @@ def merge_stages(index, smoke, R, ip, sk, pk=None):
     same(f"stages {tag} ht_m", got[1], want[1])
     out["err"] = close(f"stages {tag} hk_m", got[2], want[2])
     out["hits"], out["flagged"] = int(got[0][-2]), int(got[0][-1])
-    parent = None
-    if pk is not None:
-        pg = pk.mesh_merge(*args)
-        for i, name in enumerate(("packed", "ht_m", "hk_m")):
-            # the same floats: both sum each taxon's ksums in shard order
-            same(f"stages {tag} parent {name}", pg[i], got[i])
-        parent = lambda: pk.mesh_merge(*args)
     sg = sk.mesh_merge(*args)
     for i, name in enumerate(("packed", "ht_m", "hk_m")):
         same(f"stages {tag} split {name}", sg[i], got[i])
     del got, want, sg
-    out["parent"], out["ms"] = turns_ms(
-        parent, lambda: TM.mesh_merge(*args), 20)
-    out["parent_q"], out["ms_q"] = turns_ms(
-        parent, lambda: TM.mesh_merge(*args), 20, queued_ms)
+    out["ms"] = time_ms(lambda: TM.mesh_merge(*args), 20)
+    out["ms_q"] = queued_ms(lambda: TM.mesh_merge(*args), 20)
     size = 2 * R + 2 * cap + 2
     warps = out["warps"]
     out["fill_q"] = queued_ms(lambda: torch.zeros(
@@ -5479,14 +5581,6 @@ def merge_stages(index, smoke, R, ip, sk, pk=None):
         part = (hts[:, :n].contiguous(), hks[:, :n].contiguous(),
                 ofc[:n].contiguous(), ofl[:n].contiguous(), cap)
         out["reads_q"][n] = queued_ms(lambda: TM.mesh_merge(*part), 20)
-    if pk is not None:
-        cut = [queued_ms(lambda: pk.mesh_merge(*args, stop=s, fill=buf), 20)
-               for s in (1, 2, 0)]
-        out["parent_stages_q"] = {
-            "fill": queued_ms(lambda: torch.zeros(
-                (size,), dtype=torch.int32, device=hts.device), 20),
-            "merge": cut[0], "scan": cut[1] - cut[0],
-            "pack": cut[2] - cut[1]}
     out["plain"] = time_ms(lambda: TM.mesh_merge_plain(*args), 5)
     out["bound"] = mesh_merge_bytes(hts, size) / HBM_BYTES_PER_S * 1e3
     log(f"stages {tag}: " + json.dumps(out))
@@ -5501,8 +5595,9 @@ def run_stages(preps, smi, t_all, parent=None):
     lists of a batch at 2 and 4 shards), of K3, K4 and K6 on the
     10,001-species corpus (the sparse batch) and of K2, K10 and K11 on the
     128-bit corpus (the wide batch, the first batch of a join run at
-    L = 5 over the smoke reads); with parent, a checkout of the parent commit, its K10, K11
-    and K14 timed beside this tree's in the same call."""
+    L = 5 over the smoke reads), of K1 on the main path's batches
+    (encode_stages); with parent, a checkout of the parent commit, its
+    K1, K10 and K11 timed beside this tree's in the same call."""
     from kasa_tpu_torch import synth
     from kasa_tpu_torch.match import fast
     phase_build()
@@ -5534,6 +5629,9 @@ def run_stages(preps, smi, t_all, parent=None):
     out["additive"] = additive_stages(tt, mat, R, w, disp.csr_cap(R))
     out["route"] = route_stages(mat, R, w)
     out["dedup"] = dedup_stages(corpus)
+    t_enc = time.perf_counter()
+    out["encode"] = encode_stages(corpus, pk)
+    out["encode"]["stage_s"] = time.perf_counter() - t_enc
     del disp, tt
     forget_tables()
     batch, secs = join_first_batch("stages join", corpus["index"],
@@ -5572,7 +5670,7 @@ def run_stages(preps, smi, t_all, parent=None):
     for ip in MERGE_IPS:
         wait_prep(preps, t_all, (f"shards{ip}",))
         out["merge"][f"ip{ip}"] = merge_stages(
-            corpus["index"], corpus["smoke"], 8192, ip, sk, pk)
+            corpus["index"], corpus["smoke"], 8192, ip, sk)
     with open(os.path.join(OUT, "chip_smoke_stages.json"), "w") as fh:
         json.dump(out, fh, indent=1)
 

@@ -138,6 +138,20 @@ __device__ __forceinline__ long long lower_bound_full(
     return lo;
 }
 
+// K10's read-order head of a query (join_match.cu), which K11's read arm
+// takes (join_scatter.cu): the taxon of its T = 1 levels + 1 in bits
+// 0-14 (0 for none; S < 2^15), its first valid level lo in bits 15-19 and
+// its first valid level of T > 1, hi, in bits 20-24 (numK <= 25); the
+// plain versions' match/join.py pack_heads
+__device__ __forceinline__ int32_t pack_head(int taxon, int lo, int hi) {
+    return (taxon + 1) | (lo << 15) | (hi << 20);
+}
+__device__ __forceinline__ int head_taxon(int32_t h) {
+    return (h & 0x7fff) - 1;
+}
+__device__ __forceinline__ int head_lo(int32_t h) { return (h >> 15) & 31; }
+__device__ __forceinline__ int head_hi(int32_t h) { return (h >> 20) & 31; }
+
 // The largest k at which a window is valid: the first '^' (letter 30) at
 // a position >= min_k - 1 gives that position (valid k <= pos), none
 // gives max_k.  The limb is picked by unrolled selects: a runtime index

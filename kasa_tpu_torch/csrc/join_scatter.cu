@@ -182,7 +182,8 @@ __device__ __forceinline__ void add_wide(double* srow, const int32_t* dtk,
 }
 
 __global__ void __launch_bounds__(kReadThreads) reads_kernel(
-        const int2* __restrict__ heads, const int32_t* __restrict__ wide_at,
+        const int32_t* __restrict__ heads,
+        const int32_t* __restrict__ wide_at,
         const int32_t* __restrict__ T, const int32_t* __restrict__ start,
         const long long* __restrict__ seg, const int32_t* __restrict__ d_tax,
         const float* __restrict__ weights, long long M, long long tmax,
@@ -203,7 +204,7 @@ __global__ void __launch_bounds__(kReadThreads) reads_kernel(
     unsigned long long* tickets =
         reinterpret_cast<unsigned long long*>(const_cast<long long*>(seg))
         + R + 1;
-    const int2 none = make_int2(-1, num_k | (num_k << 8));
+    const int32_t none = pack_head(-1, num_k, num_k);
     if (threadIdx.x == 0) s_ticket = (long long)atomicAdd(tickets, 1ull);
     __syncthreads();
     long long r = s_ticket, s = 0, e = 0;
@@ -211,8 +212,8 @@ __global__ void __launch_bounds__(kReadThreads) reads_kernel(
         s = seg[r];
         e = seg[r + 1];
     }
-    int2 first = r < R && s + threadIdx.x < e ? heads[s + threadIdx.x]
-                                              : none;
+    int32_t first = r < R && s + threadIdx.x < e ? heads[s + threadIdx.x]
+                                                 : none;
     while (r < R) {
         // the next read's ticket, read by all after the barrier below
         long long ticket = 0;
@@ -221,14 +222,14 @@ __global__ void __launch_bounds__(kReadThreads) reads_kernel(
         for (long long base = s; base < e; base += blockDim.x) {
             const long long m = base + threadIdx.x;
             const bool active = m < e;
-            const int2 h = base == s ? first : active ? heads[m] : none;
-            const int lo = h.y & 255, hi = (h.y >> 8) & 255;
+            const int32_t h = base == s ? first : active ? heads[m] : none;
+            const int tax = head_taxon(h), lo = head_lo(h), hi = head_hi(h);
             // the T = 1 levels [lo, hi), one taxon: one term, their w(k)
             // summed in float64
             double v = 0.0;
-            if (h.x >= 0)
+            if (tax >= 0)
                 for (int ki = lo; ki < hi; ++ki) v += (double)lev[ki];
-            add_one(srow, h.x, v);
+            add_one(srow, tax, v);
             // the T > 1 levels [hi, numK), their T and start from K10's
             // key-order outputs at the query's row there (the first kPre
             // levels' loaded at once)
@@ -298,7 +299,7 @@ extern "C" int kasa_join_scatter(
     return (int)cudaGetLastError();
 }
 
-// The read arm: heads (M, 2) and wide_at (M,) int32 from K10 in the
+// The read arm: heads and wide_at (M,) int32 from K10 in the
 // batch's own order, T and start (numK, M) int32, K10's key-order
 // outputs; read_ids (M,) of the batch's order, ascending; seg (R + 1,)
 // int64 scratch (and a ticket counter after it); scores (R, S) float32,
@@ -351,7 +352,7 @@ extern "C" int kasa_join_scatter_reads(
     const long long blocks = max(
         min((long long)R, (long long)max(per_sm[dev], 1) * sms), 1LL);
     reads_kernel<<<(unsigned)blocks, threads, smem, st>>>(
-        (const int2*)heads, (const int32_t*)wide_at, (const int32_t*)T,
+        (const int32_t*)heads, (const int32_t*)wide_at, (const int32_t*)T,
         (const int32_t*)start, (const long long*)seg, (const int32_t*)d_tax,
         (const float*)weights, M, tmax, num_k, S, R, (float*)scores);
     return (int)cudaGetLastError();

@@ -65,7 +65,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _MULTI = [_P] * 8 + [_I] * 8 + [_L, _I, _I] + [_P] * 14
 _ARGTYPES = {
-    "kasa_encode_windows": [_P, _P] + [_I] * 7 + [_P, _P, _P],
+    "kasa_encode_windows": [_P, _P] + [_I] * 7 + [_P, _I, _P, _P],
     "kasa_turbo_match": [_P] * 6 + [_L] + [_I] * 7 + [_P, _P, _P],
     "kasa_turbo_reads_pre": [_P, _P] + [_I] * 4 + [_P] * 7,
     "kasa_turbo_reads_pre_hist": [_P, _P] + [_I] * 5 + [_P] * 7,
@@ -89,7 +89,7 @@ _ARGTYPES = {
     "kasa_tiered_prefix": [_P, _I, _P, _P],
     "kasa_classic_classify": [_P] * 11 + [_L] * 4 + [_I] * 10 + [_P] * 6,
     "kasa_classic_smem_budget": [_I],
-    "kasa_join_match": [_P] * 9 + [_L] * 4 + [_I] * 4 + [_P] * 8,
+    "kasa_join_match": [_P] * 9 + [_L] * 4 + [_I] * 4 + [_P] * 9,
     "kasa_join_scatter": [_P] * 6 + [_L] * 2 + [_I] * 2 + [_P] * 2,
     "kasa_join_scatter_reads": [_P] * 7 + [_L] * 2 + [_I] * 4 + [_P] * 3,
     "kasa_query_sort": [_P] * 7 + [_L, _I, _I, _P, _P],
@@ -233,7 +233,9 @@ def _sort_plan(sym: str, *args) -> tuple[int, int]:
 
 
 def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    # the raw handle, without the torch.cuda.Stream object that
+    # current_stream builds (microseconds of host time a launch)
+    return torch._C._cuda_getCurrentRawStream(_device_index(device))
 
 
 def _device_index(device: torch.device) -> int:
@@ -276,15 +278,16 @@ def encode_windows(byte_mat: torch.Tensor, lut: torch.Tensor, w: int,
                    protein: bool = False, one_frame: bool = False,
                    highest_k: int = 12,
                    aas_lut: torch.Tensor | None = None) -> torch.Tensor:
-    """aas_lut, (1024,) int32: the sloppy arm (highestK 12 only)."""
-    from .core.kmer import num_limbs
+    """aas_lut, (1024,) int32: the sloppy arm (highestK 12 only).  The
+    window bounds are the caller's to check (core/encode.py _check)."""
     dev = byte_mat.device
     if dev.type != "cuda":
         raise ValueError("encode_windows: the kernel takes CUDA tensors")
     rows, maxlen = byte_mat.shape
     _check(byte_mat, "byte_mat", torch.uint8, (rows, maxlen), dev)
-    _check(lut, "lut", torch.int32, (lut.numel(),), dev)
-    if lut.numel() < 1:
+    n_lut = lut.numel()
+    _check(lut, "lut", torch.int32, (n_lut,), dev)
+    if n_lut < 1:
         raise ValueError("lut: empty")
     # a window's offset in its row is a 32-bit int in the kernel (the
     # per-batch engine encodes a whole batch as one row)
@@ -295,12 +298,12 @@ def encode_windows(byte_mat: torch.Tensor, lut: torch.Tensor, w: int,
         _check(aas_lut, "aas_lut", torch.int32, (1024,), dev)
         if highest_k != 12:
             raise ValueError("the sloppy arm folds windows of 12 letters")
-    out = torch.empty((rows * w, num_limbs(highest_k)), dtype=torch.int32,
+    out = torch.empty((rows * w, -(-highest_k // 6)), dtype=torch.int32,
                       device=dev)
-    step = 3 if one_frame and not protein else 1
     _launch("kasa_encode_windows", "encode", _ptr(byte_mat), _ptr(lut),
-            lut.numel(), rows, maxlen, w, int(protein), step, highest_k,
-            _ptr(aas_lut), _ptr(out), _stream(dev))
+            n_lut, rows, maxlen, w, int(protein),
+            3 if one_frame and not protein else 1, highest_k, _ptr(aas_lut),
+            _sms(dev), _ptr(out), _stream(dev))
     return out
 
 
@@ -960,9 +963,12 @@ def join_match(t, q, pos=None):
     """-> (matched (numK, M) bool, g, T, start (numK, M) int32, ok
     (numK, M) bool) for StackedTables t (match/join.py
     join_match_plain); with pos ((M,) int32, each query's position in
-    the batch before K12 sorted it), also heads (M, 2) and wide_at (M,)
-    int32, the read-order records K11's read arm takes
-    (csrc/join_match.cu)."""
+    the batch before K12 sorted it, a permutation of 0 .. M-1), also
+    heads and wide_at (M,) int32, the read-order records K11's read arm
+    takes (csrc/join_match.cu).  Heads exist where the read arm takes
+    the batch: raises with pos where its row of S cells passes the
+    card's shared memory (join_scatter_arm)."""
+    from .match.join import pack_heads
     dev = q.device
     if dev.type != "cuda":
         raise ValueError("join_match: the kernel takes CUDA tensors")
@@ -974,21 +980,24 @@ def join_match(t, q, pos=None):
         raise ValueError(f"{nk} k levels: the kernel takes at most 25")
     _check_classic_tables(t, L, dev)
     _check(q, "q", torch.int32, (M, L), dev)
-    matched = torch.zeros((nk, M), dtype=torch.bool, device=dev)
-    g = torch.zeros((nk, M), dtype=torch.int32, device=dev)
-    T = torch.zeros_like(g)
-    start = torch.zeros_like(g)
-    ok = torch.zeros_like(matched)
-    heads = wide_at = None
+    # the kernel writes every cell where the index has entries
+    alloc = torch.zeros if M == 0 or n == 0 else torch.empty
+    b8, i32 = dict(dtype=torch.bool, device=dev), \
+        dict(dtype=torch.int32, device=dev)
+    matched, ok = alloc((nk, M), **b8), alloc((nk, M), **b8)
+    g, T, start = (alloc((nk, M), **i32) for _ in range(3))
+    heads = wide_at = keyed = None
     if pos is not None:
         _check(pos, "pos", torch.int32, (M,), dev)
+        if 8 * t.num_species > dedup_smem(dev) - _SCATTER_RESERVE:
+            raise ValueError(f"join_match: S = {t.num_species}, past K11's "
+                             "read arm (join_scatter_arm), has no heads")
         # the kernel writes every head where the index has entries, and
-        # the rows of queries with T > 1 levels
-        heads = torch.empty((M, 2), dtype=torch.int32, device=dev)
-        if n == 0:
-            heads[:, 0] = -1
-            heads[:, 1] = nk | nk << 8
-        wide_at = torch.full((M,), -1, dtype=torch.int32, device=dev)
+        # wide_at where a query has levels of several taxa
+        heads = torch.full((M,), pack_heads(-1, nk, nk), **i32) if n == 0 \
+            else torch.empty((M,), **i32)
+        wide_at = torch.full((M,), -1, **i32)
+        keyed = torch.empty((M,), **i32)      # the heads in key order
     outs = (matched, g, T, start, ok) + (
         () if heads is None else (heads, wide_at))
     if M == 0 or n == 0:
@@ -998,7 +1007,8 @@ def join_match(t, q, pos=None):
             _ptr(t.run_end), _ptr(t.prefix_tbl), _ptr(q), _ptr(t.d_tax),
             _ptr(pos), n, t.grp_start.shape[1], t.d_tax.shape[1], M, L, nk,
             t.min_k, t.max_k, _ptr(matched), _ptr(g), _ptr(T), _ptr(start),
-            _ptr(ok), _ptr(heads), _ptr(wide_at), _stream(dev))
+            _ptr(ok), _ptr(heads), _ptr(wide_at),
+            _ptr(keyed), _stream(dev))
     return outs
 
 
@@ -1058,7 +1068,7 @@ def join_scatter(t, valid, T, start, read_ids, num_reads: int):
 def join_scatter_reads(t, heads, wide_at, T, start, read_ids,
                        num_reads: int):
     """The read arm, counted as "join_scatter.reads": -> (num_reads, S)
-    float32 scores from K10's records (heads (M, 2), wide_at (M,)) in the
+    float32 scores from K10's records (heads, wide_at (M,)) in the
     batch's own order, its key-order T and start (numK, M), and the
     batch's read ids (M,), which must ascend (match/join.py
     join_scatter_reads_plain).  Raises where the row passes the card's
@@ -1069,7 +1079,7 @@ def join_scatter_reads(t, heads, wide_at, T, start, read_ids,
     M = read_ids.shape[0]
     nk, S = t.num_k, t.num_species
     _check(read_ids, "read_ids", torch.int32, (M,), dev)
-    _check(heads, "heads", torch.int32, (M, 2), dev)
+    _check(heads, "heads", torch.int32, (M,), dev)
     _check(wide_at, "wide_at", torch.int32, (M,), dev)
     _check(T, "T", torch.int32, (nk, M), dev)
     _check(start, "start", torch.int32, (nk, M), dev)

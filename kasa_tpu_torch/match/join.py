@@ -231,6 +231,25 @@ def sort_queries(q: torch.Tensor, read_ids: torch.Tensor, num_reads: int,
     return kernels.query_sort(q, read_ids, rid_bits)
 
 
+# K10's read-order head of a window, 4 bytes (csrc/common.cuh
+# pack_head): its one-taxon levels' taxon + 1 in bits 0-14 (0 for none),
+# lo in bits 15-19, hi in bits 20-24.  Heads exist where K11's read arm
+# takes a batch; on the card its row of S float64 cells keeps S below
+# 29,049 (kernels.join_scatter_arm), under HEAD_S_MAX
+HEAD_S_MAX = (1 << 15) - 1
+
+
+def pack_heads(taxon, lo, hi):
+    """Heads of taxon (-1 for none), lo and hi (int tensors or arrays
+    of one shape) -> csrc/common.cuh pack_head."""
+    return (taxon + 1) | lo << 15 | hi << 20
+
+
+def unpack_heads(h):
+    """-> (taxon, -1 for none; lo; hi) of packed heads."""
+    return (h & 0x7FFF) - 1, (h >> 15) & 31, (h >> 20) & 31
+
+
 def _check_match(t, q):
     if q.dim() != 2 or q.shape[1] != t.idx_limbs.shape[1]:
         raise ValueError(f"queries of shape {tuple(q.shape)} against an "
@@ -249,15 +268,16 @@ def join_match_plain(t, q: torch.Tensor, pos: torch.Tensor | None = None):
     exists, holds the entry at pos or at pos - 1.
 
     With pos ((M,) int32, each query's position in the batch before the
-    sort), also the read-order records K11's read arm takes
-    (csrc/join_match.cu), at row pos[m] of each: heads (M, 2) int32, x =
-    the taxon d_tax[lo][start] where T == 1 at lo, the query's first
-    valid level (matched and ok), else -1; y = lo | hi << 8, hi its
-    first valid level with T > 1 (numK where none of either); and wide_at
-    (M,) int32, m where hi < numK, else -1.  Valid levels nest (a query
-    valid at ki is valid at every ki' > ki, in a group holding the
-    deeper one's entries): its T = 1 levels are [lo, hi), one taxon, its
-    T > 1 levels [hi, numK)."""
+    sort, a permutation of 0 .. M-1), also the read-order records K11's
+    read arm takes (csrc/join_match.cu), at row pos[m] of each: heads
+    (M,) int32, pack_heads of the taxon d_tax[lo][start] where T == 1 at
+    lo, the query's first valid level (matched and ok), else -1; lo; and
+    hi, its first valid level with T > 1 (numK where none of either);
+    and wide_at (M,) int32, m where hi < numK, else -1.  Valid levels
+    nest (a query valid at ki is valid at every ki' > ki, in a group
+    holding the deeper one's entries): its T = 1 levels are [lo, hi), one
+    taxon, its T > 1 levels [hi, numK).  Raises for an index of more than
+    HEAD_S_MAX species with pos."""
     from ..ops.search import lower_bound_plain
     from .device import _valid_levels
     _check_match(t, q)
@@ -271,8 +291,10 @@ def join_match_plain(t, q: torch.Tensor, pos: torch.Tensor | None = None):
     heads = wide_at = None
     dest = None if pos is None else pos.long()
     if pos is not None:
-        heads = torch.stack([torch.full((M,), -1, **i32),
-                             torch.full((M,), nk | nk << 8, **i32)], dim=1)
+        if t.num_species > HEAD_S_MAX:
+            raise ValueError(f"S = {t.num_species}: a head names at most "
+                             f"{HEAD_S_MAX} taxa")
+        heads = torch.full((M,), pack_heads(-1, nk, nk), **i32)
         wide_at = torch.full((M,), -1, **i32)
     outs = (matched, g, T, start, ok) + (
         () if heads is None else (heads, wide_at))
@@ -306,8 +328,7 @@ def join_match_plain(t, q: torch.Tensor, pos: torch.Tensor | None = None):
         m = torch.arange(M, device=q.device)
         one = (lo < nk) & (T[at, m] == 1)
         taxon = t.d_tax[at, torch.where(one, start[at, m], 0).long()]
-        heads[dest, 0] = torch.where(one, taxon, -1)
-        heads[dest, 1] = (lo | hi << 8).int()
+        heads[dest] = pack_heads(torch.where(one, taxon, -1), lo, hi).int()
         wide_at[dest] = torch.where(hi < nk, m, -1).int()
     return outs
 
@@ -362,7 +383,7 @@ def join_scatter_reads_plain(t, heads, wide_at, T, start, read_ids,
     join_match_plain with pos) in the batch's own order, K10's key-order
     T and start, and the batch's read ids (M,) -> the (num_reads, S)
     float32 scores of join_scatter_plain: a query's T = 1 levels [lo,
-    hi) add w(k) each to its read's cell of the taxon heads[:, 0], its
+    hi) add w(k) each to its read's cell of its head's taxon, its
     T > 1 levels [hi, numK) add w(k) * (1/T) to each of the group's T
     taxa d_tax[ki][start .. start + T) (T and start at its row
     wide_at), summed in float64 and rounded once."""
@@ -370,12 +391,12 @@ def join_scatter_reads_plain(t, heads, wide_at, T, start, read_ids,
     dev = read_ids.device
     nk = t.num_k
     scores = torch.zeros((num_reads, S), dtype=torch.float64, device=dev)
-    lo, hi = heads[:, 1] & 255, (heads[:, 1] >> 8) & 255
+    taxon, lo, hi = unpack_heads(heads)
     rid = read_ids.long()
     for ki in range(nk):
-        one = (heads[:, 0] >= 0) & (lo <= ki) & (ki < hi)
+        one = (taxon >= 0) & (lo <= ki) & (ki < hi)
         scores.view(-1).index_add_(
-            0, rid[one] * S + heads[one, 0].long(),
+            0, rid[one] * S + taxon[one].long(),
             t.weights[ki].double().expand(int(one.sum())))
         wide = (wide_at >= 0) & (hi <= ki)
         row = wide_at[wide].long()
@@ -410,9 +431,10 @@ def scatter_arm(t, read_order: bool, num_reads: int) -> str:
     order, its read ids ascending, it is large enough and the read's row
     fits a block's shared memory; else "global"); on the CPU, where
     either arm is its plain version, "reads" wherever the read ids
-    ascend."""
+    ascend and a head can name every taxon (HEAD_S_MAX)."""
     if t.device.type == "cpu":
-        return "reads" if read_order else "global"
+        return "reads" if read_order and t.num_species <= HEAD_S_MAX \
+            else "global"
     from .. import kernels
     return kernels.join_scatter_arm(t.num_species, read_order,
                                     kernels.dedup_smem(t.device), num_reads)

@@ -213,7 +213,8 @@ def test_read_order_plain_against_jax(case):
                                      _score_scatter, weight)
     from kasa_tpu_torch.match.join import (join_match_plain,
                                            join_scatter_reads_plain,
-                                           sort_queries_plain)
+                                           pack_heads, sort_queries_plain,
+                                           unpack_heads)
     jd, ts, q = case["jd"], case["ts"], case["q"]
     min_k, max_k, R = case["min_k"], case["max_k"], 40
     rid = np.sort(case["rid"])
@@ -262,9 +263,10 @@ def test_read_order_plain_against_jax(case):
     np.testing.assert_array_equal(np.where(one, taxon, -1),
                                   np.where(one, x, -1))
     heads, wide_at = heads.numpy(), wide_at.numpy()
-    np.testing.assert_array_equal(heads[:, 0],
-                                  np.where(lo < hi, x, -1))
-    np.testing.assert_array_equal(heads[:, 1], lo | hi << 8)
+    np.testing.assert_array_equal(
+        unpack_heads(heads), (np.where(lo < hi, x, -1), lo, hi))
+    np.testing.assert_array_equal(heads, pack_heads(
+        np.where(lo < hi, x, -1), lo, hi))
     inv = np.argsort(pos.numpy())
     np.testing.assert_array_equal(wide_at, np.where(hi < nk, inv, -1))
     assert (lo < hi).sum() > 100 and (hi < nk).sum() > 100
@@ -275,6 +277,86 @@ def test_read_order_plain_against_jax(case):
     assert (want > 0).sum() > 50
     np.testing.assert_array_equal(got > 0, want > 0)
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("taxon,lo,hi", [
+    (-1, 25, 25), (0, 0, 0), (32_766, 0, 25), (32_766, 24, 25),
+    (12_345, 3, 7)])
+def test_head_packing(taxon, lo, hi):
+    """K10's 4-byte heads (csrc/common.cuh pack_head, join.pack_heads):
+    the taxon + 1 in 15 bits, lo and hi up to numK = 25 in 5 bits each;
+    every edge packs to a non-negative int32 and unpacks to itself, in
+    torch and numpy alike."""
+    from kasa_tpu_torch.match.join import HEAD_S_MAX, pack_heads, \
+        unpack_heads
+    assert taxon < HEAD_S_MAX
+    h = pack_heads(torch.tensor([taxon], dtype=torch.int32),
+                   torch.tensor([lo], dtype=torch.int32),
+                   torch.tensor([hi], dtype=torch.int32))
+    assert h.dtype == torch.int32 and 0 <= int(h) < 1 << 25
+    assert [int(x) for x in unpack_heads(h)] == [taxon, lo, hi]
+    hn = pack_heads(np.int32(taxon), np.int32(lo), np.int32(hi))
+    assert int(hn) == int(h)
+    assert [int(x) for x in unpack_heads(hn)] == [taxon, lo, hi]
+
+
+@pytest.mark.parametrize("past", [False, True], ids=["widest", "past"])
+def test_heads_widest_taxon_against_jax(past):
+    """The heads at the edge of their packing, against kasa_tpu: an index
+    of HEAD_S_MAX species whose taxa are the top ones, so that T = 1
+    groups name taxon HEAD_S_MAX - 1; join_match_plain's heads unpack to
+    the lo, hi and taxon kasa_tpu's _match_one_keff and _letters_block
+    give each window.  One species more and the plain version refuses
+    heads, and the CPU's scatter arm is the global one."""
+    import jax.numpy as jnp
+    from kasa_tpu.match.join import DeviceIndex as JD
+    from kasa_tpu.match.join import _letters_block, _match_one_keff
+    from kasa_tpu_torch.match import join as J
+    from kasa_tpu_torch.match.device import StackedTables
+    hk, min_k, max_k = 12, 7, 12
+    S = J.HEAD_S_MAX + past
+    limbs, _ = _index(hk, 2000, 9, seed=41)
+    rng = np.random.default_rng(42)
+    taxids = rng.integers(S - 4, S, size=len(limbs)).astype(np.uint32)
+    t2r = {t: t for t in range(S - 4, S)}
+    ts = StackedTables.build(J.DeviceIndex(limbs, taxids, t2r, hk, min_k,
+                                           max_k, S, "cpu"))
+    q, _ = _queries(limbs, hk, 1500, 1, seed=43)
+    M = len(q)
+    qs, pos = J.sort_queries_plain(torch.from_numpy(q),
+                                   torch.arange(M, dtype=torch.int32))
+    if past:
+        with pytest.raises(ValueError):
+            J.join_match_plain(ts, qs, pos)
+        assert J.scatter_arm(ts, True, 1 << 20) == "global"
+        return
+    assert J.scatter_arm(ts, True, 1 << 20) == "reads"
+    heads = J.join_match_plain(ts, qs, pos)[5].numpy()
+    jd = JD(limbs, taxids, t2r, hk, min_k, max_k, S)
+    nk = ts.num_k
+    qj = jnp.asarray(q)
+    letters = np.asarray(_letters_block(qj, tuple(range(min_k - 1, max_k))))
+    cum_ok = np.cumprod(letters != 30, axis=1).astype(bool)
+    valid = np.zeros((nk, M), bool)
+    T = np.zeros((nk, M), np.int64)
+    taxon = np.full((nk, M), -1, np.int64)
+    for k in range(min_k, max_k + 1):
+        jt = jd.tables[k]
+        jm, _, jT, js = (np.asarray(a) for a in _match_one_keff(
+            jd.idx_limbs, jt.grp_id, jt.grp_start, jt.mask, qj,
+            jd.num_steps))
+        ki = max_k - k
+        valid[ki] = jm & cum_ok[:, k - min_k]
+        T[ki] = jT
+        dt = np.asarray(jt.d_tax)
+        taxon[ki] = np.where(valid[ki] & (jT == 1),
+                             dt[np.where(jT == 1, js, 0)], -1)
+    kis = np.arange(nk)[:, None]
+    lo = np.where(valid, kis, nk).min(axis=0)
+    hi = np.where(valid & (T > 1), kis, nk).min(axis=0)
+    x = np.where(lo < hi, taxon[np.minimum(lo, nk - 1), np.arange(M)], -1)
+    np.testing.assert_array_equal(J.unpack_heads(heads), (x, lo, hi))
+    assert int(x.max()) == S - 1 and (lo < hi).sum() > 100
 
 
 def test_sort_queries_plain_against_jax(case):

@@ -21,6 +21,8 @@ import torch
 
 pytestmark = pytest.mark.cuda
 
+from test_torch_encode import ENCODE_CASES
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "golden"
 
@@ -34,6 +36,16 @@ def cuda():
 
 def _close(a, b):
     torch.testing.assert_close(a.cpu(), b.cpu(), rtol=2e-5, atol=1e-4)
+
+
+def _poisoned(cuda):
+    """Fill device blocks of both of the caching allocator's pools with
+    0xAAAAAAAA and free them, so that an output cell a kernel leaves
+    unwritten under torch.empty shows."""
+    keep = [torch.full((n,), -0x55555556, dtype=torch.int32, device=cuda)
+            for n in [1 << 18] * 64 + [1 << 24] * 4]
+    torch.cuda.synchronize()
+    del keep
 
 
 def _tiers(budget_drop):
@@ -76,6 +88,30 @@ def test_encode_kernel(cuda):
     assert torch.equal(E.encode_windows(mat, lut, 165, protein=True).cpu(),
                        E.encode_windows_plain(mat, lut, 165,
                                               protein=True).cpu())
+
+
+@pytest.mark.parametrize("case", sorted(ENCODE_CASES))
+def test_encode_kernel_cases(cuda, case):
+    """K1's tiles on every case of test_torch_encode.ENCODE_CASES
+    (highestK 7, 12, 13, 18, 24, 25; DNA, one frame, protein, the sloppy
+    fold; a flat row under, at and over a tile; w = 1; many short rows;
+    a matrix that starts inside a 4-byte word), into outputs allocated
+    over poisoned memory: identical to the plain version, one launch."""
+    from test_torch_encode import encode_case
+    from kasa_tpu_torch import kernels as K
+    from kasa_tpu_torch.core import encode as E
+    mat, lut, w, lead, kw, sloppy = encode_case(case)
+    m = torch.from_numpy(mat).to(cuda)[lead:]
+    assert m.is_contiguous() and (m.data_ptr() % 4 != 0) == (lead > 0)
+    lut = torch.from_numpy(lut).to(cuda)
+    aas = torch.from_numpy(E.aas_code_lut()).to(cuda) if sloppy else None
+    want = E.encode_windows_plain(m, lut, w, **kw, aas_lut=aas)
+    _poisoned(cuda)
+    K.reset_counts()
+    got = E.encode_windows(m, lut, w, **kw, aas_lut=aas)
+    torch.cuda.synchronize()
+    assert K.COUNTS["encode"] == 1
+    assert torch.equal(got.cpu(), want.cpu())
 
 
 DEDUP_COUNTERS = {"short": "dedup", "long": "dedup.long",
@@ -1010,7 +1046,7 @@ def test_join_match_records(cuda, highest_k, min_k, max_k):
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
     heads, wide_at = got[5], got[6]
-    assert int((heads[:, 0] >= 0).sum()) > 0
+    assert int((J.unpack_heads(heads)[0] >= 0).sum()) > 0
     assert int((wide_at >= 0).sum()) > 0
     matched, g, T, start, ok = want[:5]
     valid = matched & ok
@@ -1020,6 +1056,66 @@ def test_join_match_records(cuda, highest_k, min_k, max_k):
     assert K.COUNTS["join_scatter.reads"] == 1
     assert torch.equal(s1.cpu() > 0, s2.cpu() > 0)
     _close(s1, s2)
+
+
+@pytest.mark.parametrize("case", ["one_query", "block_plus_one",
+                                  "wide_stretch", "unsorted", "s_inside",
+                                  "s_past"])
+def test_join_match_kernel_cases(cuda, case):
+    """K10 into outputs allocated over poisoned memory, without and with
+    its read-order records, identical to join_match_plain: M = 1; a block
+    of 256 queries and one more; 3,840 queries in 500 index rows, whose
+    blocks search a copy in shared memory, then 256 over the whole index,
+    whose block's stretch passes the copy and searches in memory; a batch
+    out of key order, whose queries outside their block's first and last
+    search in memory; S at the widest row K11's read arm holds, whose
+    heads name taxa up to S - 1, and one past it, where K10 refuses heads
+    and writes the key-order outputs alone."""
+    from test_torch_join import _index, _queries
+    from kasa_tpu_torch import kernels as K
+    from kasa_tpu_torch.match import join as J
+    from kasa_tpu_torch.match.device import StackedTables
+    hk, min_k, max_k = 12, 7, 12
+    S = 9
+    if case in ("s_inside", "s_past"):
+        S = _read_arm_s_max(cuda) + (case == "s_past")
+    limbs, taxids = _index(hk, 20_000, 9, seed=61)
+    rng = np.random.default_rng(62)
+    if S > 9:
+        taxids = rng.integers(S - 8, S, size=len(limbs)).astype(np.uint32)
+    t = StackedTables.build(J.DeviceIndex(
+        limbs, taxids, {i: i for i in range(S)}, hk, min_k, max_k, S,
+        cuda))
+    q, _ = _queries(limbs, hk, 30_000, 1, seed=63)
+    q = {"one_query": q[5:6], "block_plus_one": q[:257]}.get(case, q)
+    if case == "wide_stretch":
+        dense = limbs[1000 + rng.integers(0, 500, 3840)]
+        q = np.concatenate([dense, q[:256]])
+    M = len(q)
+    q = torch.from_numpy(np.ascontiguousarray(q, np.int32)).to(cuda)
+    pos = torch.arange(M, dtype=torch.int32, device=cuda)
+    if case == "unsorted":
+        qs, ps = q, torch.from_numpy(
+            rng.permutation(M).astype(np.int32)).to(cuda)
+    else:
+        qs, ps = J.sort_queries(q, pos, M, ids_ascending=True)
+    want = J.join_match_plain(t, qs, None if case == "s_past" else ps)
+    for records in (False, True):
+        _poisoned(cuda)
+        K.reset_counts()
+        if records and case == "s_past":
+            with pytest.raises(ValueError):
+                J.join_match(t, qs, ps)
+            continue
+        got = J.join_match(t, qs, ps if records else None)
+        torch.cuda.synchronize()
+        assert K.COUNTS["join_match"] == 1
+        assert len(got) == (7 if records else 5)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    if case == "s_inside":
+        taxon = J.unpack_heads(want[5])[0]
+        assert int(taxon.max()) == S - 1
 
 
 @pytest.mark.parametrize("M,L,R", [(1, 2, 1), (1024, 2, 1025),

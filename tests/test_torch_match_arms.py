@@ -367,6 +367,7 @@ def read_case(case, dev="cpu", S=None):
     given.  -> (tables, (valid, T, start, read ids) in key order, heads,
     wide_at, read ids in read order, R) on `dev`."""
     from types import SimpleNamespace
+    from kasa_tpu_torch.match.join import pack_heads
     rng = np.random.default_rng(READ_CASES.index(case) + 90)
     S = S or (300 if case != "largest_t" else 2_000)
     nk, R, M = 6, 500, 40_000
@@ -400,8 +401,7 @@ def read_case(case, dev="cpu", S=None):
     start = np.where(one, x, sw).astype(np.int32)
     perm = rng.permutation(M)          # key order i <- read order perm[i]
     inv = np.argsort(perm)
-    heads = np.stack([np.where(lo < hi, x, -1), lo | hi << 8],
-                     axis=1).astype(np.int32)
+    heads = pack_heads(np.where(lo < hi, x, -1), lo, hi).astype(np.int32)
     wide_at = np.where(hi < nk, inv, -1).astype(np.int32)
     t = SimpleNamespace(
         num_k=nk, num_species=S, d_tax=torch.from_numpy(d_tax).to(dev),

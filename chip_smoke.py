@@ -1104,7 +1104,6 @@ def drive(tag, inp, out_j, out_p, expect, over=(), corpus=None,
     import torch
     from kasa_tpu_torch import kernels
     from kasa_tpu_torch.config import Config
-    from kasa_tpu_torch.match import fast
     from kasa_tpu_torch.match.pipeline import identify, identify_multiple
     from kasa_tpu_torch.utils import timers
     cfg = Config()
@@ -1126,7 +1125,7 @@ def drive(tag, inp, out_j, out_p, expect, over=(), corpus=None,
     dt = time.perf_counter() - t0
     launches = dict(kernels.COUNTS)
     expect_launched(tag, launches, expect)
-    fb, tot = fast.LAST_FALLBACK
+    fb, tot = timers.counter("recompute.reads"), timers.counter("reads")
     stages = {k: round(v, 4) for k, v in
               timers.report(lambda *_: None).items()}
     peak = torch.cuda.max_memory_allocated()
@@ -2296,6 +2295,7 @@ def tiered_drive(tag, index, reads, over, expect, n_reads):
     launch counts; the tiered one's chunk and host-fixup telemetry.
     -> (tiered launches, info, dispatch)."""
     from kasa_tpu_torch.match import fast
+    from kasa_tpu_torch.utils import timers
     corpus = {"index": index}
     over = dict(over, num_of_beasts=ALL_HITS)
     stem = tag.replace(" ", "_").replace("-", "")
@@ -2316,6 +2316,8 @@ def tiered_drive(tag, index, reads, over, expect, n_reads):
             outs[kind] = (res, json.load(fh))
         os.remove(j)
     disp = fast.LAST_DISPATCH
+    add_reads = timers.counter("recompute.add_reads")
+    rebuild_reads = timers.counter("recompute.rebuild_reads")
     if type(disp).__name__ != "TieredTurboDispatch":
         fail(f"{tag}: the budget did not select the tiered path")
     if launches["turbo_match"] or launches["turbo_multi"]:
@@ -2331,16 +2333,16 @@ def tiered_drive(tag, index, reads, over, expect, n_reads):
     info.update(chunks=len(disp.chunks), chunk_pad=disp.chunk_pad,
                 chunks_on_device=len(disp._dev_chunks),
                 streamed_mb_per_batch=disp.streamed_bytes / nb / 1e6,
-                batches=nb, host_add_pct=100.0 * disp.host_add_reads / n_reads,
-                host_rebuild_pct=100.0 * disp.host_rebuild_reads / n_reads,
+                batches=nb, host_add_pct=100.0 * add_reads / n_reads,
+                host_rebuild_pct=100.0 * rebuild_reads / n_reads,
                 tiered_stages={k: v for k, v in info["stages"].items()
                                if k.startswith("tiered/")})
     log(f"{tag}: {info['chunks']} chunks of <= {disp.chunk_pad:,} entries, "
         f"{info['chunks_on_device']} kept on the device, "
         f"{info['streamed_mb_per_batch']:.1f} MB streamed per batch "
         f"({nb} batches of {disp.reads_per_batch}); host ADD "
-        f"{disp.host_add_reads} reads ({info['host_add_pct']:.4f} %), host "
-        f"list rebuild {disp.host_rebuild_reads} reads "
+        f"{add_reads} reads ({info['host_add_pct']:.4f} %), host "
+        f"list rebuild {rebuild_reads} reads "
         f"({info['host_rebuild_pct']:.4f} %); timers "
         + json.dumps({k: round(v, 4)
                       for k, v in info["tiered_stages"].items()}))

@@ -295,12 +295,16 @@ def main(argv: list[str] | None = None) -> int:
     try:
         cfg = parse_args(argv)
         from .parallel import dist as pdist
+        from .utils import timers
         joined = not pdist.dist.is_initialized()
         multi = pdist.init_distributed(cfg.device)
         try:
             if cfg.mode not in MESH_MODES:
                 pdist.writer_only()
             quiet = multi and not pdist.is_writer()
+            if cfg.verbose:
+                # spans and per-span counts for report()
+                timers.verbose(True)
             with open(os.devnull, "w") as null, \
                     contextlib.redirect_stdout(null if quiet
                                                else sys.stdout):
@@ -310,6 +314,8 @@ def main(argv: list[str] | None = None) -> int:
         except pdist.NotWriter:
             pass
         finally:
+            if cfg.verbose:
+                timers.verbose(False)
             if joined:
                 pdist.shutdown()
         return 0

@@ -25,6 +25,8 @@ import subprocess
 
 import torch
 
+from .utils import timers
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD = os.path.join(_DIR, "_build", "cuda")
@@ -218,7 +220,13 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 
 def _launch(sym: str, counter: str, *args) -> None:
-    rc = _fn(sym)(*args)
+    """Call a kernel's C entry and count it under `counter`; while the
+    recorder records, inside a span "launch.<counter>"."""
+    if timers.ON:
+        with timers.span("launch." + counter):
+            rc = _fn(sym)(*args)
+    else:
+        rc = _fn(sym)(*args)
     COUNTS[counter] += 1
     if rc != 0:
         raise RuntimeError(f"{sym}: CUDA error {rc}")

@@ -52,8 +52,6 @@ class FastPathUnavailable(RuntimeError):
     """Input the fused path does not cover (kasa_tpu fast.py:68): the
     pipeline runs the per-batch engine instead."""
 
-# (fallback_reads, total_reads) of the last identify run
-LAST_FALLBACK = (0, 0)
 # the dispatch strategy of the last identify run (telemetry)
 LAST_DISPATCH = None
 
@@ -206,10 +204,13 @@ class TurboDispatchBase:
     def reduce_acc(self, acc_ca, acc_cu):
         """-> host (f64, int64) copies; the device buffers are zeroed in
         place for the next flush window."""
-        ca = acc_ca.cpu().numpy().astype(np.float64)
-        cu = acc_cu.cpu().numpy().astype(np.int64)
-        acc_ca.zero_()
-        acc_cu.zero_()
+        with timers.span("flush"):
+            if timers.ON:
+                timers.count("flush.bytes", acc_ca.nbytes + acc_cu.nbytes)
+            ca = acc_ca.cpu().numpy().astype(np.float64)
+            cu = acc_cu.cpu().numpy().astype(np.int64)
+            acc_ca.zero_()
+            acc_cu.zero_()
         return ca, cu
 
     def csr_cap(self, rows_pad: int) -> int:
@@ -267,16 +268,30 @@ class SingleTurboDispatch(TurboDispatchBase):
         """Queue one batch; `mode` (protein, one_frame, lines_per_read,
         unique) goes to fused_turbo_acc.  With file_of_read the
         accumulators are the (F, numK, S) slabs of the batch's files.
-        Returns (handle of the packed readback, ht, hk)."""
+        Returns (handle of the packed readback, ht, hk); the handle
+        carries the batch's id (timers.next_batch)."""
+        from .. import kernels
         from .turbo import fused_turbo_acc
-        mat_d = torch.from_numpy(mat).to(self.device)
-        fo = None if file_of_read is None \
-            else torch.from_numpy(file_of_read).to(self.device)
-        mb, eb, wout = self.budgets_for(mode.get("lines_per_read", 1), w)
-        packed, ht, hk = fused_turbo_acc(
-            self.tt, mat_d, lut, acc_ca, acc_cu, rows_pad, w, cap, mb, eb,
-            file_of_read=fo, wout=wout, **mode)
-        return self._to_host([packed]), ht, hk
+        timers.next_batch()
+        with timers.span("dispatch"):
+            with timers.span("dispatch.h2d"):
+                mat_d = torch.from_numpy(mat).to(self.device)
+                fo = None if file_of_read is None \
+                    else torch.from_numpy(file_of_read).to(self.device)
+                if timers.ON:
+                    timers.count("h2d.bytes", mat.nbytes + (
+                        0 if fo is None else file_of_read.nbytes))
+            mb, eb, wout = self.budgets_for(mode.get("lines_per_read", 1),
+                                            w)
+            with timers.span("dispatch.step"):
+                n0 = sum(kernels.COUNTS.values()) if timers.ON else None
+                packed, ht, hk = fused_turbo_acc(
+                    self.tt, mat_d, lut, acc_ca, acc_cu, rows_pad, w, cap,
+                    mb, eb, file_of_read=fo, wout=wout, **mode)
+                if n0 is not None:
+                    timers.count("launches",
+                                 sum(kernels.COUNTS.values()) - n0)
+            return self._to_host([packed]), ht, hk
 
 
 def _tiered(cfg, index_path, limbs, tax_rows, highest_k, budget, device,
@@ -543,27 +558,30 @@ def fused_classify(tables, mat: torch.Tensor, lut: torch.Tensor,
 
 
 def _to_host(tensors, device: torch.device):
-    """Handle of device results: on a CUDA device each is copied into
-    pinned host memory behind the batch's kernels and an event marks
-    their arrival."""
+    """Handle of device results, with the dispatching thread's current
+    batch: on a CUDA device each is copied into pinned host memory
+    behind the batch's kernels and an event marks their arrival."""
     if device.type != "cuda":
-        return tensors, None
-    hosts = []
-    for t in tensors:
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        h.copy_(t, non_blocking=True)
-        hosts.append(h)
-    done = torch.cuda.Event()
-    done.record()
-    return hosts, done
+        return tensors, None, timers.batch()
+    with timers.span("dispatch.readback"):
+        hosts = []
+        for t in tensors:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            hosts.append(h)
+        done = torch.cuda.Event()
+        done.record()
+    return hosts, done, timers.batch()
 
 
 def _fetch(handle) -> list:
     """Host numpy views of a batch's results (waits for its batch
-    only)."""
-    tensors, done = handle
-    if done is not None:
-        done.synchronize()
+    only); the handle's batch becomes this thread's current one."""
+    tensors, done, batch = handle
+    timers.set_batch(batch)
+    with timers.span("fetch"):
+        if done is not None:
+            done.synchronize()
     return [t.numpy() for t in tensors]
 
 
@@ -661,6 +679,7 @@ def _fast_identify_classic(cfg, tables, asm, seq, seq_off, name_blob,
                                    .astype(np.int64), maxlen, rows_pad)
                 nk = int(asm.true_counts(blens).sum())
             with timers.stage("fast/dispatch"):
+                timers.next_batch()
                 scores_d, ca_d, cu_d, _tail = fused_classify(
                     tables, torch.from_numpy(mat).to(device), lut, rows_pad,
                     asm.window_target(maxlen), lpr, protein, cfg.one_frame,
@@ -683,10 +702,9 @@ def _fast_identify_classic(cfg, tables, asm, seq, seq_off, name_blob,
     if cfg.filter:
         from .pipeline import write_filtered
         write_filtered(cfg, input_path, filtered_ids)
+    timers.count("reads", R_total)     # the classic engine recomputes none
     if cfg.verbose:
         timers.report()
-    global LAST_FALLBACK
-    LAST_FALLBACK = (0, R_total)       # the classic engine recomputes none
     return counts_all, counts_unique, R_total, num_kmers_in_input
 
 
@@ -898,10 +916,10 @@ def _fast_identify_turbo(cfg, disp, asm, lpr, mate_views, name_blob,
                         if ofc[r]:
                             counts_all[:] += ca2
                             counts_unique[:] += cu2.astype(np.uint64)
-                            disp.host_add_reads += 1
+                            timers.count("recompute.add_reads")
                         if ranker is None:
                             continue
-                        disp.host_rebuild_reads += 1
+                        timers.count("recompute.rebuild_reads")
                     else:
                         scores, ca2, cu2 = host_classify_read(tt, q)
                         if ofc[r]:
@@ -1051,8 +1069,7 @@ def _fast_identify_turbo(cfg, disp, asm, lpr, mate_views, name_blob,
                     h.close()
     if writer_exc:
         raise writer_exc[0]
-    global LAST_FALLBACK
-    LAST_FALLBACK = (fallback_reads, R_total)
+    timers.count("reads", R_total)
     if fallback_reads:
         print(f"OUT: turbo host-fallback recomputed {fallback_reads} of "
               f"{R_total} reads "

@@ -530,10 +530,10 @@ def _identify_per_batch(cfg: Config, index_path: str, input_path: str,
                               max_k, cfg.num_frames, coverage=cfg.coverage)
     if cfg.filter:
         write_filtered(cfg, input_path, filtered_ids)
+    timers.count("reads", num_reads_sum)
     if cfg.verbose:
         timers.report()
     from . import fast
-    fast.LAST_FALLBACK = (0, num_reads_sum)
     fast.LAST_DISPATCH = getattr(matcher, "tables", matcher)
     return counts_all, counts_unique, num_reads_sum, num_kmers_in_input
 

@@ -510,11 +510,9 @@ class TieredTurboDispatch(TurboDispatchBase):
         per_chunk = bytes_per_entry_tiered(num_k) * self.chunk_pad
         self._ram_cache_ok = per_chunk * len(self.chunks) < avail * 0.5
         # telemetry: bytes uploaded for chunks not kept on the device,
-        # batches, and the host fixups of the drive loop
+        # and batches
         self.streamed_bytes = 0
         self.batches = 0
-        self.host_add_reads = 0
-        self.host_rebuild_reads = 0
 
     # ---------------------------------------------------------- cache
     def _stamp(self, index_path):
@@ -613,6 +611,7 @@ class TieredTurboDispatch(TurboDispatchBase):
                 "dispatch_files on its TieredTurboDispatch")
         kpr = w * lines_per_read
         dev = self.device
+        timers.next_batch()
         with timers.stage("tiered/prepare"):
             q = encode_windows(torch.from_numpy(mat).to(dev), lut, w,
                                protein, one_frame, self.highest_k)
@@ -652,10 +651,12 @@ class TieredTurboDispatch(TurboDispatchBase):
         one pass over its windows: the full list, and the counts of the
         T > TMAX groups the device skipped.
         -> (scores dict, ca add (numK, S) f64, cu add (numK, S) int64)."""
-        vb = window_vbits_np(q_limbs, self.min_k, self.max_k)
-        return host_ranges_classify(
-            self.key64, self.tax_rows, q_limbs, vb, self.min_k,
-            self.max_k, self.highest_k, self.S, t_min=TMAX)
+        with timers.span("recompute"):
+            timers.count("recompute.reads")
+            vb = window_vbits_np(q_limbs, self.min_k, self.max_k)
+            return host_ranges_classify(
+                self.key64, self.tax_rows, q_limbs, vb, self.min_k,
+                self.max_k, self.highest_k, self.S, t_min=TMAX)
 
 
 # ---------------------------------------------------------------------------
@@ -665,28 +666,48 @@ def SingleTurboDispatch_decode(packed, rows_pad, rb, cap, want_lists,
                                ht_d, hk_d):
     """packed (2R + 2*cap + 4,) int32 -> (hc, ofc, ofl, nflag, ht, hk)
     for the batch's first rb reads.  When the batch's hits overflow the
-    CSR (total > cap) the dense (R, WOUT) device lists are fetched."""
-    hc_full = packed[:rows_pad]
-    fl = packed[rows_pad:2 * rows_pad]
-    ofc = (fl[:rb] & 1).astype(bool)
-    ofl = (fl[:rb] >> 1).astype(bool)
-    nflag = int(packed[-1])
-    total = int(packed[-2])
-    ht = hk = None
-    if want_lists:
-        hc = hc_full[:rb]
-        maxc = max(int(hc.max()) if rb else 0, 1)
-        if total <= cap:
-            csr = packed[2 * rows_pad:2 * rows_pad + 2 * cap] \
-                .reshape(cap, 2)
-            ht = np.zeros((rb, maxc), np.int32)
-            hk = np.zeros((rb, maxc), np.float32)
-            rr = np.repeat(np.arange(rb), hc)
-            cum = np.cumsum(hc) - hc
-            cc = np.arange(len(rr)) - np.repeat(cum, hc)
-            ht[rr, cc] = csr[:len(rr), 0]
-            hk[rr, cc] = csr[:len(rr), 1].view(np.float32)
-        else:
-            ht = ht_d[:rb].cpu().numpy().copy()
-            hk = hk_d[:rb].cpu().numpy().copy()
-    return hc_full[:rb].copy(), ofc, ofl, nflag, ht, hk
+    CSR (total > cap) the dense (R, WOUT) device lists are fetched.
+    Recorded as the span "decode" with the counters hits, reads.flagged,
+    csr.overflow and readback.bytes."""
+    with timers.span("decode"):
+        hc_full = packed[:rows_pad]
+        fl = packed[rows_pad:2 * rows_pad]
+        ofc = (fl[:rb] & 1).astype(bool)
+        ofl = (fl[:rb] >> 1).astype(bool)
+        nflag = int(packed[-1])
+        total = int(packed[-2])
+        ht = hk = None
+        lists_read = want_lists and total > cap
+        if timers.ON:
+            timers.count("hits", total)
+            timers.count("reads.flagged", int(ofl.sum()))
+            timers.count("csr.overflow", int(total > cap))
+            timers.count("readback.bytes", packed.nbytes + (
+                8 * rb * ht_d.shape[1] if lists_read else 0))
+        if want_lists and not lists_read:
+            with timers.span("decode.csr"):
+                hc = hc_full[:rb]
+                maxc = max(int(hc.max()) if rb else 0, 1)
+                csr = packed[2 * rows_pad:2 * rows_pad + 2 * cap] \
+                    .reshape(cap, 2)
+                ht = np.zeros((rb, maxc), np.int32)
+                hk = np.zeros((rb, maxc), np.float32)
+                rr = np.repeat(np.arange(rb), hc)
+                cum = np.cumsum(hc) - hc
+                cc = np.arange(len(rr)) - np.repeat(cum, hc)
+                ht[rr, cc] = csr[:len(rr), 0]
+                hk[rr, cc] = csr[:len(rr), 1].view(np.float32)
+        elif lists_read:
+            with timers.span("decode.lists"):
+                # each list read back, then copied, in turn: the consumer
+                # holds the interpreter lock through a copy and frees it
+                # through a read, so the producer's launches interleave
+                lists = []
+                for t in (ht_d, hk_d):
+                    with timers.span("decode.lists.d2h"):
+                        h = t[:rb].cpu()
+                    with timers.span("decode.lists.copy"):
+                        lists.append(h.numpy().copy())
+                    del h
+                ht, hk = lists
+        return hc_full[:rb].copy(), ofc, ofl, nflag, ht, hk

@@ -1181,7 +1181,14 @@ def host_classify_read(tables: TurboTables, q_limbs: np.ndarray):
     Mirrors the kernel's pos/prev full-key logic in numpy with the
     unpadded CSR taxa lists (no budgets).  Returns
     (hits dict tax -> ksum float32, counts_all (numK, S) f64 add,
-    counts_unique (numK, S) int add)."""
+    counts_unique (numK, S) int add).  Recorded as the span "recompute"
+    and the counter recompute.reads."""
+    with timers.span("recompute"):
+        timers.count("recompute.reads")
+        return _host_classify_read(tables, q_limbs)
+
+
+def _host_classify_read(tables: TurboTables, q_limbs: np.ndarray):
     num_k = tables.max_k - tables.min_k + 1
     S = tables.num_species
     idx_limbs = tables.host_limbs

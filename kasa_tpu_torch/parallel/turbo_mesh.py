@@ -284,6 +284,7 @@ class MeshTurboDispatch(TurboDispatchBase):
         block's hits overflow its CSR, the dense merged lists of every
         block come back too (every rank sees the same tails, so all of
         them take part in that gather)."""
+        timers.next_batch()
         lpr = mode.get("lines_per_read", 1)
         R = rows_pad // self.dp
         d = self.mesh.dp_index
@@ -303,7 +304,7 @@ class MeshTurboDispatch(TurboDispatchBase):
             if bool((rows[:, -2] > cap).any()):
                 ht = gather_over(dpg, ht_m).cpu().numpy()
                 hk = gather_over(dpg, hk_m).cpu().numpy()
-        return ([rows], None), ht, hk
+        return ([rows], None, timers.batch()), ht, hk
 
     def decode(self, packed: np.ndarray, rows_pad: int, rb: int, cap: int,
                want_lists: bool, ht_d=None, hk_d=None):

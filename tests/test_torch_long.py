@@ -137,15 +137,17 @@ def test_long_single_end_reads(tmp_path, monkeypatch, index_dir, unique):
     """Single-end reads of 1-4.6 kbp in one batch (every row padded to the
     longest: 4,577 windows, 27,462 slots per read), with and without -e
     (K5 above 4,096 windows)."""
-    from kasa_tpu_torch.match import fast
+    from kasa_tpu_torch.utils import timers
     monkeypatch.setenv("KASA_MESH_DP", "1")
     src = genome_reads(tmp_path / "long.fasta",
                        [1000, 2400, 4600, 1700, 3100, 150], 11)
+    timers.reset()
     jj, tj, jp, tp = _both(index_dir, src, {"unique": unique}, tmp_path)
     assert sum(len(r["Top hits"]) for r in tj) >= 5
     # the batch's budgets and lists scale with its slots: no read goes to
     # the host recompute
-    assert fast.LAST_FALLBACK == (0, 6)
+    assert (timers.counter("recompute.reads"), timers.counter("reads")) \
+        == (0, 6)
     assert_identify_agrees(jj, tj, jp, tp, 6)
 
 

@@ -50,11 +50,12 @@ def test_synth_matches_bench_corpus(tmp_path, monkeypatch):
 def test_synth_corpus_identifies(tmp_path):
     from kasa_tpu_torch import synth
     from kasa_tpu_torch.config import Config
-    from kasa_tpu_torch.match import fast
     from kasa_tpu_torch.match.pipeline import identify
+    from kasa_tpu_torch.utils import timers
     p = synth.generate(str(tmp_path), smoke_reads=100, log=lambda *a: None,
                        **TINY)
     cfg = Config()
+    timers.reset()
     ca, cu, nreads, nk = identify(cfg, index_path=p["index"],
                                   input_path=p["smoke"],
                                   out_file=str(tmp_path / "o.json"),
@@ -63,7 +64,7 @@ def test_synth_corpus_identifies(tmp_path):
     assert nreads == 100
     # reads are sampled from the genomes: nearly every read hits
     assert cu.sum() > 0 and np.isfinite(ca).all()
-    assert fast.LAST_FALLBACK[1] == 100
+    assert timers.counter("reads") == 100
 
 
 def test_synth_pairs_come_from_one_fragment(tmp_path):

@@ -565,6 +565,7 @@ def test_identify_tiered_agrees(tmp_path, corpus, small_chunks,
     of the corpus's 600 reads, ROADMAP.md Queue 3) and against the port's
     resident run, on the corpus's first 300 reads (150 pairs)."""
     from kasa_tpu_torch.match import fast
+    from kasa_tpu_torch.utils import timers
     idx, fq, n = corpus
     ov = {"six_e": {"six_frames": True, "unique": True}}.get(case, {})
     if case == "paired":
@@ -578,10 +579,11 @@ def test_identify_tiered_agrees(tmp_path, corpus, small_chunks,
     import kasa_tpu.match.fast as JF
     assert type(JF.LAST_DISPATCH).__name__ == "Chunked"
     assert len(JF.LAST_DISPATCH.chunks) >= 4
+    timers.reset()
     pt = _identify("port", idx, fq, tmp_path / "pt", ov, mem)
     disp = fast.LAST_DISPATCH
     assert type(disp).__name__ == "TieredTurboDispatch"
-    assert len(disp.chunks) >= 4 and disp.host_add_reads > 0
+    assert len(disp.chunks) >= 4 and timers.counter("recompute.add_reads") > 0
     pr = _identify("port", idx, fq, tmp_path / "pr", ov)
     assert type(fast.LAST_DISPATCH).__name__ == "SingleTurboDispatch"
     _agree_tiered(jt, pt)

@@ -190,10 +190,16 @@ class TurboDispatchBase:
 
     additive_fixup = False
     writer = True
+    # the dense hit lists' readback at dispatch (SingleTurboDispatch):
+    # on while the last decoded batch wanted its lists and overflowed
+    # its CSR; decode sets it, and a strategy that never prefetches
+    # leaves it unread
+    prefetch_lists = False
 
     def __init__(self, device: torch.device, num_k: int, num_species: int):
         self.device = device
         self._acc_shape = (num_k, num_species)
+        self._fetched = None    # the last fetch's (packed, ht, hk) views
 
     def new_acc(self, num_files: int | None = None):
         shape = self._acc_shape if num_files is None \
@@ -223,13 +229,28 @@ class TurboDispatchBase:
         return _to_host(tensors, self.device)
 
     def fetch(self, handle) -> list:
-        return _fetch(handle)
+        """[packed row] of a batch (waits for its batch only).  A handle
+        that carries the batch's dense lists as well keeps them for the
+        decode of this packed row."""
+        out = _fetch(handle)
+        if len(out) == 1:
+            return out
+        self._fetched = out
+        return out[:1]
 
     def decode(self, packed: np.ndarray, rows_pad: int, rb: int,
                cap: int, want_lists: bool, ht_d=None, hk_d=None):
+        """The batch's (hc, ofc, ofl, nflag, ht, hk); the dense lists
+        come from the fetch of `packed` where dispatch read them back,
+        else from ht_d / hk_d.  Sets prefetch_lists for the batches
+        dispatched from now on."""
         from .tiered import SingleTurboDispatch_decode
+        fetched, self._fetched = self._fetched, None
+        lists = fetched[1:] if fetched is not None \
+            and fetched[0] is packed else None
+        self.prefetch_lists = want_lists and int(packed[-2]) > cap
         return SingleTurboDispatch_decode(packed, rows_pad, rb, cap,
-                                          want_lists, ht_d, hk_d)
+                                          want_lists, ht_d, hk_d, lists)
 
 
 class SingleTurboDispatch(TurboDispatchBase):
@@ -241,11 +262,15 @@ class SingleTurboDispatch(TurboDispatchBase):
     shape), and the kernels' scratch comes from PyTorch's caching
     allocator."""
 
+    prefetch_lists = True
+
     def __init__(self, tt, num_k: int, num_species: int):
         super().__init__(tt.device, num_k, num_species)
         self.tt = tt
         self.multi_budget = MULTI_BUDGET
         self.exp_budget = EXP_BUDGET
+        self._copies = torch.cuda.Stream(tt.device) \
+            if torch.device(tt.device).type == "cuda" else None
 
     def budgets_for(self, lines_per_read: int, w: int) -> tuple:
         """(multi budget, expansion budget, hit-list width) of a batch of
@@ -269,7 +294,11 @@ class SingleTurboDispatch(TurboDispatchBase):
         unique) goes to fused_turbo_acc.  With file_of_read the
         accumulators are the (F, numK, S) slabs of the batch's files.
         Returns (handle of the packed readback, ht, hk); the handle
-        carries the batch's id (timers.next_batch)."""
+        carries the batch's id (timers.next_batch).  While
+        prefetch_lists is on, the dense lists ht and hk are read back
+        too, into the batch's own pinned host memory, on a copy stream
+        behind the step, so the card's copy engine overlaps the next
+        batch's kernels and decode copies nothing."""
         from .. import kernels
         from .turbo import fused_turbo_acc
         timers.next_batch()
@@ -291,7 +320,12 @@ class SingleTurboDispatch(TurboDispatchBase):
                 if n0 is not None:
                     timers.count("launches",
                                  sum(kernels.COUNTS.values()) - n0)
-            return self._to_host([packed]), ht, hk
+            if not self.prefetch_lists:
+                return self._to_host([packed]), ht, hk
+            if timers.ON:
+                timers.count("readback.prefetch")
+            return _to_host([packed, ht, hk], self.device, self._copies), \
+                ht, hk
 
 
 def _tiered(cfg, index_path, limbs, tax_rows, highest_k, budget, device,
@@ -557,20 +591,27 @@ def fused_classify(tables, mat: torch.Tensor, lut: torch.Tensor,
     return classify_batch(tables, q, None, valid, rows_pad, CAP, kpr)
 
 
-def _to_host(tensors, device: torch.device):
+def _to_host(tensors, device: torch.device, stream=None):
     """Handle of device results, with the dispatching thread's current
     batch: on a CUDA device each is copied into pinned host memory
-    behind the batch's kernels and an event marks their arrival."""
+    behind the batch's kernels and an event marks their arrival.  With
+    `stream` the copies run there, after the current stream's work so
+    far, and the current stream goes on without them."""
     if device.type != "cuda":
         return tensors, None, timers.batch()
     with timers.span("dispatch.readback"):
-        hosts = []
-        for t in tensors:
-            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            h.copy_(t, non_blocking=True)
-            hosts.append(h)
-        done = torch.cuda.Event()
-        done.record()
+        if stream is not None:
+            stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            hosts = []
+            for t in tensors:
+                if stream is not None:
+                    t.record_stream(stream)
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                hosts.append(h)
+            done = torch.cuda.Event()
+            done.record()
     return hosts, done, timers.batch()
 
 

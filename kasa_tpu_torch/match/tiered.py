@@ -663,12 +663,15 @@ class TieredTurboDispatch(TurboDispatchBase):
 # decode (kasa_tpu tiered.py:778)
 
 def SingleTurboDispatch_decode(packed, rows_pad, rb, cap, want_lists,
-                               ht_d, hk_d):
+                               ht_d, hk_d, lists=None):
     """packed (2R + 2*cap + 4,) int32 -> (hc, ofc, ofl, nflag, ht, hk)
     for the batch's first rb reads.  When the batch's hits overflow the
-    CSR (total > cap) the dense (R, WOUT) device lists are fetched.
-    Recorded as the span "decode" with the counters hits, reads.flagged,
-    csr.overflow and readback.bytes."""
+    CSR (total > cap) the answer takes the dense (R, WOUT) lists: views
+    of `lists`, host arrays that dispatch read back, or else (late) a
+    copy of the device lists ht_d / hk_d.  Recorded as the span "decode"
+    with the counters hits, reads.flagged, csr.overflow, readback.bytes
+    (what the answer read back, either way), readback.late and
+    readback.unused (lists read back that the answer did not take)."""
     with timers.span("decode"):
         hc_full = packed[:rows_pad]
         fl = packed[rows_pad:2 * rows_pad]
@@ -684,6 +687,8 @@ def SingleTurboDispatch_decode(packed, rows_pad, rb, cap, want_lists,
             timers.count("csr.overflow", int(total > cap))
             timers.count("readback.bytes", packed.nbytes + (
                 8 * rb * ht_d.shape[1] if lists_read else 0))
+            if not lists_read and lists is not None:
+                timers.count("readback.unused")
         if want_lists and not lists_read:
             with timers.span("decode.csr"):
                 hc = hc_full[:rb]
@@ -697,17 +702,22 @@ def SingleTurboDispatch_decode(packed, rows_pad, rb, cap, want_lists,
                 cc = np.arange(len(rr)) - np.repeat(cum, hc)
                 ht[rr, cc] = csr[:len(rr), 0]
                 hk[rr, cc] = csr[:len(rr), 1].view(np.float32)
+        elif lists_read and lists is not None:
+            with timers.span("decode.lists"):
+                ht, hk = lists[0][:rb], lists[1][:rb]
         elif lists_read:
             with timers.span("decode.lists"):
+                if timers.ON:
+                    timers.count("readback.late")
                 # each list read back, then copied, in turn: the consumer
                 # holds the interpreter lock through a copy and frees it
                 # through a read, so the producer's launches interleave
-                lists = []
+                late = []
                 for t in (ht_d, hk_d):
                     with timers.span("decode.lists.d2h"):
                         h = t[:rb].cpu()
                     with timers.span("decode.lists.copy"):
-                        lists.append(h.numpy().copy())
+                        late.append(h.numpy().copy())
                     del h
-                ht, hk = lists
+                ht, hk = late
         return hc_full[:rb].copy(), ofc, ofl, nflag, ht, hk
